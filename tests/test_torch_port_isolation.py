@@ -1,0 +1,85 @@
+"""The port stands alone: importing every module of
+``mdeical_image_segmentation_tpu_torch`` pulls in none of jax, flax, msgpack
+or PIL (the machine with the card has none of them), and its kernels are
+built for Hopper (sm_90a) by nvcc at first use, never at import."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import mdeical_image_segmentation_tpu_torch as port
+from mdeical_image_segmentation_tpu_torch.ops import _build, fused_conv
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "flax", "msgpack", "PIL")
+
+
+def _port_modules():
+    names = [port.__name__]
+    for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+        names.append(info.name)
+    return names
+
+
+def test_every_module_imports_without_jax_flax_msgpack_pil():
+    modules = _port_modules()
+    assert len(modules) >= 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "assert 'torch' in sys.modules\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.startswith("ok")
+
+
+def test_nvcc_command_targets_sm90a():
+    cmd = _build.nvcc_command("nvcc", _build.BUILD_DIR / "lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert {"-O3", "-shared", "-std=c++17"} <= set(cmd)
+    assert all(str(_build.CSRC / s) in cmd for s in _build.SOURCES)
+    assert _build.library_path().parent == _build.BUILD_DIR
+    assert _build.library_path().name.startswith("libtpuseg_kernels_")
+
+
+def test_missing_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda _: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+def test_kernel_source_has_the_c_entry_points():
+    src = (_build.CSRC / "double_conv2d.cu").read_text()
+    assert 'extern "C" int tpuseg_double_conv2d_forward(' in src
+    assert "cudaGetLastError()" in src
+    assert "_double2d_kernel" in src  # names the TPU kernel it replaces
+
+
+def test_cuda_wrapper_checks_run_before_any_launch():
+    """Shape and dtype checks are plain Python and raise before the kernel
+    library is touched."""
+    x = torch.zeros(1, 4, 4, 2)
+    w1, b1 = torch.zeros(3, 3, 2, 3), torch.zeros(3)
+    w2, b2 = torch.zeros(3, 3, 3, 5), torch.zeros(5)
+    fused_conv._check(x, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="w2 must be"):
+        fused_conv._check(x, w1, b1, torch.zeros(3, 3, 2, 5), b2)
+    with pytest.raises(TypeError, match="b1 is torch.float64"):
+        fused_conv._check(x, w1, b1.double(), w2, b2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_conv._check(x.transpose(1, 2), w1, b1, w2, b2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_conv._check(x.half(), w1.half(), b1.half(), w2.half(),
+                          b2.half())
