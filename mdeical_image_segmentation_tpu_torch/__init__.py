@@ -4,11 +4,22 @@ The JAX package beside this one is the reference; this package keeps its
 module paths and names, so each part has an obvious counterpart there.  It
 imports ``torch`` and numpy, never jax, flax, msgpack or PIL.
 
-Covered so far: the 2D classic-UNet serving path (``cli.serve`` →
-``serve.app`` → ``models.wrappers.UNetModel`` → ``models.unet2d.UNet`` →
-``models.layers2d.DoubleConvolution`` → ``ops.fused_conv.fused_double2d``,
-a hand-written CUDA kernel in ``csrc/double_conv2d.cu``).  Public functions
-keep the JAX layout: NHWC activations and HWIO conv weights.
+Covered so far:
+
+- the 2D classic-UNet serving path (``cli.serve`` → ``serve.app`` →
+  ``models.wrappers.UNetModel`` → ``models.unet2d.UNet`` →
+  ``models.layers2d.DoubleConvolution`` → ``ops.fused_conv.fused_double2d``,
+  a hand-written CUDA kernel in ``csrc/double_conv2d.cu``);
+- 3D sliding-window inference (``infer.predictor.StandardPredictor`` →
+  ``models.unet3d`` UNet3D / ResidualUNet3D → ``models.blocks3d`` →
+  the GroupNorm kernels of ``ops.norm`` and the fused GroupNorm-apply conv
+  of ``ops.fused_conv.fused_conv3d``, then the overlap-add of
+  ``ops.overlap``; CUDA in ``csrc/group_norm.cu``, ``csrc/gcr_conv3d.cu``
+  and ``csrc/overlap_add.cu``), checkpoints (``train.checkpoint``) and 3D
+  slice serving (``serve.app.ModelRegistry.register_unet3d``).
+
+Public functions keep the JAX layout: channels-last activations and
+(*k, I, O) conv weights.
 """
 
 __version__ = "0.1.0"
@@ -19,10 +30,13 @@ import importlib as _importlib
 
 _SUBMODULES = (
     "cli",
+    "configs",
     "data",
+    "infer",
     "models",
     "ops",
     "serve",
+    "train",
     "utils",
 )
 

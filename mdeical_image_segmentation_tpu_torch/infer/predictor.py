@@ -1,0 +1,185 @@
+"""Sliding-window prediction with overlap-averaged recomposition (the JAX
+package's ``infer/predictor.py``; the StandardPredictor's on-device chain).
+
+Each batch of halo-padded patches goes through the model on the device,
+padded at the tail to one fixed batch size; the halo is stripped, the
+channel selected, and the patches are added into (D, H, W, C) float32 sum
+and count maps with the overlap-add kernel (``ops/overlap.py``), the maps
+staying on the device until the volume is done.  As in the JAX package, the
+raw network output (logits) is averaged unless ``apply_activation``.
+
+A test loader is any iterable of ``(patches (B, D, H, W, C), [index
+tuples])`` — ``data/volume_utils.padded_patch_batches`` makes one from an
+in-memory volume.  Not ported yet: ``__call__`` (reads and writes HDF5,
+with the HDF5 dataset, loaders, config loader and CLI; ROADMAP.md queue 1,
+item 20), the Lazy and DSB predictors (item 20) and ``quantize="int8"``
+(item 21).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.overlap import overlap_add_into
+from ..ops.tta import flip_ensemble, mirror_combos
+
+PREDICT_ITEM = "ROADMAP.md queue 1, item 20 (HDF5 predictor I/O)"
+INT8_ITEM = "ROADMAP.md queue 1, item 21 (int8 PTQ)"
+
+
+def _unpad_channels_last(batch: torch.Tensor, halo) -> torch.Tensor:
+    """Strip the spatial halo from (N, D, H, W, C) patches (a view)."""
+    if halo is None or all(p == 0 for p in halo):
+        return batch
+    sl = (slice(None),) + tuple(slice(p, -p or None) for p in halo) + (
+        slice(None),)
+    return batch[sl]
+
+
+class StandardPredictor:
+    """In-memory overlap-averaging predictor on ``device`` (default: the
+    model's)."""
+
+    def __init__(self, model: torch.nn.Module, output_dir: Optional[str],
+                 out_channels: int, output_dataset: str = "predictions",
+                 save_segmentation: bool = False,
+                 prediction_channel: Optional[int] = None,
+                 apply_activation: bool = False,
+                 quantize: Optional[str] = None,
+                 calib_batches: int = 1,  # read with quantize (not ported)
+                 tta: Optional[str] = None,
+                 accumulate_on_device: bool = True, device=None, **kwargs):
+        if kwargs:
+            raise ValueError(
+                f"unknown predictor config keys: {sorted(kwargs)}")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"predictor quantize={quantize!r}: expected "
+                             "'int8'")
+        if quantize is not None:
+            raise NotImplementedError(f"quantize={quantize!r}: {INT8_ITEM}")
+        if tta not in (None, "mirror", "mirror-hw"):
+            raise ValueError(f"predictor tta={tta!r}: expected 'mirror' or "
+                             "'mirror-hw'")
+        self.model = model
+        self.output_dir = output_dir
+        self.out_channels = out_channels
+        self.output_dataset = output_dataset
+        self.save_segmentation = save_segmentation
+        self.prediction_channel = prediction_channel
+        self.apply_activation = apply_activation
+        self.tta = tta
+        self.accumulate_on_device = accumulate_on_device
+        self.device = torch.device(
+            device if device is not None
+            else next(model.parameters()).device)
+        self._forward = None
+        self._batch_size: Optional[int] = None
+
+    def _compile_forward(self, batch_size: int) -> None:
+        """Fix the batch size and build the patch forward (TTA ensemble and
+        activation included).  PyTorch runs eagerly: nothing is traced."""
+        model = self.model
+        # (N, D, H, W, C): 'mirror-hw' skips the depth axis
+        combos = (None if self.tta is None else mirror_combos(
+            (2, 3) if self.tta == "mirror-hw" else (1, 2, 3)))
+        act = model.final_activation() if self.apply_activation else None
+
+        def forward(x: torch.Tensor) -> torch.Tensor:
+            with torch.inference_mode():
+                out = (model(x) if combos is None
+                       else flip_ensemble(model, combos, x))
+                return act(out) if act is not None else out
+
+        self._forward = forward
+        self._batch_size = batch_size
+
+    def _predict_batch_device(self, input) -> Tuple[torch.Tensor, int]:
+        """Forward with tail padding to the one fixed batch size; returns
+        ``(device output, n_valid)`` without fetching it."""
+        n = input.shape[0]
+        if self._forward is None:
+            self._compile_forward(n)
+        x = torch.as_tensor(input).to(self.device)
+        if n < self._batch_size:
+            pad = x[-1:].expand(self._batch_size - n, *x.shape[1:])
+            x = torch.cat([x, pad], dim=0)
+        return self._forward(x), n
+
+    def _prefetch_batches(self, test_loader: Iterable, depth: int = 2):
+        """Iterate ``(input, indices)`` with the host assembly of the next
+        batch running one ahead in a worker thread."""
+        q: "queue.Queue" = queue.Queue(maxsize=depth)
+        stop = object()
+
+        def producer():
+            try:
+                for input, indices in test_loader:
+                    q.put((torch.as_tensor(np.asarray(input)), indices))
+                q.put(stop)
+            except BaseException as exc:  # noqa: BLE001 - re-raised below
+                q.put(exc)
+
+        threading.Thread(target=producer, daemon=True).start()
+        while True:
+            item = q.get()
+            if item is stop:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+
+    def _device_accumulate(self, test_loader: Iterable,
+                           volume_shape: Sequence[int],
+                           patch_halo: Optional[Sequence[int]],
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """Stream batches through forward + overlap-add on the device;
+        returns the (C, D, H, W) numpy sum and count maps."""
+        pc = self.prediction_channel
+        n_ch = 1 if pc is not None else self.out_channels
+        shape = (*tuple(volume_shape), n_ch)
+        acc = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        cnt = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        batch_size = None
+        for input, indices in self._prefetch_batches(test_loader):
+            if batch_size is None:
+                batch_size = input.shape[0]
+            out, n = self._predict_batch_device(input)
+            pred = _unpad_channels_last(out, patch_halo)
+            if pc is not None:
+                pred = pred[..., pc:pc + 1]
+            starts = np.array([[i[0].start, i[1].start, i[2].start]
+                               for i in indices], np.int32)
+            valid = np.ones((n,), np.float32)
+            if n < batch_size:  # pad the metadata to the fixed batch
+                pad = batch_size - n
+                starts = np.concatenate(
+                    [starts, np.repeat(starts[-1:], pad, axis=0)])
+                valid = np.concatenate([valid, np.zeros((pad,), np.float32)])
+            overlap_add_into(acc, cnt, pred.contiguous(), starts, valid)
+        return (np.moveaxis(acc.cpu().numpy(), -1, 0),
+                np.moveaxis(cnt.cpu().numpy(), -1, 0))
+
+    def __call__(self, test_loader):
+        raise NotImplementedError(
+            f"StandardPredictor.__call__ reads and writes HDF5: "
+            f"{PREDICT_ITEM}")
+
+
+PREDICTORS: Dict[str, Any] = {"StandardPredictor": StandardPredictor}
+
+
+def get_predictor(model: torch.nn.Module, output_dir: Optional[str],
+                  config: Dict[str, Any], *, device=None):
+    """Build a predictor from ``config['predictor']`` (name + kwargs)."""
+    predictor_config = dict(config.get("predictor", {}))
+    cls_name = predictor_config.pop("name", "StandardPredictor")
+    if cls_name not in PREDICTORS:
+        raise NotImplementedError(f"predictor {cls_name!r}: {PREDICT_ITEM}")
+    out_channels = config["model"].get("out_channels")
+    return PREDICTORS[cls_name](model, output_dir, out_channels,
+                                device=device, **predictor_config)

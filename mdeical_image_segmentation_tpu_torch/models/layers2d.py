@@ -1,18 +1,19 @@
-"""2D layers of the classic UNet, channels-last (the JAX package's
-``models/layers2d.py``).
+"""Layers of the classic UNet, channels-last (the JAX package's
+``models/layers2d.py``); ``TorchConv`` and ``TorchConvTranspose`` also take
+3D kernels for the 3D UNet family.
 
-Activations are NHWC at every module boundary.  Parameters are stored the
-PyTorch way (``weight`` OIHW, ConvTranspose ``weight`` (I, O, kh, kw)) under
-module names that mirror the flax tree, so ``utils/param_bridge.py`` maps one
-onto the other leaf for leaf.  Modules build their parameters empty on a
-given device; ``reset_parameters(generator)`` draws PyTorch's default conv
-init from an explicit generator.
+Activations are channels-last at every module boundary.  Parameters are
+stored the PyTorch way (``weight`` (O, I, *k), ConvTranspose ``weight``
+(I, O, *k)) under module names that mirror the flax tree, so
+``utils/param_bridge.py`` maps one onto the other leaf for leaf.  Modules
+build their parameters empty on a given device; ``reset_parameters(
+generator)`` draws PyTorch's default conv init from an explicit generator.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -22,65 +23,88 @@ from ..ops.fused_conv import fused_double2d
 from ..ops.image import center_crop
 
 
-def _torch_default_init_(weight: nn.Parameter, bias: nn.Parameter,
+def _torch_default_init_(weight: nn.Parameter, bias: Optional[nn.Parameter],
                          fan_in: int, generator: torch.Generator) -> None:
     """``nn.Conv2d.reset_parameters``: kaiming-uniform(a=sqrt(5)) weight,
     U(±1/sqrt(fan_in)) bias."""
     with torch.no_grad():
         nn.init.kaiming_uniform_(weight, a=math.sqrt(5), generator=generator)
-        bound = 1.0 / math.sqrt(fan_in)
-        nn.init.uniform_(bias, -bound, bound, generator=generator)
+        if bias is not None:
+            bound = 1.0 / math.sqrt(fan_in)
+            nn.init.uniform_(bias, -bound, bound, generator=generator)
+
+
+def _channels_first(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
+
+
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, *range(2, x.ndim), 1)
 
 
 class TorchConv(nn.Module):
-    """Stride-1 NHWC conv with 'SAME' padding (odd kernels)."""
+    """Stride-1 channels-last conv (2D or 3D by ``len(kernel_size)``) with
+    'SAME' padding (odd kernels), bias optional."""
 
     def __init__(self, in_features: int, features: int,
-                 kernel_size: Sequence[int] = (3, 3), *, device=None):
+                 kernel_size: Sequence[int] = (3, 3), *,
+                 use_bias: bool = True, device=None):
         super().__init__()
         ks = tuple(kernel_size)
-        if any(k % 2 == 0 for k in ks):
-            raise ValueError(f"TorchConv takes odd kernels, got {ks}")
+        if len(ks) not in (2, 3) or any(k % 2 == 0 for k in ks):
+            raise ValueError(f"TorchConv takes odd 2D or 3D kernels, got {ks}")
         self.padding = tuple(k // 2 for k in ks)
+        self._conv = F.conv2d if len(ks) == 2 else F.conv3d
         self.weight = nn.Parameter(
             torch.empty((features, in_features, *ks), device=device))
-        self.bias = nn.Parameter(torch.empty((features,), device=device))
+        self.bias = (nn.Parameter(torch.empty((features,), device=device))
+                     if use_bias else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         _torch_default_init_(self.weight, self.bias,
                              self.weight[0].numel(), generator)
 
-    def hwio(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(kernel HWIO, bias) — the JAX layout the fused kernel takes."""
-        return self.weight.permute(2, 3, 1, 0).contiguous(), self.bias
+    def hwio(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(kernel in the JAX layout (*k, I, O), bias) — what the fused
+        kernels take."""
+        w = self.weight
+        return w.permute(*range(2, w.ndim), 1, 0).contiguous(), self.bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
-                     padding=self.padding)
-        return y.permute(0, 2, 3, 1)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        y = self._conv(_channels_first(x), self.weight.to(x.dtype), bias,
+                       padding=self.padding)
+        return _channels_last(y)
 
 
 class TorchConvTranspose(nn.Module):
-    """NHWC ``nn.ConvTranspose2d(k, s, padding=0)``."""
+    """Channels-last ``nn.ConvTranspose{2,3}d(k, s, padding)`` (2D or 3D by
+    ``len(kernel_size)``), bias optional."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Sequence[int] = (2, 2),
-                 strides: Sequence[int] = (2, 2), *, device=None):
+                 strides: Sequence[int] = (2, 2), *, padding: int = 0,
+                 use_bias: bool = True, device=None):
         super().__init__()
+        ks = tuple(kernel_size)
         self.strides = tuple(strides)
+        self.padding = padding
+        self._conv = {2: F.conv_transpose2d, 3: F.conv_transpose3d}[len(ks)]
         self.weight = nn.Parameter(torch.empty(
-            (in_features, features, *tuple(kernel_size)), device=device))
-        self.bias = nn.Parameter(torch.empty((features,), device=device))
+            (in_features, features, *ks), device=device))
+        self.bias = (nn.Parameter(torch.empty((features,), device=device))
+                     if use_bias else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        # torch counts fan_in of (I, O, kh, kw) over dim 1: O * kh * kw
+        # torch counts fan_in of (I, O, *k) over dim 1: O * prod(k)
         _torch_default_init_(self.weight, self.bias,
                              self.weight[0].numel(), generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
-                               stride=self.strides)
-        return y.permute(0, 2, 3, 1)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        y = self._conv(_channels_first(x), self.weight.to(x.dtype), bias,
+                       stride=self.strides, padding=self.padding)
+        return _channels_last(y)
 
 
 class DoubleConvolution(nn.Module):

@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 The sources under ``csrc/`` have a plain C interface, so ``nvcc`` compiles
-them straight into a shared library in seconds (``torch.utils.cpp_extension``,
-which compiles against PyTorch's headers, takes minutes).  The
-library lands in ``build/torch_kernels/`` at the root of the checkout, named
-by a hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is reused.  It is written to a temporary file and renamed into
-place, so two processes never load a half-written library.
+them in seconds (``torch.utils.cpp_extension``, which compiles against
+PyTorch's headers, takes minutes).  Each source is compiled to an object by
+its own ``nvcc``, all started together, and the objects are linked into one
+shared library in ``build/torch_kernels/`` at the root of the checkout,
+named by a hash of the sources and flags, so an edited source is rebuilt and
+an unchanged one is reused.  The library is written to a temporary file and
+renamed into place, so two processes never load a half-written library.
 
 Nothing here runs at import: ``load()`` builds and loads on the first call.
 """
@@ -18,16 +19,19 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("double_conv2d.cu",)
+SOURCES = ("double_conv2d.cu", "group_norm.cu", "gcr_conv3d.cu",
+           "overlap_add.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # print registers, shared memory and spills per kernel into the build log
     "-Xptxas", "-v",
 )
@@ -51,9 +55,14 @@ def find_nvcc() -> str:
     )
 
 
-def nvcc_command(nvcc: str, out: Path) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out),
-            *(str(CSRC / s) for s in SOURCES)]
+def nvcc_commands(nvcc: str, out: Path, objdir: Path,
+                  ) -> Tuple[List[List[str]], List[str]]:
+    """(one compile command per source, the link command into ``out``)."""
+    objs = [objdir / (Path(s).stem + ".o") for s in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                for s, o in zip(SOURCES, objs)]
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
+    return compiles, link
 
 
 def library_path() -> Path:
@@ -68,25 +77,55 @@ def build_log_path() -> Path:
     return library_path().with_suffix(".log")
 
 
+def _run_all(cmds: List[List[str]]) -> Tuple[List[int], str]:
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    rcs, log = [], ""
+    for c, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        rcs.append(p.returncode)
+        log += f"$ {' '.join(c)}\n{out}"
+    return rcs, log
+
+
 def _compile(path: Path) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = nvcc_command(find_nvcc(), tmp)
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
+    with tempfile.TemporaryDirectory(dir=path.parent) as objdir:
+        compiles, link = nvcc_commands(find_nvcc(), tmp, Path(objdir))
+        rcs, log = _run_all(compiles)
+        if not any(rcs):
+            rc, link_log = _run_all([link])
+            rcs += rc
+            log += link_log
+    if any(rcs):
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed (rcs {rcs}):\n{log}")
     path.with_suffix(".log").write_text(log)
     os.replace(tmp, path)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.tpuseg_double_conv2d_forward
-    # x, w1, b1, w2, b2, y, z, N, H, W, Ci, C1, Co, dtype, device, stream
-    fn.argtypes = [p] * 7 + [i] * 8 + [p]
-    fn.restype = i
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    signatures = {
+        # x, w1, b1, w2, b2, y, z, N, H, W, Ci, C1, Co, dtype, device, stream
+        "tpuseg_double_conv2d_forward": [p] * 7 + [i] * 8 + [p],
+        # x, partial, s1, s2, N, S, C, G, dtype, device, stream
+        "tpuseg_gn_stats": [p] * 4 + [i, q, i, i, i, i, p],
+        # x, a, b, y, N, S, C, G, dtype, device, stream
+        "tpuseg_gn_affine": [p] * 4 + [i, q, i, i, i, i, p],
+        # x, w, a, b, y, N, D, H, W, Ci, Co, KD, pre_relu, post_relu, dtype,
+        # device, stream
+        "tpuseg_gcr_conv3d_forward": [p] * 5 + [i] * 11 + [p],
+        # acc, cnt, patches, starts, weights, P, pd, ph, pw, C, D, H, W,
+        # z0, y0, x0, bz, by, bx, dtype, device, stream
+        "tpuseg_overlap_add": [p] * 5 + [i] * 16 + [p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i
     lib.tpuseg_cuda_error_string.argtypes = [i]
     lib.tpuseg_cuda_error_string.restype = ctypes.c_char_p
 

@@ -14,6 +14,20 @@ and the kernel then never writes z to device memory (the serving path).
 Dispatch is by the device of ``x`` alone: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs ``fused_double2d_reference``.  There is no
 fallback and no switch.  ``fused_double2d.launches`` counts kernel launches.
+
+``fused_conv3d`` is the counterpart of the JAX package's
+``ops/fused_conv.py::fused_conv3d`` (the Pallas ``_gcr_kernel`` there,
+``csrc/gcr_conv3d.cu`` here): the SingleConv('gcr') forward with the
+GroupNorm affine applied to the input tile in the conv's prologue, so the
+normalized tensor never reaches device memory::
+
+    y = relu?(conv3d_{kd x 3 x 3}(relu?(a·x + b)))      kd in {1, 3}
+
+stride 1, torch padding ``((kd-1)//2, 1, 1)`` of the NORMALIZED tensor, no
+bias, NDHWC activations and (kd, 3, 3, Ci, Co) weights, a and b (N, Ci)
+fp32.  ``gcr_fused_conv`` composes it with the GroupNorm statistics kernel
+(``ops/norm.py``).  Same dispatch rule and ``.launches`` count.  Forward
+only: a CUDA call that autograd would need to differentiate raises.
 """
 
 from __future__ import annotations
@@ -24,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .norm import group_norm_coeffs
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -97,3 +112,99 @@ def fused_double2d(
 
 
 fused_double2d.launches = 0
+
+
+def fused_conv3d_reference(
+    x: torch.Tensor, kernel: torch.Tensor, pre_scale: torch.Tensor,
+    pre_shift: torch.Tensor, *, pre_relu: bool = False,
+    post_relu: bool = True,
+) -> torch.Tensor:
+    """The affine in fp32 rounded to x's dtype, then ``F.conv3d`` in x's
+    dtype; same contract as :func:`fused_conv3d`."""
+    n, ci = x.shape[0], x.shape[-1]
+    shape = (n, 1, 1, 1, ci)
+    # one fp32 temporary, updated in place (the 3D UNet's decoder inputs
+    # reach 19 GB in fp32)
+    xa = x.to(torch.float32, copy=True).mul_(pre_scale.reshape(shape))
+    xa.add_(pre_shift.reshape(shape))
+    if pre_relu:
+        xa.relu_()
+    xa = xa.to(x.dtype).permute(0, 4, 1, 2, 3)
+    kd = kernel.shape[0]
+    y = F.conv3d(xa, kernel.permute(4, 3, 0, 1, 2),
+                 padding=((kd - 1) // 2, 1, 1))
+    if post_relu:
+        y = F.relu(y)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def _check3d(x, kernel, pre_scale, pre_shift):
+    if x.ndim != 5:
+        raise ValueError(f"x must be (N, D, H, W, Ci), got {tuple(x.shape)}")
+    n, ci = x.shape[0], x.shape[-1]
+    if (kernel.ndim != 5 or kernel.shape[0] not in (1, 3)
+            or tuple(kernel.shape[1:4]) != (3, 3, ci)):
+        raise ValueError(f"kernel must be (1|3, 3, 3, {ci}, Co), got "
+                         f"{tuple(kernel.shape)}")
+    for name, t in (("x", x), ("kernel", kernel)):
+        if t.device != x.device or t.dtype != x.dtype:
+            raise TypeError(f"{name} is {t.dtype} on {t.device}, x is "
+                            f"{x.dtype} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("pre_scale", pre_scale), ("pre_shift", pre_shift)):
+        if (t.device != x.device or t.dtype != torch.float32
+                or tuple(t.shape) != (n, ci) or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 ({n}, {ci}) "
+                             f"on {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_conv3d takes float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if x.numel() == 0:
+        raise ValueError("fused_conv3d needs a non-empty x")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, kernel, pre_scale, pre_shift)):
+        raise RuntimeError("fused_conv3d: the CUDA kernel has no backward "
+                           "yet; run it under torch.no_grad/inference_mode")
+
+
+def fused_conv3d(
+    x: torch.Tensor, kernel: torch.Tensor, pre_scale: torch.Tensor,
+    pre_shift: torch.Tensor, *, pre_relu: bool = False,
+    post_relu: bool = True,
+) -> torch.Tensor:
+    """``relu?(conv3d(relu?(a·x + b)))``: x (N, D, H, W, Ci) float32 or
+    bfloat16, kernel (kd, 3, 3, Ci, Co) in x's dtype, pre_scale/pre_shift
+    (N, Ci) fp32; returns y (N, D, H, W, Co) in x's dtype."""
+    if x.device.type == "cpu":
+        return fused_conv3d_reference(x, kernel, pre_scale, pre_shift,
+                                      pre_relu=pre_relu, post_relu=post_relu)
+    if not x.is_cuda:
+        raise ValueError(f"fused_conv3d runs on cuda or cpu, not {x.device}")
+    _check3d(x, kernel, pre_scale, pre_shift)
+    n, d, h, w, ci = x.shape
+    kd, co = kernel.shape[0], kernel.shape[-1]
+    y = torch.empty((n, d, h, w, co), dtype=x.dtype, device=x.device)
+    lib = _build.load()
+    rc = lib.tpuseg_gcr_conv3d_forward(
+        x.data_ptr(), kernel.data_ptr(), pre_scale.data_ptr(),
+        pre_shift.data_ptr(), y.data_ptr(), n, d, h, w, ci, co, kd,
+        int(pre_relu), int(post_relu), _DTYPE_CODES[x.dtype], x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, rc, "gcr_conv3d launch")
+    fused_conv3d.launches += 1
+    return y
+
+
+fused_conv3d.launches = 0
+
+
+def gcr_fused_conv(x: torch.Tensor, gn_scale: torch.Tensor,
+                   gn_bias: torch.Tensor, kernel: torch.Tensor,
+                   num_groups: int, eps: float) -> torch.Tensor:
+    """``relu(conv3d(group_norm(x)))``, the SingleConv('gcr') forward: the
+    GroupNorm statistics kernel, the (N, C) coefficient algebra, then
+    :func:`fused_conv3d` (the normalized tensor is never stored)."""
+    a, b = group_norm_coeffs(x, gn_scale, gn_bias, num_groups, eps)
+    return fused_conv3d(x, kernel, a, b, post_relu=True)

@@ -101,7 +101,6 @@ class ModelRegistry:
         the model is registered — so no request pays for a build or a first
         launch."""
         from ..models import UNetModel
-        from ..ops import _build
         from ..ops.tta import flip_ensemble, mirror_combos
 
         if quantize is not None:
@@ -119,6 +118,22 @@ class ModelRegistry:
             if out_channels > 1:
                 return torch.softmax(logits, dim=-1)
             return torch.sigmoid(logits)
+
+        self._register_probs(name, probs, model.config.in_channels,
+                             out_channels, resolution=resolution,
+                             threshold=threshold, device=device,
+                             max_batch=max_batch, default=default)
+
+    def _register_probs(self, name: str, probs: Callable, in_channels: int,
+                        out_channels: int, *, resolution: int,
+                        threshold: float, device: torch.device,
+                        max_batch: int, default: bool) -> None:
+        """Register ``probs`` (float images (N, H, W, C) in [0, 1] on the
+        device → probabilities (N, H, W, out)) behind the uint8-in,
+        mask-out engine contract.  On CUDA this builds the kernels and runs
+        one warm-up forward for each power-of-two batch up to
+        ``max_batch`` first."""
+        from ..ops import _build
 
         if out_channels > 1:
             def mask_head(p):
@@ -164,8 +179,8 @@ class ModelRegistry:
             _build.load()
         b = 1
         while b <= max_batch:
-            np_forward(np.zeros((b, resolution, resolution,
-                                 model.config.in_channels), np.uint8))
+            np_forward(np.zeros((b, resolution, resolution, in_channels),
+                                np.uint8))
             b *= 2
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -174,7 +189,7 @@ class ModelRegistry:
             ModelEntry(
                 name=name,
                 forward=np_forward,
-                in_channels=model.config.in_channels,
+                in_channels=in_channels,
                 resolution=resolution,
                 dispatch=dispatch,
                 fetch=fetch,
@@ -188,8 +203,46 @@ class ModelRegistry:
     def register_exported(self, name: str, path: str, **kwargs):
         _not_ported("serving an exported artifact", "item 23 (export)")
 
-    def register_unet3d(self, name: str, path: str, model_config, **kwargs):
-        _not_ported("serving a 3D model", "items 16-20 (3D models)")
+    def register_unet3d(self, name: str, path: str,
+                        model_config: Dict[str, Any], *,
+                        threshold: float = 0.5, resolution: int = 256,
+                        default: bool = False,
+                        device: Union[str, torch.device] = "cuda",
+                        max_batch: int = 8):
+        """Load a 3D-family model (``model_config`` is a config's ``model``
+        section) from a training checkpoint of either package and serve
+        single 2D slices on ``device``: each slice is replicated to the
+        least depth that survives the model's (num_levels - 1) poolings,
+        ``2**(num_levels - 1)``, and the middle output slice is returned
+        (pseudo-3D slice serving).  Builds the kernels and warms every
+        power-of-two batch up to ``max_batch`` before it registers."""
+        from ..models import get_model
+        from ..train import load_checkpoint
+        from ..utils.param_bridge import flax_to_state_dict
+
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} requested but CUDA is not "
+                               "available")
+        model = get_model(model_config, device=device)
+        ms = load_checkpoint(path)["model_state_dict"]
+        if ms.get("batch_stats"):
+            _not_ported("a model with BatchNorm statistics",
+                        "item 16 (BatchNorm layer orders)")
+        model.load_state_dict(flax_to_state_dict(ms["params"]))
+        model.eval()
+        act = model.final_activation()
+        depth = 2 ** (max(int(model.num_levels), 1) - 1)
+
+        def probs(x):
+            x3 = x[:, None].expand(-1, depth, -1, -1, -1)
+            out = model(x3.contiguous())[:, depth // 2]
+            return act(out) if act is not None else out
+
+        self._register_probs(name, probs, model.in_channels,
+                             model.out_channels, resolution=resolution,
+                             threshold=threshold, device=device,
+                             max_batch=max_batch, default=default)
 
     def register_sam(self, name: str, path: str, **kwargs):
         _not_ported("SAM-Med2D serving", "item 24 (SAM-Med2D)")

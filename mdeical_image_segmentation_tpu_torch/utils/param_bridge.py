@@ -1,18 +1,25 @@
 """Parameter bridge: the JAX package's flax tree ↔ the port's ``state_dict``.
 
 The inverse of the JAX package's ``utils/torch_import.py`` converters
-(``convert_conv``, ``convert_conv_transpose``), generic over the tree:
+(``convert_conv``, ``convert_conv_transpose``), generic over the tree and
+over 2D and 3D kernels:
 
-- ``<path>/Conv_0/kernel`` (HWIO) ↔ ``<path>.weight`` (OIHW), and
+- ``<path>/Conv_0/kernel`` (flax ``(*k, I, O)``: HWIO or DHWIO) ↔
+  ``<path>.weight`` (torch ``(O, I, *k)``: OIHW or OIDHW), and
   ``<path>/Conv_0/bias`` ↔ ``<path>.bias``;
-- ``<path>/ConvTranspose_0/kernel`` (flax ``(kh, kw, I, O)``, a
-  cross-correlation) ↔ ``<path>.weight`` (torch ``(I, O, kh, kw)``, which
-  scatters the kernel): the spatial taps are flipped;
+- ``<path>/ConvTranspose_0/kernel`` (flax ``(*k, I, O)``, a
+  cross-correlation) ↔ ``<path>.weight`` (torch ``(I, O, *k)``, which
+  scatters the kernel): the spatial taps are flipped along every axis;
+- ``<path>/GroupNorm_0/{scale,bias}`` ↔ ``<path>.GroupNorm_0.{weight,bias}``
+  (the fused 'gcr' path of the 3D blocks keeps these paths too);
 
 where ``<path>`` joins the module names with ``/`` in flax and ``.`` in
-torch (``DoubleConvolution_3/TorchConv_1`` ↔ ``DoubleConvolution_3.
-TorchConv_1``).  Values are numpy arrays on the flax side and tensors (or
-numpy arrays) on the torch side; both directions copy.
+torch (``encoder0/basic_module/SingleConv1/TorchConv_0`` ↔ ``encoder0.
+basic_module.SingleConv1.TorchConv_0``).  On the torch side a transposed
+conv is a module named ``TorchConvTranspose*`` (the 2D UNet) or
+``upsampling`` (the 3D decoders' ``TransposeConvUpsampling``).  Values are
+numpy arrays on the flax side and tensors (or numpy arrays) on the torch
+side; both directions copy.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import numpy as np
 import torch
 
 _INNER = {"Conv_0": False, "ConvTranspose_0": True}  # name -> is transposed
+_GN = "GroupNorm_0"
+_GN_LEAVES = {"scale": "weight", "bias": "bias"}  # flax -> torch
 
 
 def _leaves(tree: Mapping[str, Any], prefix=()):
@@ -39,22 +48,41 @@ def _to_numpy(v) -> np.ndarray:
     return np.asarray(v)
 
 
+def _is_transposed(module_name: str) -> bool:
+    return module_name.startswith("TorchConvTranspose") or (
+        module_name == "upsampling")
+
+
+def _kernel_to_torch(a: np.ndarray, transposed: bool) -> np.ndarray:
+    sp = tuple(range(a.ndim - 2))
+    if transposed:  # (*k, I, O) -> flip taps -> (I, O, *k)
+        return np.transpose(np.flip(a, sp), (a.ndim - 2, a.ndim - 1, *sp))
+    return np.transpose(a, (a.ndim - 1, a.ndim - 2, *sp))  # -> (O, I, *k)
+
+
+def _kernel_to_flax(a: np.ndarray, transposed: bool) -> np.ndarray:
+    sp = tuple(range(2, a.ndim))
+    if transposed:  # (I, O, *k) -> (*k, I, O) -> flip taps
+        return np.flip(np.transpose(a, (*sp, 0, 1)), tuple(range(a.ndim - 2)))
+    return np.transpose(a, (*sp, 1, 0))  # (O, I, *k) -> (*k, I, O)
+
+
 def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``{"params": tree}`` (or the bare params tree) → torch ``state_dict``."""
     params = variables.get("params", variables)
     sd: Dict[str, torch.Tensor] = {}
     for path, value in _leaves(params):
-        if len(path) < 3 or path[-2] not in _INNER or path[-1] not in (
-                "kernel", "bias"):
-            raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
         a = np.asarray(value)
-        if path[-1] == "kernel":
-            if _INNER[path[-2]]:  # (kh, kw, I, O) -> flip taps -> (I, O, kh, kw)
-                a = np.transpose(np.flip(a, (0, 1)), (2, 3, 0, 1))
-            else:                 # HWIO -> OIHW
-                a = np.transpose(a, (3, 2, 0, 1))
-        key = ".".join(path[:-2]) + (".weight" if path[-1] == "kernel"
-                                     else ".bias")
+        if len(path) >= 2 and path[-2] == _GN and path[-1] in _GN_LEAVES:
+            key = ".".join(path[:-1]) + "." + _GN_LEAVES[path[-1]]
+        elif (len(path) >= 3 and path[-2] in _INNER
+              and path[-1] in ("kernel", "bias")):
+            if path[-1] == "kernel":
+                a = _kernel_to_torch(a, _INNER[path[-2]])
+            key = ".".join(path[:-2]) + (".weight" if path[-1] == "kernel"
+                                         else ".bias")
+        else:
+            raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
         sd[key] = torch.from_numpy(np.array(a, order="C"))  # a copy
     return sd
 
@@ -67,13 +95,17 @@ def state_dict_to_flax(sd: Mapping[str, Any]) -> Dict[str, Any]:
         *mods, name = key.split(".")
         if not mods or name not in ("weight", "bias"):
             raise ValueError(f"unexpected state_dict entry {key}")
-        transposed = mods[-1].startswith("TorchConvTranspose")
         a = _to_numpy(value)
+        if mods[-1] == _GN:
+            node = params
+            for m in mods:
+                node = node.setdefault(m, {})
+            node["scale" if name == "weight" else "bias"] = (
+                np.ascontiguousarray(a))
+            continue
+        transposed = _is_transposed(mods[-1])
         if name == "weight":
-            if transposed:  # (I, O, kh, kw) -> (kh, kw, I, O) -> flip taps
-                a = np.flip(np.transpose(a, (2, 3, 0, 1)), (0, 1))
-            else:           # OIHW -> HWIO
-                a = np.transpose(a, (2, 3, 1, 0))
+            a = _kernel_to_flax(a, transposed)
         node = params
         for m in mods:
             node = node.setdefault(m, {})

@@ -45,10 +45,15 @@ def test_every_module_imports_without_jax_flax_msgpack_pil():
 
 
 def test_nvcc_command_targets_sm90a():
-    cmd = _build.nvcc_command("nvcc", _build.BUILD_DIR / "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert {"-O3", "-shared", "-std=c++17"} <= set(cmd)
-    assert all(str(_build.CSRC / s) in cmd for s in _build.SOURCES)
+    """One nvcc per source, started together, then one link."""
+    compiles, link = _build.nvcc_commands(
+        "nvcc", _build.BUILD_DIR / "lib.so", _build.BUILD_DIR / "obj")
+    assert len(compiles) == len(_build.SOURCES) == 4
+    for cmd, src in zip(compiles, _build.SOURCES):
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert {"-O3", "-std=c++17", "-c"} <= set(cmd)
+        assert cmd[-1] == str(_build.CSRC / src)
+    assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
     assert _build.library_path().parent == _build.BUILD_DIR
     assert _build.library_path().name.startswith("libtpuseg_kernels_")
 
@@ -65,6 +70,37 @@ def test_kernel_source_has_the_c_entry_points():
     assert 'extern "C" int tpuseg_double_conv2d_forward(' in src
     assert "cudaGetLastError()" in src
     assert "_double2d_kernel" in src  # names the TPU kernel it replaces
+
+
+@pytest.mark.parametrize("source,entry_points,replaces", [
+    ("group_norm.cu", ("tpuseg_gn_stats", "tpuseg_gn_affine"),
+     ("_stats_kernel", "_affine_kernel")),
+    ("gcr_conv3d.cu", ("tpuseg_gcr_conv3d_forward",), ("_gcr_kernel",)),
+    ("overlap_add.cu", ("tpuseg_overlap_add",), ("_overlap_kernel",)),
+])
+def test_new_kernel_sources_have_entry_points_and_name_their_tpu_kernel(
+        source, entry_points, replaces):
+    src = (_build.CSRC / source).read_text()
+    for name in entry_points:
+        assert f'extern "C" int {name}(' in src
+        assert f'"{name}"' in open(_build.__file__).read()  # declared
+    assert "cudaGetLastError()" in src
+    assert "int64_t" in src  # 64-bit offsets: 4.7e9-element activations
+    for name in replaces:
+        assert name in src
+
+
+def test_wrappers_keep_launch_counters_and_plain_versions():
+    from mdeical_image_segmentation_tpu_torch.ops import norm, overlap
+
+    for fn in (fused_conv.fused_double2d, fused_conv.fused_conv3d,
+               norm.gn_channel_sums, norm.gn_affine,
+               overlap.overlap_add_into):
+        assert isinstance(fn.launches, int)
+    for plain in (fused_conv.fused_conv3d_reference,
+                  norm.gn_channel_sums_reference, norm.gn_affine_reference,
+                  overlap.overlap_add_into_reference):
+        assert callable(plain)
 
 
 def test_cuda_wrapper_checks_run_before_any_launch():
