@@ -1,5 +1,5 @@
-"""GPU smoke run of the PyTorch port: 2D serving and 3D sliding-window
-inference.
+"""GPU smoke run of the PyTorch port: 2D serving, 3D sliding-window
+inference and 3D 'gcr' training.
 
     python3 chip_smoke.py
 
@@ -50,7 +50,39 @@ wall time.
    GN-conv within 1e-4 (fp32) / 2e-2 (bf16), GN statistics (mean and
    rsqrt(var + eps)) within 1e-4, GN affine within 1e-6 / 2e-2, overlap-add
    bit-exact; kernel and plain ms by CUDA events, in turns, median.
-7. Prints the card's name and power limit, the kernels' JSON line (launches
+7. The GroupNorm backward kernels (Σg and Σg·x̂; dx = g·A + x·C + D)
+   against their plain versions at every GroupNorm input shape of the two
+   training models (UNet3D at 80x170x170, ResidualUNet3D at 64x128x128,
+   N = 1, found by one forward with hooks) plus ragged C and C = 1, in fp32
+   and bf16: the sums within 1e-5 x the number of positions, dx within
+   1e-6 / 2e-2; kernel and plain ms by CUDA events, in turns, median.
+8. Gradients (dx, dscale, dbias, dw) through the autograd Functions
+   ``gcr_fused_conv`` (the UNet3D's 14 shapes, kd 3 and kd 1) and
+   ``GroupNorm`` (the ResidualUNet3D's shapes and ragged ones) against
+   autograd through the plain composition (affine, ``F.conv3d``, ReLU;
+   ``F.group_norm``), fp32 with TF32 off: within 1e-3 of each gradient's
+   max |value|.  The cotangent is zeroed where either output lies within
+   1e-4 x max|y| of the ReLU's kink, which neither path decides exactly.
+9. Training at full width: the UNet3D and the loss, metric, optimizer,
+   scheduler and settings of ``configs/unet3d_train.yml`` (f_maps 64, 4
+   levels, 'gcr', BCEDice, MeanIoU, Adam 2e-4 / 1e-5, ReduceLROnPlateau;
+   batch 1, patch 80x170x170, train stride 40x90x90, fp32, TF32 off) with
+   weights from a seeded generator, loaded through ``pre_trained``, driven
+   by ``UNetTrainer.fit()`` over a ``VolumeLoader`` of 4 patches of a
+   seeded 80x260x260 volume (label: its smoothed sign) and 2 validation
+   patches: 7 steps, validation and checkpoints at iterations 3 and 6.
+   Per step 14 GN-conv, 14 GN-statistics, 14 GN-affine (the backward's
+   recompute), 14 bwd-reduce and 13 bwd-dx launches (the image needs no
+   dx); finite losses; last and best checkpoints.  The first 3 steps
+   again on the plain path from the same weights: losses within 1e-5,
+   1e-4, 1e-3 relative (Adam turns rounding noise into ±lr steps; see
+   LOSS_TOLS) and the grad norm after step 1 within 1e-4.  A ``resume``
+   from the last checkpoint takes one step at iteration 6 (Adam step 7).
+   Step ms (synchronised) and peak memory of both paths.
+10. ResidualUNet3D f_maps 32, 5 levels at 64x128x128 for two steps: per
+   step 9 GN-conv, 18 of each GroupNorm kernel (its 'gc' conv3 runs the
+   ``GroupNorm`` Function); losses and grad norm against the plain path.
+11. Prints the card's name and power limit, the kernels' JSON line (launches
    from the main-path runs, each run's counts zeroed just before it), and
    last ``{"ok": true, "device": {...}}``.
 """
@@ -404,13 +436,16 @@ RESIDUAL_MAP_TOL = 2e-3   # its 1x1 shortcut of one input channel feeds
 SERVE3D_PROB_TOL = 1e-3
 GN_TOL = 1e-4             # per-channel mean and rsqrt(var + eps), fp32 sums
 AFFINE_FP32_TOL = 1e-6    # both round x·a and x·a + b the same way
-KERNELS_3D = ("gcr_conv3d", "gn_stats", "gn_affine", "overlap_add")
+KERNELS_3D = ("gcr_conv3d", "gn_stats", "gn_affine", "gn_bwd_reduce",
+              "gn_bwd_dx", "overlap_add")
 
 
 def _read_yaml_subset(path: str) -> dict:
-    """Read the block mappings, scalars and inline lists of a config file
-    such as configs/unet3d_predict.yml (the card's machine has no PyYAML);
-    list items ('- ...') are skipped."""
+    """Read the block mappings, scalars (int, float, bool, string) and
+    inline lists of a config file such as configs/unet3d_predict.yml or
+    configs/unet3d_train.yml (the card's machine has no PyYAML); block list
+    items ('- ...') are skipped, and the keys nested under them land in the
+    enclosing mapping."""
     root: dict = {}
     stack = [(-1, root)]
     for raw in open(path):
@@ -427,14 +462,16 @@ def _read_yaml_subset(path: str) -> dict:
             parent[key] = {}
             stack.append((indent, parent[key]))
         elif value.startswith("["):
-            parent[key] = [int(v) for v in value[1:-1].split(",") if v.strip()]
+            parent[key] = json.loads(value)
         elif value in ("true", "false"):
             parent[key] = value == "true"
         else:
-            try:
-                parent[key] = int(value)
-            except ValueError:
-                parent[key] = value
+            for kind in (int, float, str):
+                try:
+                    parent[key] = kind(value)
+                    break
+                except ValueError:
+                    continue
     return root
 
 
@@ -444,6 +481,7 @@ def _counts():
     # inside _plain_path the plain versions stand in: they launch nothing
     fns = {"gcr_conv3d": fused_conv.fused_conv3d,
            "gn_stats": norm.gn_channel_sums, "gn_affine": norm.gn_affine,
+           "gn_bwd_reduce": norm.gn_bwd_reduce, "gn_bwd_dx": norm.gn_bwd_dx,
            "overlap_add": overlap.overlap_add_into}
     return {k: getattr(fn, "launches", 0) for k, fn in fns.items()}
 
@@ -452,15 +490,16 @@ def _zero_counts():
     from mdeical_image_segmentation_tpu_torch.ops import fused_conv, norm, overlap
 
     for fn in (fused_conv.fused_conv3d, norm.gn_channel_sums, norm.gn_affine,
-               overlap.overlap_add_into):
+               norm.gn_bwd_reduce, norm.gn_bwd_dx, overlap.overlap_add_into):
         fn.launches = 0
 
 
 class _plain_path:
-    """Within this block the model, the predictor and the server run every
-    kernel's plain PyTorch version on the card (cuDNN conv3d, plain GN,
-    plain overlap-add): the comparison pipeline.  Nothing of the port
-    switches by itself; only this script swaps the functions."""
+    """Within this block the model, the predictor, the trainer and the
+    server run every kernel's plain PyTorch version on the card (cuDNN
+    conv3d, plain GN forward and backward, plain overlap-add): the
+    comparison pipeline.  Nothing of the port switches by itself; only this
+    script swaps the functions."""
 
     def __enter__(self):
         from mdeical_image_segmentation_tpu_torch.infer import predictor
@@ -469,6 +508,8 @@ class _plain_path:
         self.saved = [
             (norm, "gn_channel_sums", norm.gn_channel_sums_reference),
             (norm, "gn_affine", norm.gn_affine_reference),
+            (norm, "gn_bwd_reduce", norm.gn_bwd_reduce_reference),
+            (norm, "gn_bwd_dx", norm.gn_bwd_dx_reference),
             (fused_conv, "fused_conv3d", fused_conv.fused_conv3d_reference),
             (predictor, "overlap_add_into",
              overlap.overlap_add_into_reference),
@@ -812,6 +853,32 @@ def _time_pair(kernel_fn, plain_fn, budget_s: float = 0.6):
     return statistics.median(ks), statistics.median(ps)
 
 
+def _rand(gen, shape, dtype, scale=1.0, shift=0.0):
+    import torch
+
+    t = torch.randn(shape, device=DEVICE, generator=gen)
+    return t.mul_(scale).add_(shift).to(dtype)
+
+
+def _record_header():
+    log(f"{'kernel':13s} {'dtype':8s} {'case':44s} {'max err':>10s} "
+        f"{'kernel ms':>11s} {'plain ms':>11s}")
+
+
+def _record(out, kernel, case, dtype, err, k_ms, p_ms, model_shape):
+    """Log one kernel-vs-plain case; keep the kernel's worst error and the
+    fp32 model shapes' summed times."""
+    import torch
+
+    rec = out[kernel]
+    rec["err"] = max(rec["err"], err)
+    if model_shape and dtype == torch.float32:
+        rec["ms"] += k_ms
+        rec["plain_ms"] += p_ms
+    log(f"{kernel:13s} {str(dtype)[6:]:8s} {case:44s} {err:10.3e} "
+        f"{k_ms:11.3f} {p_ms:11.3f}")
+
+
 def phase_kernels_3d(seed: int, shapes: set):
     """Each 3D kernel against its plain version at every shape the two
     models produced in phases 3-4, plus ragged cases, in fp32 and bf16."""
@@ -822,24 +889,18 @@ def phase_kernels_3d(seed: int, shapes: set):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    out = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in KERNELS_3D}
+    out = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+           for k in ("gcr_conv3d", "gn_stats", "gn_affine", "overlap_add")}
 
     def rand(shape, dtype=torch.float32, scale=1.0, shift=0.0):
-        t = torch.randn(shape, device=DEVICE, generator=gen)
-        return t.mul_(scale).add_(shift).to(dtype)
+        return _rand(gen, shape, dtype, scale, shift)
 
     def coeffs(n, c):
         a = torch.rand((n, c), device=DEVICE, generator=gen) + 0.5
         return a, 0.5 * torch.randn((n, c), device=DEVICE, generator=gen)
 
-    def record(kernel, case, dtype, err, k_ms, p_ms, model_shape):
-        rec = out[kernel]
-        rec["err"] = max(rec["err"], err)
-        if model_shape and dtype == torch.float32:
-            rec["ms"] += k_ms
-            rec["plain_ms"] += p_ms
-        log(f"{kernel:11s} {str(dtype)[6:]:8s} {case:44s} {err:10.3e} "
-            f"{k_ms:11.3f} {p_ms:11.3f}")
+    def record(*args):
+        _record(out, *args)
 
     gcr = sorted(s for s in shapes if s[0] == "gcr")
     stats = sorted(s for s in shapes if s[0] == "stats")
@@ -849,8 +910,7 @@ def phase_kernels_3d(seed: int, shapes: set):
                   3, True), ((1, 3, 16, 16, 3), 64, 1, False),
                   ((1, 6, 12, 10, 40), 130, 1, True)]
     ragged_gn = [(2, 5, 9, 11, 3), (2, 6, 20, 17, 19), (1, 3, 7, 9, 300)]
-    log(f"{'kernel':11s} {'dtype':8s} {'case':44s} {'max err':>10s} "
-        f"{'kernel ms':>11s} {'plain ms':>11s}")
+    _record_header()
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         cases = [(s[1], s[2], 3, False, True) for s in gcr] + [
@@ -940,6 +1000,561 @@ def phase_kernels_3d(seed: int, shapes: set):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 3D 'gcr' training (UNetTrainer; GroupNorm backward kernels, autograd)
+# ---------------------------------------------------------------------------
+
+TRAIN_YML = os.path.join(ROOT, "configs", "unet3d_train.yml")
+TRAIN_VOLUME = (80, 260, 260)   # 1 x 2 x 2 train patches at stride 40x90x90
+VAL_VOLUME = (80, 170, 340)     # 2 val patches at stride = patch
+RESIDUAL_TRAIN = dict(RESIDUAL_MODEL)
+RESIDUAL_PATCH = (64, 128, 128)  # bench.py's residual_unet3d row
+GN_BWD_SUM_TOL = 1e-5   # Σg and Σg·x̂ over S positions: |err| <= tol · S
+GRAD_TOL = 1e-3         # autograd grads vs the plain composition, relative
+                        # to each gradient's max |value|
+# trainer losses of steps 1, 2, 3, kernel path vs plain path, relative.
+# Step 1 runs the same weights.  Adam's first updates are ±lr for every
+# weight whose gradient exceeds eps, so the weights whose gradient is
+# rounding noise on both paths (a GroupNorm scale whose output the next
+# GroupNorm renormalizes, a conv weight of a deep level where a ReLU at its
+# kink decides) move by ±lr at random; that difference grows about tenfold
+# per step (measured on the H100: 0, 1.7e-5, 2.3e-4; the kernel path alone
+# differs by 2.3e-5 at step 3 between two runs, as cuDNN's weight gradient
+# is not deterministic).
+LOSS_TOLS = (1e-5, 1e-4, 1e-3)
+GRAD_NORM_TOL = 1e-4    # global grad norm after step 1 (same weights)
+KINK = 1e-4             # cotangent zeroed where y is within KINK·max|y| of 0
+
+
+def _training_shapes(seed: int):
+    """The input shapes of every fused 'gcr' SingleConv and GroupNorm module
+    of the two training models (one no-grad forward each at the training
+    patch): {"gcr": [(shape, Co, model)], "gn": [(shape, model)]}."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.models import get_model
+
+    cfg = _read_yaml_subset(TRAIN_YML)
+    patch = tuple(cfg["loaders"]["train"]["slice_builder"]["patch_shape"])
+    found = {"gcr": set(), "gn": set()}
+    for name, model_cfg, shape in (("UNet3D", cfg["model"], patch),
+                                   ("ResidualUNet3D", RESIDUAL_TRAIN,
+                                    RESIDUAL_PATCH)):
+        model = get_model(model_cfg, device=DEVICE,
+                          generator=None).eval()
+        for p in model.parameters():
+            torch.nn.init.normal_(p, std=0.02)
+        shapes: set = set()
+        handles = _record_shapes(model, shapes)
+        with torch.no_grad():
+            model(torch.zeros((1, *shape, model_cfg["in_channels"]),
+                              device=DEVICE))
+        for h in handles:
+            h.remove()
+        for s in shapes:
+            if s[0] == "gcr":
+                found["gcr"].add((s[1], s[2], name))
+            elif s[0] == "stats":
+                found["gn"].add((s[1], name))
+        del model
+        torch.cuda.empty_cache()
+    return {k: sorted(v) for k, v in found.items()}
+
+
+def phase_gn_backward_kernels(seed: int, shapes):
+    """Kernels 3c and 3d against their plain versions at every GroupNorm
+    input shape of the two training models, plus ragged C and C = 1, in
+    fp32 and bf16; returns {kernel: {err, ms, plain_ms}}."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.ops import norm
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    out = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+           for k in ("gn_bwd_reduce", "gn_bwd_dx")}
+
+    ragged = [(2, 5, 9, 11, 3), (2, 6, 20, 17, 19), (1, 3, 7, 9, 300),
+              (1, 7, 13, 11, 1)]
+    cases = [(s, True, m) for s, m in shapes["gn"]] + [
+        (r, False, "ragged") for r in ragged]
+    _record_header()
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, model_shape, model in cases:
+            n, c = shape[0], shape[-1]
+            count = 1
+            for d in shape[1:-1]:
+                count *= d
+            x = _rand(gen, shape, dtype, 2.0, 1.0)
+            g = _rand(gen, shape, dtype)
+            mean = 0.3 * torch.randn((n, c), device=DEVICE, generator=gen) + 1
+            inv = torch.rand((n, c), device=DEVICE, generator=gen) + 0.5
+            got = norm.gn_bwd_reduce(x, g, mean, inv)
+            want = norm.gn_bwd_reduce_reference(x, g, mean, inv)
+            err = 0.0
+            for what, a, b in zip(("sum g", "sum g*xhat"), got, want):
+                e = (a - b).abs().max().item()
+                if not torch.isfinite(a).all() or e > GN_BWD_SUM_TOL * count:
+                    raise AssertionError(
+                        f"gn_bwd_reduce {shape} {dtype} {what}: differs from "
+                        f"the plain version by {e:.3e} (limit "
+                        f"{GN_BWD_SUM_TOL} x {count} positions)")
+                err = max(err, e)
+            k_ms, p_ms = _time_pair(
+                lambda: norm.gn_bwd_reduce(x, g, mean, inv),
+                lambda: norm.gn_bwd_reduce_reference(x, g, mean, inv))
+            _record(out, "gn_bwd_reduce", f"{shape} {model}", dtype, err,
+                    k_ms, p_ms, model_shape)
+            a, cc, dd = (torch.randn((n, c), device=DEVICE, generator=gen)
+                         for _ in range(3))
+            err = _compare(f"gn_bwd_dx {shape}", norm.gn_bwd_dx(x, g, a, cc, dd),
+                           norm.gn_bwd_dx_reference(x, g, a, cc, dd),
+                           BF16_TOL if dtype == torch.bfloat16
+                           else AFFINE_FP32_TOL)
+            k_ms, p_ms = _time_pair(
+                lambda: norm.gn_bwd_dx(x, g, a, cc, dd),
+                lambda: norm.gn_bwd_dx_reference(x, g, a, cc, dd))
+            _record(out, "gn_bwd_dx", f"{shape} {model}", dtype, err, k_ms,
+                    p_ms, model_shape)
+            del x, g
+            torch.cuda.empty_cache()
+    log(f"[phase 7] ok: {len(shapes['gn'])} model shapes plus "
+        f"{len(ragged)} ragged cases match in fp32 and bf16")
+    return out
+
+
+def _rel_errs(names, got, want):
+    """max |got - want| / max |want| per gradient."""
+    import torch
+
+    errs = {}
+    for name, a, b in zip(names, got, want):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"non-finite {name}")
+        errs[name] = ((a.float() - b.float()).abs().max()
+                      / b.float().abs().max().clamp_min(1e-30)).item()
+    return errs
+
+
+def phase_autograd(seed: int, shapes):
+    """Gradients through the autograd Functions against autograd through
+    the plain composition (affine, F.conv3d, ReLU; F.group_norm), fp32 with
+    TF32 off, at the training models' shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from mdeical_image_segmentation_tpu_torch.ops import fused_conv, norm
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    worst = 0.0
+
+    def randn(shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, device=DEVICE, generator=gen) * scale + shift
+
+    def plain_gn(x, s, b, groups):
+        xc = x.permute(0, 4, 1, 2, 3)
+        return F.group_norm(xc, groups, s, b, 1e-5).permute(0, 2, 3, 4, 1)
+
+    log(f"{'block':8s} {'x shape':26s} {'Co':>4s} {'kd':>2s} "
+        f"{'dx':>9s} {'dscale':>9s} {'dbias':>9s} {'dw':>9s} "
+        f"{'kernel ms':>10s} {'plain ms':>9s}")
+    cases = [(s, co, kd) for s, co, m in shapes["gcr"] if m == "UNet3D"
+             for kd in (3, 1)]
+    for shape, co, kd in cases:
+        ci = shape[-1]
+        groups = 1 if ci < 8 else 8
+        x = randn(shape, 1.0, 0.3).requires_grad_()
+        s = randn((ci,), 0.2, 1.0).requires_grad_()
+        b = randn((ci,), 0.1).requires_grad_()
+        k = randn((kd, 3, 3, ci, co), (9 * kd * ci) ** -0.5).requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fused_conv.gcr_fused_conv(x, s, b, k, groups, 1e-5)
+        torch.cuda.synchronize()
+        k_ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            y_plain = F.relu(F.conv3d(
+                plain_gn(x, s, b, groups).permute(0, 4, 1, 2, 3),
+                k.permute(4, 3, 0, 1, 2), padding=((kd - 1) // 2, 1, 1))
+            ).permute(0, 2, 3, 4, 1)
+            # the ReLU's choice at its kink is not a gradient: zero the
+            # cotangent where either output lies within KINK·max|y| of 0
+            lim = KINK * y_plain.abs().max()
+            near = ((y > 0) & (y < lim)) | ((y_plain > 0) & (y_plain < lim))
+            w = randn(y.shape).masked_fill_(near, 0.0)
+            del y_plain
+        t0 = time.perf_counter()
+        got = torch.autograd.grad(y, (x, s, b, k), w)
+        torch.cuda.synchronize()
+        k_ms += (time.perf_counter() - t0) * 1e3
+        del y
+        t0 = time.perf_counter()
+        y = F.relu(F.conv3d(plain_gn(x, s, b, groups).permute(0, 4, 1, 2, 3),
+                            k.permute(4, 3, 0, 1, 2),
+                            padding=((kd - 1) // 2, 1, 1))
+                   ).permute(0, 2, 3, 4, 1)
+        want = torch.autograd.grad(y, (x, s, b, k), w)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        errs = _rel_errs(("dx", "dscale", "dbias", "dw"), got, want)
+        log(f"{'gcr':8s} {str(shape):26s} {co:4d} {kd:2d} {errs['dx']:9.2e} "
+            f"{errs['dscale']:9.2e} {errs['dbias']:9.2e} {errs['dw']:9.2e} "
+            f"{k_ms:10.1f} {p_ms:9.1f}  near-kink share "
+            f"{near.float().mean().item():.2e}")
+        worst = max(worst, *errs.values())
+        if max(errs.values()) > GRAD_TOL:
+            raise AssertionError(f"gcr_fused_conv {shape}->{co} kd{kd}: "
+                                 f"grads differ from the plain composition "
+                                 f"{errs} (limit {GRAD_TOL} x max |grad|)")
+        del x, s, b, k, y, w, got, want, near
+        torch.cuda.empty_cache()
+    gn_cases = [(sh, m) for sh, m in shapes["gn"]
+                if m == "ResidualUNet3D"] + [((1, 7, 13, 11, 1), "ragged"),
+                                             ((2, 6, 20, 17, 24), "ragged")]
+    for shape, model in gn_cases:
+        c = shape[-1]
+        groups = 1 if c < 8 else 8
+        mod = norm.GroupNorm(c, groups, device=DEVICE)
+        with torch.no_grad():
+            mod.weight.copy_(randn((c,), 0.2, 1.0))
+            mod.bias.copy_(randn((c,), 0.1))
+        x = randn(shape, 2.0, 1.0).requires_grad_()
+        w = randn(shape)
+        got = torch.autograd.grad(mod(x), (x, mod.weight, mod.bias), w)
+        want = torch.autograd.grad(plain_gn(x, mod.weight, mod.bias, groups),
+                                   (x, mod.weight, mod.bias), w)
+        errs = _rel_errs(("dx", "dscale", "dbias"), got, want)
+        log(f"{'GN':8s} {str(shape):26s} {'':4s} {'':2s} {errs['dx']:9.2e} "
+            f"{errs['dscale']:9.2e} {errs['dbias']:9.2e}  ({model})")
+        worst = max(worst, *errs.values())
+        if max(errs.values()) > GRAD_TOL:
+            raise AssertionError(f"GroupNorm {shape}: grads differ from "
+                                 f"F.group_norm's {errs} (limit {GRAD_TOL})")
+        del x, w, got, want
+        torch.cuda.empty_cache()
+    log(f"[phase 8] ok: {len(cases)} gcr_fused_conv and {len(gn_cases)} "
+        f"GroupNorm cases; worst gradient error {worst:.3e} of max |grad| "
+        f"(limit {GRAD_TOL}; TF32 off on both paths)")
+    return worst
+
+
+def _smooth_label(raw):
+    """A binary label with blobs: a 9-wide moving average of the volume
+    along each axis, thresholded at 0."""
+    import numpy as np
+
+    v = raw.astype(np.float64)
+    for axis in range(3):
+        c = np.cumsum(np.pad(v, [(5, 4) if a == axis else (0, 0)
+                                 for a in range(3)], mode="edge"), axis=axis)
+        n = v.shape[axis]
+        v = (np.take(c, range(9, 9 + n), axis=axis)
+             - np.take(c, range(0, n), axis=axis)) / 9.0
+    return (v > 0).astype(np.float32)
+
+
+class _PatchDataset:
+    """(raw, label) patches of in-memory volumes, channels-last (D, H, W, 1)
+    float32, as the JAX package's ToTensor(expand_dims) gives them."""
+
+    def __init__(self, raw, label, patch, stride):
+        from mdeical_image_segmentation_tpu_torch.data.slice_builder import (
+            SliceBuilder,
+        )
+
+        sb = SliceBuilder(raw, label, None, patch, stride)
+        self.raw, self.label = raw, label
+        self.slices = list(zip(sb.raw_slices, sb.label_slices))
+
+    def __len__(self):
+        return len(self.slices)
+
+    def __getitem__(self, i):
+        rs, ls = self.slices[i]
+        return self.raw[rs][..., None], self.label[ls][..., None]
+
+
+def _instrument(trainer, rec):
+    """Wrap the trainer's step: synchronised ms, launch counts, the loss
+    and (on the first step) the global grad norm."""
+    import torch
+
+    orig = trainer._train_step
+
+    def step(input, target, weight):
+        torch.cuda.synchronize()
+        before, t0 = _counts(), time.perf_counter()
+        loss, output = orig(input, target, weight)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = _counts()
+        norm2 = grads = None
+        if not rec:
+            named = [(n, p) for n, p in trainer.model.named_parameters()
+                     if p.grad is not None]
+            norm2 = torch.sqrt(sum(p.grad.double().square().sum()
+                                   for _, p in named)).item()
+            grads = {n: p.grad.detach().cpu() for n, p in named}
+        rec.append({"ms": ms, "loss": loss.item(), "grad_norm": norm2,
+                    "grads": grads,
+                    "launches": {k: after[k] - before[k] for k in after}})
+        return loss, output
+
+    trainer._train_step = step
+
+
+def _make_trainer(model_cfg, cfg, loaders, checkpoint_dir, pre_trained,
+                  **trainer_kw):
+    from mdeical_image_segmentation_tpu_torch.logging_utils import (
+        get_tensorboard_formatter,
+    )
+    from mdeical_image_segmentation_tpu_torch.losses import (
+        get_loss_criterion,
+    )
+    from mdeical_image_segmentation_tpu_torch.metrics import (
+        get_evaluation_metric,
+    )
+    from mdeical_image_segmentation_tpu_torch.models import get_model
+    from mdeical_image_segmentation_tpu_torch.train.optimizers import (
+        create_lr_scheduler,
+        create_optimizer,
+    )
+    from mdeical_image_segmentation_tpu_torch.train.trainer3d import (
+        UNetTrainer,
+    )
+
+    model = get_model(model_cfg, device=DEVICE)
+    optimizer = create_optimizer(cfg["optimizer"], model.parameters())
+    lr = cfg["optimizer"]["learning_rate"]
+    return UNetTrainer(
+        model=model, optimizer=optimizer,
+        lr_scheduler=create_lr_scheduler(cfg["lr_scheduler"], lr),
+        loss_criterion=get_loss_criterion(cfg),
+        eval_criterion=get_evaluation_metric(cfg), loaders=loaders,
+        checkpoint_dir=checkpoint_dir, base_lr=lr, seed=SEED,
+        tensorboard_formatter=get_tensorboard_formatter(None),
+        pre_trained=pre_trained, max_num_epochs=100,
+        **{**{k: v for k, v in cfg["trainer"].items()
+              if k == "eval_score_higher_is_better"}, **trainer_kw})
+
+
+def _initial_checkpoint(model_cfg, seed, workdir, name):
+    """Random weights from a seeded generator, written with the port's
+    save_checkpoint: the trainers' ``pre_trained``."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.models import get_model
+    from mdeical_image_segmentation_tpu_torch.train import save_checkpoint
+    from mdeical_image_segmentation_tpu_torch.utils.param_bridge import (
+        state_dict_to_flax,
+    )
+
+    model = get_model(model_cfg, generator=torch.Generator().manual_seed(seed))
+    return save_checkpoint(
+        {"model_state_dict": state_dict_to_flax(model.state_dict()),
+         "best_eval_score": 0.0, "num_iterations": 0},
+        False, os.path.join(workdir, name))
+
+
+def _compare_runs(name, rec, plain_rec, steps):
+    """Losses of the first ``steps`` steps, the global grad norm after step
+    1 and each parameter's step-1 gradient, kernel path vs plain path."""
+    bad = []
+    for i in range(steps):
+        k, p = rec[i]["loss"], plain_rec[i]["loss"]
+        rel = abs(k - p) / abs(p)
+        log(f"  step {i + 1}: loss kernel {k:.7f} plain {p:.7f} (rel "
+            f"{rel:.2e}, limit {LOSS_TOLS[i]}); ms kernel "
+            f"{rec[i]['ms']:.1f} plain {plain_rec[i]['ms']:.1f}")
+        if rel > LOSS_TOLS[i]:
+            bad.append(f"step {i + 1} loss {rel:.2e}")
+    gk, gp = rec[0]["grad_norm"], plain_rec[0]["grad_norm"]
+    norm_err = abs(gk - gp) / gp
+    log(f"  global grad norm after step 1: kernel {gk:.7e} plain {gp:.7e} "
+        f"(rel {norm_err:.2e}, limit {GRAD_NORM_TOL})")
+    per_param = sorted(
+        ((float((g - plain_rec[0]["grads"][n]).abs().max()
+                / plain_rec[0]["grads"][n].abs().max().clamp_min(1e-30)), n)
+         for n, g in rec[0]["grads"].items()), reverse=True)
+    log(f"  step-1 gradients, max |kernel - plain| / max |plain| per "
+        f"parameter, worst 4 of {len(per_param)}: "
+        + ", ".join(f"{n} {e:.2e}" for e, n in per_param[:4]))
+    if norm_err > GRAD_NORM_TOL:
+        bad.append(f"grad norm {norm_err:.2e}")
+    if bad:
+        raise AssertionError(f"{name}, kernel path vs plain path: "
+                             f"{'; '.join(bad)} beyond the limits")
+
+
+def phase_train_unet3d(seed: int, workdir: str):
+    """UNet3D of configs/unet3d_train.yml at full width through
+    UNetTrainer.fit(); returns the main-path launches."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.data.loaders import VolumeLoader
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _read_yaml_subset(TRAIN_YML)
+    model_cfg = cfg["model"]
+    train_sb = cfg["loaders"]["train"]["slice_builder"]
+    val_sb = cfg["loaders"]["val"]["slice_builder"]
+    log(f"[phase 9] model {model_cfg}; loss {cfg['loss']}; eval_metric "
+        f"{cfg['eval_metric']}; optimizer {cfg['optimizer']}; lr_scheduler "
+        f"{cfg['lr_scheduler']}; batch {cfg['loaders']['batch_size']}; "
+        f"patch {train_sb['patch_shape']}, train stride "
+        f"{train_sb['stride_shape']}; fp32, TF32 off")
+    raw = _volume(TRAIN_VOLUME, seed + 2)
+    val_raw = _volume(VAL_VOLUME, seed + 3)
+    train_ds = _PatchDataset(raw, _smooth_label(raw),
+                             train_sb["patch_shape"], train_sb["stride_shape"])
+    val_ds = _PatchDataset(val_raw, _smooth_label(val_raw),
+                           val_sb["patch_shape"], val_sb["stride_shape"])
+    log(f"  {len(train_ds)} train patches of a {TRAIN_VOLUME} volume, "
+        f"{len(val_ds)} val patches of {VAL_VOLUME}; label share "
+        f"{train_ds.label.mean():.3f}")
+    bs = cfg["loaders"]["batch_size"]
+
+    def loaders():
+        return {"train": VolumeLoader(train_ds, bs, shuffle=True, seed=seed,
+                                      drop_last=True),
+                "val": VolumeLoader(val_ds, bs)}
+
+    ckpt0 = _initial_checkpoint(model_cfg, seed, workdir, "unet3d_init")
+    run_dir = os.path.join(workdir, "unet3d_train")
+    trainer = _make_trainer(model_cfg, cfg, loaders(), run_dir, ckpt0,
+                            max_num_iterations=6, validate_after_iters=3,
+                            log_after_iters=2)
+    rec = []
+    _instrument(trainer, rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # two SingleConvs per encoder and decoder, 14 at 4 levels; the first
+    # one's input (the image) needs no gradient, so 3d runs one time less
+    convs = 2 * (2 * model_cfg["num_levels"] - 1)
+    want = {"gcr_conv3d": convs, "gn_stats": convs, "gn_affine": convs,
+            "gn_bwd_reduce": convs, "gn_bwd_dx": convs - 1, "overlap_add": 0}
+    for i, r in enumerate(rec):
+        log(f"  step {i + 1}: {r['ms']:.1f} ms, loss {r['loss']:.6f}, "
+            f"launches {r['launches']}")
+        if r["launches"] != want or not np.isfinite(r["loss"]):
+            raise AssertionError(f"step {i + 1}: {r}, want launches {want} "
+                                 "and a finite loss")
+    last = os.path.join(run_dir, "last_checkpoint.msgpack")
+    best = os.path.join(run_dir, "best_checkpoint.msgpack")
+    if not (os.path.exists(last) and os.path.exists(best)):
+        raise AssertionError("the last and best checkpoints were not written")
+    if trainer.num_iterations != 7 or len(rec) != 7:
+        raise AssertionError(f"{len(rec)} steps, iteration "
+                             f"{trainer.num_iterations}: want 7 and 7")
+    steady = statistics.median(r["ms"] for r in rec[1:])
+    log(f"  fit: {len(rec)} steps + 2 validations in {wall:.2f} s; step "
+        f"median {steady:.1f} ms (first {rec[0]['ms']:.1f}); peak memory "
+        f"{peak:.2f} GiB; best score {trainer.best_eval_score:.4f}; "
+        f"launches {launches}")
+
+    # the same first three steps from the same weights on the plain path
+    with _plain_path():
+        plain = _make_trainer(model_cfg, cfg, loaders(),
+                              os.path.join(workdir, "unet3d_plain"), ckpt0,
+                              max_num_iterations=2, validate_after_iters=1000,
+                              log_after_iters=1000)
+        plain_rec = []
+        _instrument(plain, plain_rec)
+        torch.cuda.reset_peak_memory_stats()
+        plain.fit()
+        plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    del plain
+    torch.cuda.empty_cache()
+    _compare_runs("UNet3D", rec, plain_rec, 3)
+    plain_steady = statistics.median(r["ms"] for r in plain_rec[1:])
+    log(f"  plain path: step median {plain_steady:.1f} ms, peak memory "
+        f"{plain_peak:.2f} GiB")
+
+    # resume from the last checkpoint (saved at iteration 6) for one step
+    resumed = _make_trainer(model_cfg, cfg, loaders(), run_dir, None,
+                            resume=last, max_num_iterations=5,
+                            validate_after_iters=1000, log_after_iters=1000)
+    if resumed.num_iterations != 6:
+        raise AssertionError(f"resumed at iteration {resumed.num_iterations}"
+                             ", want 6")
+    res_rec = []
+    _instrument(resumed, res_rec)
+    resumed.fit()
+    p0 = next(resumed.model.parameters())
+    adam_step = int(resumed.optimizer.state[p0]["step"])
+    log(f"  resume: iteration 6 -> {resumed.num_iterations}, one step, loss "
+        f"{res_rec[0]['loss']:.6f}, Adam step {adam_step}")
+    if (len(res_rec) != 1 or adam_step != 7
+            or not np.isfinite(res_rec[0]["loss"])):
+        raise AssertionError(f"resume took {len(res_rec)} steps, Adam step "
+                             f"{adam_step}: want 1 step and Adam step 7")
+    del trainer, resumed
+    torch.cuda.empty_cache()
+    return launches, steady, plain_steady, peak
+
+
+def phase_train_residual(seed: int, workdir: str):
+    """ResidualUNet3D f_maps 32, 5 levels at 64x128x128 for two steps, with
+    its loss and grad norm against the plain path: the GroupNorm module's
+    Function (3a/3b forward, 3c/3d backward) beside the fused one."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.data.loaders import VolumeLoader
+
+    cfg = _read_yaml_subset(TRAIN_YML)
+    raw = _volume((64, 128, 256), seed + 4)
+    ds = _PatchDataset(raw, _smooth_label(raw), RESIDUAL_PATCH,
+                       RESIDUAL_PATCH)
+
+    def loaders():
+        return {"train": VolumeLoader(ds, 1, shuffle=True, seed=seed,
+                                      drop_last=True),
+                "val": VolumeLoader(ds, 1)}
+
+    ckpt0 = _initial_checkpoint(RESIDUAL_TRAIN, seed + 1, workdir,
+                                "residual_init")
+    kw = dict(max_num_iterations=1, validate_after_iters=1000,
+              log_after_iters=1000)
+    trainer = _make_trainer(RESIDUAL_TRAIN, cfg, loaders(),
+                            os.path.join(workdir, "residual"), ckpt0, **kw)
+    rec = []
+    _instrument(trainer, rec)
+    _zero_counts()
+    trainer.fit()
+    launches = _counts()
+    blocks = 2 * RESIDUAL_TRAIN["num_levels"] - 1
+    want = {"gcr_conv3d": blocks, "gn_stats": 2 * blocks,
+            "gn_affine": 2 * blocks, "gn_bwd_reduce": 2 * blocks,
+            "gn_bwd_dx": 2 * blocks, "overlap_add": 0}
+    for i, r in enumerate(rec):
+        log(f"  step {i + 1}: {r['ms']:.1f} ms, loss {r['loss']:.6f}, "
+            f"launches {r['launches']}")
+        if r["launches"] != want or not np.isfinite(r["loss"]):
+            raise AssertionError(f"step {i + 1}: {r}, want {want}")
+    with _plain_path():
+        plain = _make_trainer(RESIDUAL_TRAIN, cfg, loaders(),
+                              os.path.join(workdir, "residual_plain"), ckpt0,
+                              **kw)
+        plain_rec = []
+        _instrument(plain, plain_rec)
+        plain.fit()
+    _compare_runs("ResidualUNet3D", rec, plain_rec, 2)
+    del trainer, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -984,22 +1599,59 @@ def main() -> int:
     t_phase = time.time()
     k3d = phase_kernels_3d(SEED, shapes)
     log(f"[phase 6] wall {time.time() - t_phase:.1f} s")
+
+    t_phase = time.time()
+    train_shapes = _training_shapes(SEED)
+    log(f"[phase 7] GroupNorm backward kernels at the training shapes: "
+        f"{len(train_shapes['gn'])} GroupNorm inputs of UNet3D (80x170x170) "
+        f"and ResidualUNet3D (64x128x128)")
+    k3d.update(phase_gn_backward_kernels(SEED, train_shapes))
+    log(f"[phase 7] wall {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    log("[phase 8] gradients through gcr_fused_conv and GroupNorm vs "
+        "autograd through the plain composition (TF32 off)")
+    grad_err = phase_autograd(SEED, train_shapes)
+    log(f"[phase 8] wall {time.time() - t_phase:.1f} s")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=build_dir)
+    try:
+        t_phase = time.time()
+        train_launches, step_ms, plain_step_ms, peak = phase_train_unet3d(
+            SEED, workdir)
+        log(f"[phase 9] UNet3D training ok; wall {time.time() - t_phase:.1f}"
+            " s")
+        t_phase = time.time()
+        log("[phase 10] ResidualUNet3D f_maps 32, 5 levels, 64x128x128, two "
+            "steps")
+        res_train_launches = phase_train_residual(SEED, workdir)
+        log(f"[phase 10] ResidualUNet3D training ok; wall "
+            f"{time.time() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
     # launches of each kernel over the main-path runs it belongs to (each
     # run zeroes the counts just before and reads them just after)
-    launches_3d = {k: unet3d_launches[k] + res_launches[k]
-                   + serve3d_launches[k] for k in KERNELS_3D}
+    runs = (unet3d_launches, res_launches, serve3d_launches, train_launches,
+            res_train_launches)
+    launches_3d = {k: sum(r[k] for r in runs) for k in KERNELS_3D}
     for k, n in launches_3d.items():
         if n == 0:
             raise AssertionError(f"{k} was never launched on the main path")
     log(f"3D main-path launches: UNet3D predictor {unet3d_launches}, "
         f"ResidualUNet3D predictor {res_launches}, 3D serving "
-        f"{serve3d_launches}; averaged-map errors {unet3d_err:.3e} (UNet3D), "
-        f"{res_err:.3e} (ResidualUNet3D)")
+        f"{serve3d_launches}, UNet3D training {train_launches}, "
+        f"ResidualUNet3D training {res_train_launches}; averaged-map errors "
+        f"{unet3d_err:.3e} (UNet3D), {res_err:.3e} (ResidualUNet3D); worst "
+        f"autograd gradient error {grad_err:.3e}; UNet3D train step "
+        f"{step_ms:.1f} ms kernel path, {plain_step_ms:.1f} ms plain path, "
+        f"peak {peak:.2f} GiB")
 
     sources = {"gcr_conv3d": "gcr_conv3d.cu", "gn_stats": "group_norm.cu",
-               "gn_affine": "group_norm.cu", "overlap_add": "overlap_add.cu"}
+               "gn_affine": "group_norm.cu", "gn_bwd_reduce": "group_norm.cu",
+               "gn_bwd_dx": "group_norm.cu", "overlap_add": "overlap_add.cu"}
     replaces = {"gcr_conv3d": "ops/fused_conv.py:244",
                 "gn_stats": "ops/norm.py:360", "gn_affine": "ops/norm.py:375",
+                "gn_bwd_reduce": "ops/norm.py:382",
+                "gn_bwd_dx": "ops/norm.py:399",
                 "overlap_add": "ops/overlap.py:100"}
     kernels = [{
         "name": "double_conv2d",

@@ -7,7 +7,8 @@ The order string composes a conv layer out of:
     g = GroupNorm (groups clamp to 1 when the channels are fewer; it
         normalizes the in- or out-channels by its place relative to 'c')
     r = ReLU  l = LeakyReLU  e = ELU
-    d, D = dropout (identity: the port runs inference only so far)
+    d = dropout  D = channel dropout (whole (sample, channel) feature maps,
+        torch Dropout3d), active in training mode only
     b = BatchNorm (not ported yet: ROADMAP item 16)
 
 Blocks: ``SingleConv``, ``DoubleConv`` (the encoder halves the channels of
@@ -29,6 +30,14 @@ fused path, as in the JAX package: the GroupNorm statistics kernel and the
 fused GroupNorm-apply + conv3d + ReLU kernel (``ops/fused_conv.py``), the
 normalized tensor never stored.  Every other order with 'g' runs the
 ``GroupNorm`` module (statistics and affine kernels) and then ``TorchConv``.
+Both are autograd Functions whose backward runs the GroupNorm backward
+kernels.
+
+``module.train()`` takes the place of the JAX package's ``train`` flag.  As
+that flag defaults to False, ``SingleConv`` (and the models of
+``unet3d.py``) start in eval mode.  Dropout draws its masks from the
+generator that ``set_dropout_generator`` gives it (the global generator
+until then).
 """
 
 from __future__ import annotations
@@ -64,13 +73,47 @@ def reset_tree(module: nn.Module, generator: torch.Generator) -> None:
             reset_tree(child, generator)
 
 
+class Dropout(nn.Module):
+    """flax ``nn.Dropout`` in training mode: keep each element with
+    probability 1 − p and scale it by 1 / (1 − p); ``channel=True`` draws one
+    keep per (sample, channel) and broadcasts it over the spatial dims.  The
+    identity in eval mode, which it starts in."""
+
+    def __init__(self, p: float, channel: bool = False):
+        super().__init__()
+        self.p = float(p)
+        self.channel = channel
+        self.generator: Optional[torch.Generator] = None
+        self.train(False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p >= 1.0:
+            return torch.zeros_like(x)
+        shape = ((x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+                 if self.channel else x.shape)
+        keep = torch.rand(shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return x * keep / (1.0 - self.p)
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Make every ``Dropout`` of ``model`` draw from ``generator`` (on the
+    device of the activations)."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 class SingleConv(nn.Module):
     """Order-string conv layer (reference SingleConv)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: IntOrTuple = 3, order: str = "gcr",
-                 num_groups: int = 8, padding: IntOrTuple = 1, *,
-                 device=None):
+                 num_groups: int = 8, padding: IntOrTuple = 1,
+                 dropout_prob: float = 0.1, *, device=None):
         super().__init__()
         if "c" not in order:
             raise ValueError("Conv layer MUST be present")
@@ -106,8 +149,13 @@ class SingleConv(nn.Module):
                         f"num_groups={groups}")
                 self.GroupNorm_0 = GroupNorm(channels, groups, 1e-5,
                                              device=device)
+            elif char == "d":
+                self.dropout = Dropout(dropout_prob)
+            elif char == "D":
+                self.channel_dropout = Dropout(dropout_prob, channel=True)
         # the fused path: GN statistics kernel + fused GN-apply/conv/ReLU
         self.fused = order == "gcr" and ks == (3, 3, 3)
+        self.train(False)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         reset_tree(self, generator)
@@ -129,28 +177,39 @@ class SingleConv(nn.Module):
                 x = self.TorchConv_0(x)
             elif char == "g":
                 x = self.GroupNorm_0(x)
+            elif char == "d":
+                x = self.dropout(x)
+            elif char == "D":
+                x = self.channel_dropout(x)
         return x
 
 
 class DoubleConv(nn.Module):
     """Two SingleConvs; the encoder halves the channels of conv1 (unless
-    upscale == 1, never below in_channels)."""
+    upscale == 1, never below in_channels).  ``dropout_prob`` is one rate
+    or a (conv1, conv2) pair."""
 
     def __init__(self, in_channels: int, out_channels: int, encoder: bool,
                  kernel_size: IntOrTuple = 3, order: str = "gcr",
                  num_groups: int = 8, padding: IntOrTuple = 1,
-                 upscale: int = 2, *, device=None):
+                 upscale: int = 2,
+                 dropout_prob: Union[float, Sequence[float]] = 0.1, *,
+                 device=None):
         super().__init__()
+        if isinstance(dropout_prob, (list, tuple)):
+            p1, p2 = dropout_prob
+        else:
+            p1 = p2 = dropout_prob
         if encoder:
             conv1_out = out_channels if upscale == 1 else out_channels // 2
             conv1_out = max(conv1_out, in_channels)
         else:
             conv1_out = out_channels
         self.SingleConv1 = SingleConv(in_channels, conv1_out, kernel_size,
-                                      order, num_groups, padding,
+                                      order, num_groups, padding, p1,
                                       device=device)
         self.SingleConv2 = SingleConv(conv1_out, out_channels, kernel_size,
-                                      order, num_groups, padding,
+                                      order, num_groups, padding, p2,
                                       device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -200,11 +259,12 @@ class ResNetBlock(nn.Module):
 def _make_basic_module(basic_module: str, in_channels: int,
                        out_channels: int, *, encoder: bool,
                        kernel_size: IntOrTuple, order: str, num_groups: int,
-                       padding: IntOrTuple, upscale: int,
+                       padding: IntOrTuple, upscale: int, dropout_prob,
                        device) -> nn.Module:
     if basic_module == "DoubleConv":
         return DoubleConv(in_channels, out_channels, encoder, kernel_size,
-                          order, num_groups, padding, upscale, device=device)
+                          order, num_groups, padding, upscale, dropout_prob,
+                          device=device)
     if basic_module == "ResNetBlock":
         return ResNetBlock(in_channels, out_channels, kernel_size, order,
                            num_groups, device=device)
@@ -221,7 +281,8 @@ class Encoder(nn.Module):
                  pool_kernel_size: IntOrTuple = 2, pool_type: str = "max",
                  basic_module: str = "DoubleConv",
                  conv_layer_order: str = "gcr", num_groups: int = 8,
-                 padding: IntOrTuple = 1, upscale: int = 2, *,
+                 padding: IntOrTuple = 1, upscale: int = 2,
+                 dropout_prob: Union[float, Sequence[float]] = 0.1, *,
                  device=None):
         super().__init__()
         if pool_type not in ("max", "avg"):
@@ -233,7 +294,7 @@ class Encoder(nn.Module):
             basic_module, in_channels, out_channels, encoder=True,
             kernel_size=conv_kernel_size, order=conv_layer_order,
             num_groups=num_groups, padding=padding, upscale=upscale,
-            device=device)
+            dropout_prob=dropout_prob, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         reset_tree(self, generator)
@@ -272,7 +333,8 @@ class Decoder(nn.Module):
                  basic_module: str = "DoubleConv",
                  conv_layer_order: str = "gcr", num_groups: int = 8,
                  padding: IntOrTuple = 1, upsample: Optional[str] = "default",
-                 *, device=None):
+                 dropout_prob: Union[float, Sequence[float]] = 0.1, *,
+                 device=None):
         super().__init__()
         if upsample is None or upsample == "none":
             mode, concat = None, True
@@ -298,7 +360,7 @@ class Decoder(nn.Module):
             basic_module, block_in, out_channels, encoder=False,
             kernel_size=conv_kernel_size, order=conv_layer_order,
             num_groups=num_groups, padding=padding, upscale=2,
-            device=device)
+            dropout_prob=dropout_prob, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         reset_tree(self, generator)

@@ -5,10 +5,11 @@
 whose features are kept in reverse as skips, the decoders zipped with them,
 and a 1x1x1 final conv.  As in the JAX package (and its reference), the
 final sigmoid/softmax is built but not applied: ``forward`` returns fp32
-logits and ``final_activation()`` gives the activation for the predictor or
-server to apply.  ``ResidualUNetSE3D``, ``UNet2D`` and ``ResidualUNet2D``
-are registered names that raise ``NotImplementedError`` (ROADMAP.md queue
-1, item 16).
+logits and ``final_activation()`` gives the activation for the predictor,
+trainer or server to apply.  A model starts in eval mode (the JAX package's
+``train=False`` default); ``model.train()`` turns its dropout on.
+``ResidualUNetSE3D``, ``UNet2D`` and ``ResidualUNet2D`` are registered names
+that raise ``NotImplementedError`` (ROADMAP.md queue 1, item 16).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ class AbstractUNet(nn.Module):
                  pool_kernel_size: Union[int, Sequence[int]] = 2,
                  conv_padding: Union[int, Sequence[int]] = 1,
                  conv_upscale: int = 2, upsample: Optional[str] = "default",
+                 dropout_prob: Union[float, Sequence[float]] = 0.1,
                  *, device=None):
         super().__init__()
         self.in_channels = in_channels
@@ -63,7 +65,8 @@ class AbstractUNet(nn.Module):
             raise ValueError("Required at least 2 levels in the U-Net")
         self.f_maps = f_maps
         common = dict(conv_layer_order=layer_order, num_groups=num_groups,
-                      padding=conv_padding, device=device)
+                      padding=conv_padding, dropout_prob=dropout_prob,
+                      device=device)
         c = in_channels
         for i, feats in enumerate(f_maps):
             setattr(self, f"encoder{i}", Encoder(
@@ -79,6 +82,7 @@ class AbstractUNet(nn.Module):
                 basic_module=self.basic_module, upsample=upsample, **common))
             c = rev[i + 1]
         self.final_conv = TorchConv(c, out_channels, (1, 1, 1), device=device)
+        self.train(False)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """PyTorch's default conv init for every conv (GroupNorm to ones and
@@ -135,17 +139,17 @@ _MODEL_FIELDS = {
     "in_channels", "out_channels", "final_sigmoid", "f_maps", "layer_order",
     "num_groups", "num_levels", "is_segmentation", "conv_kernel_size",
     "pool_kernel_size", "conv_padding", "conv_upscale", "upsample",
+    "dropout_prob",
 }
 
 
 def get_model(model_config: Mapping[str, Any], *, device=None,
               generator: Optional[torch.Generator] = None) -> AbstractUNet:
     """Name-dispatched model construction from a config's ``model`` section
-    (keys the port does not use, such as the training-only ``remat``, are
-    dropped as in the JAX package; a reduced-precision ``dtype`` raises, as
-    bf16 compute comes with 3D training).  Parameters are drawn from
-    ``generator`` when one is given, else left uninitialized for a
-    ``load_state_dict``."""
+    (keys the port does not use, such as the TPU-only ``remat``, are
+    dropped; a reduced-precision ``dtype`` raises: the 3D models compute in
+    fp32 so far).  Parameters are drawn from ``generator`` when one is
+    given, else left uninitialized for a ``load_state_dict``."""
     cfg: Dict[str, Any] = dict(model_config)
     cls = MODELS_3D.get(cfg.pop("name"))
     dtype = cfg.get("dtype")

@@ -115,6 +115,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         "tpuseg_gn_stats": [p] * 4 + [i, q, i, i, i, i, p],
         # x, a, b, y, N, S, C, G, dtype, device, stream
         "tpuseg_gn_affine": [p] * 4 + [i, q, i, i, i, i, p],
+        # x, g, mean, inv, partial, c1, c2, N, S, C, G, dtype, device, stream
+        "tpuseg_gn_bwd_reduce": [p] * 7 + [i, q, i, i, i, i, p],
+        # x, g, A, C, D, dx, N, S, C, G, dtype, device, stream
+        "tpuseg_gn_bwd_dx": [p] * 6 + [i, q, i, i, i, i, p],
         # x, w, a, b, y, N, D, H, W, Ci, Co, KD, pre_relu, post_relu, dtype,
         # device, stream
         "tpuseg_gcr_conv3d_forward": [p] * 5 + [i] * 11 + [p],

@@ -25,9 +25,19 @@ normalized tensor never reaches device memory::
 
 stride 1, torch padding ``((kd-1)//2, 1, 1)`` of the NORMALIZED tensor, no
 bias, NDHWC activations and (kd, 3, 3, Ci, Co) weights, a and b (N, Ci)
-fp32.  ``gcr_fused_conv`` composes it with the GroupNorm statistics kernel
-(``ops/norm.py``).  Same dispatch rule and ``.launches`` count.  Forward
-only: a CUDA call that autograd would need to differentiate raises.
+fp32.  Same dispatch rule and ``.launches`` count.
+
+``gcr_fused_conv`` is the counterpart of the JAX package's custom-VJP
+``gcr_fused_conv`` (``_gcr_fwd`` / ``_gcr_bwd``), a
+``torch.autograd.Function``.  Forward: the GroupNorm statistics kernel, the
+(N, C) affine coefficients, ``fused_conv3d`` with the ReLU.  Backward: the
+ReLU mask from the saved output; the normalized input recomputed by the
+GroupNorm affine kernel (rounded to x's dtype, as the forward rounds it);
+the conv's input and weight gradients from the library convolution backward
+(cuDNN on the card), as the JAX package takes them from XLA outside any
+Pallas kernel; then the GroupNorm backward kernels (``ops/norm.py``).  The
+raw wrappers stay forward only: called directly on a tensor that autograd
+would have to differentiate, the CUDA path raises.
 """
 
 from __future__ import annotations
@@ -37,8 +47,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
-from .norm import group_norm_coeffs
+from . import _build, norm
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -164,8 +173,10 @@ def _check3d(x, kernel, pre_scale, pre_shift):
         raise ValueError("fused_conv3d needs a non-empty x")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, kernel, pre_scale, pre_shift)):
-        raise RuntimeError("fused_conv3d: the CUDA kernel has no backward "
-                           "yet; run it under torch.no_grad/inference_mode")
+        raise RuntimeError(
+            "fused_conv3d: the raw kernel wrapper has no backward; train "
+            "through gcr_fused_conv (an autograd Function), or call it under "
+            "torch.no_grad/inference_mode")
 
 
 def fused_conv3d(
@@ -200,11 +211,63 @@ def fused_conv3d(
 fused_conv3d.launches = 0
 
 
+def _conv3d_backward(gy: torch.Tensor, x_aff: torch.Tensor,
+                     kernel: torch.Tensor, need_dx: bool, need_dw: bool
+                     ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Input and weight gradients of the stride-1 'SAME' conv3d of
+    channels-last ``x_aff`` with a (kd, 3, 3, Ci, Co) kernel, from the
+    library convolution backward; returned channels-last and DHWIO."""
+    kd = kernel.shape[0]
+    dxa, dw, _ = torch.ops.aten.convolution_backward(
+        gy.permute(0, 4, 1, 2, 3), x_aff.permute(0, 4, 1, 2, 3),
+        kernel.permute(4, 3, 0, 1, 2), None, [1, 1, 1],
+        [(kd - 1) // 2, 1, 1], [1, 1, 1], False, [0, 0, 0], 1,
+        [need_dx, need_dw, False])
+    if dxa is not None:
+        dxa = dxa.permute(0, 2, 3, 4, 1).contiguous()
+    if dw is not None:
+        dw = dw.permute(2, 3, 4, 1, 0)
+    return dxa, dw
+
+
+class _GcrFusedConvFn(torch.autograd.Function):
+    """relu(conv3d(group_norm(x))) with the JAX package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, x, gn_scale, gn_bias, kernel, num_groups, eps):
+        mean_c, inv_c = norm.group_norm_stats(x, num_groups, eps)
+        a, b = norm.gn_affine_coeffs(mean_c, inv_c, gn_scale, gn_bias)
+        y = fused_conv3d(x, kernel, a, b, post_relu=True)
+        ctx.save_for_backward(x, mean_c, inv_c, gn_scale, gn_bias, kernel, y)
+        ctx.num_groups = num_groups
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean_c, inv_c, gn_scale, gn_bias, kernel, y = ctx.saved_tensors
+        need_x, need_s, need_b, need_w = ctx.needs_input_grad[:4]
+        need_gn = need_x or need_s or need_b
+        gm = g * (y > 0).to(g.dtype)
+        # the exact forward operand: the affine rounded to x's dtype, the
+        # padding frame zero after it (the conv pads x_aff itself)
+        a, b = norm.gn_affine_coeffs(mean_c, inv_c, gn_scale, gn_bias)
+        x_aff = norm.gn_affine(x, a, b)
+        dxa, dw = _conv3d_backward(gm.to(x.dtype), x_aff, kernel, need_gn,
+                                   need_w)
+        del x_aff
+        dx = dscale = dbias = None
+        if need_gn:
+            dx, dscale, dbias = norm.group_norm_backward(
+                x, dxa, mean_c, inv_c, gn_scale, ctx.num_groups, need_x)
+        return dx, dscale, dbias, dw, None, None
+
+
 def gcr_fused_conv(x: torch.Tensor, gn_scale: torch.Tensor,
                    gn_bias: torch.Tensor, kernel: torch.Tensor,
                    num_groups: int, eps: float) -> torch.Tensor:
-    """``relu(conv3d(group_norm(x)))``, the SingleConv('gcr') forward: the
-    GroupNorm statistics kernel, the (N, C) coefficient algebra, then
-    :func:`fused_conv3d` (the normalized tensor is never stored)."""
-    a, b = group_norm_coeffs(x, gn_scale, gn_bias, num_groups, eps)
-    return fused_conv3d(x, kernel, a, b, post_relu=True)
+    """``relu(conv3d(group_norm(x)))``, the SingleConv('gcr') block, on a
+    contiguous x: the GroupNorm statistics kernel, the (N, C) coefficient
+    algebra, then :func:`fused_conv3d` (the normalized tensor is never
+    stored).  Differentiable in x, the GroupNorm parameters and the kernel."""
+    return _GcrFusedConvFn.apply(x, gn_scale, gn_bias, kernel, num_groups,
+                                 eps)

@@ -118,3 +118,60 @@ def test_kernel_checks_run_before_any_launch():
         fused_conv._check3d(x.transpose(2, 3), k, a, a)
     with pytest.raises(RuntimeError, match="no backward"):
         fused_conv._check3d(x, k.requires_grad_(), a, a)
+
+
+@pytest.mark.parametrize("kd", [1, 3])
+@pytest.mark.parametrize("ci,groups", [(1, 1), (3, 1), (8, 8), (12, 4),
+                                       (16, 8)])
+def test_gcr_fused_conv_grads_match_jax_vjp(kd, ci, groups):
+    """``gcr_fused_conv`` as an autograd Function: (dx, dscale, dbias, dw)
+    against ``jax.vjp`` of the JAX package's custom-VJP ``gcr_fused_conv``
+    in interpret mode (the oracle of its own
+    test_gcr_block_gradients_match_unfused), fp32 within 1e-4 of each
+    gradient's max |value| (dscale, dbias and dw sum the whole volume)."""
+    import jax
+
+    arrays = _inputs(2, 4, 8, 6, ci, 8, kd, seed=10 * kd + ci + groups)
+    x, k = arrays[0], arrays[1]
+    rng = np.random.default_rng(ci * groups)
+    scale = (1 + 0.2 * rng.standard_normal(ci)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(ci)).astype(np.float32)
+    g = rng.standard_normal((2, 4, 8, 6, 8)).astype(np.float32)
+    y_jax, vjp = jax.vjp(
+        lambda a, s, b, w: jax_fc.gcr_fused_conv(a, s, b, w, groups, 1e-5,
+                                                 True),
+        *(jnp.asarray(v) for v in (x, scale, bias, k)))
+    want = vjp(jnp.asarray(g))
+    tx, ts, tb, tk = (torch.from_numpy(v).requires_grad_()
+                      for v in (x, scale, bias, k))
+    y = fused_conv.gcr_fused_conv(tx, ts, tb, tk, groups, 1e-5)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_jax),
+                               rtol=FP32_TOL, atol=FP32_TOL)
+    got = torch.autograd.grad(y, (tx, ts, tb, tk), torch.from_numpy(g))
+    for name, a, b in zip(("dx", "dscale", "dbias", "dw"), got, want):
+        b = np.asarray(b)
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-4 * np.abs(b).max(), err_msg=name)
+
+
+def test_gcr_fused_conv_input_grad_only_where_needed():
+    """The image needs no gradient: the GroupNorm parameters and the kernel
+    get theirs, and the dx pass (kernel 3d) does not run."""
+    from mdeical_image_segmentation_tpu_torch.ops import norm
+
+    x, k, _, _ = _inputs(1, 3, 8, 6, 1, 4, 3, seed=4)
+    s = torch.ones(1, requires_grad=True)
+    b = torch.zeros(1, requires_grad=True)
+    tk = torch.from_numpy(k).requires_grad_()
+    calls = []
+    orig = norm.gn_bwd_dx
+    norm.gn_bwd_dx = lambda *a: calls.append(1) or orig(*a)
+    try:
+        fused_conv.gcr_fused_conv(torch.from_numpy(x), s, b, tk, 1,
+                                  1e-5).sum().backward()
+    finally:
+        norm.gn_bwd_dx = orig
+    assert calls == []
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (s, b, tk))

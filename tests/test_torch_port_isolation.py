@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of
-``mdeical_image_segmentation_tpu_torch`` pulls in none of jax, flax, msgpack
-or PIL (the machine with the card has none of them), and its kernels are
-built for Hopper (sm_90a) by nvcc at first use, never at import."""
+``mdeical_image_segmentation_tpu_torch`` pulls in none of jax, flax, optax,
+msgpack, PIL, h5py or yaml (the machine with the card has none of them),
+and its kernels are built for Hopper (sm_90a) by nvcc at first use, never at
+import."""
 
 import os
 import pkgutil
@@ -15,7 +16,7 @@ import mdeical_image_segmentation_tpu_torch as port
 from mdeical_image_segmentation_tpu_torch.ops import _build, fused_conv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "msgpack", "PIL")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "PIL", "h5py", "yaml")
 
 
 def _port_modules():
@@ -73,8 +74,10 @@ def test_kernel_source_has_the_c_entry_points():
 
 
 @pytest.mark.parametrize("source,entry_points,replaces", [
-    ("group_norm.cu", ("tpuseg_gn_stats", "tpuseg_gn_affine"),
-     ("_stats_kernel", "_affine_kernel")),
+    ("group_norm.cu", ("tpuseg_gn_stats", "tpuseg_gn_affine",
+                       "tpuseg_gn_bwd_reduce", "tpuseg_gn_bwd_dx"),
+     ("_stats_kernel", "_affine_kernel", "_bwd_reduce_kernel",
+      "_bwd_dx_kernel")),
     ("gcr_conv3d.cu", ("tpuseg_gcr_conv3d_forward",), ("_gcr_kernel",)),
     ("overlap_add.cu", ("tpuseg_overlap_add",), ("_overlap_kernel",)),
 ])
@@ -94,11 +97,12 @@ def test_wrappers_keep_launch_counters_and_plain_versions():
     from mdeical_image_segmentation_tpu_torch.ops import norm, overlap
 
     for fn in (fused_conv.fused_double2d, fused_conv.fused_conv3d,
-               norm.gn_channel_sums, norm.gn_affine,
-               overlap.overlap_add_into):
+               norm.gn_channel_sums, norm.gn_affine, norm.gn_bwd_reduce,
+               norm.gn_bwd_dx, overlap.overlap_add_into):
         assert isinstance(fn.launches, int)
     for plain in (fused_conv.fused_conv3d_reference,
                   norm.gn_channel_sums_reference, norm.gn_affine_reference,
+                  norm.gn_bwd_reduce_reference, norm.gn_bwd_dx_reference,
                   overlap.overlap_add_into_reference):
         assert callable(plain)
 

@@ -156,3 +156,166 @@ def test_stats_grid_bounds_work_and_scratch(rows, c):
     lanes = 256 // min(c, 256)
     assert g >= 1 and g * c <= max(norm._MAX_PARTIALS, c)
     assert -(-rows // (g * lanes)) <= 1024
+
+
+# -- the backward: kernels 3c (_bwd_reduce_kernel) and 3d (_bwd_dx_kernel) --
+#
+# Tolerances: the channel sums Σg and Σg·x̂ within rtol = atol = 1e-4 (fp32
+# sums of a few hundred terms of size ~1-4 in different orders, both from
+# the same bf16 or fp32 inputs); dx within rtol = atol = 1e-5 in fp32 and
+# 2e-2 in bf16 (one bf16 ulp at |dx| < 4; the coefficients' fp32 algebra
+# is the same on both sides).
+
+SUM_TOL = 1e-4
+
+
+def _bwd_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    n, c = shape[0], shape[-1]
+    x = (1.5 * rng.standard_normal(shape) + 0.7).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    mean = (0.7 + 0.1 * rng.standard_normal((n, c))).astype(np.float32)
+    inv = (0.5 + rng.random((n, c))).astype(np.float32)
+    return x, g, mean, inv
+
+
+def _as(v, dtype):
+    return torch.from_numpy(v).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("shape", [s for s, _ in SHAPES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_reduce_matches_jax_pallas_kernel(shape, dtype):
+    x, g, mean, inv = _bwd_inputs(shape, seed=sum(shape))
+    n, d, h, w, c = shape
+    jx, jg = (jnp.asarray(v).astype(dtype).reshape(n, d, h, w * c)
+              for v in (x, g))
+    c1_j, c2_j = jax_norm._gn_bwd_reduce(jx, jg, jnp.asarray(mean),
+                                         jnp.asarray(inv), w, c,
+                                         interpret=True)
+    c1, c2 = norm.gn_bwd_reduce(_as(x, dtype), _as(g, dtype),
+                                torch.from_numpy(mean), torch.from_numpy(inv))
+    assert c1.dtype == c2.dtype == torch.float32 and c1.shape == (n, c)
+    np.testing.assert_allclose(c1.numpy(), np.asarray(c1_j), rtol=SUM_TOL,
+                               atol=SUM_TOL)
+    np.testing.assert_allclose(c2.numpy(), np.asarray(c2_j), rtol=SUM_TOL,
+                               atol=SUM_TOL)
+
+
+@pytest.mark.parametrize("shape", [s for s, _ in SHAPES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_dx_matches_jax_pallas_kernel(shape, dtype):
+    x, g, _, _ = _bwd_inputs(shape, seed=3 * sum(shape))
+    rng = np.random.default_rng(1)
+    n, d, h, w, c = shape
+    a, cc, dd = (rng.standard_normal((n, c)).astype(np.float32)
+                 for _ in range(3))
+    jx, jg = (jnp.asarray(v).astype(dtype).reshape(n, d, h, w * c)
+              for v in (x, g))
+    dx_j = jax_norm._gn_grid(jx, 3, jax_norm._bwd_dx_kernel, 0,
+                             out_full=jx.dtype, interpret=True)(
+        jx, jg, *(jax_norm._tile_row(jnp.asarray(v), w) for v in (a, cc, dd)))
+    dx = norm.gn_bwd_dx(_as(x, dtype), _as(g, dtype), *(
+        torch.from_numpy(v) for v in (a, cc, dd)))
+    assert dx.dtype == getattr(torch, dtype) and dx.shape == shape
+    tol = FP32_TOL if dtype == "float32" else BF16_PALLAS_TOL
+    np.testing.assert_allclose(
+        _bf16_numpy(dx), np.asarray(dx_j.astype(jnp.float32)).reshape(shape),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape,groups", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_matches_jax_gn_bwd_pallas(shape, groups, dtype):
+    """The whole backward from the Pallas residual (x, mean_c, inv_c,
+    scale): kernel 3c, the (N, C) algebra of ``_gn_bwd_coeffs``, kernel
+    3d."""
+    x, scale, _ = _inputs(shape, seed=5 * sum(shape) + groups)
+    g = np.random.default_rng(groups).standard_normal(shape).astype(
+        np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    _, res = jax_norm._gn_fwd_pallas(jx, jnp.asarray(scale),
+                                     jnp.zeros_like(jnp.asarray(scale)),
+                                     groups, 1e-5, interpret=True)
+    dx_j, ds_j, db_j = jax_norm._gn_bwd_pallas(
+        groups, 1e-5, res, jnp.asarray(g).astype(dtype), interpret=True)
+    tx = _as(x, dtype)
+    mean_c, inv_c = norm.group_norm_stats(tx, groups, 1e-5)
+    dx, ds, db = norm.group_norm_backward(tx, _as(g, dtype), mean_c, inv_c,
+                                          torch.from_numpy(scale), groups,
+                                          True)
+    tol = FP32_TOL if dtype == "float32" else BF16_PALLAS_TOL
+    np.testing.assert_allclose(_bf16_numpy(dx),
+                               np.asarray(dx_j.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+    for got, want in ((ds, ds_j), (db, db_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=SUM_TOL, atol=SUM_TOL)
+
+
+def test_backward_coefficients_match_jax():
+    rng = np.random.default_rng(12)
+    c1, c2, mean_c = (rng.standard_normal((2, 8)).astype(np.float32)
+                      for _ in range(3))
+    inv_c = (0.5 + rng.random((2, 8))).astype(np.float32)
+    scale = rng.standard_normal(8).astype(np.float32)
+    want = jax_norm._gn_bwd_coeffs(*(jnp.asarray(v) for v in (
+        c1, c2, mean_c, inv_c, scale)), 4, 96.0)
+    got = norm.gn_bwd_coeffs(*(torch.from_numpy(v) for v in (
+        c1, c2, mean_c, inv_c, scale)), 4, 96.0)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("shape,groups", SHAPES)
+def test_group_norm_grads_match_jax_vjp(shape, groups):
+    """``group_norm`` as an autograd Function: (dx, dscale, dbias) against
+    ``jax.vjp`` of the JAX package's ``group_norm``, fp32 within 1e-4 of
+    each gradient's max |value| (dscale and dbias sum the whole volume)."""
+    import jax
+
+    x, scale, bias = _inputs(shape, seed=9 * sum(shape) + groups)
+    g = np.random.default_rng(2).standard_normal(shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, s, b: jax_norm.group_norm(a, s, b, groups,
+                                                         1e-5),
+                     *(jnp.asarray(v) for v in (x, scale, bias)))
+    want = vjp(jnp.asarray(g))
+    tx, ts, tb = (torch.from_numpy(v).requires_grad_() for v in (x, scale,
+                                                                 bias))
+    got = torch.autograd.grad(norm.group_norm(tx, ts, tb, groups, 1e-5),
+                              (tx, ts, tb), torch.from_numpy(g))
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-4 * np.abs(b).max())
+
+
+def test_group_norm_skips_dx_when_x_needs_no_grad():
+    """The first 'gcr' layer's input (the image) needs no gradient: the
+    Function returns dscale and dbias and runs no dx pass."""
+    x = torch.randn(1, 2, 3, 4, 8)
+    s = torch.ones(8, requires_grad=True)
+    b = torch.zeros(8, requires_grad=True)
+    calls = []
+    orig = norm.gn_bwd_dx
+    norm.gn_bwd_dx = lambda *a: calls.append(1) or orig(*a)
+    try:
+        norm.group_norm(x, s, b, 4, 1e-5).sum().backward()
+    finally:
+        norm.gn_bwd_dx = orig
+    assert calls == [] and s.grad is not None and b.grad is not None
+    torch.testing.assert_close(b.grad, torch.full((8,), 24.0))
+
+
+def test_bwd_kernel_checks_refuse_autograd_and_bad_shapes():
+    x = torch.randn(1, 2, 3, 4, 8)
+    m = torch.ones(1, 8)
+    norm._check_cuda("gn_bwd_reduce", x, m, m, g=x)
+    with pytest.raises(ValueError, match="g must be"):
+        norm._check_cuda("gn_bwd_reduce", x, m, m, g=x[..., :4])
+    with pytest.raises(ValueError, match="g must be"):
+        norm._check_cuda("gn_bwd_dx", x, m, m, m, g=x.bfloat16())
+    with pytest.raises(RuntimeError, match="no backward"):
+        norm._check_cuda("gn_bwd_dx", x, m, m, m,
+                         g=x.clone().requires_grad_())
