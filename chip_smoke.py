@@ -9,21 +9,31 @@ when any of those is missing or any phase fails.  Every phase prints its
 wall time.
 
 1. DoubleConv kernel against its plain version: builds all of ``csrc/`` for
-   sm_90a from this checkout (one nvcc per source, in parallel), runs
-   ``fused_double2d`` on the 9 DoubleConv shapes of the base-64 UNet at 256²
-   (N=2) plus ragged shapes, in float32 (plain version with TF32 off,
-   rtol = atol = 1e-4) and bfloat16 (rtol = atol = 2e-2, about two bf16
-   ulps), comparing y and z, and times kernel and cuDNN pair with CUDA
-   events (median of 20 after warm-up).
+   sm_90a from this checkout (one nvcc per source, in parallel; the ptxas
+   register, shared-memory and spill lines of every kernel are printed),
+   runs ``fused_double2d`` on the 9 DoubleConv shapes of the base-64 UNet
+   at 256² (N=2) plus ragged shapes, in float32 (plain version with TF32
+   off, rtol = atol = 1e-4) and bfloat16 (rtol = atol = 2e-2, about two
+   bf16 ulps), comparing y and z, and times kernel and cuDNN pair with CUDA
+   events (median of 20 after warm-up); then the 9 shapes in bf16 at the
+   other device batches the server forms (N = 1, 4, 8; the launcher's tile
+   depends on N), y and z against the plain version at each, and timed at
+   N=8, the served batch.  Each line gives the kernel's TFLOP/s and its
+   share of the tensor-core peak (bf16 989, fp32 against TF32 495 with the
+   67 TFLOP/s fp32 rate beside).
 2. 2D serving: a base-64 bf16 UNet from a seeded generator is saved with
    ``save_pretrained``, loaded by ``ModelRegistry.register_unet2d(
    resolution=256, device="cuda")`` and served by ``SegmentationServer`` on
    127.0.0.1; 8 concurrent clients POST 16 synthetic PNGs in the png, mask
    and path return modes.  Every reply must be 200 with a 256x256 mask, the
-   kernel must have launched 9 times per device batch, and 4 served masks
-   must agree on >= 99.9% of pixels with the same model run with the plain
-   DoubleConv (probabilities within 2e-2).  Last, one batch of 8 is timed
-   through the served forward and through the plain path (median of 5).
+   kernel must have launched 18 times per device batch (twice per
+   DoubleConv: conv1, conv2), and 4 served masks must agree on >= 99.9% of
+   pixels with the same model run with the plain DoubleConv (probabilities
+   within 2e-2, one image at a time).  Last, one batch
+   of 8 goes through the served forward against the plain path
+   (probabilities within 2e-2) and is timed through both (median of 5).
+   With random weights the probabilities lie near 0.48 and the masks are
+   empty: the probability bounds carry the check.
 3. The 3D predictor at full width: UNet3D from the model section of
    ``configs/unet3d_predict.yml`` (f_maps 64, 4 levels, 'gcr', fp32) with
    weights from a seeded generator, saved with the port's
@@ -43,20 +53,26 @@ wall time.
 5. 3D serving: ``register_unet3d`` on phase 3's checkpoint at 256²
    (slices replicated to depth 8) behind ``SegmentationServer``; 4 clients
    POST 8 PNGs; all replies 200 with 256x256 masks, probabilities within
-   1e-3 of the plain path.
+   1e-3 of the plain path at each device batch size (1, 2, 4, 8).
 6. The 3D kernels against their plain versions at every shape phases 3-4
    gave them, plus ragged cases (kd 3 and 1, pre-ReLU, Ci 1/3/19/40; C 3,
    19, 300; overlapping windows with a valid = 0 tail), in fp32 and bf16:
    GN-conv within 1e-4 (fp32) / 2e-2 (bf16), GN statistics (mean and
    rsqrt(var + eps)) within 1e-4, GN affine within 1e-6 / 2e-2, overlap-add
-   bit-exact; kernel and plain ms by CUDA events, in turns, median.
+   bit-exact; kernel, plain and library ms (cuDNN conv3d for the GN-conv,
+   ``torch.addcmul`` for the affine) by CUDA events, in turns, median, and
+   each case's bound; the GN-conv's UNet3D predictor shapes summed against
+   cuDNN fp32 (TF32 off).
 7. The GroupNorm backward kernels (Σg and Σg·x̂; dx = g·A + x·C + D)
    against their plain versions at every GroupNorm input shape of the two
    training models (UNet3D at 80x170x170, ResidualUNet3D at 64x128x128,
    N = 1, found by one forward with hooks) plus ragged C and C = 1, in fp32
    and bf16: the sums within 1e-5 x the number of positions, dx within
    1e-6 / 2e-2; kernel and plain ms by CUDA events, in turns, median.
-8. Gradients (dx, dscale, dbias, dw) through the autograd Functions
+8. Kernel 2 at the 14 forward shapes of one UNet3D training step (N=1,
+   80x170x170), held against its plain version within 1e-4 and timed
+   against cuDNN conv3d (fp32, TF32 off).  Then gradients
+   (dx, dscale, dbias, dw) through the autograd Functions
    ``gcr_fused_conv`` (the UNet3D's 14 shapes, kd 3 and kd 1) and
    ``GroupNorm`` (the ResidualUNet3D's shapes and ragged ones) against
    autograd through the plain composition (affine, ``F.conv3d``, ReLU;
@@ -83,7 +99,9 @@ wall time.
    step 9 GN-conv, 18 of each GroupNorm kernel (its 'gc' conv3 runs the
    ``GroupNorm`` Function); losses and grad norm against the plain path.
 11. Prints the card's name and power limit, the kernels' JSON line (launches
-   from the main-path runs, each run's counts zeroed just before it), and
+   from the main-path runs, each run's counts zeroed just before it; ms,
+   plain, library and bound ms summed over the model shapes: the 9 UNet
+   DoubleConvs at N=2 in bf16, the 3D kernels' fp32 model shapes), and
    last ``{"ok": true, "device": {...}}``.
 """
 
@@ -93,6 +111,7 @@ import base64
 import http.client
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -108,6 +127,14 @@ PROB_TOL = 2e-2
 MASK_AGREEMENT = 0.999
 REPEATS = 20
 SEED = 0  # inputs and weights are random, made from this seed
+SERVED_BATCH = 8
+SERVED_SIZES = (1, 2, 4, 8)  # device batches the engine forms (pow-2 pad)
+# published H100 SXM peaks (dense): bf16 and TF32 tensor cores, fp32 on the
+# CUDA cores, HBM3 bandwidth
+PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
+PEAK_FP32 = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 # (N, H, W, Ci, C1, Co): the base-64 UNet's DoubleConvs at 256², then ragged
 DC_SHAPES = [
@@ -172,9 +199,75 @@ def _median_ms(fn, repeats: int = REPEATS) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+def _peak(dtype):
+    """Published dense tensor-core rate for a conv in ``dtype`` (fp32 runs
+    on the TF32 units as 3xTF32; the fp32 CUDA-core rate is named beside)."""
+    import torch
+
+    return PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32
+
+
+def _bound_ms(flop: float, nbytes: float, peak: float):
+    """(least ms the card could take, "operations" or "bytes")."""
+    t_op, t_b = flop / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
+
+
+def _rate(flop: float, ms: float, dtype) -> str:
+    import torch
+
+    tf = flop / ms / 1e9
+    if dtype == torch.bfloat16:
+        return f"{tf:8.1f} TFLOP/s {100 * tf * 1e12 / PEAK_BF16:5.1f}% of 989"
+    return (f"{tf:8.1f} TFLOP/s {100 * tf * 1e12 / PEAK_TF32:5.1f}% of 495 "
+            f"(TF32; {100 * tf * 1e12 / PEAK_FP32:5.1f}% of 67 fp32)")
+
+
+def _dc_flop_bytes(shape, itemsize: int):
+    """FLOP and bytes (x, weights, biases read once, y written once) of one
+    DoubleConvolution without z."""
+    n, h, w, ci, c1, co = shape
+    flop = 2.0 * 9 * n * h * w * (ci * c1 + c1 * co)
+    nbytes = itemsize * (n * h * w * (ci + co) + 9 * (ci * c1 + c1 * co)
+                         + c1 + co)
+    return flop, nbytes
+
+
+def _gcr_flop_bytes(shape, co: int, kd: int, itemsize: int):
+    """FLOP and bytes (x and the kernel read once, y written once, a and b
+    in fp32) of one fused GN-conv3d."""
+    ci = shape[-1]
+    positions = 1
+    for d in shape[:-1]:
+        positions *= d
+    flop = 2.0 * kd * 9 * ci * co * positions
+    nbytes = (itemsize * (positions * (ci + co) + kd * 9 * ci * co)
+              + 8 * shape[0] * ci)
+    return flop, nbytes
+
+
+def _log_ptxas(build_log: str) -> None:
+    """Registers, shared memory and spills of every kernel in the build log,
+    under its name (the conv core's instantiations shortened to dtype, tile
+    (rows or positions / channels / warp rows) and prologue)."""
+    name = "?"
+    for line in build_log.splitlines():
+        if "entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            m = re.search(r"(conv_\w+?_kernel)I(f|13__nv_bfloat16)\w*?Li(\d+)E"
+                          r"Li(\d+)ELi(\d+)E\w*?Lb([01])", name)
+            if m:
+                name = (f"{m[1]}<{'fp32' if m[2] == 'f' else 'bf16'}, tile "
+                        f"{m[3]}/{m[4]}/{m[5]}, affine {m[6]}>")
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {name[:72]}: {line.split(':', 1)[-1].strip()}")
+
+
 def phase_kernels(seed: int):
-    """Kernel vs plain version on every shape; returns (max_abs_err,
-    kernel ms, plain ms summed over the 9 UNet shapes in bf16)."""
+    """Kernel vs plain version on every shape, and the 9 UNet shapes timed
+    at N=2 and at N=8 (the served batch) in bf16; returns (max_abs_err,
+    kernel ms, cuDNN ms, bound ms summed over the 9 UNet shapes at N=2 in
+    bf16)."""
     import torch
 
     from mdeical_image_segmentation_tpu_torch.ops import _build
@@ -189,15 +282,13 @@ def phase_kernels(seed: int):
     _build.load()
     log(f"[phase 1] kernel library {_build.library_path().name} ready in "
         f"{time.time() - t0:.2f} s")
-    for line in _build.build_log_path().read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    _log_ptxas(_build.build_log_path().read_text())
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     max_err = 0.0
-    ms = plain_ms = 0.0
+    ms = plain_ms = bound = 0.0
     log(f"{'case':9s} {'dtype':8s} {'N,H,W,Ci,C1,Co':28s} {'err y':>10s} "
-        f"{'err z':>10s} {'kernel ms':>10s} {'cuDNN ms':>10s}")
+        f"{'err z':>10s} {'kernel ms':>10s} {'cuDNN ms':>10s}  kernel rate")
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
         for name, shape in DC_SHAPES + RAGGED_SHAPES:
             args = _inputs(shape, dtype, gen)
@@ -221,15 +312,58 @@ def phase_kernels(seed: int):
             k_ms = _median_ms(lambda: fused_double2d(*args, with_z=False))
             p_ms = _median_ms(
                 lambda: fused_double2d_reference(*args, with_z=False))
+            flop, nbytes = _dc_flop_bytes(shape, args[0].element_size())
             if dtype == torch.bfloat16 and name.startswith("DC"):
                 ms += k_ms
                 plain_ms += p_ms
+                bound += _bound_ms(flop, nbytes, PEAK_BF16)[0]
             log(f"{name:9s} {str(dtype)[6:]:8s} {str(shape):28s} "
-                f"{errs[0]:10.3e} {errs[1]:10.3e} {k_ms:10.4f} {p_ms:10.4f}")
+                f"{errs[0]:10.3e} {errs[1]:10.3e} {k_ms:10.4f} {p_ms:10.4f}  "
+                f"{_rate(flop, k_ms, dtype)}")
             del args, y, z, y_only, y_ref, z_ref
     log(f"[phase 1] ok: max |kernel - plain| = {max_err:.3e}; 9 UNet shapes "
-        f"in bf16: kernel {ms:.4f} ms, cuDNN pair {plain_ms:.4f} ms")
-    return max_err, ms, plain_ms
+        f"in bf16 at N=2: kernel {ms:.4f} ms, cuDNN pair {plain_ms:.4f} ms, "
+        f"bound {bound:.4f} ms")
+
+    # the served batches: the launcher picks the tile from the grid, so each
+    # device batch size the engine forms (1, 2, 4, 8) runs its own code;
+    # y and z against the plain version at each, then N=8 timed
+    n8_ms = n8_plain = n8_bound = 0.0
+    for name, shape in DC_SHAPES:
+        for n in SERVED_SIZES:
+            if n == shape[0]:
+                continue  # compared above
+            args = _inputs((n, *shape[1:]), torch.bfloat16, gen)
+            y, z = fused_double2d(*args)
+            y_ref, z_ref = fused_double2d_reference(*args)
+            for what, got, want in (("y", y, y_ref), ("z", z, z_ref)):
+                got, want = got.float(), want.float()
+                err = (got - want).abs().max().item()
+                if (not torch.isfinite(got).all()
+                        or not torch.allclose(got, want, rtol=BF16_TOL,
+                                              atol=BF16_TOL)):
+                    raise AssertionError(
+                        f"{name} bf16 N={n}: {what} differs from the plain "
+                        f"version by {err:.3e} (rtol = atol = {BF16_TOL})")
+                max_err = max(max_err, err)
+            del y, z, y_ref, z_ref
+        shape = (SERVED_BATCH, *shape[1:])
+        args = _inputs(shape, torch.bfloat16, gen)
+        k_ms = _median_ms(lambda: fused_double2d(*args, with_z=False))
+        p_ms = _median_ms(
+            lambda: fused_double2d_reference(*args, with_z=False))
+        flop, nbytes = _dc_flop_bytes(shape, 2)
+        n8_ms += k_ms
+        n8_plain += p_ms
+        n8_bound += _bound_ms(flop, nbytes, PEAK_BF16)[0]
+        log(f"{name:9s} {'bfloat16':8s} {str(shape):28s} {'':10s} {'':10s} "
+            f"{k_ms:10.4f} {p_ms:10.4f}  {_rate(flop, k_ms, torch.bfloat16)}")
+        del args
+    log(f"[phase 1] 9 UNet shapes in bf16 at N={SERVED_BATCH} (the served "
+        f"batch): kernel {n8_ms:.4f} ms, cuDNN pair {n8_plain:.4f} ms, bound "
+        f"{n8_bound:.4f} ms; y and z match at N = {SERVED_SIZES}; max |kernel"
+        f" - plain| over all = {max_err:.3e}")
+    return max_err, ms, plain_ms, bound
 
 
 def _plain_probs(model, x_u8):
@@ -381,11 +515,13 @@ def phase_serve(seed: int, workdir: str):
             raise AssertionError(f"request {i}: bad mask {mask.shape}")
         masks.append(mask)
 
-    if batches <= 0 or launches != 9 * batches:
+    if batches <= 0 or launches != 18 * batches:
         raise AssertionError(f"{launches} kernel launches for {batches} "
-                             "device batches (want 9 per batch)")
+                             "device batches (want 18 per batch: conv1 and "
+                             "conv2 of 9 DoubleConvs)")
     log(f"[phase 2] {launches} kernel launches for {batches} device batches "
-        f"(9 DoubleConvs each); all 16 replies 200 with {res}x{res} masks")
+        f"(9 DoubleConvs of 2 launches each); all 16 replies 200 with "
+        f"{res}x{res} masks")
 
     model = UNetModel.from_pretrained(bundle, device="cuda")
     entry = registry.get("unet")
@@ -409,6 +545,13 @@ def phase_serve(seed: int, workdir: str):
     x8 = np.stack([nearest_resize(png.read(p, "L")[..., None], (res, res))
                    for p in images[:max_batch]])
     x8_dev = torch.from_numpy(x8).cuda()
+    # a full device batch through the served forward (the tiles of N=8)
+    err8 = float(np.abs(entry.probs_forward(x8.astype(np.float32) / 255.0)
+                        - _plain_probs(model, x8_dev).cpu().numpy()).max())
+    log(f"  batch of {max_batch}: max |p_kernel - p_plain| {err8:.3e}")
+    if err8 > PROB_TOL:
+        raise AssertionError(f"a served batch of {max_batch} disagrees with "
+                             "the plain DoubleConv")
     served_ms = _median_ms(lambda: entry.dispatch(x8), repeats=5)
     plain_ms = _median_ms(lambda: _plain_probs(model, x8_dev), repeats=5)
     log(f"[phase 2] forward of a batch of {max_batch} at {res}²: served "
@@ -478,7 +621,7 @@ def _read_yaml_subset(path: str) -> dict:
 def _counts():
     from mdeical_image_segmentation_tpu_torch.ops import fused_conv, norm, overlap
 
-    # inside _plain_path the plain versions stand in: they launch nothing
+    # inside plain_path the plain versions stand in: they launch nothing
     fns = {"gcr_conv3d": fused_conv.fused_conv3d,
            "gn_stats": norm.gn_channel_sums, "gn_affine": norm.gn_affine,
            "gn_bwd_reduce": norm.gn_bwd_reduce, "gn_bwd_dx": norm.gn_bwd_dx,
@@ -494,7 +637,7 @@ def _zero_counts():
         fn.launches = 0
 
 
-class _plain_path:
+class plain_path:
     """Within this block the model, the predictor, the trainer and the
     server run every kernel's plain PyTorch version on the card (cuDNN
     conv3d, plain GN forward and backward, plain overlap-add): the
@@ -524,16 +667,18 @@ class _plain_path:
             setattr(m, n, orig)
 
 
-def _record_shapes(model, shapes: set):
+def _record_shapes(model, shapes: set, tag: str = ""):
     """Forward pre-hooks that note the input shape of every fused 'gcr'
-    SingleConv and GroupNorm module: the shapes kernel checks run at."""
+    SingleConv (with Co and ``tag``, the model's name) and GroupNorm
+    module: the shapes kernel checks run at."""
     from mdeical_image_segmentation_tpu_torch.models import SingleConv
     from mdeical_image_segmentation_tpu_torch.ops.norm import GroupNorm
 
     def conv_hook(mod, args):
         if mod.fused:
             x = args[0]
-            shapes.add(("gcr", tuple(x.shape), mod.TorchConv_0.weight.shape[0]))
+            shapes.add(("gcr", tuple(x.shape), mod.TorchConv_0.weight.shape[0],
+                        tag))
             shapes.add(("stats", tuple(x.shape)))
 
     def gn_hook(mod, args):
@@ -594,7 +739,7 @@ def _volume(shape, seed):
     return ((v - v.mean()) / v.std()).astype(np.float32)
 
 
-def _run_predictor(model, config, raw, slices, batch_size, shapes=None):
+def _run_predictor(model, config, raw, slices, batch_size, shapes, tag):
     """One pass of the sliding-window predictor, kernel path then plain
     path; returns (maps, plain maps, per-batch records, launches)."""
     import torch
@@ -607,7 +752,7 @@ def _run_predictor(model, config, raw, slices, batch_size, shapes=None):
     def batches():
         return padded_patch_batches(raw, slices, batch_size)
 
-    handles = _record_shapes(model, shapes)
+    handles = _record_shapes(model, shapes, tag)
     _record_overlap_batches(model.out_channels, raw, slices, batch_size,
                             shapes)
     pred = get_predictor(model, None, config)
@@ -622,7 +767,7 @@ def _run_predictor(model, config, raw, slices, batch_size, shapes=None):
     for h in handles:
         h.remove()
     torch.cuda.empty_cache()
-    with _plain_path():
+    with plain_path():
         plain = get_predictor(model, None, config)
         plain_rec = []
         _timed_batches(plain, plain_rec)
@@ -691,7 +836,7 @@ def phase_unet3d_predictor(seed: int, workdir: str, shapes: set):
     raw = _volume(VOLUME_3D, seed)
     config = {"model": model_cfg, "predictor": cfg["predictor"]}
     maps, plain, rec, plain_rec, launches, wall, plain_wall = _run_predictor(
-        model, config, raw, slices, batch_size, shapes)
+        model, config, raw, slices, batch_size, shapes, "UNet3D")
     for i, ((ms, n), (p_ms, _)) in enumerate(zip(rec, plain_rec)):
         log(f"  batch {i}: kernel path {ms:.1f} ms ({n}), plain path "
             f"{p_ms:.1f} ms")
@@ -722,7 +867,7 @@ def phase_residual_predictor(seed: int, shapes: set):
     config = {"model": RESIDUAL_MODEL, "predictor": cfg["predictor"]}
     maps, plain, rec, plain_rec, launches, wall, plain_wall = _run_predictor(
         model, config, raw, RESIDUAL_SLICES, cfg["loaders"]["batch_size"],
-        shapes)
+        shapes, "ResidualUNet3D")
     for i, ((ms, n), (p_ms, _)) in enumerate(zip(rec, plain_rec)):
         log(f"  batch {i}: kernel path {ms:.1f} ms ({n}), plain path "
             f"{p_ms:.1f} ms")
@@ -803,15 +948,19 @@ def phase_serve3d(seed: int, workdir: str, model_cfg, ckpt: str):
         f"/stats {json.dumps(stats)}")
     entry = registry.get("unet3d")
     x = np.stack([nearest_resize(png.read(p, "L")[..., None], (res, res))
-                  for p in images[:2]]).astype(np.float32) / 255.0
-    probs = entry.probs_forward(x)
-    with _plain_path():
-        plain = entry.probs_forward(x)
-    err = float(np.abs(probs - plain).max())
-    log(f"  served probabilities vs plain path: max |diff| {err:.3e} (limit "
-        f"{SERVE3D_PROB_TOL}), p in [{plain.min():.4f}, {plain.max():.4f}]")
-    if not np.isfinite(probs).all() or err > SERVE3D_PROB_TOL:
-        raise AssertionError("3D serving disagrees with the plain path")
+                  for p in images]).astype(np.float32) / 255.0
+    # every device batch size the engine forms: each picks its own tiles
+    for n in SERVED_SIZES:
+        probs = entry.probs_forward(x[:n])
+        with plain_path():
+            plain = entry.probs_forward(x[:n])
+        err = float(np.abs(probs - plain).max())
+        log(f"  served probabilities vs plain path, batch of {n}: max |diff| "
+            f"{err:.3e} (limit {SERVE3D_PROB_TOL}), p in [{plain.min():.4f}, "
+            f"{plain.max():.4f}]")
+        if not np.isfinite(probs).all() or err > SERVE3D_PROB_TOL:
+            raise AssertionError(f"3D serving disagrees with the plain path "
+                                 f"at a batch of {n}")
     torch.cuda.empty_cache()
     return launches
 
@@ -831,9 +980,10 @@ def _compare(name, got, want, tol, exact=False):
     return err
 
 
-def _time_pair(kernel_fn, plain_fn, budget_s: float = 0.6):
-    """Median ms of kernel and plain version, timed in turns with CUDA
-    events after one warm-up each; fewer repeats for the long calls."""
+def _time_turns(*fns, budget_s: float = 0.6):
+    """Median ms of each function (kernel, plain version, library call),
+    timed in turns with CUDA events after one warm-up each; fewer repeats
+    for the long calls."""
     import torch
 
     def once(fn):
@@ -844,13 +994,13 @@ def _time_pair(kernel_fn, plain_fn, budget_s: float = 0.6):
         torch.cuda.synchronize()
         return s.elapsed_time(e)
 
-    first = once(kernel_fn) + once(plain_fn)
+    first = sum(once(fn) for fn in fns)
     repeats = max(1, min(10, int(budget_s * 1e3 / max(first, 1e-3))))
-    ks, ps = [], []
+    times = [[] for _ in fns]
     for _ in range(repeats):
-        ks.append(once(kernel_fn))
-        ps.append(once(plain_fn))
-    return statistics.median(ks), statistics.median(ps)
+        for t, fn in zip(times, fns):
+            t.append(once(fn))
+    return tuple(statistics.median(t) for t in times)
 
 
 def _rand(gen, shape, dtype, scale=1.0, shift=0.0):
@@ -862,35 +1012,61 @@ def _rand(gen, shape, dtype, scale=1.0, shift=0.0):
 
 def _record_header():
     log(f"{'kernel':13s} {'dtype':8s} {'case':44s} {'max err':>10s} "
-        f"{'kernel ms':>11s} {'plain ms':>11s}")
+        f"{'kernel ms':>11s} {'plain ms':>11s} {'library ms':>11s} "
+        f"{'bound ms':>10s}")
 
 
-def _record(out, kernel, case, dtype, err, k_ms, p_ms, model_shape):
+def _new_records(*kernels):
+    return {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+                "bound_ms": 0.0, "op_ms": 0.0, "byte_ms": 0.0}
+            for k in kernels}
+
+
+def _record(out, kernel, case, dtype, err, k_ms, p_ms, model_shape, flop,
+            nbytes, peak, lib_ms=None):
     """Log one kernel-vs-plain case; keep the kernel's worst error and the
-    fp32 model shapes' summed times."""
+    fp32 model shapes' summed kernel, plain, library and bound times (the
+    bound per shape: FLOP at ``peak`` or bytes at the HBM rate, the
+    larger)."""
     import torch
 
     rec = out[kernel]
     rec["err"] = max(rec["err"], err)
+    bound = _bound_ms(flop, nbytes, peak)[0]
     if model_shape and dtype == torch.float32:
         rec["ms"] += k_ms
         rec["plain_ms"] += p_ms
+        rec["bound_ms"] += bound
+        rec["op_ms"] += flop / peak * 1e3
+        rec["byte_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+        if lib_ms is not None:
+            rec["library_ms"] = (rec["library_ms"] or 0.0) + lib_ms
+    lib = f"{lib_ms:11.3f}" if lib_ms is not None else f"{'none':>11s}"
     log(f"{kernel:13s} {str(dtype)[6:]:8s} {case:44s} {err:10.3e} "
-        f"{k_ms:11.3f} {p_ms:11.3f}")
+        f"{k_ms:11.3f} {p_ms:11.3f} {lib} {bound:10.3f}")
+
+
+def _elementwise(numel: int, ops_per_element: int, nbytes: float):
+    """(FLOP, bytes, peak) of a streaming pass: fp32 ops on the CUDA
+    cores."""
+    return float(numel) * ops_per_element, float(nbytes), PEAK_FP32
 
 
 def phase_kernels_3d(seed: int, shapes: set):
     """Each 3D kernel against its plain version at every shape the two
-    models produced in phases 3-4, plus ragged cases, in fp32 and bf16."""
+    models produced in phases 3-4, plus ragged cases, in fp32 and bf16;
+    kernel 2 and 3b also against one library call (cuDNN conv3d,
+    ``torch.addcmul``)."""
     import torch
+    import torch.nn.functional as F
 
     from mdeical_image_segmentation_tpu_torch.ops import fused_conv, norm, overlap
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    out = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-           for k in ("gcr_conv3d", "gn_stats", "gn_affine", "overlap_add")}
+    out = _new_records("gcr_conv3d", "gn_stats", "gn_affine", "overlap_add")
+    unet = {"ms": 0.0, "library_ms": 0.0, "flop": 0.0}  # UNet3D shapes, fp32
 
     def rand(shape, dtype=torch.float32, scale=1.0, shift=0.0):
         return _rand(gen, shape, dtype, scale, shift)
@@ -913,9 +1089,9 @@ def phase_kernels_3d(seed: int, shapes: set):
     _record_header()
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
-        cases = [(s[1], s[2], 3, False, True) for s in gcr] + [
-            (*r, False) for r in ragged_gcr]
-        for shape, co, kd, pre, model_shape in cases:
+        cases = [(s[1], s[2], 3, False, s[3]) for s in gcr] + [
+            (*r, "") for r in ragged_gcr]
+        for shape, co, kd, pre, model in cases:
             ci = shape[-1]
             x = rand(shape, dtype)
             k = rand((kd, 3, 3, ci, co), dtype, (9 * kd * ci) ** -0.5)
@@ -925,13 +1101,24 @@ def phase_kernels_3d(seed: int, shapes: set):
             err = _compare(f"gcr_conv3d {shape}->{co}", y, ref,
                            BF16_TOL if bf16 else FP32_TOL)
             del y, ref
-            k_ms, p_ms = _time_pair(
+            xc, kc = x.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2)
+            k_ms, p_ms, l_ms = _time_turns(
                 lambda: fused_conv.fused_conv3d(x, k, a, b, pre_relu=pre),
                 lambda: fused_conv.fused_conv3d_reference(x, k, a, b,
-                                                          pre_relu=pre))
+                                                          pre_relu=pre),
+                lambda: F.conv3d(xc, kc, padding=((kd - 1) // 2, 1, 1)))
+            flop, nbytes = _gcr_flop_bytes(shape, co, kd, x.element_size())
             record("gcr_conv3d", f"{shape}->{co} kd{kd} pre{int(pre)}", dtype,
-                   err, k_ms, p_ms, model_shape)
-            del x, k
+                   err, k_ms, p_ms, bool(model), flop, nbytes, _peak(dtype),
+                   l_ms)
+            log(f"{'':13s} {model or 'ragged':14s} kernel "
+                f"{_rate(flop, k_ms, dtype)}; cuDNN conv3d "
+                f"{_rate(flop, l_ms, dtype)}")
+            if model == "UNet3D" and not bf16:
+                unet["ms"] += k_ms
+                unet["library_ms"] += l_ms
+                unet["flop"] += flop
+            del x, k, xc, kc
             torch.cuda.empty_cache()
         cases = [(s[1], True) for s in stats] + [(r, False) for r in ragged_gn]
         for shape, model_shape in cases:
@@ -943,11 +1130,13 @@ def phase_kernels_3d(seed: int, shapes: set):
                                     shape[-1], count, 1e-5)
             err = max(_compare(f"gn_stats {shape} {what}", g, w, GN_TOL)
                       for what, g, w in zip(("mean", "inv"), got, want))
-            k_ms, p_ms = _time_pair(
+            k_ms, p_ms = _time_turns(
                 lambda: norm.gn_channel_sums(x),
                 lambda: norm.gn_channel_sums_reference(x))
             record("gn_stats", str(shape), dtype, err, k_ms, p_ms,
-                   model_shape)
+                   model_shape, *_elementwise(
+                       x.numel(), 3, x.numel() * x.element_size()
+                       + 8 * shape[0] * shape[-1]))
             del x
             torch.cuda.empty_cache()
         cases = [(s[1], True) for s in affine] + [(r, False) for r in ragged_gn]
@@ -957,10 +1146,16 @@ def phase_kernels_3d(seed: int, shapes: set):
             err = _compare(f"gn_affine {shape}", norm.gn_affine(x, a, b),
                            norm.gn_affine_reference(x, a, b),
                            BF16_TOL if bf16 else AFFINE_FP32_TOL)
-            k_ms, p_ms = _time_pair(lambda: norm.gn_affine(x, a, b),
-                                    lambda: norm.gn_affine_reference(x, a, b))
+            bshape = (shape[0],) + (1,) * (x.ndim - 2) + (shape[-1],)
+            a_b, b_b = a.view(bshape), b.view(bshape)
+            k_ms, p_ms, l_ms = _time_turns(
+                lambda: norm.gn_affine(x, a, b),
+                lambda: norm.gn_affine_reference(x, a, b),
+                lambda: torch.addcmul(b_b, x, a_b))
             record("gn_affine", str(shape), dtype, err, k_ms, p_ms,
-                   model_shape)
+                   model_shape, *_elementwise(
+                       x.numel(), 2, 2 * x.numel() * x.element_size()
+                       + 8 * shape[0] * shape[-1]), l_ms)
             del x
             torch.cuda.empty_cache()
         # the predictors' batches (patch = stride: no overlap; the second
@@ -986,17 +1181,26 @@ def phase_kernels_3d(seed: int, shapes: set):
                                exact=True),
                       _compare(f"overlap_add {pshape} cnt", cnt, p_cnt, 0.0,
                                exact=True))
-            k_ms, p_ms = _time_pair(
+            k_ms, p_ms = _time_turns(
                 lambda: overlap.overlap_add_into(acc, cnt, p, starts, valid),
                 lambda: overlap.overlap_add_into_reference(p_acc, p_cnt, p,
                                                            starts, valid))
+            # the valid patches: read once; their windows of acc and cnt
+            # (fp32) read and written once
+            win = sum(valid) * (p.numel() // pshape[0])
             record("overlap_add", f"{pshape} into {vol}", dtype, err, k_ms,
-                   p_ms, model_shape)
+                   p_ms, model_shape, *_elementwise(
+                       win, 3, win * (p.element_size() + 16)))
             del p, acc0, cnt0, acc, cnt, p_acc, p_cnt
             torch.cuda.empty_cache()
     log(f"[phase 6] ok: {len(gcr)} gcr_conv3d, {len(stats)} gn_stats, "
         f"{len(affine)} gn_affine and {len(overlaps)} overlap_add model cases "
         "plus ragged cases match in fp32 and bf16 (overlap_add bit-exact)")
+    log(f"[phase 6] kernel 2 over the UNet3D predictor's "
+        f"{sum(s[3] == 'UNet3D' for s in gcr)} shapes, fp32: kernel "
+        f"{unet['ms']:.3f} ms, cuDNN conv3d (TF32 off) "
+        f"{unet['library_ms']:.3f} ms; kernel "
+        f"{_rate(unet['flop'], unet['ms'], torch.float32)}")
     return out
 
 
@@ -1070,12 +1274,12 @@ def phase_gn_backward_kernels(seed: int, shapes):
     from mdeical_image_segmentation_tpu_torch.ops import norm
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    out = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-           for k in ("gn_bwd_reduce", "gn_bwd_dx")}
+    out = _new_records("gn_bwd_reduce", "gn_bwd_dx")
 
     ragged = [(2, 5, 9, 11, 3), (2, 6, 20, 17, 19), (1, 3, 7, 9, 300),
               (1, 7, 13, 11, 1)]
-    cases = [(s, True, m) for s, m in shapes["gn"]] + [
+    # the sums cover one UNet3D training step's GroupNorm inputs
+    cases = [(s, m == "UNet3D", m) for s, m in shapes["gn"]] + [
         (r, False, "ragged") for r in ragged]
     _record_header()
     for dtype in (torch.float32, torch.bfloat16):
@@ -1099,22 +1303,26 @@ def phase_gn_backward_kernels(seed: int, shapes):
                         f"the plain version by {e:.3e} (limit "
                         f"{GN_BWD_SUM_TOL} x {count} positions)")
                 err = max(err, e)
-            k_ms, p_ms = _time_pair(
+            k_ms, p_ms = _time_turns(
                 lambda: norm.gn_bwd_reduce(x, g, mean, inv),
                 lambda: norm.gn_bwd_reduce_reference(x, g, mean, inv))
             _record(out, "gn_bwd_reduce", f"{shape} {model}", dtype, err,
-                    k_ms, p_ms, model_shape)
+                    k_ms, p_ms, model_shape, *_elementwise(
+                        x.numel(), 5, 2 * x.numel() * x.element_size()
+                        + 16 * n * c))
             a, cc, dd = (torch.randn((n, c), device=DEVICE, generator=gen)
                          for _ in range(3))
             err = _compare(f"gn_bwd_dx {shape}", norm.gn_bwd_dx(x, g, a, cc, dd),
                            norm.gn_bwd_dx_reference(x, g, a, cc, dd),
                            BF16_TOL if dtype == torch.bfloat16
                            else AFFINE_FP32_TOL)
-            k_ms, p_ms = _time_pair(
+            k_ms, p_ms = _time_turns(
                 lambda: norm.gn_bwd_dx(x, g, a, cc, dd),
                 lambda: norm.gn_bwd_dx_reference(x, g, a, cc, dd))
             _record(out, "gn_bwd_dx", f"{shape} {model}", dtype, err, k_ms,
-                    p_ms, model_shape)
+                    p_ms, model_shape, *_elementwise(
+                        x.numel(), 4, 3 * x.numel() * x.element_size()
+                        + 12 * n * c))
             del x, g
             torch.cuda.empty_cache()
     log(f"[phase 7] ok: {len(shapes['gn'])} model shapes plus "
@@ -1133,6 +1341,49 @@ def _rel_errs(names, got, want):
         errs[name] = ((a.float() - b.float()).abs().max()
                       / b.float().abs().max().clamp_min(1e-30)).item()
     return errs
+
+
+def phase_train_forward_convs(seed: int, shapes):
+    """Kernel 2 against cuDNN's conv3d (fp32, TF32 off) at the UNet3D
+    training model's 14 SingleConv input shapes (N=1, 80x170x170): the
+    forward convs of one training step.  Returns (kernel ms, cuDNN ms),
+    summed."""
+    import torch
+    import torch.nn.functional as F
+
+    from mdeical_image_segmentation_tpu_torch.ops import fused_conv
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    ms = lib_ms = flop_sum = 0.0
+    cases = [(s, co) for s, co, m in shapes["gcr"] if m == "UNet3D"]
+    for shape, co in cases:
+        ci = shape[-1]
+        x = _rand(gen, shape, torch.float32)
+        k = _rand(gen, (3, 3, 3, ci, co), torch.float32, (27 * ci) ** -0.5)
+        a = torch.rand((shape[0], ci), device=DEVICE, generator=gen) + 0.5
+        b = 0.5 * torch.randn((shape[0], ci), device=DEVICE, generator=gen)
+        # N=1 picks its own tiles: held against the plain version here too
+        err = _compare(f"gcr_conv3d train {shape}->{co}",
+                       fused_conv.fused_conv3d(x, k, a, b),
+                       fused_conv.fused_conv3d_reference(x, k, a, b), FP32_TOL)
+        xc, kc = x.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2)
+        k_ms, l_ms = _time_turns(
+            lambda: fused_conv.fused_conv3d(x, k, a, b),
+            lambda: F.conv3d(xc, kc, padding=1))
+        flop = _gcr_flop_bytes(shape, co, 3, 4)[0]
+        ms += k_ms
+        lib_ms += l_ms
+        flop_sum += flop
+        log(f"  train fwd {str(shape):26s} -> {co:4d}: err {err:.2e}; kernel "
+            f"{k_ms:9.3f} ms {_rate(flop, k_ms, torch.float32)}; cuDNN "
+            f"{l_ms:9.3f} ms")
+        del x, k, xc, kc
+        torch.cuda.empty_cache()
+    log(f"[phase 8] kernel 2 at the {len(cases)} training-forward shapes, "
+        f"fp32: kernel {ms:.3f} ms, cuDNN conv3d (TF32 off) {lib_ms:.3f} ms; "
+        f"kernel {_rate(flop_sum, ms, torch.float32)}")
+    return ms, lib_ms
 
 
 def phase_autograd(seed: int, shapes):
@@ -1305,7 +1556,7 @@ def _instrument(trainer, rec):
 
 
 def _make_trainer(model_cfg, cfg, loaders, checkpoint_dir, pre_trained,
-                  **trainer_kw):
+                  seed=SEED, **trainer_kw):
     from mdeical_image_segmentation_tpu_torch.logging_utils import (
         get_tensorboard_formatter,
     )
@@ -1332,7 +1583,7 @@ def _make_trainer(model_cfg, cfg, loaders, checkpoint_dir, pre_trained,
         lr_scheduler=create_lr_scheduler(cfg["lr_scheduler"], lr),
         loss_criterion=get_loss_criterion(cfg),
         eval_criterion=get_evaluation_metric(cfg), loaders=loaders,
-        checkpoint_dir=checkpoint_dir, base_lr=lr, seed=SEED,
+        checkpoint_dir=checkpoint_dir, base_lr=lr, seed=seed,
         tensorboard_formatter=get_tensorboard_formatter(None),
         pre_trained=pre_trained, max_num_epochs=100,
         **{**{k: v for k, v in cfg["trainer"].items()
@@ -1355,6 +1606,54 @@ def _initial_checkpoint(model_cfg, seed, workdir, name):
         {"model_state_dict": state_dict_to_flax(model.state_dict()),
          "best_eval_score": 0.0, "num_iterations": 0},
         False, os.path.join(workdir, name))
+
+
+class UNet3DTraining:
+    """Phase 9's training setup, the one way to build it (phase 9 and
+    ``chip_train_step.py`` use it): the UNet3D, loss, metric, optimizer and
+    scheduler of configs/unet3d_train.yml; a seeded 80x260x260 training
+    volume (4 patches at the yml's stride) and 80x170x340 validation volume
+    (2 patches), each labelled with its smoothed sign; random initial
+    weights from ``seed``, saved under ``workdir``.  ``trainer(name)``
+    builds a UNetTrainer on them, writing to ``workdir/name``; inside
+    ``plain_path()`` it runs the plain versions."""
+
+    def __init__(self, seed: int, workdir: str):
+        self.seed, self.workdir = seed, workdir
+        os.makedirs(workdir, exist_ok=True)
+        self.cfg = _read_yaml_subset(TRAIN_YML)
+        self.model_cfg = self.cfg["model"]
+        loaders = self.cfg["loaders"]
+        train_sb = loaders["train"]["slice_builder"]
+        val_sb = loaders["val"]["slice_builder"]
+        raw = _volume(TRAIN_VOLUME, seed + 2)
+        val_raw = _volume(VAL_VOLUME, seed + 3)
+        self.train_ds = _PatchDataset(raw, _smooth_label(raw),
+                                      train_sb["patch_shape"],
+                                      train_sb["stride_shape"])
+        self.val_ds = _PatchDataset(val_raw, _smooth_label(val_raw),
+                                    val_sb["patch_shape"],
+                                    val_sb["stride_shape"])
+        self.batch_size = loaders["batch_size"]
+        self.checkpoint = _initial_checkpoint(self.model_cfg, seed, workdir,
+                                              "unet3d_init")
+
+    def trainer(self, name: str, resume: str | None = None, **trainer_kw):
+        """A UNetTrainer from the initial weights, or from ``resume``."""
+        from mdeical_image_segmentation_tpu_torch.data.loaders import (
+            VolumeLoader,
+        )
+
+        loaders = {"train": VolumeLoader(self.train_ds, self.batch_size,
+                                         shuffle=True, seed=self.seed,
+                                         drop_last=True),
+                   "val": VolumeLoader(self.val_ds, self.batch_size)}
+        if resume is not None:
+            trainer_kw["resume"] = resume
+        return _make_trainer(self.model_cfg, self.cfg, loaders,
+                             os.path.join(self.workdir, name),
+                             None if resume else self.checkpoint,
+                             seed=self.seed, **trainer_kw)
 
 
 def _compare_runs(name, rec, plain_rec, steps):
@@ -1393,40 +1692,22 @@ def phase_train_unet3d(seed: int, workdir: str):
     import numpy as np
     import torch
 
-    from mdeical_image_segmentation_tpu_torch.data.loaders import VolumeLoader
-
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _read_yaml_subset(TRAIN_YML)
-    model_cfg = cfg["model"]
+    setup = UNet3DTraining(seed, workdir)
+    cfg, model_cfg = setup.cfg, setup.model_cfg
     train_sb = cfg["loaders"]["train"]["slice_builder"]
-    val_sb = cfg["loaders"]["val"]["slice_builder"]
     log(f"[phase 9] model {model_cfg}; loss {cfg['loss']}; eval_metric "
         f"{cfg['eval_metric']}; optimizer {cfg['optimizer']}; lr_scheduler "
-        f"{cfg['lr_scheduler']}; batch {cfg['loaders']['batch_size']}; "
+        f"{cfg['lr_scheduler']}; batch {setup.batch_size}; "
         f"patch {train_sb['patch_shape']}, train stride "
         f"{train_sb['stride_shape']}; fp32, TF32 off")
-    raw = _volume(TRAIN_VOLUME, seed + 2)
-    val_raw = _volume(VAL_VOLUME, seed + 3)
-    train_ds = _PatchDataset(raw, _smooth_label(raw),
-                             train_sb["patch_shape"], train_sb["stride_shape"])
-    val_ds = _PatchDataset(val_raw, _smooth_label(val_raw),
-                           val_sb["patch_shape"], val_sb["stride_shape"])
-    log(f"  {len(train_ds)} train patches of a {TRAIN_VOLUME} volume, "
-        f"{len(val_ds)} val patches of {VAL_VOLUME}; label share "
-        f"{train_ds.label.mean():.3f}")
-    bs = cfg["loaders"]["batch_size"]
-
-    def loaders():
-        return {"train": VolumeLoader(train_ds, bs, shuffle=True, seed=seed,
-                                      drop_last=True),
-                "val": VolumeLoader(val_ds, bs)}
-
-    ckpt0 = _initial_checkpoint(model_cfg, seed, workdir, "unet3d_init")
+    log(f"  {len(setup.train_ds)} train patches of a {TRAIN_VOLUME} volume, "
+        f"{len(setup.val_ds)} val patches of {VAL_VOLUME}; label share "
+        f"{setup.train_ds.label.mean():.3f}")
     run_dir = os.path.join(workdir, "unet3d_train")
-    trainer = _make_trainer(model_cfg, cfg, loaders(), run_dir, ckpt0,
-                            max_num_iterations=6, validate_after_iters=3,
-                            log_after_iters=2)
+    trainer = setup.trainer("unet3d_train", max_num_iterations=6,
+                            validate_after_iters=3, log_after_iters=2)
     rec = []
     _instrument(trainer, rec)
     torch.cuda.synchronize()
@@ -1463,11 +1744,9 @@ def phase_train_unet3d(seed: int, workdir: str):
         f"launches {launches}")
 
     # the same first three steps from the same weights on the plain path
-    with _plain_path():
-        plain = _make_trainer(model_cfg, cfg, loaders(),
-                              os.path.join(workdir, "unet3d_plain"), ckpt0,
-                              max_num_iterations=2, validate_after_iters=1000,
-                              log_after_iters=1000)
+    with plain_path():
+        plain = setup.trainer("unet3d_plain", max_num_iterations=2,
+                              validate_after_iters=1000, log_after_iters=1000)
         plain_rec = []
         _instrument(plain, plain_rec)
         torch.cuda.reset_peak_memory_stats()
@@ -1481,8 +1760,7 @@ def phase_train_unet3d(seed: int, workdir: str):
         f"{plain_peak:.2f} GiB")
 
     # resume from the last checkpoint (saved at iteration 6) for one step
-    resumed = _make_trainer(model_cfg, cfg, loaders(), run_dir, None,
-                            resume=last, max_num_iterations=5,
+    resumed = setup.trainer("unet3d_train", resume=last, max_num_iterations=5,
                             validate_after_iters=1000, log_after_iters=1000)
     if resumed.num_iterations != 6:
         raise AssertionError(f"resumed at iteration {resumed.num_iterations}"
@@ -1542,7 +1820,7 @@ def phase_train_residual(seed: int, workdir: str):
             f"launches {r['launches']}")
         if r["launches"] != want or not np.isfinite(r["loss"]):
             raise AssertionError(f"step {i + 1}: {r}, want {want}")
-    with _plain_path():
+    with plain_path():
         plain = _make_trainer(RESIDUAL_TRAIN, cfg, loaders(),
                               os.path.join(workdir, "residual_plain"), ckpt0,
                               **kw)
@@ -1571,7 +1849,7 @@ def main() -> int:
         f"(CUDA {torch.version.cuda}); {torch.cuda.get_device_name(0)}")
 
     t_phase = time.time()
-    max_err, ms, plain_ms = phase_kernels(SEED)
+    max_err, ms, plain_ms, dc_bound = phase_kernels(SEED)
     log(f"[phase 1] wall {time.time() - t_phase:.1f} s")
     build_dir = os.path.join(ROOT, "build")
     os.makedirs(build_dir, exist_ok=True)
@@ -1610,6 +1888,7 @@ def main() -> int:
     t_phase = time.time()
     log("[phase 8] gradients through gcr_fused_conv and GroupNorm vs "
         "autograd through the plain composition (TF32 off)")
+    phase_train_forward_convs(SEED, train_shapes)
     grad_err = phase_autograd(SEED, train_shapes)
     log(f"[phase 8] wall {time.time() - t_phase:.1f} s")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=build_dir)
@@ -1662,6 +1941,10 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": dc_bound,
+        "bound_by": "operations",
+        # the plain version is the library's: two cuDNN conv2d + relu
+        "library_ms": plain_ms,
     }] + [{
         "name": k,
         "route": "cuda",
@@ -1671,6 +1954,10 @@ def main() -> int:
         "max_abs_err": k3d[k]["err"],
         "ms": k3d[k]["ms"],
         "plain_ms": k3d[k]["plain_ms"],
+        "bound_ms": k3d[k]["bound_ms"],
+        "bound_by": ("operations" if k3d[k]["op_ms"] >= k3d[k]["byte_ms"]
+                     else "bytes"),
+        "library_ms": k3d[k]["library_ms"],
     } for k in KERNELS_3D]
     print(smi)
     print(json.dumps({"kernels": kernels}))

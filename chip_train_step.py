@@ -1,0 +1,223 @@
+"""Where the time of one 3D training step goes on the card, and how far the
+kernel path's first losses drift from the plain path's: the PyTorch port's
+UNetTrainer on the UNet3D of configs/unet3d_train.yml (f_maps 64, batch 1,
+80x170x170 patch, fp32, TF32 off), built by ``chip_smoke.UNet3DTraining``
+exactly as ``chip_smoke.py`` phase 9 builds it.
+
+    python3 chip_train_step.py [--steps 3] [--loss-seeds 0 1 2 3]
+
+Needs one CUDA card and the checkout it sits in; imports nothing of JAX.
+
+Profile (``--steps`` > 0): two warm-up steps, then ``--steps`` steps under
+``torch.profiler`` on the kernel path and on the plain path; per step, the
+device time of each group of kernels (self CUDA time summed by kernel
+name), the device busy time against the wall time, and the 12 largest
+kernels.  Groups: the port's conv core (``conv_halo_kernel`` /
+``conv_gather_kernel``: kernel 2's forward), the GroupNorm kernels
+(``gn_*``), cuDNN / cuBLAS convolutions and GEMMs (the conv backward, and
+on the plain path the forward too), everything else.
+
+Loss drift (``--loss-seeds``): for each seed, phase 9's setup from that seed
+trained for 5 steps through ``UNetTrainer.fit()``: kernel path, plain
+path, each again, and the plain path once more for each size p in
+``PERTURB``, from initial weights scaled by 1 + p or 1 - p (a seeded
+random sign; the kernel's relative forward error against cuDNN fp32 lies
+between the two sizes).  Prints each step's losses, the relative gaps kernel
+vs plain, kernel vs kernel and plain vs plain (cuDNN's weight gradient is
+not deterministic) and each perturbed run vs plain, and whether every run
+saw the same input patch: the kernel's gap read against the run-to-run
+noise and against how far perturbations of its size carry the plain path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from collections import defaultdict
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402  (helpers only; it runs nothing on import)
+
+GROUPS = (
+    ("port conv core (kernel 2 forward)", re.compile(r"conv_(halo|gather)_kernel")),
+    ("GroupNorm kernels (3a-3d)", re.compile(r"\bgn_\w*kernel")),
+    ("cuDNN / cuBLAS conv and GEMM", re.compile(
+        r"cudnn|xmma|dgrad|wgrad|fprop|implicit|conv|gemm|cutlass|sm90_|sm80_",
+        re.I)),
+)
+# (title, plain path, relative weight perturbation)
+RUNS = (("kernel", False, 0.0), ("plain", True, 0.0),
+        ("kernel again", False, 0.0), ("plain again", True, 0.0))
+PERTURB = (1e-6, 1e-5)
+LOSS_STEPS = 5
+
+
+def _group(name: str) -> str:
+    for label, pat in GROUPS:
+        if pat.search(name):
+            return label
+    return "everything else"
+
+
+def _profile(trainer, steps: int):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_batches():
+        while True:  # epochs of the training loader, copied one ahead
+            yield from trainer._device_batches(trainer.loaders["train"])
+
+    batches = device_batches()
+
+    def step():
+        input, target, weight = next(batches)
+        trainer._train_step(input, target, weight)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = defaultdict(float)
+    for evt in prof.key_averages():
+        dev = getattr(evt, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev and evt.device_type.name == "CUDA":
+            by_name[evt.key] += dev / 1e3  # us -> ms
+    return by_name, wall
+
+
+def _report(title: str, by_name, wall: float, steps: int) -> None:
+    groups = defaultdict(float)
+    for name, ms in by_name.items():
+        groups[_group(name)] += ms
+    busy = sum(by_name.values())
+    print(f"== {title}: {steps} steps, per step: wall {wall / steps:.1f} ms, "
+          f"device busy {busy / steps:.1f} ms ({100 * busy / wall:.1f}%)")
+    for label, _ in GROUPS + (("everything else", None),):
+        print(f"   {label:40s} {groups[label] / steps:9.1f} ms")
+    print("   largest kernels (ms per step):")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"     {ms / steps:9.2f}  {name[:110]}")
+
+
+def _losses(setup, name: str, steps: int, perturb: float = 0.0):
+    """The losses of the first ``steps`` steps of ``fit()``, and a
+    fingerprint (the sum) of each step's input patch.  ``perturb`` > 0
+    scales every initial weight by 1 + perturb or 1 - perturb (a seeded
+    random sign)."""
+    import torch
+
+    trainer = setup.trainer(name, max_num_iterations=steps - 1,
+                            validate_after_iters=1000, log_after_iters=1000)
+    if perturb:
+        gen = torch.Generator(device="cuda").manual_seed(setup.seed)
+        with torch.no_grad():
+            for p in trainer.model.parameters():
+                sign = torch.randint(0, 2, p.shape, device=p.device,
+                                     generator=gen) * 2.0 - 1.0
+                p.mul_(1.0 + perturb * sign)
+    losses, inputs = [], []
+    step = trainer._train_step
+
+    def recorded(input, target, weight):
+        loss, output = step(input, target, weight)
+        losses.append(loss.item())
+        inputs.append(input.double().sum().item())
+        return loss, output
+
+    trainer._train_step = recorded
+    trainer.fit()
+    if len(losses) < steps:
+        raise AssertionError(f"{name}: {len(losses)} steps, want {steps}")
+    return losses[:steps], inputs[:steps]
+
+
+def _loss_drift(seeds, steps: int, perturbs, work: str) -> None:
+    import torch
+
+    limits = chip_smoke.LOSS_TOLS
+    for seed in seeds:
+        setup = chip_smoke.UNet3DTraining(seed, os.path.join(work, f"s{seed}"))
+        runs, inputs = {}, {}
+        perturbed = [f"plain x(1+-{p:g})" for p in perturbs]
+        cases = RUNS + tuple((t, True, p) for t, p in zip(perturbed, perturbs))
+        for title, plain, perturb in cases:
+            with chip_smoke.plain_path() if plain else contextlib.nullcontext():
+                runs[title], inputs[title] = _losses(
+                    setup, re.sub(r"\W+", "_", title), steps,
+                    perturb)
+            torch.cuda.empty_cache()
+
+        def rel(a, b, i):
+            return abs(runs[a][i] - runs[b][i]) / abs(runs[b][i])
+
+        print(f"== loss drift, seed {seed}, {steps} steps (phase 9's limits "
+              f"for steps 1-{len(limits)}: {limits}); relative loss gaps")
+        print(f"   {'step':>4s} {'kernel':>11s} {'plain':>11s} "
+              f"{'kernel-plain':>13s} {'kernel-kernel':>14s} "
+              f"{'plain-plain':>12s}"
+              + "".join(f" {t:>16s}" for t in perturbed) + "  same input")
+        for i in range(steps):
+            same = len({inputs[t][i] for t, _, _ in cases}) == 1
+            print(f"   {i + 1:4d} {runs['kernel'][i]:11.7f} "
+                  f"{runs['plain'][i]:11.7f} "
+                  f"{rel('kernel', 'plain', i):13.2e} "
+                  f"{rel('kernel again', 'kernel', i):14.2e} "
+                  f"{rel('plain again', 'plain', i):12.2e}"
+                  + "".join(f" {rel(t, 'plain', i):16.2e}" for t in perturbed)
+                  + f"  {same}")
+        del setup
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=3,
+                    help="profiled steps per path (0: no profile)")
+    ap.add_argument("--loss-seeds", type=int, nargs="*", default=[],
+                    help="seeds of phase 9's setup for the loss drift")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_train_step: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(torch.cuda.get_device_name(0), subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip())
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        if args.steps > 0:
+            setup = chip_smoke.UNet3DTraining(chip_smoke.SEED, work)
+            for title, plain, _ in RUNS[:2]:
+                with (chip_smoke.plain_path() if plain
+                      else contextlib.nullcontext()):
+                    trainer = setup.trainer(f"profile_{title}",
+                                            max_num_iterations=100)
+                    by_name, wall = _profile(trainer, args.steps)
+                    _report(f"{title} path", by_name, wall, args.steps)
+                    del trainer
+                    torch.cuda.empty_cache()
+            del setup
+        if args.loss_seeds:
+            _loss_drift(args.loss_seeds, LOSS_STEPS, PERTURB, work)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

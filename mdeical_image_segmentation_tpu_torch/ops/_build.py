@@ -5,8 +5,9 @@ them in seconds (``torch.utils.cpp_extension``, which compiles against
 PyTorch's headers, takes minutes).  Each source is compiled to an object by
 its own ``nvcc``, all started together, and the objects are linked into one
 shared library in ``build/torch_kernels/`` at the root of the checkout,
-named by a hash of the sources and flags, so an edited source is rebuilt and
-an unchanged one is reused.  The library is written to a temporary file and
+named by a hash of the flags and of every file under ``csrc/`` (the sources
+and the headers they include, such as the shared ``conv_tc.cuh``), so an
+edited source or header is rebuilt and an unchanged tree is reused.  The library is written to a temporary file and
 renamed into place, so two processes never load a half-written library.
 
 Nothing here runs at import: ``load()`` builds and loads on the first call.
@@ -59,17 +60,20 @@ def nvcc_commands(nvcc: str, out: Path, objdir: Path,
                   ) -> Tuple[List[List[str]], List[str]]:
     """(one compile command per source, the link command into ``out``)."""
     objs = [objdir / (Path(s).stem + ".o") for s in SOURCES]
-    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+    compiles = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o),
+                 str(CSRC / s)]
                 for s, o in zip(SOURCES, objs)]
     link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
     return compiles, link
 
 
 def library_path() -> Path:
+    """The library's path, named by the flags and every ``*.cu`` and
+    ``*.cuh`` file under ``CSRC``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in SOURCES:
-        h.update(s.encode())
-        h.update((CSRC / s).read_bytes())
+    for f in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"libtpuseg_kernels_{h.hexdigest()[:16]}.so"
 
 

@@ -9,23 +9,29 @@ hand-written CUDA kernel here, ``csrc/double_conv2d.cu``)::
 
 with stride 1, zero padding 1 and fp32 accumulation, on NHWC activations and
 HWIO weights.  It returns ``(y, z)``; ``with_z=False`` returns ``(y, None)``
-and the kernel then never writes z to device memory (the serving path).
+(the serving path).  On the card the kernel is two launches of the shared
+tensor-core conv core (``csrc/conv_tc.cuh``): conv1 writes z to device
+memory, conv2 reads it; with ``with_z=False`` z goes to a scratch buffer
+that the wrapper allocates and drops.
 
 Dispatch is by the device of ``x`` alone: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs ``fused_double2d_reference``.  There is no
-fallback and no switch.  ``fused_double2d.launches`` counts kernel launches.
+fallback and no switch.  ``fused_double2d.launches`` counts kernel launches:
+two per call on the card (conv1, conv2).
 
 ``fused_conv3d`` is the counterpart of the JAX package's
 ``ops/fused_conv.py::fused_conv3d`` (the Pallas ``_gcr_kernel`` there,
-``csrc/gcr_conv3d.cu`` here): the SingleConv('gcr') forward with the
-GroupNorm affine applied to the input tile in the conv's prologue, so the
-normalized tensor never reaches device memory::
+``csrc/gcr_conv3d.cu`` here, one launch of the same tensor-core core, fp32
+as 3xTF32): the SingleConv('gcr') forward with the GroupNorm affine applied
+to the input tile in the conv's prologue, so the normalized tensor never
+reaches device memory::
 
     y = relu?(conv3d_{kd x 3 x 3}(relu?(a·x + b)))      kd in {1, 3}
 
 stride 1, torch padding ``((kd-1)//2, 1, 1)`` of the NORMALIZED tensor, no
 bias, NDHWC activations and (kd, 3, 3, Ci, Co) weights, a and b (N, Ci)
-fp32.  Same dispatch rule and ``.launches`` count.
+fp32.  Same dispatch rule; ``.launches`` counts one per call (no split-K
+pass: the core picks a smaller tile for small shapes instead).
 
 ``gcr_fused_conv`` is the counterpart of the JAX package's custom-VJP
 ``gcr_fused_conv`` (``_gcr_fwd`` / ``_gcr_bwd``), a
@@ -106,18 +112,18 @@ def fused_double2d(
     n, h, w, ci = x.shape
     c1, co = w1.shape[-1], w2.shape[-1]
     y = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
-    z = (torch.empty((n, h, w, c1), dtype=x.dtype, device=x.device)
-         if with_z else None)
+    # conv1's output: returned, or scratch that conv2 reads and we drop
+    z = torch.empty((n, h, w, c1), dtype=x.dtype, device=x.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.tpuseg_double_conv2d_forward(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), y.data_ptr(), z.data_ptr() if z is not None else None,
-        n, h, w, ci, c1, co, _DTYPE_CODES[x.dtype], x.device.index, stream,
+        b2.data_ptr(), y.data_ptr(), z.data_ptr(), n, h, w, ci, c1, co,
+        _DTYPE_CODES[x.dtype], x.device.index, stream,
     )
     _build.check(lib, rc, "double_conv2d launch")
-    fused_double2d.launches += 1
-    return y, z
+    fused_double2d.launches += 2
+    return y, (z if with_z else None)
 
 
 fused_double2d.launches = 0

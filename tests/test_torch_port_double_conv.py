@@ -33,6 +33,8 @@ def _inputs(n, h, w, ci, c1, co, seed):
     (1, 8, 8, 1, 8, 8),      # Ci = 1 (the UNet's first block, grey input)
     (1, 8, 8, 3, 8, 8),      # Ci = 3 (RGB input)
     (1, 7, 9, 4, 8, 6),      # odd H and W, Co != C1
+    (1, 9, 7, 1, 5, 13),     # Ci = 1 (flattened K on the card), Co = 13
+    (1, 6, 5, 19, 12, 65),   # ragged Ci and Co, Co not a multiple of 8
 ])
 def test_matches_jax_pallas_kernel(shape):
     arrays = _inputs(*shape, seed=sum(shape))

@@ -64,6 +64,18 @@ def test_matches_jax_pallas_kernel(kd, pre_relu, post_relu, ci):
     assert fused_conv.fused_conv3d.launches == before
 
 
+@pytest.mark.parametrize("ci,co,kd", [(1, 7, 3), (1, 65, 1), (3, 13, 3),
+                                      (19, 65, 3)])
+def test_matches_jax_pallas_kernel_ragged_co(ci, co, kd):
+    """The shapes the card's flattened-K path serves (Ci = 1 or 3, ragged
+    Ci) and Co not a multiple of 8, fp32, pre- and post-ReLU."""
+    arrays = _inputs(1, 3, 7, 5, ci, co, kd, seed=ci * co + kd)
+    kw = dict(pre_relu=True, post_relu=True)
+    np.testing.assert_allclose(_port(*arrays, "float32", **kw),
+                               _jax(*arrays, "float32", **kw),
+                               rtol=FP32_TOL, atol=FP32_TOL)
+
+
 @pytest.mark.parametrize("kd", [1, 3])
 def test_bf16_matches_jax_pallas_kernel(kd):
     arrays = _inputs(1, 3, 8, 5, 8, 16, kd, seed=kd)

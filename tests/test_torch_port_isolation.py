@@ -4,8 +4,10 @@ msgpack, PIL, h5py or yaml (the machine with the card has none of them),
 and its kernels are built for Hopper (sm_90a) by nvcc at first use, never at
 import."""
 
+import ast
 import os
 import pkgutil
+import shutil
 import subprocess
 import sys
 
@@ -45,6 +47,35 @@ def test_every_module_imports_without_jax_flax_msgpack_pil():
     assert proc.stdout.startswith("ok")
 
 
+def test_card_scripts_import_without_jax_and_share_public_helpers():
+    """chip_train_step.py builds phase 9's trainer through chip_smoke.py's
+    public helpers only, and each of them exists; neither script pulls in
+    JAX or the JAX package when imported."""
+    src = open(os.path.join(REPO, "chip_train_step.py")).read()
+    used = {n.attr for n in ast.walk(ast.parse(src))
+            if isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name)
+            and n.value.id == "chip_smoke"}
+    assert {"UNet3DTraining", "plain_path", "SEED"} <= used
+    assert not [u for u in used if u.startswith("_")], used
+    code = (
+        "import sys\n"
+        "import chip_smoke, chip_train_step\n"
+        f"missing = [u for u in {sorted(used)!r} "
+        "if not hasattr(chip_smoke, u)]\n"
+        "assert not missing, missing\n"
+        "assert hasattr(chip_smoke.UNet3DTraining, 'trainer')\n"
+        f"bad = [m for m in {FORBIDDEN + ('mdeical_image_segmentation_tpu',)!r}"
+        " if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.startswith("ok")
+
+
 def test_nvcc_command_targets_sm90a():
     """One nvcc per source, started together, then one link."""
     compiles, link = _build.nvcc_commands(
@@ -57,6 +88,31 @@ def test_nvcc_command_targets_sm90a():
     assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
     assert _build.library_path().parent == _build.BUILD_DIR
     assert _build.library_path().name.startswith("libtpuseg_kernels_")
+
+
+def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
+    """Every file under csrc/ names the library, so an edit to the shared
+    conv header alone gives a new path (a stale library is never reused);
+    each compile command finds the header on its include path, and the
+    package data ships it."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path()
+    assert _build.library_path() == before  # stable for an unchanged tree
+    header = csrc / "conv_tc.cuh"  # included by the two conv sources
+    text = header.read_text()
+    header.write_text(text + "\n// edited\n")
+    assert _build.library_path() != before
+    header.write_text(text)
+    assert _build.library_path() == before
+    compiles, _ = _build.nvcc_commands("nvcc", tmp_path / "lib.so", tmp_path)
+    for cmd in compiles:
+        assert cmd[cmd.index("-I") + 1] == str(csrc)
+    for src in ("double_conv2d.cu", "gcr_conv3d.cu"):
+        assert '#include "conv_tc.cuh"' in (csrc / src).read_text()
+    pyproject = open(os.path.join(REPO, "pyproject.toml")).read()
+    assert '"csrc/*.cu", "csrc/*.cuh"' in pyproject
 
 
 def test_missing_nvcc_raises(monkeypatch):
