@@ -58,11 +58,19 @@ wall time.
    gave them, plus ragged cases (kd 3 and 1, pre-ReLU, Ci 1/3/19/40; C 3,
    19, 300; overlapping windows with a valid = 0 tail), in fp32 and bf16:
    GN-conv within 1e-4 (fp32) / 2e-2 (bf16), GN statistics (mean and
-   rsqrt(var + eps)) within 1e-4, GN affine within 1e-6 / 2e-2, overlap-add
-   bit-exact; kernel, plain and library ms (cuDNN conv3d for the GN-conv,
-   ``torch.addcmul`` for the affine) by CUDA events, in turns, median, and
-   each case's bound; the GN-conv's UNet3D predictor shapes summed against
-   cuDNN fp32 (TF32 off).
+   rsqrt(var + eps)) within 1e-4, GN affine and overlap-add bit-exact.  The
+   GN affine also at the UNet3D training step's GroupNorm inputs (N=1,
+   80x170x170: the x_aff recompute); the overlap-add on halo-stripped
+   channel views of the network output as the predictor passes them, also
+   at overlapping windows of predictor size (patch 80x170x170 at stride
+   40x85x85 over 160x340x340: 27 windows), and every first call of it
+   under ``torch.cuda.set_sync_debug_mode("error")`` (no copy to the card,
+   no wait for it).  Kernel, plain and library ms (cuDNN conv3d,
+   ``torch.var_mean``, ``torch.addcmul``) by CUDA events around each call
+   (the event window: host work inside), in turns, median; the affine's
+   and the overlap-add's device time by ``torch.profiler``; each case's
+   bound; sums over the model shapes, and the GN-conv's UNet3D predictor
+   shapes against cuDNN fp32 (TF32 off).
 7. The GroupNorm backward kernels (Σg and Σg·x̂; dx = g·A + x·C + D)
    against their plain versions at every GroupNorm input shape of the two
    training models (UNet3D at 80x170x170, ResidualUNet3D at 64x128x128,
@@ -110,6 +118,7 @@ from __future__ import annotations
 import base64
 import http.client
 import json
+import math
 import os
 import re
 import shutil
@@ -443,7 +452,8 @@ def phase_serve(seed: int, workdir: str):
     config = UNetConfig(in_channels=1, out_channels=1, unet_type="UNet",
                         base_features=64, compute_dtype="bfloat16")
     bundle = os.path.join(workdir, "unet2d_base64_bf16")
-    UNetModel(config, generator=torch.Generator().manual_seed(seed)
+    UNetModel(config, device="cpu",
+              generator=torch.Generator().manual_seed(seed)
               ).save_pretrained(bundle)
 
     t0 = time.time()
@@ -583,7 +593,7 @@ KERNELS_3D = ("gcr_conv3d", "gn_stats", "gn_affine", "gn_bwd_reduce",
               "gn_bwd_dx", "overlap_add")
 
 
-def _read_yaml_subset(path: str) -> dict:
+def read_yaml_subset(path: str) -> dict:
     """Read the block mappings, scalars (int, float, bool, string) and
     inline lists of a config file such as configs/unet3d_predict.yml or
     configs/unet3d_train.yml (the card's machine has no PyYAML); block list
@@ -716,7 +726,8 @@ def _timed_batches(pred, rec):
 
 def _record_overlap_batches(channels, raw, slices, batch_size, shapes):
     """The overlap-add calls the predictor makes: patch batch shape, volume,
-    starts and valid mask (the tail padded with the last start, weight 0)."""
+    starts, valid mask (the tail padded with the last start, weight 0) and
+    the halo the patches are a stripped view of."""
     from mdeical_image_segmentation_tpu_torch.data.slice_builder import (
         SliceBuilder,
     )
@@ -729,10 +740,11 @@ def _record_overlap_batches(channels, raw, slices, batch_size, shapes):
         valid = [1] * len(starts) + [0] * (batch_size - len(starts))
         starts += [starts[-1]] * (batch_size - len(starts))
         shapes.add(("overlap", (batch_size, *slices["patch_shape"], channels),
-                    tuple(raw.shape), tuple(starts), tuple(valid)))
+                    tuple(raw.shape), tuple(starts), tuple(valid),
+                    tuple(slices["halo_shape"])))
 
 
-def _volume(shape, seed):
+def seeded_volume(shape, seed):
     import numpy as np
 
     v = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
@@ -816,7 +828,7 @@ def phase_unet3d_predictor(seed: int, workdir: str, shapes: set):
     )
 
     torch.backends.cudnn.allow_tf32 = False
-    cfg = _read_yaml_subset(PREDICT_YML)
+    cfg = read_yaml_subset(PREDICT_YML)
     model_cfg, slices = cfg["model"], cfg["loaders"]["test"]["slice_builder"]
     batch_size = cfg["loaders"]["batch_size"]
     log(f"[phase 3] model {model_cfg}; predictor {cfg['predictor']}; "
@@ -833,7 +845,7 @@ def phase_unet3d_predictor(seed: int, workdir: str, shapes: set):
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  {n_params} parameters, checkpoint {os.path.getsize(ckpt)} bytes")
 
-    raw = _volume(VOLUME_3D, seed)
+    raw = seeded_volume(VOLUME_3D, seed)
     config = {"model": model_cfg, "predictor": cfg["predictor"]}
     maps, plain, rec, plain_rec, launches, wall, plain_wall = _run_predictor(
         model, config, raw, slices, batch_size, shapes, "UNet3D")
@@ -859,11 +871,11 @@ def phase_residual_predictor(seed: int, shapes: set):
 
     from mdeical_image_segmentation_tpu_torch.models import get_model
 
-    cfg = _read_yaml_subset(PREDICT_YML)
+    cfg = read_yaml_subset(PREDICT_YML)
     model = get_model(RESIDUAL_MODEL,
                       generator=torch.Generator().manual_seed(seed + 1))
     model = model.to(DEVICE).eval()
-    raw = _volume(VOLUME_RESIDUAL, seed + 1)
+    raw = seeded_volume(VOLUME_RESIDUAL, seed + 1)
     config = {"model": RESIDUAL_MODEL, "predictor": cfg["predictor"]}
     maps, plain, rec, plain_rec, launches, wall, plain_wall = _run_predictor(
         model, config, raw, RESIDUAL_SLICES, cfg["loaders"]["batch_size"],
@@ -1052,11 +1064,123 @@ def _elementwise(numel: int, ops_per_element: int, nbytes: float):
     return float(numel) * ops_per_element, float(nbytes), PEAK_FP32
 
 
-def phase_kernels_3d(seed: int, shapes: set):
+def device_times(prof):
+    """{kernel name: ms} of a ``torch.profiler`` run: the self device time
+    of every kernel, summed by name."""
+    by_name: dict = {}
+    for evt in prof.key_averages():
+        dev = getattr(evt, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev and evt.device_type.name == "CUDA":
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + dev / 1e3
+    return by_name
+
+
+def _device_ms(fn, launches: int = 1, repeats: int = 5,
+               tries: int = 3) -> float:
+    """Device time of one call of ``fn``, which launches ``launches``
+    kernels of one kind: the mean self device time of the kernel events
+    ``torch.profiler`` recorded over ``repeats`` calls after a warm-up,
+    times ``launches``.  Host work between launches is not in it; the event
+    window of ``_time_turns`` holds both.  The tracer drops an event now
+    and then, so the mean is over the events it kept; a profiled pass that
+    kept none is run again, and after ``tries`` such passes the time is
+    NaN: not measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0.0
+        for evt in prof.key_averages():
+            dev = getattr(evt, "self_device_time_total", None)
+            if dev is None:
+                dev = getattr(evt, "self_cuda_time_total", 0.0)
+            if dev and evt.device_type.name == "CUDA":
+                total += dev / 1e3
+                count += evt.count
+        if count:
+            return total / count * launches
+    return math.nan
+
+
+def _ms(v: float) -> str:
+    return "not measured" if math.isnan(v) else f"{v:.4f} ms"
+
+
+def _share(bound: float, ms: float) -> str:
+    return "not measured" if math.isnan(ms) else f"{100 * bound / ms:.1f}%"
+
+
+class _sync_debug_error:
+    """``torch.cuda.set_sync_debug_mode("error")`` within the block: any
+    synchronising CUDA call through PyTorch raises."""
+
+    def __enter__(self):
+        import torch
+
+        self.prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode(self.prev)
+
+
+def _overlap_work(pshape, vol, starts, valid, itemsize: int):
+    """(FLOP, bytes) the overlap-add needs for these inputs: each valid
+    patch read once (a mul and two adds per element), each element of the
+    union of their windows read and written once in acc and cnt (fp32)."""
+    import numpy as np
+
+    p, pd, ph, pw, c = pshape
+    cover = np.zeros(vol, bool)
+    n_valid = 0
+    for (z, y, x), w in zip(starts, valid):
+        if w:
+            cover[z:z + pd, y:y + ph, x:x + pw] = True
+            n_valid += 1
+    elems = n_valid * pd * ph * pw * c
+    return 3.0 * elems, float(elems * itemsize + int(cover.sum()) * c * 16)
+
+
+def _windows(vol, patch, stride):
+    """Sliding-window starts over ``vol``, the last window flush with the
+    end (the SliceBuilder's rule)."""
+    import itertools
+
+    axes = []
+    for v, p, st in zip(vol, patch, stride):
+        starts = list(range(0, v - p + 1, st))
+        if starts[-1] != v - p:
+            starts.append(v - p)
+        axes.append(starts)
+    return [list(s) for s in itertools.product(*axes)]
+
+
+# the overlapping-window case at predictor size: patch 80x170x170 at stride
+# 40x85x85 over 160x340x340 (27 windows; a voxel in up to 8), halo-stripped
+# views of 112x234x234 outputs as the predictor passes them
+OVERLAP_PATCH = (80, 170, 170)
+OVERLAP_STRIDE = (40, 85, 85)
+OVERLAP_VOLUME = (160, 340, 340)
+OVERLAP_HALO = (16, 32, 32)
+
+
+def phase_kernels_3d(seed: int, shapes: set, train_shapes):
     """Each 3D kernel against its plain version at every shape the two
     models produced in phases 3-4, plus ragged cases, in fp32 and bf16;
-    kernel 2 and 3b also against one library call (cuDNN conv3d,
-    ``torch.addcmul``)."""
+    kernel 2, 3a and 3b also against one library call (cuDNN conv3d,
+    ``torch.var_mean``, ``torch.addcmul``); 3b also at the UNet3D training
+    step's GroupNorm inputs, and 3b and 4 also by device time."""
     import torch
     import torch.nn.functional as F
 
@@ -1078,6 +1202,9 @@ def phase_kernels_3d(seed: int, shapes: set):
     def record(*args):
         _record(out, *args)
 
+    affine_sums: dict = {}   # (shape set, dtype) -> summed ms and bound
+    overlap_sums: dict = {}
+    sync_checked = 0
     gcr = sorted(s for s in shapes if s[0] == "gcr")
     stats = sorted(s for s in shapes if s[0] == "stats")
     affine = sorted(s for s in shapes if s[0] == "affine")
@@ -1130,72 +1257,136 @@ def phase_kernels_3d(seed: int, shapes: set):
                                     shape[-1], count, 1e-5)
             err = max(_compare(f"gn_stats {shape} {what}", g, w, GN_TOL)
                       for what, g, w in zip(("mean", "inv"), got, want))
-            k_ms, p_ms = _time_turns(
+            spatial = tuple(range(1, x.ndim - 1))
+            # one library call that reads x once for the same per-(n, c)
+            # statistics
+            k_ms, p_ms, l_ms = _time_turns(
                 lambda: norm.gn_channel_sums(x),
-                lambda: norm.gn_channel_sums_reference(x))
+                lambda: norm.gn_channel_sums_reference(x),
+                lambda: torch.var_mean(x, dim=spatial, correction=0))
             record("gn_stats", str(shape), dtype, err, k_ms, p_ms,
                    model_shape, *_elementwise(
                        x.numel(), 3, x.numel() * x.element_size()
-                       + 8 * shape[0] * shape[-1]))
-            del x
-            torch.cuda.empty_cache()
-        cases = [(s[1], True) for s in affine] + [(r, False) for r in ragged_gn]
-        for shape, model_shape in cases:
-            x = rand(shape, dtype)
-            a, b = coeffs(shape[0], shape[-1])
-            err = _compare(f"gn_affine {shape}", norm.gn_affine(x, a, b),
-                           norm.gn_affine_reference(x, a, b),
-                           BF16_TOL if bf16 else AFFINE_FP32_TOL)
-            bshape = (shape[0],) + (1,) * (x.ndim - 2) + (shape[-1],)
-            a_b, b_b = a.view(bshape), b.view(bshape)
-            k_ms, p_ms, l_ms = _time_turns(
-                lambda: norm.gn_affine(x, a, b),
-                lambda: norm.gn_affine_reference(x, a, b),
-                lambda: torch.addcmul(b_b, x, a_b))
-            record("gn_affine", str(shape), dtype, err, k_ms, p_ms,
-                   model_shape, *_elementwise(
-                       x.numel(), 2, 2 * x.numel() * x.element_size()
                        + 8 * shape[0] * shape[-1]), l_ms)
             del x
             torch.cuda.empty_cache()
-        # the predictors' batches (patch = stride: no overlap; the second
-        # batch a padded tail) and ragged overlapping windows
-        cases = [s[1:] + (True,) for s in overlaps] + [
+        # 3b: the ResidualUNet3D predictor's GroupNorm inputs (N=4), the
+        # UNet3D training step's x_aff recompute inputs (N=1), ragged C
+        cases = ([(s[1], "ResidualUNet3D") for s in affine]
+                 + [(s, "UNet3D train") for s, m in train_shapes["gn"]
+                    if m == "UNet3D"]
+                 + [(r, "ragged") for r in ragged_gn])
+        for shape, model in cases:
+            x = rand(shape, dtype)
+            a, b = coeffs(shape[0], shape[-1])
+            err = _compare(f"gn_affine {shape}", norm.gn_affine(x, a, b),
+                           norm.gn_affine_reference(x, a, b), 0.0, exact=True)
+            bshape = (shape[0],) + (1,) * (x.ndim - 2) + (shape[-1],)
+            # the library call moves the same bytes: coefficients in x's
+            # dtype, so a bf16 x gives a bf16 y (its rounding differs)
+            a_b, b_b = a.view(bshape).to(dtype), b.view(bshape).to(dtype)
+            fns = (lambda: norm.gn_affine(x, a, b),
+                   lambda: norm.gn_affine_reference(x, a, b),
+                   lambda: torch.addcmul(b_b, x, a_b))
+            k_ms, p_ms, l_ms = _time_turns(*fns)
+            k_dev, l_dev = _device_ms(fns[0]), _device_ms(fns[2])
+            work = _elementwise(x.numel(), 2, 2 * x.numel() * x.element_size()
+                                + 8 * shape[0] * shape[-1])
+            record("gn_affine", f"{shape} {model}", dtype, err, k_ms, p_ms,
+                   model == "ResidualUNet3D", *work, l_ms)
+            log(f"{'':13s} device time: kernel {_ms(k_dev)}, "
+                f"torch.addcmul {_ms(l_dev)}")
+            if model != "ragged":
+                tot = affine_sums.setdefault((model, dtype), dict.fromkeys(
+                    ("n", "window", "device", "library", "library_device",
+                     "bound"), 0.0))
+                for key, v in (("n", 1), ("window", k_ms), ("device", k_dev),
+                               ("library", l_ms), ("library_device", l_dev),
+                               ("bound", _bound_ms(*work)[0])):
+                    tot[key] += v
+            del x
+            torch.cuda.empty_cache()
+        # 4: the predictors' batches (patch = stride: no overlap; the second
+        # batch a padded tail), overlapping windows at predictor size, and
+        # ragged ones; (pshape, volume, starts, valid, halo, (channels of
+        # the network output, offset of the selected ones), label): the
+        # patches are a halo-stripped channel view of the network output,
+        # as the predictor passes them
+        wins = _windows(OVERLAP_VOLUME, OVERLAP_PATCH, OVERLAP_STRIDE)
+        cases = [(s[1], s[2], s[3], s[4], s[5], (s[1][-1], 0), "predictor")
+                 for s in overlaps] + [
+            ((len(wins), *OVERLAP_PATCH, 1), OVERLAP_VOLUME, wins,
+             [1] * len(wins), OVERLAP_HALO, (1, 0), "overlapping windows"),
             ((5, 4, 8, 9, 2), (8, 14, 16),
              [[0, 0, 0], [2, 3, 1], [1, 5, 6], [4, 6, 7], [4, 6, 7]],
-             [1, 1, 1, 1, 0], False),
+             [1, 1, 1, 1, 0], (0, 0, 0), (2, 0), "ragged"),
             ((6, 7, 9, 5, 3), (9, 11, 13),
              [[0, 0, 0], [1, 1, 1], [2, 2, 8], [2, 0, 4], [0, 2, 3], [0, 2, 3]],
-             [1, 1, 1, 1, 1, 0], False),
+             [1, 1, 1, 1, 1, 0], (0, 0, 0), (3, 0), "ragged"),
+            ((5, 4, 8, 9, 1), (8, 14, 16),
+             [[0, 0, 0], [2, 3, 1], [1, 5, 6], [4, 6, 7], [4, 6, 7]],
+             [1, 1, 1, 1, 0], (1, 2, 1), (3, 1), "ragged view"),
+            ((6, 7, 9, 5, 2), (9, 11, 13),
+             [[0, 0, 0], [1, 1, 1], [2, 2, 8], [2, 0, 4], [0, 2, 3], [0, 2, 3]],
+             [1, 1, 1, 1, 1, 0], (3, 1, 2), (3, 0), "ragged view"),
         ]
-        for pshape, vol, starts, valid, model_shape in cases:
-            p = rand(pshape, dtype)
-            acc0 = rand((*vol, pshape[-1]))
-            cnt0 = torch.randint(0, 3, (*vol, pshape[-1]), device=DEVICE,
+        for pshape, vol, starts, valid, halo, (cb, c0), label in cases:
+            p_, pd, ph, pw, c = pshape
+            hz, hy, hx = halo
+            base = rand((p_, pd + 2 * hz, ph + 2 * hy, pw + 2 * hx, cb), dtype)
+            p = base[:, hz:hz + pd, hy:hy + ph, hx:hx + pw, c0:c0 + c]
+            acc0 = rand((*vol, c))
+            cnt0 = torch.randint(0, 3, (*vol, c), device=DEVICE,
                                  generator=gen).float()
             acc, cnt = acc0.clone(), cnt0.clone()
             p_acc, p_cnt = acc0.clone(), cnt0.clone()
-            overlap.overlap_add_into(acc, cnt, p, starts, valid)
+            with _sync_debug_error():  # no copy to the card, no wait for it
+                overlap.overlap_add_into(acc, cnt, p, starts, valid)
+            sync_checked += 1
             overlap.overlap_add_into_reference(p_acc, p_cnt, p, starts, valid)
             err = max(_compare(f"overlap_add {pshape} acc", acc, p_acc, 0.0,
                                exact=True),
                       _compare(f"overlap_add {pshape} cnt", cnt, p_cnt, 0.0,
                                exact=True))
+            fn = lambda: overlap.overlap_add_into(acc, cnt, p, starts, valid)
             k_ms, p_ms = _time_turns(
-                lambda: overlap.overlap_add_into(acc, cnt, p, starts, valid),
-                lambda: overlap.overlap_add_into_reference(p_acc, p_cnt, p,
-                                                           starts, valid))
-            # the valid patches: read once; their windows of acc and cnt
-            # (fp32) read and written once
-            win = sum(valid) * (p.numel() // pshape[0])
-            record("overlap_add", f"{pshape} into {vol}", dtype, err, k_ms,
-                   p_ms, model_shape, *_elementwise(
-                       win, 3, win * (p.element_size() + 16)))
-            del p, acc0, cnt0, acc, cnt, p_acc, p_cnt
+                fn, lambda: overlap.overlap_add_into_reference(
+                    p_acc, p_cnt, p, starts, valid))
+            k_dev = _device_ms(fn, -(-p_ // overlap.CHUNK))
+            flop, nbytes = _overlap_work(pshape, vol, starts, valid,
+                                         p.element_size())
+            record("overlap_add", f"{pshape} into {vol} {label}", dtype, err,
+                   k_ms, p_ms, label == "predictor", flop, nbytes, PEAK_FP32)
+            log(f"{'':13s} device time: kernel {_ms(k_dev)}; patches "
+                f"strides {p.stride()}")
+            if label != "ragged" and label != "ragged view":
+                tot = overlap_sums.setdefault((label, dtype), dict.fromkeys(
+                    ("n", "window", "device", "bound"), 0.0))
+                for key, v in (("n", 1), ("window", k_ms), ("device", k_dev),
+                               ("bound", _bound_ms(flop, nbytes,
+                                                   PEAK_FP32)[0])):
+                    tot[key] += v
+            del base, p, acc0, cnt0, acc, cnt, p_acc, p_cnt
             torch.cuda.empty_cache()
     log(f"[phase 6] ok: {len(gcr)} gcr_conv3d, {len(stats)} gn_stats, "
         f"{len(affine)} gn_affine and {len(overlaps)} overlap_add model cases "
-        "plus ragged cases match in fp32 and bf16 (overlap_add bit-exact)")
+        "plus training and ragged cases match in fp32 and bf16 (gn_affine "
+        "and overlap_add bit-exact); overlap_add_into ran "
+        f"{sync_checked} times under torch.cuda.set_sync_debug_mode('error')")
+    for (model, dtype), t in affine_sums.items():
+        log(f"[phase 6] gn_affine over the {t['n']:.0f} {model} shapes, "
+            f"{str(dtype)[6:]}: event window {t['window']:.4f} ms, device "
+            f"{_ms(t['device'])}; torch.addcmul window {t['library']:.4f} "
+            f"ms, device {_ms(t['library_device'])}; bound "
+            f"{t['bound']:.4f} ms (share: window "
+            f"{_share(t['bound'], t['window'])}, device "
+            f"{_share(t['bound'], t['device'])})")
+    for (label, dtype), t in overlap_sums.items():
+        log(f"[phase 6] overlap_add over the {t['n']:.0f} {label} case(s), "
+            f"{str(dtype)[6:]}: event window {t['window']:.4f} ms, device "
+            f"{_ms(t['device'])}; bound {t['bound']:.4f} ms (share: window "
+            f"{_share(t['bound'], t['window'])}, device "
+            f"{_share(t['bound'], t['device'])})")
     log(f"[phase 6] kernel 2 over the UNet3D predictor's "
         f"{sum(s[3] == 'UNet3D' for s in gcr)} shapes, fp32: kernel "
         f"{unet['ms']:.3f} ms, cuDNN conv3d (TF32 off) "
@@ -1238,7 +1429,7 @@ def _training_shapes(seed: int):
 
     from mdeical_image_segmentation_tpu_torch.models import get_model
 
-    cfg = _read_yaml_subset(TRAIN_YML)
+    cfg = read_yaml_subset(TRAIN_YML)
     patch = tuple(cfg["loaders"]["train"]["slice_builder"]["patch_shape"])
     found = {"gcr": set(), "gn": set()}
     for name, model_cfg, shape in (("UNet3D", cfg["model"], patch),
@@ -1621,13 +1812,13 @@ class UNet3DTraining:
     def __init__(self, seed: int, workdir: str):
         self.seed, self.workdir = seed, workdir
         os.makedirs(workdir, exist_ok=True)
-        self.cfg = _read_yaml_subset(TRAIN_YML)
+        self.cfg = read_yaml_subset(TRAIN_YML)
         self.model_cfg = self.cfg["model"]
         loaders = self.cfg["loaders"]
         train_sb = loaders["train"]["slice_builder"]
         val_sb = loaders["val"]["slice_builder"]
-        raw = _volume(TRAIN_VOLUME, seed + 2)
-        val_raw = _volume(VAL_VOLUME, seed + 3)
+        raw = seeded_volume(TRAIN_VOLUME, seed + 2)
+        val_raw = seeded_volume(VAL_VOLUME, seed + 3)
         self.train_ds = _PatchDataset(raw, _smooth_label(raw),
                                       train_sb["patch_shape"],
                                       train_sb["stride_shape"])
@@ -1790,8 +1981,8 @@ def phase_train_residual(seed: int, workdir: str):
 
     from mdeical_image_segmentation_tpu_torch.data.loaders import VolumeLoader
 
-    cfg = _read_yaml_subset(TRAIN_YML)
-    raw = _volume((64, 128, 256), seed + 4)
+    cfg = read_yaml_subset(TRAIN_YML)
+    raw = seeded_volume((64, 128, 256), seed + 4)
     ds = _PatchDataset(raw, _smooth_label(raw), RESIDUAL_PATCH,
                        RESIDUAL_PATCH)
 
@@ -1875,11 +2066,11 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     t_phase = time.time()
-    k3d = phase_kernels_3d(SEED, shapes)
+    train_shapes = _training_shapes(SEED)
+    k3d = phase_kernels_3d(SEED, shapes, train_shapes)
     log(f"[phase 6] wall {time.time() - t_phase:.1f} s")
 
     t_phase = time.time()
-    train_shapes = _training_shapes(SEED)
     log(f"[phase 7] GroupNorm backward kernels at the training shapes: "
         f"{len(train_shapes['gn'])} GroupNorm inputs of UNet3D (80x170x170) "
         f"and ResidualUNet3D (64x128x128)")

@@ -1,10 +1,11 @@
-"""Where the time of one 3D training step goes on the card, and how far the
-kernel path's first losses drift from the plain path's: the PyTorch port's
-UNetTrainer on the UNet3D of configs/unet3d_train.yml (f_maps 64, batch 1,
-80x170x170 patch, fp32, TF32 off), built by ``chip_smoke.UNet3DTraining``
-exactly as ``chip_smoke.py`` phase 9 builds it.
+"""Where the time of one 3D training step and of the 3D predictors' batches
+goes on the card, and how far the kernel path's first losses drift from the
+plain path's: the PyTorch port's UNetTrainer on the UNet3D of
+configs/unet3d_train.yml (f_maps 64, batch 1, 80x170x170 patch, fp32, TF32
+off), built by ``chip_smoke.UNet3DTraining`` exactly as ``chip_smoke.py``
+phase 9 builds it, and the sliding-window predictor of phases 3 and 4.
 
-    python3 chip_train_step.py [--steps 3] [--loss-seeds 0 1 2 3]
+    python3 chip_train_step.py [--steps 3] [--predictors] [--loss-seeds 0 1 2 3]
 
 Needs one CUDA card and the checkout it sits in; imports nothing of JAX.
 
@@ -16,6 +17,16 @@ kernels.  Groups: the port's conv core (``conv_halo_kernel`` /
 ``conv_gather_kernel``: kernel 2's forward), the GroupNorm kernels
 (``gn_*``), cuDNN / cuBLAS convolutions and GEMMs (the conv backward, and
 on the plain path the forward too), everything else.
+
+Predictors (``--predictors``): the UNet3D of configs/unet3d_predict.yml
+(80x340x510 volume, 2 batches of 4) and the ResidualUNet3D of phase 4
+(48x192x288, 2 batches of 4), each through
+``StandardPredictor._device_accumulate`` once cold (its wall time
+printed) and once under ``torch.profiler``, on the plain path and then
+the kernel path: per batch,
+the device time of each group (the overlap-add kernel too) against the
+wall time of the whole pass (host batch assembly, copies and the final
+fetch of the maps included), and the largest kernels.
 
 Loss drift (``--loss-seeds``): for each seed, phase 9's setup from that seed
 trained for 5 steps through ``UNetTrainer.fit()``: kernel path, plain
@@ -47,6 +58,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (helpers only; it runs nothing on import)
 
 GROUPS = (
+    ("overlap-add kernel (4)", re.compile(r"overlap_add_kernel")),
     ("port conv core (kernel 2 forward)", re.compile(r"conv_(halo|gather)_kernel")),
     ("GroupNorm kernels (3a-3d)", re.compile(r"\bgn_\w*kernel")),
     ("cuDNN / cuBLAS conv and GEMM", re.compile(
@@ -90,26 +102,79 @@ def _profile(trainer, steps: int):
             step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by_name = defaultdict(float)
-    for evt in prof.key_averages():
-        dev = getattr(evt, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(evt, "self_cuda_time_total", 0.0)
-        if dev and evt.device_type.name == "CUDA":
-            by_name[evt.key] += dev / 1e3  # us -> ms
-    return by_name, wall
+    return chip_smoke.device_times(prof), wall
 
 
-def _report(title: str, by_name, wall: float, steps: int) -> None:
+def _predictor_setup(name: str):
+    """(model, predictor config, volume, slices, batch size) of
+    ``chip_smoke.py`` phase 3 (UNet3D) or 4 (ResidualUNet3D), the weights
+    from the same seed."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.models import get_model
+
+    cfg = chip_smoke.read_yaml_subset(chip_smoke.PREDICT_YML)
+    if name == "UNet3D":
+        model_cfg, slices = cfg["model"], cfg["loaders"]["test"]["slice_builder"]
+        volume, seed = chip_smoke.VOLUME_3D, chip_smoke.SEED
+    else:
+        model_cfg, slices = chip_smoke.RESIDUAL_MODEL, chip_smoke.RESIDUAL_SLICES
+        volume, seed = chip_smoke.VOLUME_RESIDUAL, chip_smoke.SEED + 1
+    model = get_model(model_cfg, generator=torch.Generator().manual_seed(seed))
+    model = model.to("cuda").eval()
+    config = {"model": model_cfg, "predictor": cfg["predictor"]}
+    return (model, config, chip_smoke.seeded_volume(volume, seed), slices,
+            cfg["loaders"]["batch_size"])
+
+
+def _profile_predictor(name: str):
+    """Device time by kernel name and wall ms of one steady pass of the
+    sliding-window predictor over the volume, the wall ms of the pass
+    before it (the first of the process on this path), and the batch
+    count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdeical_image_segmentation_tpu_torch.data.volume_utils import (
+        padded_patch_batches,
+    )
+    from mdeical_image_segmentation_tpu_torch.infer import get_predictor
+
+    model, config, raw, slices, batch = _predictor_setup(name)
+    pred = get_predictor(model, None, config)
+    batches = list(padded_patch_batches(raw, slices, batch))
+
+    def run():
+        pred._device_accumulate(iter(batches), raw.shape,
+                                slices["halo_shape"])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()  # cold: cuDNN's algorithms chosen, the allocator's blocks taken
+    torch.cuda.synchronize()
+    cold = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    del model, pred
+    torch.cuda.empty_cache()
+    return chip_smoke.device_times(prof), wall, cold, len(batches)
+
+
+def _report(title: str, by_name, wall: float, steps: int,
+            unit: str = "step") -> None:
     groups = defaultdict(float)
     for name, ms in by_name.items():
         groups[_group(name)] += ms
     busy = sum(by_name.values())
-    print(f"== {title}: {steps} steps, per step: wall {wall / steps:.1f} ms, "
-          f"device busy {busy / steps:.1f} ms ({100 * busy / wall:.1f}%)")
+    print(f"== {title}: {steps} x {unit}, per {unit}: wall "
+          f"{wall / steps:.1f} ms, device busy {busy / steps:.1f} ms "
+          f"({100 * busy / wall:.1f}%)")
     for label, _ in GROUPS + (("everything else", None),):
         print(f"   {label:40s} {groups[label] / steps:9.1f} ms")
-    print("   largest kernels (ms per step):")
+    print(f"   largest kernels (ms per {unit}):")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"     {ms / steps:9.2f}  {name[:110]}")
 
@@ -189,6 +254,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=3,
                     help="profiled steps per path (0: no profile)")
+    ap.add_argument("--predictors", action="store_true",
+                    help="profile the UNet3D and ResidualUNet3D predictors")
     ap.add_argument("--loss-seeds", type=int, nargs="*", default=[],
                     help="seeds of phase 9's setup for the loss drift")
     args = ap.parse_args()
@@ -214,6 +281,18 @@ def main() -> int:
                     del trainer
                     torch.cuda.empty_cache()
             del setup
+        if args.predictors:
+            # the plain path first (chip_smoke.py runs the kernel path
+            # first): whichever runs first pays the process's cold start
+            for name in ("UNet3D", "ResidualUNet3D"):
+                for title, plain, _ in RUNS[1::-1]:
+                    with (chip_smoke.plain_path() if plain
+                          else contextlib.nullcontext()):
+                        by_name, wall, cold, n = _profile_predictor(name)
+                    _report(f"{name} predictor, {title} path", by_name, wall,
+                            n, unit="batch")
+                    print(f"   the pass before (cold): {cold:.1f} ms, "
+                          f"{cold / n:.1f} ms per batch")
         if args.loss_seeds:
             _loss_drift(args.loss_seeds, LOSS_STEPS, PERTURB, work)
     return 0

@@ -87,8 +87,10 @@ def main(argv=None):
             UNetModel,
         )
 
+        # built on the CPU only to be saved; the registry loads it on device
         model = UNetModel(UNetConfig(in_channels=1, out_channels=1,
                                      unet_type="UNet", base_features=8),
+                          device="cpu",
                           generator=torch.Generator().manual_seed(0))
         demo_dir = tempfile.mkdtemp(prefix="tpuseg_demo_")
         model.save_pretrained(demo_dir)

@@ -24,12 +24,12 @@
 // and the affine and dx passes write their output once.  The backward
 // keeps no normalized tensor: x-hat is recomputed in registers.
 //
-// Design.  A block owns a contiguous range of rows (spatial positions) of
-// one sample.  Its threads are laid out as RL row lanes x CL channel lanes
-// (CL = min(C, 256), RL = 256 / CL), so neighbouring threads read
-// neighbouring addresses and each thread keeps ONE channel (and its
-// per-channel coefficients, in registers) for its whole walk (channels
-// beyond 256 are walked in chunks of 256).
+// Design of stats, bwd_reduce and bwd_dx.  A block owns a contiguous range
+// of rows (spatial positions) of one sample.  Its threads are laid out as
+// RL row lanes x CL channel lanes (CL = min(C, 256), RL = 256 / CL), so
+// neighbouring threads read neighbouring addresses and each thread keeps
+// ONE channel (and its per-channel coefficients, in registers) for its
+// whole walk (channels beyond 256 are walked in chunks of 256).
 // - Reductions (stats, bwd_reduce): the TPU grid runs in order and carries
 //   row accumulators from step to step; a GPU grid runs in parallel, so the
 //   sum is hierarchical and deterministic (no atomics): each thread sums its
@@ -37,10 +37,20 @@
 //   tree in shared memory and writes one partial per (n, c, block) to
 //   scratch, and a second kernel reduces the G partials of each (n, c) with
 //   a tree.  One partial kernel serves both, templated on what a row adds.
-// - Elementwise (affine, dx): the same row/channel map; every product and
-//   sum rounds on its own (__fmul_rn / __fadd_rn, no contraction into an
-//   FMA), in the order the plain PyTorch versions compute them, so the
-//   kernels agree with those bit for bit.
+// - dx: the same row/channel map; every product and sum rounds on its own
+//   (__fmul_rn / __fadd_rn, no contraction into an FMA), in the order the
+//   plain PyTorch version computes them, so the kernel agrees with it bit
+//   for bit.
+// Design of the affine.  A grid-stride walk over the vectors of one sample
+// (16 bytes: V = 4 fp32 or 8 bf16 consecutive channels of a row), sized
+// from the card (a few waves of resident blocks over the SMs), not from
+// the row count.  Vector t of the walk holds channels (t % (C / V)) * V ..
+// + V - 1, and the stride is a multiple of C / V, so a thread keeps the
+// same V channels, and their V (a, b) pairs in registers, for its whole
+// walk; it keeps U = 4 independent 16-byte loads in flight per step.  When
+// C % V != 0 or x or y is not 16-byte aligned, the same kernel walks
+// scalars instead (V = 1, the stride a multiple of C).  Same rounding as
+// dx: __fmul_rn then __fadd_rn, then round to x's dtype.
 // All offsets into the full-size tensors are 64-bit (a decoder input of the
 // 3D UNet at batch 4 holds 4.7e9 elements).
 
@@ -165,32 +175,164 @@ __global__ void __launch_bounds__(NT) gn_stats_final_kernel(
   }
 }
 
-// grid (G, N)
+// The 16-byte vector of the affine: 4 fp32 or 8 bf16 values in a uint4.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int V = 4;
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int V = 8;
+  static __device__ __forceinline__ float lo(unsigned w) {
+    return __bfloat162float(__ushort_as_bfloat16((unsigned short)(w & 0xffffu)));
+  }
+  static __device__ __forceinline__ float hi(unsigned w) {
+    return __bfloat162float(__ushort_as_bfloat16((unsigned short)(w >> 16)));
+  }
+  static __device__ __forceinline__ unsigned two(float a, float b) {
+    return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a)) |
+           ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
+  }
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    f[0] = lo(u.x); f[1] = hi(u.x); f[2] = lo(u.y); f[3] = hi(u.y);
+    f[4] = lo(u.z); f[5] = hi(u.z); f[6] = lo(u.w); f[7] = hi(u.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(two(f[0], f[1]), two(f[2], f[3]), two(f[4], f[5]),
+                      two(f[6], f[7]));
+  }
+};
+
+constexpr int AFFINE_UNROLL = 4;  // independent loads in flight per thread
+
+// The walk of one thread over units of V values (a 16-byte vector, or V = 1
+// scalar) of sample n: unit t, t + stride, ... below `units`, with stride a
+// multiple of C / V so the unit's channels stay c0 .. c0 + V - 1.
+template <typename T, int V>
+__device__ __forceinline__ void affine_walk(
+    const T* __restrict__ x, const float* __restrict__ a,
+    const float* __restrict__ b, T* __restrict__ y, int64_t units, int C,
+    int64_t t, int64_t stride) {
+  const int c0 = (int)(t % (C / V)) * V;
+  float av[V], bv[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    av[k] = a[c0 + k];
+    bv[k] = b[c0 + k];
+  }
+  for (int64_t i = t; i < units; i += AFFINE_UNROLL * stride) {
+    if constexpr (V == 1) {
+      T raw[AFFINE_UNROLL];
+#pragma unroll
+      for (int u = 0; u < AFFINE_UNROLL; ++u)
+        if (i + u * stride < units) raw[u] = x[i + u * stride];
+#pragma unroll
+      for (int u = 0; u < AFFINE_UNROLL; ++u)
+        if (i + u * stride < units)
+          y[i + u * stride] =
+              from_f<T>(__fadd_rn(__fmul_rn(to_f(raw[u]), av[0]), bv[0]));
+    } else {
+      const uint4* xv = reinterpret_cast<const uint4*>(x);
+      uint4* yv = reinterpret_cast<uint4*>(y);
+      uint4 raw[AFFINE_UNROLL];
+#pragma unroll
+      for (int u = 0; u < AFFINE_UNROLL; ++u)
+        if (i + u * stride < units) raw[u] = __ldg(xv + i + u * stride);
+#pragma unroll
+      for (int u = 0; u < AFFINE_UNROLL; ++u) {
+        if (i + u * stride < units) {
+          float f[V];
+          Vec16<T>::unpack(raw[u], f);
+#pragma unroll
+          for (int k = 0; k < V; ++k)
+            f[k] = __fadd_rn(__fmul_rn(f[k], av[k]), bv[k]);
+          yv[i + u * stride] = Vec16<T>::pack(f);
+        }
+      }
+    }
+  }
+}
+
+// grid (G, N): the G * NT threads of sample n walk its S * C values, as
+// 16-byte vectors when `vec` (C % V == 0, x and y 16-byte aligned), else as
+// scalars.
 template <typename T>
 __global__ void __launch_bounds__(NT) gn_affine_kernel(
     const T* __restrict__ x, const float* __restrict__ a,
     const float* __restrict__ b, T* __restrict__ y, int64_t S, int C,
-    int G) {
-  const int g = blockIdx.x;
+    bool vec) {
+  constexpr int V = Vec16<T>::V;
   const int n = blockIdx.y;
-  const int CL = C < NT ? C : NT;
-  const int RL = NT / CL;
-  const int tid = threadIdx.x;
-  const int lane_c = tid % CL;
-  const int lane_r = tid / CL;
-  if (lane_r >= RL) return;
-  const int64_t rows_per_block = (S + G - 1) / G;
-  const int64_t r0 = (int64_t)g * rows_per_block;
-  const int64_t r1 = r0 + rows_per_block < S ? r0 + rows_per_block : S;
-  const int64_t base = (int64_t)n * S * C;
-  for (int c = lane_c; c < C; c += CL) {
-    const float av = a[(int64_t)n * C + c];
-    const float bv = b[(int64_t)n * C + c];
-    for (int64_t r = r0 + lane_r; r < r1; r += RL) {
-      const int64_t i = base + r * C + c;
-      y[i] = from_f<T>(__fadd_rn(__fmul_rn(to_f(x[i]), av), bv));
-    }
+  const int64_t sample = (int64_t)n * S * C;
+  const int64_t t = (int64_t)blockIdx.x * NT + threadIdx.x;
+  // units per row; the stride is the largest multiple of it that the grid
+  // holds (the launcher gives at least `lanes` threads)
+  const int lanes = vec ? C / V : C;
+  const int64_t stride = (int64_t)gridDim.x * NT / lanes * lanes;
+  if (t >= stride) return;
+  if (vec)
+    affine_walk<T, V>(x + sample, a + (int64_t)n * C, b + (int64_t)n * C,
+                      y + sample, S * C / V, C, t, stride);
+  else
+    affine_walk<T, 1>(x + sample, a + (int64_t)n * C, b + (int64_t)n * C,
+                      y + sample, S * C, C, t, stride);
+}
+
+// Blocks per sample of the affine: enough for every unit once with
+// AFFINE_UNROLL in flight, at most AFFINE_WAVES waves of resident blocks
+// over the card's SMs (shared by the N samples), and at least one thread
+// per unit of a row.  -1 if the card cannot be queried.
+constexpr int AFFINE_WAVES = 4;
+
+template <typename T>
+int affine_blocks(int N, long long units, int lanes, int device) {
+  static int sms[64], per_sm[64];
+  if (device < 0 || device >= 64) return -1;
+  if (!sms[device]) {
+    int v = 0, occ = 0;
+    if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &occ, gn_affine_kernel<T>, NT, 0) != cudaSuccess)
+      return -1;
+    per_sm[device] = occ > 0 ? occ : 1;
+    sms[device] = v;
   }
+  const long long per_block = (long long)NT * AFFINE_UNROLL;
+  const long long need = (units + per_block - 1) / per_block;
+  const long long cap =
+      (long long)sms[device] * per_sm[device] * AFFINE_WAVES / N;
+  long long g = need < cap ? need : cap;
+  const long long min_g = (lanes + NT - 1) / NT;
+  if (g < min_g) g = min_g;
+  return (int)(g < 1 ? 1 : g);
+}
+
+template <typename T>
+int launch_affine(const void* x, const float* a, const float* b, void* y,
+                  int N, long long S, int C, int device, cudaStream_t s) {
+  constexpr int V = Vec16<T>::V;
+  const bool vec = C % V == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const int lanes = vec ? C / V : C;
+  const int g = affine_blocks<T>(N, vec ? S * C / V : S * C, lanes, device);
+  if (g < 0) return (int)cudaErrorInvalidDevice;
+  gn_affine_kernel<T><<<dim3(g, N), NT, 0, s>>>(
+      static_cast<const T*>(x), a, b, static_cast<T*>(y), S, C, vec);
+  return (int)cudaGetLastError();
 }
 
 // grid (G, N)
@@ -229,6 +371,15 @@ bool bad_args(int N, long long S, int C, int G) {
   return N <= 0 || S <= 0 || C <= 0 || G <= 0 || N > 65535 || C > 65535;
 }
 
+// Make `device` current, calling cudaSetDevice only when it is not (the
+// launch's host cost counts where the kernel is short).
+cudaError_t use_device(int device) {
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess || cur == device) return err;
+  return cudaSetDevice(device);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  partial is fp32 scratch of 2*N*C*G
@@ -260,27 +411,21 @@ extern "C" int tpuseg_gn_stats(const void* x, void* partial, void* s1,
   return (int)cudaGetLastError();
 }
 
+// The grid is sized here, from the card (see affine_blocks).
 extern "C" int tpuseg_gn_affine(const void* x, const void* a, const void* b,
-                                void* y, int N, long long S, int C, int G,
-                                int dtype, int device, void* stream) {
-  if (bad_args(N, S, C, G)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+                                void* y, int N, long long S, int C, int dtype,
+                                int device, void* stream) {
+  if (bad_args(N, S, C, 1)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(G, N);
   const float* af = static_cast<const float*>(a);
   const float* bf = static_cast<const float*>(b);
   if (dtype == 0)
-    gn_affine_kernel<float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(x), af, bf, static_cast<float*>(y), S, C,
-        G);
-  else if (dtype == 1)
-    gn_affine_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), af, bf,
-        static_cast<__nv_bfloat16*>(y), S, C, G);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_affine<float>(x, af, bf, y, N, S, C, device, s);
+  if (dtype == 1)
+    return launch_affine<__nv_bfloat16>(x, af, bf, y, N, S, C, device, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // dtype of x and g.  partial is fp32 scratch of 2*N*C*G floats.

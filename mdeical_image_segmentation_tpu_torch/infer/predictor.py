@@ -160,7 +160,8 @@ class StandardPredictor:
                 starts = np.concatenate(
                     [starts, np.repeat(starts[-1:], pad, axis=0)])
                 valid = np.concatenate([valid, np.zeros((pad,), np.float32)])
-            overlap_add_into(acc, cnt, pred.contiguous(), starts, valid)
+            # the halo-stripped view is read in place, no copy
+            overlap_add_into(acc, cnt, pred, starts, valid)
         return (np.moveaxis(acc.cpu().numpy(), -1, 0),
                 np.moveaxis(cnt.cpu().numpy(), -1, 0))
 

@@ -67,19 +67,28 @@ class SegOutput:
     labels: Optional[torch.Tensor] = None
 
 
+def _checked_device(device: Union[str, torch.device]) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available; pass device='cpu' to run on the CPU")
+    return device
+
+
 class UNetModel(nn.Module):
     """The classic UNet bundle.
 
     ``UNetModel(config, device=..., generator=...)`` builds it with PyTorch's
     default conv init drawn on the CPU from ``generator`` (a fresh
     ``torch.Generator`` seeded 0 when none is given), then moves it to
-    ``device`` in ``compute_dtype``.  ``device="meta"`` builds the structure
-    alone.  ``model(images)`` takes NHWC images and returns ``SegOutput``
-    with float32 NHWC logits.
+    ``device`` in ``compute_dtype``: the card by default (an error without
+    one), the CPU only when asked (``device="cpu"``).  ``device="meta"``
+    builds the structure alone.  ``model(images)`` takes NHWC images and
+    returns ``SegOutput`` with float32 NHWC logits.
     """
 
     def __init__(self, config: UNetConfig, *,
-                 device: Union[str, torch.device] = "cpu",
+                 device: Union[str, torch.device] = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if config.unet_type != "UNet":
@@ -94,7 +103,7 @@ class UNetModel(nn.Module):
                              f"(param_dtype={config.param_dtype!r})")
         self.config = config
         self.compute_dtype = _DTYPES[config.compute_dtype]
-        device = torch.device(device)
+        device = _checked_device(device)
         build_on = device if device.type == "meta" else torch.device("cpu")
         self.module = UNet(config.in_channels, config.out_channels,
                            config.base_features, device=build_on)
@@ -127,14 +136,16 @@ class UNetModel(nn.Module):
 
     @classmethod
     def from_pretrained(cls, path: str, *,
-                        device: Union[str, torch.device] = "cpu",
+                        device: Union[str, torch.device] = "cuda",
                         ) -> "UNetModel":
-        """Load a bundle saved by either package's ``save_pretrained``."""
+        """Load a bundle saved by either package's ``save_pretrained`` onto
+        ``device`` (the card by default; ``"cpu"`` when asked)."""
+        device = _checked_device(device)
         with open(os.path.join(path, "config.json")) as f:
             config = UNetConfig.from_dict(json.load(f))
         model = cls(config, device="meta")
         sd = flax_to_state_dict(
             flax_msgpack.load(os.path.join(path, "params.msgpack")))
         model.module.load_state_dict(sd, strict=True, assign=True)
-        model.module.to(device=torch.device(device), dtype=model.compute_dtype)
+        model.module.to(device=device, dtype=model.compute_dtype)
         return model

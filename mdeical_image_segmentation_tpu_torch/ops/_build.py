@@ -117,8 +117,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "tpuseg_double_conv2d_forward": [p] * 7 + [i] * 8 + [p],
         # x, partial, s1, s2, N, S, C, G, dtype, device, stream
         "tpuseg_gn_stats": [p] * 4 + [i, q, i, i, i, i, p],
-        # x, a, b, y, N, S, C, G, dtype, device, stream
-        "tpuseg_gn_affine": [p] * 4 + [i, q, i, i, i, i, p],
+        # x, a, b, y, N, S, C, dtype, device, stream (the grid from the card)
+        "tpuseg_gn_affine": [p] * 4 + [i, q, i, i, i, p],
         # x, g, mean, inv, partial, c1, c2, N, S, C, G, dtype, device, stream
         "tpuseg_gn_bwd_reduce": [p] * 7 + [i, q, i, i, i, i, p],
         # x, g, A, C, D, dx, N, S, C, G, dtype, device, stream
@@ -126,9 +126,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         # x, w, a, b, y, N, D, H, W, Ci, Co, KD, pre_relu, post_relu, dtype,
         # device, stream
         "tpuseg_gcr_conv3d_forward": [p] * 5 + [i] * 11 + [p],
-        # acc, cnt, patches, starts, weights, P, pd, ph, pw, C, D, H, W,
-        # z0, y0, x0, bz, by, bx, dtype, device, stream
-        "tpuseg_overlap_add": [p] * 5 + [i] * 16 + [p],
+        # acc, cnt, patches, starts, weights (host), P, pd, ph, pw, C, the
+        # patch strides sb, sz, sy, sx, sc, D, H, W, z0, y0, x0, bz, by, bx,
+        # dtype, device, stream
+        "tpuseg_overlap_add": [p] * 5 + [i] * 5 + [q] * 5 + [i] * 11 + [p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -152,7 +153,23 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+def kernel(name: str):
+    """The library's C function ``name``; after the first call no lock and
+    no lookup beyond an attribute read (the wrappers' hot path)."""
+    return getattr(_lib if _lib is not None else load(), name)
+
+
+def current_stream(device_index: int) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA device, without
+    building a ``torch.cuda.Stream`` object (the handle PyTorch's own
+    generated kernels launch on)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
     if rc != 0:
-        msg = lib.tpuseg_cuda_error_string(rc).decode(errors="replace")
+        msg = load().tpuseg_cuda_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -114,14 +114,13 @@ def fused_double2d(
     y = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
     # conv1's output: returned, or scratch that conv2 reads and we drop
     z = torch.empty((n, h, w, c1), dtype=x.dtype, device=x.device)
-    lib = _build.load()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.tpuseg_double_conv2d_forward(
+    dev = x.get_device()
+    rc = _build.kernel("tpuseg_double_conv2d_forward")(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), y.data_ptr(), z.data_ptr(), n, h, w, ci, c1, co,
-        _DTYPE_CODES[x.dtype], x.device.index, stream,
+        _DTYPE_CODES[x.dtype], dev, _build.current_stream(dev),
     )
-    _build.check(lib, rc, "double_conv2d launch")
+    _build.check(rc, "double_conv2d launch")
     fused_double2d.launches += 2
     return y, (z if with_z else None)
 
@@ -202,14 +201,14 @@ def fused_conv3d(
     n, d, h, w, ci = x.shape
     kd, co = kernel.shape[0], kernel.shape[-1]
     y = torch.empty((n, d, h, w, co), dtype=x.dtype, device=x.device)
-    lib = _build.load()
-    rc = lib.tpuseg_gcr_conv3d_forward(
+    dev = x.get_device()
+    rc = _build.kernel("tpuseg_gcr_conv3d_forward")(
         x.data_ptr(), kernel.data_ptr(), pre_scale.data_ptr(),
         pre_shift.data_ptr(), y.data_ptr(), n, d, h, w, ci, co, kd,
-        int(pre_relu), int(post_relu), _DTYPE_CODES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        int(pre_relu), int(post_relu), _DTYPE_CODES[x.dtype], dev,
+        _build.current_stream(dev),
     )
-    _build.check(lib, rc, "gcr_conv3d launch")
+    _build.check(rc, "gcr_conv3d launch")
     fused_conv3d.launches += 1
     return y
 

@@ -40,7 +40,7 @@ from . import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NT = 256              # threads per block of the kernels
 _STATS_ROWS = 64       # rows per thread the stats kernel aims for
-_AFFINE_ROWS = 16      # rows per thread of the affine kernel
+_DX_ROWS = 16          # rows per thread of the dx kernel
 _MAX_PARTIALS = 2**21  # cap on the stats scratch per sample and statistic
 
 
@@ -76,9 +76,10 @@ def _check_cuda(name: str, x: torch.Tensor, *coeffs: torch.Tensor,
         raise ValueError(f"{name}: g must be a contiguous {x.dtype} "
                          f"{tuple(x.shape)} tensor on {x.device}")
     n, c = x.shape[0], x.shape[-1]
+    dev = x.device
     for t in coeffs:
-        if (t.device != x.device or t.dtype != torch.float32
-                or tuple(t.shape) != (n, c) or not t.is_contiguous()):
+        if (t.dtype != torch.float32 or t.shape != (n, c) or t.device != dev
+                or not t.is_contiguous()):
             raise ValueError(f"{name}: coefficients must be contiguous "
                              f"float32 ({n}, {c}) on {x.device}")
     tracked = (x, *coeffs) if g is None else (x, g, *coeffs)
@@ -116,12 +117,11 @@ def gn_channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     partial = torch.empty((2, n, c, g), dtype=torch.float32, device=x.device)
     s1 = torch.empty((n, c), dtype=torch.float32, device=x.device)
     s2 = torch.empty_like(s1)
-    lib = _build.load()
-    rc = lib.tpuseg_gn_stats(
+    dev = x.get_device()
+    rc = _build.kernel("tpuseg_gn_stats")(
         x.data_ptr(), partial.data_ptr(), s1.data_ptr(), s2.data_ptr(), n,
-        rows, c, g, _DTYPE_CODES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "gn_stats launch")
+        rows, c, g, _DTYPE_CODES[x.dtype], dev, _build.current_stream(dev))
+    _build.check(rc, "gn_stats launch")
     gn_channel_sums.launches += 1
     return s1, s2
 
@@ -146,14 +146,14 @@ def gn_affine(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor
         raise ValueError(f"gn_affine runs on cuda or cpu, not {x.device}")
     _check_cuda("gn_affine", x, a, b)
     n, c = x.shape[0], x.shape[-1]
-    rows = x.numel() // (n * c)
     y = torch.empty_like(x)
-    lib = _build.load()
-    rc = lib.tpuseg_gn_affine(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), n, rows, c,
-        _grid(rows, c, _AFFINE_ROWS, None), _DTYPE_CODES[x.dtype],
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "gn_affine launch")
+    dev = x.get_device()
+    # the kernel sizes its grid from the card
+    rc = _build.kernel("tpuseg_gn_affine")(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), n,
+        x.numel() // (n * c), c, _DTYPE_CODES[x.dtype], dev,
+        _build.current_stream(dev))
+    _build.check(rc, "gn_affine launch")
     gn_affine.launches += 1
     return y
 
@@ -193,13 +193,12 @@ def gn_bwd_reduce(x: torch.Tensor, g: torch.Tensor, mean_c: torch.Tensor,
                           device=x.device)
     c1 = torch.empty((n, c), dtype=torch.float32, device=x.device)
     c2 = torch.empty_like(c1)
-    lib = _build.load()
-    rc = lib.tpuseg_gn_bwd_reduce(
+    dev = x.get_device()
+    rc = _build.kernel("tpuseg_gn_bwd_reduce")(
         x.data_ptr(), g.data_ptr(), mean_c.data_ptr(), inv_c.data_ptr(),
         partial.data_ptr(), c1.data_ptr(), c2.data_ptr(), n, rows, c, grid,
-        _DTYPE_CODES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "gn_bwd_reduce launch")
+        _DTYPE_CODES[x.dtype], dev, _build.current_stream(dev))
+    _build.check(rc, "gn_bwd_reduce launch")
     gn_bwd_reduce.launches += 1
     return c1, c2
 
@@ -228,13 +227,12 @@ def gn_bwd_dx(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
     n, ch = x.shape[0], x.shape[-1]
     rows = x.numel() // (n * ch)
     dx = torch.empty_like(x)
-    lib = _build.load()
-    rc = lib.tpuseg_gn_bwd_dx(
+    dev = x.get_device()
+    rc = _build.kernel("tpuseg_gn_bwd_dx")(
         x.data_ptr(), g.data_ptr(), a.data_ptr(), c.data_ptr(), d.data_ptr(),
-        dx.data_ptr(), n, rows, ch, _grid(rows, ch, _AFFINE_ROWS, None),
-        _DTYPE_CODES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "gn_bwd_dx launch")
+        dx.data_ptr(), n, rows, ch, _grid(rows, ch, _DX_ROWS, None),
+        _DTYPE_CODES[x.dtype], dev, _build.current_stream(dev))
+    _build.check(rc, "gn_bwd_dx launch")
     gn_bwd_dx.launches += 1
     return dx
 

@@ -12,10 +12,13 @@ function returns them.
 
 Dispatch is by the device of ``acc`` alone: a CUDA tensor launches the
 kernel in ``csrc/overlap_add.cu`` (or raises), a CPU tensor runs the plain
-sequential version.  ``starts`` and ``valid`` are small host-side arrays
-(numpy or tensors); the wrapper reads them on the host to find the batch's
-bounding box and uploads them.  ``overlap_add_into.launches`` counts kernel
-launches.
+sequential version.  ``patches`` may be any strided view (the predictor
+passes the halo-stripped network output, read in place).  ``starts`` and
+``valid`` are small host-side arrays (numpy, or CPU tensors); the wrapper
+reads them on the host to find each launch's bounding box and hands them to
+the kernel by value, so it copies nothing to the device and never waits for
+it.  It launches once per ``CHUNK`` patches, in patch order;
+``overlap_add_into.launches`` counts the launches.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_PATCHES = 1024  # the kernel's shared-memory table
+MAX_PATCHES = 1024  # patches per call
+CHUNK = 128         # patches per launch: the kernel's parameter table
 
 
 def _host(starts, valid, p: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -91,8 +95,8 @@ def overlap_add_into(acc: torch.Tensor, cnt: torch.Tensor,
             raise TypeError(f"{name} must be contiguous float32")
         if t.device != acc.device:
             raise ValueError(f"{name} is on {t.device}, acc on {acc.device}")
-    if patches.device != acc.device or not patches.is_contiguous():
-        raise ValueError(f"patches must be contiguous on {acc.device}")
+    if patches.device != acc.device:
+        raise ValueError(f"patches must be on {acc.device}")
     if patches.dtype not in _DTYPE_CODES:
         raise TypeError(f"patches must be float32 or bfloat16, "
                         f"got {patches.dtype}")
@@ -102,20 +106,23 @@ def overlap_add_into(acc: torch.Tensor, cnt: torch.Tensor,
                          f"{acc.shape[-1]} (at most {MAX_PATCHES} patches)")
     starts, valid = _host(starts, valid, p)
     _check_bounds(acc, patches, starts)
-    lo = starts.min(axis=0)
-    hi = (starts + np.asarray([pd, ph, pw])).max(axis=0)
-    starts_dev = torch.from_numpy(starts).to(acc.device)
-    valid_dev = torch.from_numpy(valid).to(acc.device)
+    ext = np.asarray([pd, ph, pw])
     d, h, w = acc.shape[:3]
-    lib = _build.load()
-    rc = lib.tpuseg_overlap_add(
-        acc.data_ptr(), cnt.data_ptr(), patches.data_ptr(),
-        starts_dev.data_ptr(), valid_dev.data_ptr(), p, pd, ph, pw, c, d, h,
-        w, int(lo[0]), int(lo[1]), int(lo[2]), int(hi[0] - lo[0]),
-        int(hi[1] - lo[1]), int(hi[2] - lo[2]), _DTYPE_CODES[patches.dtype],
-        acc.device.index, torch.cuda.current_stream(acc.device).cuda_stream)
-    _build.check(lib, rc, "overlap_add launch")
-    overlap_add_into.launches += 1
+    strides = patches.stride()
+    step = strides[0] * patches.element_size()
+    dev = acc.get_device()
+    fn = _build.kernel("tpuseg_overlap_add")
+    stream = _build.current_stream(dev)
+    for i in range(0, p, CHUNK):
+        st, wt = starts[i:i + CHUNK], valid[i:i + CHUNK]
+        lo = st.min(axis=0)
+        box = (st + ext).max(axis=0) - lo
+        rc = fn(acc.data_ptr(), cnt.data_ptr(), patches.data_ptr() + i * step,
+                st.ctypes.data, wt.ctypes.data, len(st), pd, ph, pw, c,
+                *strides, d, h, w, *lo.tolist(), *box.tolist(),
+                _DTYPE_CODES[patches.dtype], dev, stream)
+        _build.check(rc, "overlap_add launch")
+        overlap_add_into.launches += 1
     return acc, cnt
 
 

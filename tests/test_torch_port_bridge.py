@@ -63,7 +63,7 @@ def test_writer_is_byte_identical_to_flax(jax_bundle):
 
 def test_port_bundle_loads_in_jax(jax_bundle, tmp_path):
     _, jm, _ = jax_bundle
-    model = UNetModel(UNetConfig(**KW),
+    model = UNetModel(UNetConfig(**KW), device="cpu",
                       generator=torch.Generator().manual_seed(5))
     model.save_pretrained(str(tmp_path))
     jm2, variables = JaxUNetModel.from_pretrained(str(tmp_path))

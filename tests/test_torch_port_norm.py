@@ -319,3 +319,103 @@ def test_bwd_kernel_checks_refuse_autograd_and_bad_shapes():
     with pytest.raises(RuntimeError, match="no backward"):
         norm._check_cuda("gn_bwd_dx", x, m, m, m,
                          g=x.clone().requires_grad_())
+
+
+# -- kernel 3b (csrc/group_norm.cu, gn_affine_kernel): its work partition ----
+#
+# Replayed in numpy with the source's constants: a grid sized from the card
+# (at most AFFINE_WAVES waves of resident blocks, at least one thread per
+# unit of a row), each thread walking units t, t + stride, ... in groups of
+# AFFINE_UNROLL, a unit being a 16-byte vector (4 fp32 or 8 bf16 channels)
+# when C % V == 0 and x and y are aligned, else one scalar.  Every element
+# must be written exactly once, by a thread whose channels never change,
+# with the value the plain version gives, bit for bit.
+
+def _affine_constants():
+    import re
+
+    from mdeical_image_segmentation_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "group_norm.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+            for name in ("NT", "AFFINE_UNROLL", "AFFINE_WAVES")}
+
+
+def _emulate_affine(x, a, b, aligned, sms, per_sm):
+    k = _affine_constants()
+    nt, unroll = k["NT"], k["AFFINE_UNROLL"]
+    n, c = x.shape[0], x.shape[-1]
+    s = x.numel() // (n * c)
+    v = 16 // x.element_size()
+    vec = c % v == 0 and aligned
+    width = v if vec else 1
+    lanes = c // width
+    units = s * c // width
+    per_block = nt * unroll
+    g = min(-(-units // per_block), sms * per_sm * k["AFFINE_WAVES"] // n)
+    g = max(g, -(-lanes // nt), 1)
+    stride = g * nt // lanes * lanes
+    xf = x.float().numpy().reshape(n, s * c)
+    out = np.zeros((n, s * c), np.float32)
+    writes = np.zeros((n, s * c), np.int32)
+    an, bn = a.numpy(), b.numpy()
+    for smp in range(n):
+        for t in range(stride):  # threads t >= stride return at once
+            c0 = (t % lanes) * width
+            av, bv = an[smp, c0:c0 + width], bn[smp, c0:c0 + width]
+            for i0 in range(t, units, unroll * stride):
+                for i in range(i0, min(i0 + unroll * stride, units), stride):
+                    e = np.arange(i * width, (i + 1) * width)
+                    assert (e % c == np.arange(c0, c0 + width)).all()
+                    out[smp, e] = np.float32(xf[smp, e] * av) + bv
+                    writes[smp, e] += 1
+    assert (writes == 1).all()
+    y = torch.from_numpy(out.reshape(x.shape)).to(x.dtype)
+    return y, vec, g
+
+
+@pytest.mark.parametrize("c", [1, 3, 8, 19, 32, 192, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_affine_partition_writes_each_element_once_bit_exactly(c, dtype,
+                                                               aligned):
+    """On the H100's grid (132 SMs, 8 resident blocks) and on a 2-SM card,
+    where each thread walks many groups of units."""
+    rng = np.random.default_rng(c)
+    shape = (2, 3, 5, 7, c)
+    x = torch.from_numpy((1.5 * rng.standard_normal(shape)).astype(
+        np.float32)).to(dtype)
+    a = torch.from_numpy(rng.random((2, c)).astype(np.float32) + 0.5)
+    b = torch.from_numpy(rng.standard_normal((2, c)).astype(np.float32))
+    want = norm.gn_affine_reference(x, a, b)
+    for sms, per_sm in ((132, 8), (2, 1)):
+        y, vec, g = _emulate_affine(x, a, b, aligned, sms, per_sm)
+        assert torch.equal(y, want)
+        v = 16 // x.element_size()
+        assert vec == (aligned and c % v == 0)
+        assert g * 256 >= (c // v if vec else c)
+
+
+@pytest.mark.parametrize("c", [1, 3, 19, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_affine_matches_jax_affine_kernel_at_ragged_c(c, dtype):
+    """3b's plain version against the JAX ``_affine_kernel`` run through
+    ``_gn_grid`` in interpret mode, as ``_gn_fwd_pallas`` runs it, at the
+    ragged C of the card checks (the kernel's scalar path)."""
+    rng = np.random.default_rng(100 + c)
+    n, d, h, w = 2, 3, 4, 5
+    x = (1.5 * rng.standard_normal((n, d, h, w, c)) + 0.7).astype(np.float32)
+    a = (rng.random((n, c)) + 0.5).astype(np.float32)
+    b = rng.standard_normal((n, c)).astype(np.float32)
+    jx4 = jnp.asarray(x).astype(dtype).reshape(n, d, h, w * c)
+    y_j = jax_norm._gn_grid(jx4, 2, jax_norm._affine_kernel, 0,
+                            out_full=jx4.dtype, interpret=True)(
+        jx4, jax_norm._tile_row(jnp.asarray(a), w),
+        jax_norm._tile_row(jnp.asarray(b), w))
+    y = norm.gn_affine(_as(x, dtype), torch.from_numpy(a),
+                       torch.from_numpy(b))
+    assert y.dtype == getattr(torch, dtype)
+    tol = FP32_TOL if dtype == "float32" else BF16_PALLAS_TOL
+    np.testing.assert_allclose(
+        _bf16_numpy(y), np.asarray(y_j.astype(jnp.float32)).reshape(x.shape),
+        rtol=tol, atol=tol)

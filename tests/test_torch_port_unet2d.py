@@ -69,8 +69,10 @@ def test_reference_width_param_tree():
 
 def test_seeded_init_is_reproducible_and_torch_default():
     cfg = UNetConfig(in_channels=1, base_features=4)
-    a = UNetModel(cfg, generator=torch.Generator().manual_seed(7))
-    b = UNetModel(cfg, generator=torch.Generator().manual_seed(7))
+    a = UNetModel(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(7))
+    b = UNetModel(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(7))
     for (ka, ta), (kb, tb) in zip(a.state_dict().items(),
                                   b.state_dict().items()):
         assert ka == kb and torch.equal(ta, tb)
@@ -80,7 +82,8 @@ def test_seeded_init_is_reproducible_and_torch_default():
 
 
 def test_bf16_policy_casts_weights_once_and_returns_fp32():
-    model = UNetModel(UNetConfig(base_features=4, compute_dtype="bfloat16"))
+    model = UNetModel(UNetConfig(base_features=4, compute_dtype="bfloat16"),
+                      device="cpu")
     assert all(p.dtype == torch.bfloat16 for p in model.parameters())
     x = torch.rand(1, 32, 32, 1, generator=torch.Generator().manual_seed(0))
     with torch.inference_mode():
@@ -90,8 +93,8 @@ def test_bf16_policy_casts_weights_once_and_returns_fp32():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNetModel(UNetConfig(unet_type="UNet_3Plus"))
-    model = UNetModel(UNetConfig(base_features=2))
+        UNetModel(UNetConfig(unet_type="UNet_3Plus"), device="cpu")
+    model = UNetModel(UNetConfig(base_features=2), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model(torch.zeros(1, 16, 16, 1), torch.zeros(1, 16, 16, 1))
 
@@ -114,3 +117,22 @@ def test_max_pool2d_matches_jax(hw):
     got = image.max_pool2d(torch.from_numpy(x), 2)
     assert got.is_contiguous()
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    """``UNetModel`` and ``from_pretrained`` run on the card unless the
+    caller asks for the CPU; without a card the default raises."""
+    import inspect
+
+    for fn in (UNetModel.__init__, UNetModel.from_pretrained):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = UNetConfig(base_features=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        UNetModel(cfg)
+    UNetModel(cfg, device="cpu").save_pretrained(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        UNetModel.from_pretrained(str(tmp_path))
+    model = UNetModel.from_pretrained(str(tmp_path), device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    assert UNetModel(cfg, device="meta").module is not None
