@@ -67,16 +67,22 @@ wall time.
    under ``torch.cuda.set_sync_debug_mode("error")`` (no copy to the card,
    no wait for it).  Kernel, plain and library ms (cuDNN conv3d,
    ``torch.var_mean``, ``torch.addcmul``) by CUDA events around each call
-   (the event window: host work inside), in turns, median; the affine's
-   and the overlap-add's device time by ``torch.profiler``; each case's
-   bound; sums over the model shapes, and the GN-conv's UNet3D predictor
-   shapes against cuDNN fp32 (TF32 off).
+   (the event window: host work inside), in turns, median; the GN
+   statistics', the affine's and the overlap-add's device time by
+   ``torch.profiler``; each case's bound; sums over the model shapes (one
+   ``[phase 6]`` line per kernel and dtype: window, device, library,
+   bound, both shares), and the GN-conv's UNet3D predictor shapes against
+   cuDNN fp32 (TF32 off).  Two calls of the GN statistics on the same
+   inputs must give the same bits.
 7. The GroupNorm backward kernels (Σg and Σg·x̂; dx = g·A + x·C + D)
    against their plain versions at every GroupNorm input shape of the two
    training models (UNet3D at 80x170x170, ResidualUNet3D at 64x128x128,
    N = 1, found by one forward with hooks) plus ragged C and C = 1, in fp32
-   and bf16: the sums within 1e-5 x the number of positions, dx within
-   1e-6 / 2e-2; kernel and plain ms by CUDA events, in turns, median.
+   and bf16: the sums within 1e-5 x the number of positions and the same
+   bits on two calls, dx within 1e-6 / 2e-2; kernel and plain ms by CUDA
+   events, in turns, median; at the UNet3D shapes also the device time
+   (``torch.profiler``), summed in one ``[phase 7]`` line per kernel and
+   dtype (window, device, bound, both shares).
 8. Kernel 2 at the 14 forward shapes of one UNet3D training step (N=1,
    80x170x170), held against its plain version within 1e-4 and timed
    against cuDNN conv3d (fp32, TF32 off).  Then gradients
@@ -109,7 +115,8 @@ wall time.
 11. Prints the card's name and power limit, the kernels' JSON line (launches
    from the main-path runs, each run's counts zeroed just before it; ms,
    plain, library and bound ms summed over the model shapes: the 9 UNet
-   DoubleConvs at N=2 in bf16, the 3D kernels' fp32 model shapes), and
+   DoubleConvs at N=2 in bf16, the 3D kernels' fp32 model shapes; device
+   ms where phases 6-7 measured it, else null), and
    last ``{"ok": true, "device": {...}}``.
 """
 
@@ -1030,15 +1037,16 @@ def _record_header():
 
 def _new_records(*kernels):
     return {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
-                "bound_ms": 0.0, "op_ms": 0.0, "byte_ms": 0.0}
+                "device_ms": None, "bound_ms": 0.0, "op_ms": 0.0,
+                "byte_ms": 0.0}
             for k in kernels}
 
 
 def _record(out, kernel, case, dtype, err, k_ms, p_ms, model_shape, flop,
-            nbytes, peak, lib_ms=None):
+            nbytes, peak, lib_ms=None, dev_ms=None):
     """Log one kernel-vs-plain case; keep the kernel's worst error and the
-    fp32 model shapes' summed kernel, plain, library and bound times (the
-    bound per shape: FLOP at ``peak`` or bytes at the HBM rate, the
+    fp32 model shapes' summed kernel, plain, library, device and bound times
+    (the bound per shape: FLOP at ``peak`` or bytes at the HBM rate, the
     larger)."""
     import torch
 
@@ -1051,11 +1059,49 @@ def _record(out, kernel, case, dtype, err, k_ms, p_ms, model_shape, flop,
         rec["bound_ms"] += bound
         rec["op_ms"] += flop / peak * 1e3
         rec["byte_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
-        if lib_ms is not None:
-            rec["library_ms"] = (rec["library_ms"] or 0.0) + lib_ms
+        for key, v in (("library_ms", lib_ms), ("device_ms", dev_ms)):
+            if v is not None:
+                rec[key] = (rec[key] or 0.0) + v
     lib = f"{lib_ms:11.3f}" if lib_ms is not None else f"{'none':>11s}"
     log(f"{kernel:13s} {str(dtype)[6:]:8s} {case:44s} {err:10.3e} "
         f"{k_ms:11.3f} {p_ms:11.3f} {lib} {bound:10.3f}")
+
+
+def _add_sums(sums: dict, key, **vals) -> None:
+    """Add one shape's times (window, device, library, ..., bound) into the
+    totals of ``key`` (a shape set and dtype), counting the shapes."""
+    tot = sums.setdefault(key, {"n": 0.0})
+    tot["n"] += 1
+    for name, v in vals.items():
+        tot[name] = tot.get(name, 0.0) + v
+
+
+def _log_sums(phase: int, kernel: str, sums: dict, library: str = "") -> None:
+    """One line per (shape set, dtype) of ``_add_sums`` totals: the event
+    window, the device time, the library call's where there is one, the
+    bound and both shares."""
+    for (label, dtype), t in sums.items():
+        lib = ""
+        if library:
+            lib = f"; {library} window {t['library']:.4f} ms"
+            if "library_device" in t:
+                lib += f", device {_ms(t['library_device'])}"
+        log(f"[phase {phase}] {kernel} over the {t['n']:.0f} {label}, "
+            f"{str(dtype)[6:]}: event window {t['window']:.4f} ms, device "
+            f"{_ms(t['device'])}{lib}; bound {t['bound']:.4f} ms (share: "
+            f"window {_share(t['bound'], t['window'])}, device "
+            f"{_share(t['bound'], t['device'])})")
+
+
+def _same_bits(what: str, first, second) -> None:
+    """Two calls' outputs must be identical, bit for bit."""
+    import torch
+
+    for a, b in zip(first, second):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: two calls on the same inputs "
+                                 "differ (the reduction must be "
+                                 "deterministic)")
 
 
 def _elementwise(numel: int, ops_per_element: int, nbytes: float):
@@ -1180,7 +1226,8 @@ def phase_kernels_3d(seed: int, shapes: set, train_shapes):
     models produced in phases 3-4, plus ragged cases, in fp32 and bf16;
     kernel 2, 3a and 3b also against one library call (cuDNN conv3d,
     ``torch.var_mean``, ``torch.addcmul``); 3b also at the UNet3D training
-    step's GroupNorm inputs, and 3b and 4 also by device time."""
+    step's GroupNorm inputs; 3a, 3b and 4 also by device time; 3a's two
+    calls on the same inputs give the same bits."""
     import torch
     import torch.nn.functional as F
 
@@ -1199,10 +1246,12 @@ def phase_kernels_3d(seed: int, shapes: set, train_shapes):
         a = torch.rand((n, c), device=DEVICE, generator=gen) + 0.5
         return a, 0.5 * torch.randn((n, c), device=DEVICE, generator=gen)
 
-    def record(*args):
-        _record(out, *args)
+    def record(*args, **kw):
+        _record(out, *args, **kw)
 
-    affine_sums: dict = {}   # (shape set, dtype) -> summed ms and bound
+    # (shape set, dtype) -> summed ms and bound
+    stats_sums: dict = {}
+    affine_sums: dict = {}
     overlap_sums: dict = {}
     sync_checked = 0
     gcr = sorted(s for s in shapes if s[0] == "gcr")
@@ -1251,8 +1300,10 @@ def phase_kernels_3d(seed: int, shapes: set, train_shapes):
         for shape, model_shape in cases:
             x = rand(shape, dtype, 2.0, 1.0)
             count = x.numel() // (shape[0] * shape[-1])
-            got = norm.group_stats(*norm.gn_channel_sums(x), shape[-1],
-                                   count, 1e-5)
+            sums = norm.gn_channel_sums(x)
+            _same_bits(f"gn_stats {shape} {dtype}", sums,
+                       norm.gn_channel_sums(x))
+            got = norm.group_stats(*sums, shape[-1], count, 1e-5)
             want = norm.group_stats(*norm.gn_channel_sums_reference(x),
                                     shape[-1], count, 1e-5)
             err = max(_compare(f"gn_stats {shape} {what}", g, w, GN_TOL)
@@ -1260,14 +1311,21 @@ def phase_kernels_3d(seed: int, shapes: set, train_shapes):
             spatial = tuple(range(1, x.ndim - 1))
             # one library call that reads x once for the same per-(n, c)
             # statistics
+            fn = lambda: norm.gn_channel_sums(x)
             k_ms, p_ms, l_ms = _time_turns(
-                lambda: norm.gn_channel_sums(x),
-                lambda: norm.gn_channel_sums_reference(x),
+                fn, lambda: norm.gn_channel_sums_reference(x),
                 lambda: torch.var_mean(x, dim=spatial, correction=0))
+            # two launches a call: the partial sums and the final tree
+            k_dev = _device_ms(fn, 2) if model_shape else math.nan
+            work = _elementwise(x.numel(), 3, x.numel() * x.element_size()
+                                + 8 * shape[0] * shape[-1])
             record("gn_stats", str(shape), dtype, err, k_ms, p_ms,
-                   model_shape, *_elementwise(
-                       x.numel(), 3, x.numel() * x.element_size()
-                       + 8 * shape[0] * shape[-1]), l_ms)
+                   model_shape, *work, l_ms, k_dev)
+            if model_shape:
+                log(f"{'':13s} device time: kernel {_ms(k_dev)}")
+                _add_sums(stats_sums, ("predictor shapes", dtype),
+                          window=k_ms, device=k_dev, library=l_ms,
+                          bound=_bound_ms(*work)[0])
             del x
             torch.cuda.empty_cache()
         # 3b: the ResidualUNet3D predictor's GroupNorm inputs (N=4), the
@@ -1293,17 +1351,13 @@ def phase_kernels_3d(seed: int, shapes: set, train_shapes):
             work = _elementwise(x.numel(), 2, 2 * x.numel() * x.element_size()
                                 + 8 * shape[0] * shape[-1])
             record("gn_affine", f"{shape} {model}", dtype, err, k_ms, p_ms,
-                   model == "ResidualUNet3D", *work, l_ms)
+                   model == "ResidualUNet3D", *work, l_ms, k_dev)
             log(f"{'':13s} device time: kernel {_ms(k_dev)}, "
                 f"torch.addcmul {_ms(l_dev)}")
             if model != "ragged":
-                tot = affine_sums.setdefault((model, dtype), dict.fromkeys(
-                    ("n", "window", "device", "library", "library_device",
-                     "bound"), 0.0))
-                for key, v in (("n", 1), ("window", k_ms), ("device", k_dev),
-                               ("library", l_ms), ("library_device", l_dev),
-                               ("bound", _bound_ms(*work)[0])):
-                    tot[key] += v
+                _add_sums(affine_sums, (f"{model} shapes", dtype),
+                          window=k_ms, device=k_dev, library=l_ms,
+                          library_device=l_dev, bound=_bound_ms(*work)[0])
             del x
             torch.cuda.empty_cache()
         # 4: the predictors' batches (patch = stride: no overlap; the second
@@ -1356,37 +1410,25 @@ def phase_kernels_3d(seed: int, shapes: set, train_shapes):
             flop, nbytes = _overlap_work(pshape, vol, starts, valid,
                                          p.element_size())
             record("overlap_add", f"{pshape} into {vol} {label}", dtype, err,
-                   k_ms, p_ms, label == "predictor", flop, nbytes, PEAK_FP32)
+                   k_ms, p_ms, label == "predictor", flop, nbytes, PEAK_FP32,
+                   dev_ms=k_dev)
             log(f"{'':13s} device time: kernel {_ms(k_dev)}; patches "
                 f"strides {p.stride()}")
             if label != "ragged" and label != "ragged view":
-                tot = overlap_sums.setdefault((label, dtype), dict.fromkeys(
-                    ("n", "window", "device", "bound"), 0.0))
-                for key, v in (("n", 1), ("window", k_ms), ("device", k_dev),
-                               ("bound", _bound_ms(flop, nbytes,
-                                                   PEAK_FP32)[0])):
-                    tot[key] += v
+                _add_sums(overlap_sums, (f"{label} case(s)", dtype),
+                          window=k_ms, device=k_dev,
+                          bound=_bound_ms(flop, nbytes, PEAK_FP32)[0])
             del base, p, acc0, cnt0, acc, cnt, p_acc, p_cnt
             torch.cuda.empty_cache()
     log(f"[phase 6] ok: {len(gcr)} gcr_conv3d, {len(stats)} gn_stats, "
         f"{len(affine)} gn_affine and {len(overlaps)} overlap_add model cases "
         "plus training and ragged cases match in fp32 and bf16 (gn_affine "
-        "and overlap_add bit-exact); overlap_add_into ran "
-        f"{sync_checked} times under torch.cuda.set_sync_debug_mode('error')")
-    for (model, dtype), t in affine_sums.items():
-        log(f"[phase 6] gn_affine over the {t['n']:.0f} {model} shapes, "
-            f"{str(dtype)[6:]}: event window {t['window']:.4f} ms, device "
-            f"{_ms(t['device'])}; torch.addcmul window {t['library']:.4f} "
-            f"ms, device {_ms(t['library_device'])}; bound "
-            f"{t['bound']:.4f} ms (share: window "
-            f"{_share(t['bound'], t['window'])}, device "
-            f"{_share(t['bound'], t['device'])})")
-    for (label, dtype), t in overlap_sums.items():
-        log(f"[phase 6] overlap_add over the {t['n']:.0f} {label} case(s), "
-            f"{str(dtype)[6:]}: event window {t['window']:.4f} ms, device "
-            f"{_ms(t['device'])}; bound {t['bound']:.4f} ms (share: window "
-            f"{_share(t['bound'], t['window'])}, device "
-            f"{_share(t['bound'], t['device'])})")
+        "and overlap_add bit-exact, gn_stats the same bits on two calls); "
+        f"overlap_add_into ran {sync_checked} times under "
+        "torch.cuda.set_sync_debug_mode('error')")
+    _log_sums(6, "gn_stats", stats_sums, "torch.var_mean")
+    _log_sums(6, "gn_affine", affine_sums, "torch.addcmul")
+    _log_sums(6, "overlap_add", overlap_sums)
     log(f"[phase 6] kernel 2 over the UNet3D predictor's "
         f"{sum(s[3] == 'UNet3D' for s in gcr)} shapes, fp32: kernel "
         f"{unet['ms']:.3f} ms, cuDNN conv3d (TF32 off) "
@@ -1459,13 +1501,17 @@ def _training_shapes(seed: int):
 def phase_gn_backward_kernels(seed: int, shapes):
     """Kernels 3c and 3d against their plain versions at every GroupNorm
     input shape of the two training models, plus ragged C and C = 1, in
-    fp32 and bf16; returns {kernel: {err, ms, plain_ms}}."""
+    fp32 and bf16, 3c also for the same bits on two calls; at the UNet3D
+    shapes also by device time.  Returns {kernel: {err, ms, plain_ms,
+    ...}}."""
     import torch
 
     from mdeical_image_segmentation_tpu_torch.ops import norm
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     out = _new_records("gn_bwd_reduce", "gn_bwd_dx")
+    reduce_sums: dict = {}  # (shape set, dtype) -> summed ms and bound
+    dx_sums: dict = {}
 
     ragged = [(2, 5, 9, 11, 3), (2, 6, 20, 17, 19), (1, 3, 7, 9, 300),
               (1, 7, 13, 11, 1)]
@@ -1484,6 +1530,8 @@ def phase_gn_backward_kernels(seed: int, shapes):
             mean = 0.3 * torch.randn((n, c), device=DEVICE, generator=gen) + 1
             inv = torch.rand((n, c), device=DEVICE, generator=gen) + 0.5
             got = norm.gn_bwd_reduce(x, g, mean, inv)
+            _same_bits(f"gn_bwd_reduce {shape} {dtype}", got,
+                       norm.gn_bwd_reduce(x, g, mean, inv))
             want = norm.gn_bwd_reduce_reference(x, g, mean, inv)
             err = 0.0
             for what, a, b in zip(("sum g", "sum g*xhat"), got, want):
@@ -1494,30 +1542,47 @@ def phase_gn_backward_kernels(seed: int, shapes):
                         f"the plain version by {e:.3e} (limit "
                         f"{GN_BWD_SUM_TOL} x {count} positions)")
                 err = max(err, e)
+            fn = lambda: norm.gn_bwd_reduce(x, g, mean, inv)
             k_ms, p_ms = _time_turns(
-                lambda: norm.gn_bwd_reduce(x, g, mean, inv),
-                lambda: norm.gn_bwd_reduce_reference(x, g, mean, inv))
+                fn, lambda: norm.gn_bwd_reduce_reference(x, g, mean, inv))
+            timed = model == "UNet3D"
+            # two launches a call: the partial sums and the final tree
+            k_dev = _device_ms(fn, 2) if timed else math.nan
+            work = _elementwise(x.numel(), 5, 2 * x.numel() * x.element_size()
+                                + 16 * n * c)
             _record(out, "gn_bwd_reduce", f"{shape} {model}", dtype, err,
-                    k_ms, p_ms, model_shape, *_elementwise(
-                        x.numel(), 5, 2 * x.numel() * x.element_size()
-                        + 16 * n * c))
+                    k_ms, p_ms, model_shape, *work, dev_ms=k_dev)
+            if timed:
+                log(f"{'':13s} device time: kernel {_ms(k_dev)}")
+                _add_sums(reduce_sums, ("UNet3D training shapes", dtype),
+                          window=k_ms, device=k_dev,
+                          bound=_bound_ms(*work)[0])
             a, cc, dd = (torch.randn((n, c), device=DEVICE, generator=gen)
                          for _ in range(3))
             err = _compare(f"gn_bwd_dx {shape}", norm.gn_bwd_dx(x, g, a, cc, dd),
                            norm.gn_bwd_dx_reference(x, g, a, cc, dd),
                            BF16_TOL if dtype == torch.bfloat16
                            else AFFINE_FP32_TOL)
+            fn = lambda: norm.gn_bwd_dx(x, g, a, cc, dd)
             k_ms, p_ms = _time_turns(
-                lambda: norm.gn_bwd_dx(x, g, a, cc, dd),
-                lambda: norm.gn_bwd_dx_reference(x, g, a, cc, dd))
+                fn, lambda: norm.gn_bwd_dx_reference(x, g, a, cc, dd))
+            k_dev = _device_ms(fn) if timed else math.nan
+            work = _elementwise(x.numel(), 4, 3 * x.numel() * x.element_size()
+                                + 12 * n * c)
             _record(out, "gn_bwd_dx", f"{shape} {model}", dtype, err, k_ms,
-                    p_ms, model_shape, *_elementwise(
-                        x.numel(), 4, 3 * x.numel() * x.element_size()
-                        + 12 * n * c))
+                    p_ms, model_shape, *work, dev_ms=k_dev)
+            if timed:
+                log(f"{'':13s} device time: kernel {_ms(k_dev)}")
+                _add_sums(dx_sums, ("UNet3D training shapes", dtype),
+                          window=k_ms, device=k_dev,
+                          bound=_bound_ms(*work)[0])
             del x, g
             torch.cuda.empty_cache()
     log(f"[phase 7] ok: {len(shapes['gn'])} model shapes plus "
-        f"{len(ragged)} ragged cases match in fp32 and bf16")
+        f"{len(ragged)} ragged cases match in fp32 and bf16 (gn_bwd_reduce "
+        "the same bits on two calls)")
+    _log_sums(7, "gn_bwd_reduce", reduce_sums)
+    _log_sums(7, "gn_bwd_dx", dx_sums)
     return out
 
 
@@ -2136,6 +2201,7 @@ def main() -> int:
         "bound_by": "operations",
         # the plain version is the library's: two cuDNN conv2d + relu
         "library_ms": plain_ms,
+        "device_ms": None,
     }] + [{
         "name": k,
         "route": "cuda",
@@ -2149,6 +2215,10 @@ def main() -> int:
         "bound_by": ("operations" if k3d[k]["op_ms"] >= k3d[k]["byte_ms"]
                      else "bytes"),
         "library_ms": k3d[k]["library_ms"],
+        # torch.profiler's device time over the same shapes, where measured
+        "device_ms": (None if k3d[k]["device_ms"] is None
+                      or math.isnan(k3d[k]["device_ms"])
+                      else k3d[k]["device_ms"]),
     } for k in KERNELS_3D]
     print(smi)
     print(json.dumps({"kernels": kernels}))

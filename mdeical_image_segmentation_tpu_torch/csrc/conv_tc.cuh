@@ -861,4 +861,13 @@ cudaError_t conv_tc(ConvParams p, int N, int device, cudaStream_t stream) {
   return launch_gather<T, TileS, AFFINE>(p, stream);
 }
 
+// Make `device` current, calling cudaSetDevice only when it is not (a
+// launch's host cost counts where the kernel is short).
+inline cudaError_t use_device(int device) {
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess || cur == device) return err;
+  return cudaSetDevice(device);
+}
+
 }  // namespace tpuseg_conv

@@ -71,7 +71,7 @@ extern "C" int tpuseg_double_conv2d_forward(
   if (N <= 0 || H <= 0 || W <= 0 || Ci <= 0 || C1 <= 0 || Co <= 0 ||
       z == nullptr)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = tpuseg_conv::use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -39,7 +39,7 @@ extern "C" int tpuseg_gcr_conv3d_forward(
   if (N <= 0 || D <= 0 || H <= 0 || W <= 0 || Ci <= 0 || Co <= 0 ||
       (KD != 1 && KD != 3) || (int64_t)N * D * H * W > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = tpuseg_conv::use_device(device);
   if (err != cudaSuccess) return (int)err;
   tpuseg_conv::ConvParams p{};
   p.x = x;

@@ -24,33 +24,38 @@
 // and the affine and dx passes write their output once.  The backward
 // keeps no normalized tensor: x-hat is recomputed in registers.
 //
-// Design of stats, bwd_reduce and bwd_dx.  A block owns a contiguous range
-// of rows (spatial positions) of one sample.  Its threads are laid out as
-// RL row lanes x CL channel lanes (CL = min(C, 256), RL = 256 / CL), so
-// neighbouring threads read neighbouring addresses and each thread keeps
-// ONE channel (and its per-channel coefficients, in registers) for its
-// whole walk (channels beyond 256 are walked in chunks of 256).
-// - Reductions (stats, bwd_reduce): the TPU grid runs in order and carries
-//   row accumulators from step to step; a GPU grid runs in parallel, so the
-//   sum is hierarchical and deterministic (no atomics): each thread sums its
-//   rows (a few hundred at most), the block combines its row lanes with a
-//   tree in shared memory and writes one partial per (n, c, block) to
-//   scratch, and a second kernel reduces the G partials of each (n, c) with
-//   a tree.  One partial kernel serves both, templated on what a row adds.
-// - dx: the same row/channel map; every product and sum rounds on its own
-//   (__fmul_rn / __fadd_rn, no contraction into an FMA), in the order the
-//   plain PyTorch version computes them, so the kernel agrees with it bit
-//   for bit.
-// Design of the affine.  A grid-stride walk over the vectors of one sample
-// (16 bytes: V = 4 fp32 or 8 bf16 consecutive channels of a row), sized
-// from the card (a few waves of resident blocks over the SMs), not from
-// the row count.  Vector t of the walk holds channels (t % (C / V)) * V ..
-// + V - 1, and the stride is a multiple of C / V, so a thread keeps the
-// same V channels, and their V (a, b) pairs in registers, for its whole
-// walk; it keeps U = 4 independent 16-byte loads in flight per step.  When
-// C % V != 0 or x or y is not 16-byte aligned, the same kernel walks
-// scalars instead (V = 1, the stride a multiple of C).  Same rounding as
-// dx: __fmul_rn then __fadd_rn, then round to x's dtype.
+// Design of stats and bwd_reduce (one partial kernel, templated on what an
+// element adds).  A grid-stride walk over the 16-byte vectors of one sample
+// (V = 4 fp32 or 8 bf16 consecutive values), the grid sized from the card
+// (at most REDUCE_WAVES waves of resident blocks over the SMs, shared by the
+// N samples) and from the work (about REDUCE_STEPS steps per thread), not
+// from the row count.  Vector t of the walk holds channels
+// (t % (C / V)) * V .. + V - 1 and the stride is a multiple of C / V, so a
+// thread keeps V channels, and in the backward their V (mean, inv) pairs,
+// for its whole walk, with V x 2 fp32 sums in registers; it keeps UNROLL
+// independent 16-byte loads in flight per step (of x, and of g in the
+// backward, through the read-only path).  Where C divides V (C = 1 at the
+// UNet's input) and S * C is a multiple of V, a vector holds V / C whole
+// rows and slot k of every thread is channel k % C.  Ragged C and
+// unaligned pointers take the same kernel with scalar units (V = 1, the
+// stride a multiple of C); where a row holds more units than a block has
+// threads, no two threads of a block share channels.  The grid is large
+// enough that no fp32 accumulator adds more than MAX_TERMS terms in
+// sequence (the launcher refuses a grid that is not).
+// The TPU grid runs in order and carries row accumulators from step to
+// step; a GPU grid runs in parallel, so the sum is hierarchical and
+// deterministic (no atomics, the same bits on every call on one card):
+// the threads of a block that share a channel group (thread ids congruent
+// modulo C / V) combine through shared memory in a fixed tree, the block
+// writes one partial per (n, c, block) to scratch, and a second kernel
+// reduces the G partials of each (n, c) with a fixed tree.
+// Design of dx.  A block owns a contiguous range of rows (spatial
+// positions) of one sample, its threads laid out as RL row lanes x CL
+// channel lanes (CL = min(C, 256), RL = 256 / CL), each thread keeping one
+// channel's coefficients in registers.  Every product and sum rounds on its
+// own (__fmul_rn / __fadd_rn, no contraction into an FMA), in the order the
+// plain PyTorch version computes them, so the kernel agrees with it bit
+// for bit.
 // All offsets into the full-size tensors are 64-bit (a decoder input of the
 // 3D UNet at batch 4 holds 4.7e9 elements).
 
@@ -76,106 +81,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Pass 1: grid (G, N).  partial layout: [2][N][C][G] (s1 then s2).
-// BWD = false: s1 += x, s2 += x * x (g, mean and inv unused).
-// BWD = true:  s1 += g, s2 += g * (x - mean) * inv.
-template <typename T, bool BWD>
-__global__ void __launch_bounds__(NT) gn_partial_kernel(
-    const T* __restrict__ x, const T* __restrict__ g,
-    const float* __restrict__ mean, const float* __restrict__ inv,
-    float* __restrict__ partial, int N, int64_t S, int C, int G) {
-  __shared__ float sh1[NT];
-  __shared__ float sh2[NT];
-  const int blk = blockIdx.x;
-  const int n = blockIdx.y;
-  const int CL = C < NT ? C : NT;
-  const int RL = NT / CL;
-  const int tid = threadIdx.x;
-  const int lane_c = tid % CL;
-  const int lane_r = tid / CL;
-  const bool active = lane_r < RL;
-  const int64_t rows_per_block = (S + G - 1) / G;
-  const int64_t r0 = (int64_t)blk * rows_per_block;
-  const int64_t r1 = r0 + rows_per_block < S ? r0 + rows_per_block : S;
-  const T* xn = x + (int64_t)n * S * C;
-  const T* gn = BWD ? g + (int64_t)n * S * C : nullptr;
-  float* p1 = partial + (int64_t)n * C * G;
-  float* p2 = partial + ((int64_t)N + n) * C * G;
-
-  for (int c0 = 0; c0 < C; c0 += CL) {
-    const int c = c0 + lane_c;
-    float s1 = 0.f, s2 = 0.f;
-    if (active && c < C) {
-      if constexpr (BWD) {
-        const float m = mean[(int64_t)n * C + c];
-        const float v = inv[(int64_t)n * C + c];
-        for (int64_t r = r0 + lane_r; r < r1; r += RL) {
-          const float gv = to_f(gn[r * C + c]);
-          const float xh = __fmul_rn(__fsub_rn(to_f(xn[r * C + c]), m), v);
-          s1 += gv;
-          s2 = fmaf(gv, xh, s2);
-        }
-      } else {
-        for (int64_t r = r0 + lane_r; r < r1; r += RL) {
-          const float v = to_f(xn[r * C + c]);
-          s1 += v;
-          s2 = fmaf(v, v, s2);
-        }
-      }
-    }
-    sh1[tid] = s1;
-    sh2[tid] = s2;
-    __syncthreads();
-    // tree over the row lanes of each channel lane (RL is a power of two
-    // only when CL divides 256, so halve with a bound check)
-    for (int step = 1; step < RL; step *= 2) {
-      if (active && lane_r % (2 * step) == 0 && lane_r + step < RL) {
-        sh1[tid] += sh1[tid + step * CL];
-        sh2[tid] += sh2[tid + step * CL];
-      }
-      __syncthreads();
-    }
-    if (lane_r == 0 && c < C) {
-      p1[(int64_t)c * G + blk] = sh1[tid];
-      p2[(int64_t)c * G + blk] = sh2[tid];
-    }
-    __syncthreads();
-  }
-}
-
-// Pass 2: grid (C, N), one block per (n, c) reduces its G partials.
-__global__ void __launch_bounds__(NT) gn_stats_final_kernel(
-    const float* __restrict__ partial, float* __restrict__ s1,
-    float* __restrict__ s2, int N, int C, int G) {
-  __shared__ float sh1[NT];
-  __shared__ float sh2[NT];
-  const int c = blockIdx.x;
-  const int n = blockIdx.y;
-  const int tid = threadIdx.x;
-  const float* p1 = partial + ((int64_t)n * C + c) * G;
-  const float* p2 = partial + (((int64_t)N + n) * C + c) * G;
-  float a1 = 0.f, a2 = 0.f;
-  for (int g = tid; g < G; g += NT) {
-    a1 += p1[g];
-    a2 += p2[g];
-  }
-  sh1[tid] = a1;
-  sh2[tid] = a2;
-  __syncthreads();
-  for (int half = NT / 2; half > 0; half /= 2) {
-    if (tid < half) {
-      sh1[tid] += sh1[tid + half];
-      sh2[tid] += sh2[tid + half];
-    }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    s1[(int64_t)n * C + c] = sh1[0];
-    s2[(int64_t)n * C + c] = sh2[0];
-  }
-}
-
-// The 16-byte vector of the affine: 4 fp32 or 8 bf16 values in a uint4.
+// The 16-byte vector of the walks: 4 fp32 or 8 bf16 values in a uint4.
 template <typename T>
 struct Vec16;
 template <>
@@ -215,7 +121,221 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
-constexpr int AFFINE_UNROLL = 4;  // independent loads in flight per thread
+constexpr int UNROLL = 4;  // independent 16-byte loads in flight per thread
+
+// The reductions' grid (see reduce_blocks): at most REDUCE_WAVES waves of
+// resident blocks, about REDUCE_STEPS walk steps per thread, and no fp32
+// accumulator adding more than MAX_TERMS terms in sequence.
+constexpr int REDUCE_WAVES = 2;
+constexpr int REDUCE_STEPS = 8;
+constexpr int MAX_TERMS = 1024;
+
+// The unit of a reduction's walk: 0 = one scalar, 1 = a 16-byte vector of
+// V channels of one row (C % V == 0), 2 = a 16-byte vector of V / C whole
+// rows (V % C == 0 and S * C % V == 0).  Vectors need x (and g) 16-byte
+// aligned.
+int reduce_mode(bool aligned, long long S, int C, int V) {
+  if (!aligned) return 0;
+  if (C % V == 0) return 1;
+  if (V % C == 0 && S * C % V == 0) return 2;
+  return 0;
+}
+
+// Thread t of the walk: the channel group of its units (all of them the
+// same, the stride a multiple of `lanes`).
+__host__ __device__ __forceinline__ int reduce_lanes(int mode, int C, int V) {
+  return mode == 1 ? C / V : (mode == 2 ? 1 : C);
+}
+
+// One thread's walk over units t, t + stride, ... below `units` of one
+// sample, W values a unit (W = V or 1), UNROLL loads in flight a step;
+// slot k of the sums is channel (c0 + k) % C.
+// BWD = false: s1 += x, s2 += x * x.
+// BWD = true:  s1 += g, s2 += g * (x - mean) * inv.
+template <typename T, bool BWD, int W>
+__device__ __forceinline__ void partial_walk(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ inv,
+    int64_t units, int C, int c0, int64_t t, int64_t stride, float* s1,
+    float* s2) {
+  float m[W], v[W];
+  if constexpr (BWD) {
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const int c = (c0 + k) % C;
+      m[k] = mean[c];
+      v[k] = inv[c];
+    }
+  }
+  for (int64_t i = t; i < units; i += UNROLL * stride) {
+    if constexpr (W == 1) {
+      T xr[UNROLL], gr[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (i + u * stride < units) {
+          xr[u] = __ldg(x + i + u * stride);
+          if constexpr (BWD) gr[u] = __ldg(g + i + u * stride);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (i + u * stride < units) {
+          const float xv = to_f(xr[u]);
+          if constexpr (BWD) {
+            const float gv = to_f(gr[u]);
+            s1[0] += gv;
+            s2[0] = fmaf(gv, __fmul_rn(__fsub_rn(xv, m[0]), v[0]), s2[0]);
+          } else {
+            s1[0] += xv;
+            s2[0] = fmaf(xv, xv, s2[0]);
+          }
+        }
+      }
+    } else {
+      const uint4* xv = reinterpret_cast<const uint4*>(x);
+      const uint4* gv = reinterpret_cast<const uint4*>(g);
+      uint4 xr[UNROLL], gr[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (i + u * stride < units) {
+          xr[u] = __ldg(xv + i + u * stride);
+          if constexpr (BWD) gr[u] = __ldg(gv + i + u * stride);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (i + u * stride < units) {
+          float f[W];
+          Vec16<T>::unpack(xr[u], f);
+          if constexpr (BWD) {
+            float gf[W];
+            Vec16<T>::unpack(gr[u], gf);
+#pragma unroll
+            for (int k = 0; k < W; ++k) {
+              s1[k] += gf[k];
+              s2[k] = fmaf(gf[k], __fmul_rn(__fsub_rn(f[k], m[k]), v[k]),
+                           s2[k]);
+            }
+          } else {
+#pragma unroll
+            for (int k = 0; k < W; ++k) {
+              s1[k] += f[k];
+              s2[k] = fmaf(f[k], f[k], s2[k]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// Pass 1: grid (G, N).  partial layout: [2][N][C][G] (s1 then s2); every
+// block writes all C of its partials (0 for a channel none of its threads
+// walked).
+template <typename T, bool BWD>
+__global__ void __launch_bounds__(NT) gn_partial_kernel(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ mean, const float* __restrict__ inv,
+    float* __restrict__ partial, int N, int64_t S, int C, int G, int mode) {
+  constexpr int V = Vec16<T>::V;
+  __shared__ float sh1[V * NT];  // [slot k][thread]
+  __shared__ float sh2[V * NT];
+  const int n = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int W = mode ? V : 1;
+  const int lanes = reduce_lanes(mode, C, V);
+  const int64_t units = S * C / W;
+  const int64_t stride = (int64_t)gridDim.x * NT / lanes * lanes;
+  const int64_t t = (int64_t)blockIdx.x * NT + tid;
+  float s1[V], s2[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) s1[k] = s2[k] = 0.f;
+  if (t < stride) {  // the threads beyond the stride add nothing
+    const int64_t sample = (int64_t)n * S * C;
+    const int c0 = (int)(t % lanes) * W;
+    const T* gs = BWD ? g + sample : nullptr;
+    const float* ms = BWD ? mean + (int64_t)n * C : nullptr;
+    const float* vs = BWD ? inv + (int64_t)n * C : nullptr;
+    if (mode)
+      partial_walk<T, BWD, V>(x + sample, gs, ms, vs, units, C, c0, t,
+                              stride, s1, s2);
+    else
+      partial_walk<T, BWD, 1>(x + sample, gs, ms, vs, units, C, c0, t,
+                              stride, s1, s2);
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    sh1[k * NT + tid] = s1[k];
+    sh2[k * NT + tid] = s2[k];
+  }
+  __syncthreads();
+  // threads tid, tid + lanes, ... walk the same channels: a tree over
+  // their rows (tid / lanes) leaves the block's sum in thread (tid % lanes)
+  // of row 0; with lanes >= NT every thread is its own root
+  const int rows = (NT + lanes - 1) / lanes;
+  const int r = tid / lanes;
+  for (int step = 1; step < rows; step *= 2) {
+    if (r % (2 * step) == 0 && tid + step * lanes < NT) {
+      for (int k = 0; k < W; ++k) {
+        sh1[k * NT + tid] += sh1[k * NT + tid + step * lanes];
+        sh2[k * NT + tid] += sh2[k * NT + tid + step * lanes];
+      }
+    }
+    __syncthreads();
+  }
+  // channel c lies in group j, held by root o (the thread of the block whose
+  // walk has group j), in slot k (or, mode 2, slots c, c + C, ...)
+  const int base = (int)((int64_t)blockIdx.x * NT % lanes);
+  float* p1 = partial + (int64_t)n * C * G;
+  float* p2 = partial + ((int64_t)N + n) * C * G;
+  for (int c = tid; c < C; c += NT) {
+    const int j = mode == 1 ? c / V : (mode == 2 ? 0 : c);
+    const int o = (j - base + lanes) % lanes;
+    float a1 = 0.f, a2 = 0.f;
+    if (o < NT) {
+      const int k0 = mode == 1 ? c % V : (mode == 2 ? c : 0);
+      const int kstep = mode == 2 ? C : V;
+      for (int k = k0; k < W; k += kstep) {
+        a1 += sh1[k * NT + o];
+        a2 += sh2[k * NT + o];
+      }
+    }
+    p1[(int64_t)c * G + blockIdx.x] = a1;
+    p2[(int64_t)c * G + blockIdx.x] = a2;
+  }
+}
+
+// Pass 2: grid (C, N), one block per (n, c) reduces its G partials.
+__global__ void __launch_bounds__(NT) gn_stats_final_kernel(
+    const float* __restrict__ partial, float* __restrict__ s1,
+    float* __restrict__ s2, int N, int C, int G) {
+  __shared__ float sh1[NT];
+  __shared__ float sh2[NT];
+  const int c = blockIdx.x;
+  const int n = blockIdx.y;
+  const int tid = threadIdx.x;
+  const float* p1 = partial + ((int64_t)n * C + c) * G;
+  const float* p2 = partial + (((int64_t)N + n) * C + c) * G;
+  float a1 = 0.f, a2 = 0.f;
+  for (int g = tid; g < G; g += NT) {
+    a1 += p1[g];
+    a2 += p2[g];
+  }
+  sh1[tid] = a1;
+  sh2[tid] = a2;
+  __syncthreads();
+  for (int half = NT / 2; half > 0; half /= 2) {
+    if (tid < half) {
+      sh1[tid] += sh1[tid + half];
+      sh2[tid] += sh2[tid + half];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    s1[(int64_t)n * C + c] = sh1[0];
+    s2[(int64_t)n * C + c] = sh2[0];
+  }
+}
 
 // The walk of one thread over units of V values (a 16-byte vector, or V = 1
 // scalar) of sample n: unit t, t + stride, ... below `units`, with stride a
@@ -232,26 +352,26 @@ __device__ __forceinline__ void affine_walk(
     av[k] = a[c0 + k];
     bv[k] = b[c0 + k];
   }
-  for (int64_t i = t; i < units; i += AFFINE_UNROLL * stride) {
+  for (int64_t i = t; i < units; i += UNROLL * stride) {
     if constexpr (V == 1) {
-      T raw[AFFINE_UNROLL];
+      T raw[UNROLL];
 #pragma unroll
-      for (int u = 0; u < AFFINE_UNROLL; ++u)
+      for (int u = 0; u < UNROLL; ++u)
         if (i + u * stride < units) raw[u] = x[i + u * stride];
 #pragma unroll
-      for (int u = 0; u < AFFINE_UNROLL; ++u)
+      for (int u = 0; u < UNROLL; ++u)
         if (i + u * stride < units)
           y[i + u * stride] =
               from_f<T>(__fadd_rn(__fmul_rn(to_f(raw[u]), av[0]), bv[0]));
     } else {
       const uint4* xv = reinterpret_cast<const uint4*>(x);
       uint4* yv = reinterpret_cast<uint4*>(y);
-      uint4 raw[AFFINE_UNROLL];
+      uint4 raw[UNROLL];
 #pragma unroll
-      for (int u = 0; u < AFFINE_UNROLL; ++u)
+      for (int u = 0; u < UNROLL; ++u)
         if (i + u * stride < units) raw[u] = __ldg(xv + i + u * stride);
 #pragma unroll
-      for (int u = 0; u < AFFINE_UNROLL; ++u) {
+      for (int u = 0; u < UNROLL; ++u) {
         if (i + u * stride < units) {
           float f[V];
           Vec16<T>::unpack(raw[u], f);
@@ -291,7 +411,7 @@ __global__ void __launch_bounds__(NT) gn_affine_kernel(
 }
 
 // Blocks per sample of the affine: enough for every unit once with
-// AFFINE_UNROLL in flight, at most AFFINE_WAVES waves of resident blocks
+// UNROLL in flight, at most AFFINE_WAVES waves of resident blocks
 // over the card's SMs (shared by the N samples), and at least one thread
 // per unit of a row.  -1 if the card cannot be queried.
 constexpr int AFFINE_WAVES = 4;
@@ -310,7 +430,7 @@ int affine_blocks(int N, long long units, int lanes, int device) {
     per_sm[device] = occ > 0 ? occ : 1;
     sms[device] = v;
   }
-  const long long per_block = (long long)NT * AFFINE_UNROLL;
+  const long long per_block = (long long)NT * UNROLL;
   const long long need = (units + per_block - 1) / per_block;
   const long long cap =
       (long long)sms[device] * per_sm[device] * AFFINE_WAVES / N;
@@ -380,35 +500,124 @@ cudaError_t use_device(int device) {
   return cudaSetDevice(device);
 }
 
-}  // namespace
+// Blocks per sample of a reduction: about REDUCE_STEPS steps of UNROLL
+// units per thread, at least one block per SM and at most REDUCE_WAVES waves
+// of resident blocks (both shared by the N samples), then as many more as
+// keep every accumulator at MAX_TERMS terms or fewer and give every lane a
+// thread.  The SM count and the occupancy are queried once per device.  -1
+// if the card cannot be queried.
+template <typename T, bool BWD>
+int reduce_blocks(int N, long long units, int lanes, int device) {
+  static int sms[64], per_sm[64];
+  if (device < 0 || device >= 64) return -1;
+  if (!sms[device]) {
+    int v = 0, occ = 0;
+    if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &occ, gn_partial_kernel<T, BWD>, NT, 0) != cudaSuccess)
+      return -1;
+    per_sm[device] = occ > 0 ? occ : 1;
+    sms[device] = v;
+  }
+  const long long per_block = (long long)NT * UNROLL * REDUCE_STEPS;
+  long long g = (units + per_block - 1) / per_block;
+  const long long fill = (sms[device] + N - 1) / N;
+  const long long cap =
+      (long long)sms[device] * per_sm[device] * REDUCE_WAVES / N;
+  if (g < fill) g = fill;
+  if (g > cap) g = cap;
+  // rows of the stride (units of one lane a step) that MAX_TERMS needs
+  const long long rows =
+      ((units + MAX_TERMS - 1) / MAX_TERMS + lanes - 1) / lanes;
+  const long long g_terms = (rows * lanes + NT - 1) / NT;
+  if (g < g_terms) g = g_terms;
+  return (int)(g < 1 ? 1 : g);
+}
 
-// dtype: 0 = float32, 1 = bfloat16.  partial is fp32 scratch of 2*N*C*G
-// floats.  Returns the CUDA error code of the launches (0 on success); the
-// kernels do not synchronise.
-extern "C" int tpuseg_gn_stats(const void* x, void* partial, void* s1,
-                               void* s2, int N, long long S, int C, int G,
-                               int dtype, int device, void* stream) {
-  if (bad_args(N, S, C, G)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(G, N);
-  float* part = static_cast<float*>(partial);
-  if (dtype == 0)
-    gn_partial_kernel<float, false><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(x), nullptr, nullptr, nullptr, part, N, S,
-        C, G);
-  else if (dtype == 1)
-    gn_partial_kernel<__nv_bfloat16, false><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), nullptr, nullptr, nullptr, part,
-        N, S, C, G);
-  else
+// Whether a grid of G blocks per sample covers `units` with at most
+// MAX_TERMS terms per accumulator.
+bool reduce_grid_ok(long long units, int lanes, int G) {
+  const long long stride = (long long)G * NT / lanes * lanes;
+  return stride > 0 && (units + stride - 1) / stride <= MAX_TERMS;
+}
+
+bool aligned16(const void* x, const void* g) {
+  return ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g)) &
+          15) == 0;
+}
+
+template <typename T, bool BWD>
+int blocks_for(bool aligned, int N, long long S, int C, int device) {
+  constexpr int V = Vec16<T>::V;
+  const int mode = reduce_mode(aligned, S, C, V);
+  return reduce_blocks<T, BWD>(N, S * C / (mode ? V : 1),
+                               reduce_lanes(mode, C, V), device);
+}
+
+// Both passes of a reduction on stream s.
+template <typename T, bool BWD>
+int launch_reduce(const void* x, const void* g, const float* mean,
+                  const float* inv, void* partial, void* s1, void* s2, int N,
+                  long long S, int C, int G, cudaStream_t s) {
+  constexpr int V = Vec16<T>::V;
+  const int mode = reduce_mode(aligned16(x, g), S, C, V);
+  if (!reduce_grid_ok(S * C / (mode ? V : 1), reduce_lanes(mode, C, V), G))
     return (int)cudaErrorInvalidValue;
-  err = cudaGetLastError();
+  float* part = static_cast<float*>(partial);
+  gn_partial_kernel<T, BWD><<<dim3(G, N), NT, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), mean, inv, part, N,
+      S, C, G, mode);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   gn_stats_final_kernel<<<dim3(C, N), NT, 0, s>>>(
       part, static_cast<float*>(s1), static_cast<float*>(s2), N, C, G);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Blocks per sample G of a reduction (bwd = 0: tpuseg_gn_stats, 1:
+// tpuseg_gn_bwd_reduce) on inputs of this shape and dtype (0 = float32,
+// 1 = bfloat16), with x (and g) 16-byte aligned or not, sized from the card;
+// the caller allocates the 2*N*C*G floats of scratch.  Negative on error: a
+// CUDA error code, negated.
+extern "C" int tpuseg_gn_reduce_blocks(int aligned, int bwd, int N,
+                                       long long S, int C, int dtype,
+                                       int device) {
+  if (bad_args(N, S, C, 1)) return -(int)cudaErrorInvalidValue;
+  const cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks;
+  if (dtype == 0)
+    blocks = bwd ? blocks_for<float, true>(aligned, N, S, C, device)
+                 : blocks_for<float, false>(aligned, N, S, C, device);
+  else if (dtype == 1)
+    blocks = bwd ? blocks_for<__nv_bfloat16, true>(aligned, N, S, C, device)
+                 : blocks_for<__nv_bfloat16, false>(aligned, N, S, C, device);
+  else
+    return -(int)cudaErrorInvalidValue;
+  return blocks < 0 ? -(int)cudaErrorInvalidDevice : blocks;
+}
+
+// dtype: 0 = float32, 1 = bfloat16.  partial is fp32 scratch of 2*N*C*G
+// floats, G from tpuseg_gn_reduce_blocks (a grid that leaves an accumulator
+// more than MAX_TERMS terms is refused).  Returns the CUDA error code of the
+// launches (0 on success); the kernels do not synchronise.
+extern "C" int tpuseg_gn_stats(const void* x, void* partial, void* s1,
+                               void* s2, int N, long long S, int C, int G,
+                               int dtype, int device, void* stream) {
+  if (bad_args(N, S, C, G)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_reduce<float, false>(x, nullptr, nullptr, nullptr, partial,
+                                       s1, s2, N, S, C, G, s);
+  if (dtype == 1)
+    return launch_reduce<__nv_bfloat16, false>(x, nullptr, nullptr, nullptr,
+                                               partial, s1, s2, N, S, C, G, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The grid is sized here, from the card (see affine_blocks).
@@ -428,35 +637,25 @@ extern "C" int tpuseg_gn_affine(const void* x, const void* a, const void* b,
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype of x and g.  partial is fp32 scratch of 2*N*C*G floats.
+// dtype of x and g; partial and G as for tpuseg_gn_stats.
 extern "C" int tpuseg_gn_bwd_reduce(const void* x, const void* g,
                                     const void* mean, const void* inv,
                                     void* partial, void* c1, void* c2, int N,
                                     long long S, int C, int G, int dtype,
                                     int device, void* stream) {
   if (bad_args(N, S, C, G)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(G, N);
-  float* part = static_cast<float*>(partial);
   const float* m = static_cast<const float*>(mean);
   const float* v = static_cast<const float*>(inv);
   if (dtype == 0)
-    gn_partial_kernel<float, true><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g), m, v,
-        part, N, S, C, G);
-  else if (dtype == 1)
-    gn_partial_kernel<__nv_bfloat16, true><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(g), m, v, part, N, S, C, G);
-  else
-    return (int)cudaErrorInvalidValue;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gn_stats_final_kernel<<<dim3(C, N), NT, 0, s>>>(
-      part, static_cast<float*>(c1), static_cast<float*>(c2), N, C, G);
-  return (int)cudaGetLastError();
+    return launch_reduce<float, true>(x, g, m, v, partial, c1, c2, N, S, C,
+                                      G, s);
+  if (dtype == 1)
+    return launch_reduce<__nv_bfloat16, true>(x, g, m, v, partial, c1, c2, N,
+                                              S, C, G, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int tpuseg_gn_bwd_dx(const void* x, const void* g, const void* A,
@@ -464,7 +663,7 @@ extern "C" int tpuseg_gn_bwd_dx(const void* x, const void* g, const void* A,
                                 int N, long long S, int C, int G, int dtype,
                                 int device, void* stream) {
   if (bad_args(N, S, C, G)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(G, N);

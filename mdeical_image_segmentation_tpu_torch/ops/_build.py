@@ -115,6 +115,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     signatures = {
         # x, w1, b1, w2, b2, y, z, N, H, W, Ci, C1, Co, dtype, device, stream
         "tpuseg_double_conv2d_forward": [p] * 7 + [i] * 8 + [p],
+        # aligned, bwd, N, S, C, dtype, device -> G of the two below
+        "tpuseg_gn_reduce_blocks": [i, i, i, q, i, i, i],
         # x, partial, s1, s2, N, S, C, G, dtype, device, stream
         "tpuseg_gn_stats": [p] * 4 + [i, q, i, i, i, i, p],
         # x, a, b, y, N, S, C, dtype, device, stream (the grid from the card)

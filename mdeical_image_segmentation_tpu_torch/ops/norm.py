@@ -30,6 +30,7 @@ gradient runs through ``group_norm`` (``GroupNorm``) or
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -38,25 +39,46 @@ import torch.nn as nn
 from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_NT = 256              # threads per block of the kernels
-_STATS_ROWS = 64       # rows per thread the stats kernel aims for
+_NT = 256              # threads per block of the dx kernel
 _DX_ROWS = 16          # rows per thread of the dx kernel
-_MAX_PARTIALS = 2**21  # cap on the stats scratch per sample and statistic
 
 
 def _spatial_dims(x: torch.Tensor) -> Tuple[int, ...]:
     return tuple(range(1, x.ndim - 1))
 
 
-def _grid(rows: int, c: int, rows_per_thread: int, cap: Optional[int]) -> int:
-    """Blocks per sample: each block takes a contiguous run of rows, its
-    threads laid out as (256 // min(C, 256)) row lanes x min(C, 256)
-    channel lanes (the kernels' own map)."""
+def _grid(rows: int, c: int, rows_per_thread: int) -> int:
+    """Blocks per sample of the dx kernel: each block takes a contiguous run
+    of rows, its threads laid out as (256 // min(C, 256)) row lanes x
+    min(C, 256) channel lanes (the kernel's own map)."""
     lanes = _NT // min(c, _NT)
-    g = -(-rows // (lanes * rows_per_thread))
-    if cap is not None:
-        g = min(g, max(1, cap // c))
-    return max(1, g)
+    return max(1, -(-rows // (lanes * rows_per_thread)))
+
+
+@functools.lru_cache(maxsize=None)
+def _reduce_blocks(dev: int, dtype: int, bwd: bool, n: int, rows: int,
+                   c: int, aligned: bool) -> int:
+    """Blocks per sample G of the reduction kernel (statistics or, with
+    ``bwd``, the backward sums), which the library sizes from the card:
+    the same arguments give the same grid, so it is asked once."""
+    g = _build.kernel("tpuseg_gn_reduce_blocks")(int(aligned), int(bwd), n,
+                                                 rows, c, dtype, dev)
+    if g < 0:
+        _build.check(-g, "gn_reduce_blocks")
+    return g
+
+
+def _reduce_scratch(x: torch.Tensor, g: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, int]:
+    """The fp32 scratch (2, N, C, G) of one reduction launch over x (and g)
+    and its G."""
+    n, c = x.shape[0], x.shape[-1]
+    ptrs = x.data_ptr() | (0 if g is None else g.data_ptr())
+    blocks = _reduce_blocks(x.get_device(), _DTYPE_CODES[x.dtype],
+                            g is not None, n, x.numel() // (n * c), c,
+                            ptrs % 16 == 0)
+    return (torch.empty((2, n, c, blocks), dtype=torch.float32,
+                        device=x.device), blocks)
 
 
 def _check_cuda(name: str, x: torch.Tensor, *coeffs: torch.Tensor,
@@ -113,8 +135,7 @@ def gn_channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_cuda("gn_channel_sums", x)
     n, c = x.shape[0], x.shape[-1]
     rows = x.numel() // (n * c)
-    g = _grid(rows, c, _STATS_ROWS, _MAX_PARTIALS)
-    partial = torch.empty((2, n, c, g), dtype=torch.float32, device=x.device)
+    partial, g = _reduce_scratch(x)
     s1 = torch.empty((n, c), dtype=torch.float32, device=x.device)
     s2 = torch.empty_like(s1)
     dev = x.get_device()
@@ -188,9 +209,7 @@ def gn_bwd_reduce(x: torch.Tensor, g: torch.Tensor, mean_c: torch.Tensor,
     _check_cuda("gn_bwd_reduce", x, mean_c, inv_c, g=g)
     n, c = x.shape[0], x.shape[-1]
     rows = x.numel() // (n * c)
-    grid = _grid(rows, c, _STATS_ROWS, _MAX_PARTIALS)
-    partial = torch.empty((2, n, c, grid), dtype=torch.float32,
-                          device=x.device)
+    partial, grid = _reduce_scratch(x, g)
     c1 = torch.empty((n, c), dtype=torch.float32, device=x.device)
     c2 = torch.empty_like(c1)
     dev = x.get_device()
@@ -230,7 +249,7 @@ def gn_bwd_dx(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
     dev = x.get_device()
     rc = _build.kernel("tpuseg_gn_bwd_dx")(
         x.data_ptr(), g.data_ptr(), a.data_ptr(), c.data_ptr(), d.data_ptr(),
-        dx.data_ptr(), n, rows, ch, _grid(rows, ch, _DX_ROWS, None),
+        dx.data_ptr(), n, rows, ch, _grid(rows, ch, _DX_ROWS),
         _DTYPE_CODES[x.dtype], dev, _build.current_stream(dev))
     _build.check(rc, "gn_bwd_dx launch")
     gn_bwd_dx.launches += 1

@@ -146,16 +146,195 @@ def test_kernel_checks_refuse_autograd_and_bad_coefficients():
             norm._check_cuda("gn_affine", x.half(), a, a)
 
 
+# -- kernels 3a and 3c (csrc/group_norm.cu, gn_partial_kernel): the walk ----
+#
+# Replayed in numpy with the source's constants: the unit of the walk (a
+# 16-byte vector of V channels of a row when C % V == 0, of V / C whole rows
+# when V % C == 0 and S·C % V == 0, else a scalar; vectors only with x and g
+# aligned), the grid the launcher asks the card for (reduce_blocks), each
+# thread summing units t, t + stride, ... into V pairs of fp32 accumulators
+# whose channels never change, the fixed tree over the threads of a block
+# that share a channel group, one partial per (n, c, block), and the final
+# kernel's fixed tree over the G partials.  The products are rounded before
+# the add where the kernel fuses them (fmaf), so the sums agree with the
+# plain versions within SUM_TOL, not bit for bit.
+
+def _reduce_constants():
+    import re
+
+    from mdeical_image_segmentation_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "group_norm.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+            for name in ("NT", "UNROLL", "REDUCE_WAVES", "REDUCE_STEPS",
+                         "MAX_TERMS")}
+
+
+def _reduce_walk(rows, c, v, aligned):
+    """(mode, values per unit, lanes, units of a sample): reduce_mode and
+    reduce_lanes of the source."""
+    if aligned and c % v == 0:
+        mode, width, lanes = 1, v, c // v
+    elif aligned and v % c == 0 and rows * c % v == 0:
+        mode, width, lanes = 2, v, 1
+    else:
+        mode, width, lanes = 0, 1, c
+    return mode, width, lanes, rows * c // width
+
+
+def _reduce_blocks(n, units, lanes, sms, per_sm):
+    """Blocks per sample: reduce_blocks of the source."""
+    k = _reduce_constants()
+    nt, max_terms = k["NT"], k["MAX_TERMS"]
+    g = -(-units // (nt * k["UNROLL"] * k["REDUCE_STEPS"]))
+    g = min(max(g, -(-sms // n)), sms * per_sm * k["REDUCE_WAVES"] // n)
+    rows = -(-(-(-units // max_terms)) // lanes)
+    return max(g, -(-(rows * lanes) // nt), 1)
+
+
+def _final_tree(partial, nt):
+    """gn_stats_final_kernel over (..., G) partials: thread t sums partials
+    t, t + NT, ... in order, then a halving tree over the NT threads."""
+    g = partial.shape[-1]
+    pad = np.zeros(partial.shape[:-1] + (-(-g // nt) * nt,), np.float32)
+    pad[..., :g] = partial
+    acc = np.zeros(partial.shape[:-1] + (nt,), np.float32)
+    for chunk in np.split(pad, pad.shape[-1] // nt, axis=-1):
+        acc += chunk
+    half = nt // 2
+    while half:
+        acc[..., :half] += acc[..., half:2 * half]
+        half //= 2
+    return acc[..., 0]
+
+
+def _emulate_reduce(x, g, mean, inv, aligned, sms, per_sm):
+    """(s1, s2, G) of tpuseg_gn_stats (g None) or tpuseg_gn_bwd_reduce."""
+    k = _reduce_constants()
+    nt = k["NT"]
+    n, c = x.shape[0], x.shape[-1]
+    rows = x.numel() // (n * c)
+    v = 16 // x.element_size()
+    mode, width, lanes, units = _reduce_walk(rows, c, v, aligned)
+    blocks = _reduce_blocks(n, units, lanes, sms, per_sm)
+    stride = blocks * nt // lanes * lanes
+    assert stride > 0
+    xf = x.float().numpy().reshape(n, rows * c)
+    ch_of = np.arange(rows * c) % c
+    if g is None:
+        a, b = xf, xf * xf
+    else:
+        xhat = (xf - mean.numpy()[:, ch_of]) * inv.numpy()[:, ch_of]
+        a = g.float().numpy().reshape(n, rows * c)
+        b = a * xhat
+    partial = np.zeros((2, n, c, blocks), np.float32)
+    writes = np.zeros((n, c, blocks), np.int32)
+    hits = np.zeros((n, rows * c), np.int32)
+    t = np.arange(blocks * nt)
+    c0 = (t % lanes) * width
+    for smp in range(n):
+        s1 = np.zeros((blocks * nt, width), np.float32)
+        s2 = np.zeros_like(s1)
+        terms = np.zeros(blocks * nt, np.int32)
+        for step in range(-(-units // stride)):  # each thread's order
+            i = t + step * stride
+            ok = (t < stride) & (i < units)
+            e = i[ok, None] * width + np.arange(width)
+            assert (e % c == (c0[ok, None] + np.arange(width)) % c).all()
+            s1[ok] += a[smp, e]
+            s2[ok] += b[smp, e]
+            terms[ok] += 1
+            np.add.at(hits[smp], e.ravel(), 1)
+        assert terms.max() <= k["MAX_TERMS"]
+        tid = np.arange(nt)
+        for blk in range(blocks):
+            sh1, sh2 = (s[blk * nt:(blk + 1) * nt].copy() for s in (s1, s2))
+            r, step = tid // lanes, 1
+            while step < -(-nt // lanes):  # the tree over rows of lanes
+                sel = (r % (2 * step) == 0) & (tid + step * lanes < nt)
+                sh1[sel] += sh1[tid[sel] + step * lanes]
+                sh2[sel] += sh2[tid[sel] + step * lanes]
+                step *= 2
+            ch = np.arange(c)
+            if mode == 1:
+                j, ks = ch // v, [ch % v]
+            elif mode == 2:
+                j, ks = 0 * ch, [ch + m * c for m in range(width // c)]
+            else:
+                j, ks = ch, [0 * ch]
+            o = (j - blk * nt % lanes) % lanes
+            cov = o < nt
+            for kk in ks:
+                partial[0, smp, cov, blk] += sh1[o[cov], kk[cov]]
+                partial[1, smp, cov, blk] += sh2[o[cov], kk[cov]]
+            writes[smp, :, blk] += 1
+    assert (hits == 1).all() and (writes == 1).all()
+    s1, s2 = _final_tree(partial, nt)
+    return torch.from_numpy(s1), torch.from_numpy(s2), blocks
+
+
+# blocks of 256 threads per SM of gn_partial_kernel on the H100, by (bytes
+# per element, backward): the occupancy of each instantiation at its ptxas
+# register count on sm_90a (48 registers for the statistics, 75 for the fp32
+# and 99 for the bf16 backward sums: 5, 3 and 2 blocks of 64K registers)
+H100_BLOCKS_PER_SM = {(4, False): 5, (2, False): 5, (4, True): 3,
+                      (2, True): 2}
+
+
+def _reduce_grids(itemsize, bwd):
+    """(SMs, blocks per SM): the H100 and a 2-SM card."""
+    return ((132, H100_BLOCKS_PER_SM[itemsize, bwd]), (2, 1))
+
+
+@pytest.mark.parametrize("c", [1, 3, 19, 32, 192, 300, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_reduce_walk_sums_each_element_once(c, dtype, aligned):
+    """Both reductions on the H100's grid and on a 2-SM card, where each
+    thread walks many steps: every element lands in exactly one
+    accumulator, whose channels never change and which adds at most
+    MAX_TERMS terms; every partial of the (2, N, C, G) scratch is written
+    once; the sums agree with the plain versions."""
+    rng = np.random.default_rng(c)
+    shape = (2, 4, 5, 8, c)
+    x = torch.from_numpy((1.5 * rng.standard_normal(shape) + 0.7).astype(
+        np.float32)).to(dtype)
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        dtype)
+    mean = torch.from_numpy((0.7 + 0.1 * rng.standard_normal((2, c))).astype(
+        np.float32))
+    inv = torch.from_numpy((0.5 + rng.random((2, c))).astype(np.float32))
+    for args, want in (((None, None, None),
+                        norm.gn_channel_sums_reference(x)),
+                       ((g, mean, inv),
+                        norm.gn_bwd_reduce_reference(x, g, mean, inv))):
+        for sms, per_sm in _reduce_grids(x.element_size(),
+                                         args[0] is not None):
+            got = _emulate_reduce(x, *args, aligned, sms, per_sm)
+            for a, b in zip(got[:2], want):
+                np.testing.assert_allclose(a.numpy(), b.numpy(),
+                                           rtol=SUM_TOL, atol=SUM_TOL)
+
+
 @pytest.mark.parametrize("rows,c", [(6_131_712, 1), (6_131_712, 192),
                                     (767_637, 64), (35, 19), (10, 300)])
 def test_stats_grid_bounds_work_and_scratch(rows, c):
-    """The stats kernel's blocks: a thread sums at most a few hundred rows
-    at the 3D UNet's largest activations, and the scratch of partial sums
-    stays under 2^21 floats per sample and statistic."""
-    g = norm._grid(rows, c, norm._STATS_ROWS, norm._MAX_PARTIALS)
-    lanes = 256 // min(c, 256)
-    assert g >= 1 and g * c <= max(norm._MAX_PARTIALS, c)
-    assert -(-rows // (g * lanes)) <= 1024
+    """The reductions' grid at the 3D UNet's largest activations (N = 4)
+    and at ragged C, on the H100 and on a 2-SM card, fp32 and bf16: no
+    accumulator adds more than MAX_TERMS terms, every lane has a thread,
+    and at the model shapes the (2, N, C, G) fp32 scratch stays under 1%
+    of x's bytes."""
+    k = _reduce_constants()
+    assert norm._NT == k["NT"]
+    for itemsize in (4, 2):
+        _, _, lanes, units = _reduce_walk(rows, c, 16 // itemsize, True)
+        for sms, per_sm in (*_reduce_grids(itemsize, False),
+                            *_reduce_grids(itemsize, True)):
+            blocks = _reduce_blocks(4, units, lanes, sms, per_sm)
+            stride = blocks * k["NT"] // lanes * lanes
+            assert stride >= lanes and -(-units // stride) <= k["MAX_TERMS"]
+            if rows > 1000:
+                assert 2 * c * blocks * 4 <= rows * c * itemsize / 100
 
 
 # -- the backward: kernels 3c (_bwd_reduce_kernel) and 3d (_bwd_dx_kernel) --
@@ -326,7 +505,7 @@ def test_bwd_kernel_checks_refuse_autograd_and_bad_shapes():
 # Replayed in numpy with the source's constants: a grid sized from the card
 # (at most AFFINE_WAVES waves of resident blocks, at least one thread per
 # unit of a row), each thread walking units t, t + stride, ... in groups of
-# AFFINE_UNROLL, a unit being a 16-byte vector (4 fp32 or 8 bf16 channels)
+# UNROLL, a unit being a 16-byte vector (4 fp32 or 8 bf16 channels)
 # when C % V == 0 and x and y are aligned, else one scalar.  Every element
 # must be written exactly once, by a thread whose channels never change,
 # with the value the plain version gives, bit for bit.
@@ -338,12 +517,12 @@ def _affine_constants():
 
     src = (_build.CSRC / "group_norm.cu").read_text()
     return {name: int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
-            for name in ("NT", "AFFINE_UNROLL", "AFFINE_WAVES")}
+            for name in ("NT", "UNROLL", "AFFINE_WAVES")}
 
 
 def _emulate_affine(x, a, b, aligned, sms, per_sm):
     k = _affine_constants()
-    nt, unroll = k["NT"], k["AFFINE_UNROLL"]
+    nt, unroll = k["NT"], k["UNROLL"]
     n, c = x.shape[0], x.shape[-1]
     s = x.numel() // (n * c)
     v = 16 // x.element_size()
