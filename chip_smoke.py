@@ -1,5 +1,5 @@
 """GPU smoke run of the PyTorch port: 2D serving, 3D sliding-window
-inference and 3D 'gcr' training.
+inference, 3D 'gcr' training and 2D classic-UNet training.
 
     python3 chip_smoke.py
 
@@ -24,12 +24,15 @@ wall time.
 2. 2D serving: a base-64 bf16 UNet from a seeded generator is saved with
    ``save_pretrained``, loaded by ``ModelRegistry.register_unet2d(
    resolution=256, device="cuda")`` and served by ``SegmentationServer`` on
-   127.0.0.1; 8 concurrent clients POST 16 synthetic PNGs in the png, mask
-   and path return modes.  Every reply must be 200 with a 256x256 mask, the
-   kernel must have launched 18 times per device batch (twice per
-   DoubleConv: conv1, conv2), and 4 served masks must agree on >= 99.9% of
-   pixels with the same model run with the plain DoubleConv (probabilities
-   within 2e-2, one image at a time).  Last, one batch
+   127.0.0.1; 8 concurrent clients POST 16 synthetic PNGs (filter 0) and 8
+   copies of 4 of them with every row under the Average or the Paeth
+   filter (written here with zlib; decoded by the port's C unfilter), in
+   the png, mask and path return modes.  Every reply must be 200 with a
+   256x256 mask, each filtered copy must decode to its original's pixels
+   and get its mask, the kernel must have launched 18 times per device
+   batch (twice per DoubleConv: conv1, conv2), and 4 served masks must
+   agree on >= 99.9% of pixels with the same model run with the plain
+   DoubleConv (probabilities within 2e-2, one image at a time).  Last, one batch
    of 8 goes through the served forward against the plain path
    (probabilities within 2e-2) and is timed through both (median of 5).
    With random weights the probabilities lie near 0.48 and the masks are
@@ -112,17 +115,42 @@ wall time.
 10. ResidualUNet3D f_maps 32, 5 levels at 64x128x128 for two steps: per
    step 9 GN-conv, 18 of each GroupNorm kernel (its 'gc' conv3 runs the
    ``GroupNorm`` Function); losses and grad norm against the plain path.
-11. Prints the card's name and power limit, the kernels' JSON line (launches
+11. 2D training (``UNet2DTraining``): kernel 1 at the 9 DoubleConv shapes
+   at the training batch (N = 32, bf16, z written, as ``double_conv2d``'s
+   forward calls it), y and z against the plain version within 2e-2,
+   timed against the cuDNN pair (event window and ``torch.profiler``
+   device time); ``double_conv2d``'s gradients (dx, dw1, db1, dw2, db2)
+   there against autograd through the plain composition (two ``F.conv2d``
+   + bias + relu in fp32, z and y rounded to the input dtype, as the
+   kernel computes them), fp32 with TF32 off within 1e-3 and bf16 within
+   2e-2 of each gradient's max |value|, the cotangent zeroed where the two
+   y differ in sign or lie near the ReLU kink and over the 3x3 window of
+   every position whose z differs in sign (at most 10% zeroed); the raw
+   ``fused_double2d`` must raise on tensors that require grad.  Then ``Trainer.train()`` of the base-64 bf16 UNet (fp32
+   master weights) at 256², batch 32, AdamW at 1e-3, augmentation on, on
+   ``SyntheticSliceDataset(64, 256, 1)``: 10 steps, evaluation (two
+   passes, batches of 32 and 8) and checkpoints at steps 5 and 10; 18
+   kernel-1 launches per step and per eval batch, finite losses,
+   ``checkpoint-10`` reloading equal through ``UNetModel.from_pretrained``.
+   Step ms (synchronised, median of steps 3-10), slices/s and peak memory
+   of the kernel path and of the plain path (``plain_path()``), and a
+   ``torch.profiler`` split of 3 steps of each (kernel 1, cuDNN, the
+   rest).  Last, 3 steps of each path from the same weights and batches,
+   augmentation off: fp32 (TF32 off) losses within LOSS_TOLS and the
+   step-1 grad norm within 1e-4; bf16 within BF16_LOSS_TOLS and 1e-2.
+12. Prints the card's name and power limit, the kernels' JSON line (launches
    from the main-path runs, each run's counts zeroed just before it; ms,
    plain, library and bound ms summed over the model shapes: the 9 UNet
    DoubleConvs at N=2 in bf16, the 3D kernels' fp32 model shapes; device
-   ms where phases 6-7 measured it, else null), and
-   last ``{"ok": true, "device": {...}}``.
+   ms where phases 6-7 measured it, else null; kernel 1 also its launches
+   by path, serving and training, and under ``train`` its numbers at the
+   training batch), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import base64
+import contextlib
 import http.client
 import json
 import math
@@ -239,13 +267,13 @@ def _rate(flop: float, ms: float, dtype) -> str:
             f"(TF32; {100 * tf * 1e12 / PEAK_FP32:5.1f}% of 67 fp32)")
 
 
-def _dc_flop_bytes(shape, itemsize: int):
-    """FLOP and bytes (x, weights, biases read once, y written once) of one
-    DoubleConvolution without z."""
+def _dc_flop_bytes(shape, itemsize: int, with_z: bool = False):
+    """FLOP and bytes (x, weights, biases read once, y and, with_z, z
+    written once) of one DoubleConvolution."""
     n, h, w, ci, c1, co = shape
     flop = 2.0 * 9 * n * h * w * (ci * c1 + c1 * co)
-    nbytes = itemsize * (n * h * w * (ci + co) + 9 * (ci * c1 + c1 * co)
-                         + c1 + co)
+    nbytes = itemsize * (n * h * w * (ci + co + (c1 if with_z else 0))
+                         + 9 * (ci * c1 + c1 * co) + c1 + co)
     return flop, nbytes
 
 
@@ -435,6 +463,41 @@ def _get(port: int, path: str):
         conn.close()
 
 
+def filtered_png(arr, ftype: int) -> bytes:
+    """8-bit grey (H, W) or RGB (H, W, 3) PNG bytes with every row under
+    filter ``ftype`` (3 Average, 4 Paeth), written with zlib and raw
+    filtered scanlines (the card's machine has no PIL)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = arr.shape[:2]
+    ch = 1 if arr.ndim == 2 else arr.shape[2]
+    rows = arr.reshape(h, w * ch).astype(np.int32)
+    b = np.vstack([np.zeros((1, w * ch), np.int32), rows[:-1]])  # above
+    a = np.hstack([np.zeros((h, ch), np.int32), rows[:, :-ch]])  # left
+    c = np.hstack([np.zeros((h, ch), np.int32), b[:, :-ch]])     # above-left
+    if ftype == 3:
+        pred = (a + b) >> 1
+    elif ftype == 4:
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    else:
+        raise ValueError(f"filter {ftype}: 3 or 4")
+    body = ((rows - pred) & 0xFF).astype(np.uint8)
+    raw = np.hstack([np.full((h, 1), ftype, np.uint8), body]).tobytes()
+
+    def chunk(t, data):
+        return (struct.pack(">I", len(data)) + t + data
+                + struct.pack(">I", zlib.crc32(t + data)))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if ch == 1 else 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
 def phase_serve(seed: int, workdir: str):
     """Serve the base-64 bf16 UNet at 256²; returns the kernel launch count
     of the served traffic."""
@@ -472,7 +535,7 @@ def phase_serve(seed: int, workdir: str):
 
     rng = np.random.default_rng(seed)
     sizes = [(256, 256), (200, 310), (384, 384), (97, 130)]
-    images = []
+    images, arrays = [], []
     for i in range(16):
         h, w = sizes[i % len(sizes)]
         yy, xx = np.mgrid[:h, :w]
@@ -483,6 +546,22 @@ def phase_serve(seed: int, workdir: str):
         path = os.path.join(workdir, f"scan_{i:02d}.png")
         png.write(path, arr)
         images.append(path)
+        arrays.append(arr)
+    # the first 4 again (RGB 256², grey 200x310, grey 384², RGB 97x130),
+    # each with every row under Average (3) and under Paeth (4): real
+    # clients' PNGs, decoded by the C unfilter
+    filtered = []
+    for k in range(4):
+        for ftype in (3, 4):
+            path = os.path.join(workdir, f"scan_{k:02d}_filter{ftype}.png")
+            with open(path, "wb") as f:
+                f.write(filtered_png(arrays[k], ftype))
+            if not np.array_equal(png.read(path, "L"),
+                                  png.read(images[k], "L")):
+                raise AssertionError(f"{path}: decodes differently from the "
+                                     "filter-0 copy")
+            filtered.append((k, path))
+    images += [path for _, path in filtered]
 
     srv = SegmentationServer(registry, output_dir=os.path.join(workdir, "masks"),
                              max_batch=max_batch, max_wait_ms=5.0)
@@ -513,8 +592,8 @@ def phase_serve(seed: int, workdir: str):
     finally:
         srv.stop()
     batches = stats["batch_occupancy"]["unet"]["batches"] - occ0
-    log(f"[phase 2] 16 requests from {clients} clients in {wall:.3f} s; "
-        f"/stats: {json.dumps(stats)}")
+    log(f"[phase 2] {len(images)} requests from {clients} clients in "
+        f"{wall:.3f} s; /stats: {json.dumps(stats)}")
 
     masks = []
     for i, (status, body) in enumerate(replies):
@@ -536,11 +615,18 @@ def phase_serve(seed: int, workdir: str):
         raise AssertionError(f"{launches} kernel launches for {batches} "
                              "device batches (want 18 per batch: conv1 and "
                              "conv2 of 9 DoubleConvs)")
+    for j, (k, path) in enumerate(filtered):
+        if not np.array_equal(masks[16 + j], masks[k]):
+            raise AssertionError(f"{path}: its mask differs from the filter-0 "
+                                 "copy's")
     log(f"[phase 2] {launches} kernel launches for {batches} device batches "
-        f"(9 DoubleConvs of 2 launches each); all 16 replies 200 with "
-        f"{res}x{res} masks")
+        f"(9 DoubleConvs of 2 launches each); all {len(images)} replies 200 "
+        f"with {res}x{res} masks; the {len(filtered)} Average- and "
+        f"Paeth-filtered copies decode to the filter-0 pixels and get the "
+        f"same masks")
 
-    model = UNetModel.from_pretrained(bundle, device="cuda")
+    # the serving copy, as register_unet2d holds it
+    model = UNetModel.from_pretrained(bundle, device="cuda").for_inference()
     entry = registry.get("unet")
     for i in range(4):
         x = nearest_resize(png.read(images[i], "L")[..., None], (res, res))
@@ -655,17 +741,21 @@ def _zero_counts():
 
 
 class plain_path:
-    """Within this block the model, the predictor, the trainer and the
+    """Within this block the models, the predictor, the trainers and the
     server run every kernel's plain PyTorch version on the card (cuDNN
-    conv3d, plain GN forward and backward, plain overlap-add): the
-    comparison pipeline.  Nothing of the port switches by itself; only this
-    script swaps the functions."""
+    conv2d pair for kernel 1, cuDNN conv3d, plain GN forward and backward,
+    plain overlap-add): the comparison pipeline.  Nothing of the port
+    switches by itself; only this script swaps the functions."""
 
     def __enter__(self):
         from mdeical_image_segmentation_tpu_torch.infer import predictor
+        from mdeical_image_segmentation_tpu_torch.models import layers2d
         from mdeical_image_segmentation_tpu_torch.ops import fused_conv, norm, overlap
 
         self.saved = [
+            (fused_conv, "fused_double2d",
+             fused_conv.fused_double2d_reference),
+            (layers2d, "fused_double2d", fused_conv.fused_double2d_reference),
             (norm, "gn_channel_sums", norm.gn_channel_sums_reference),
             (norm, "gn_affine", norm.gn_affine_reference),
             (norm, "gn_bwd_reduce", norm.gn_bwd_reduce_reference),
@@ -2089,6 +2179,412 @@ def phase_train_residual(seed: int, workdir: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 2D classic-UNet training (Trainer.train(); kernel 1 under double_conv2d)
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH_2D = 32          # bench.py's headline batch
+TRAIN_STEPS_2D = 10
+# 2D step losses of steps 1, 2, 3 and the step-1 grad norm, kernel path vs
+# plain path, relative, in bf16.  Set before any run: bf16 keeps 8 bits, so
+# a conv output that the two paths round differently differs by one ulp
+# (2^-8 = 3.9e-3 relative); the loss, a mean over 2M pixels, averages such
+# differences, so step 1 (same weights) should sit well inside half an ulp;
+# AdamW's first updates are ±lr for every weight, and a weight whose bf16
+# gradient is rounding noise moves either way, so the gap grows step by
+# step (about tenfold a step in fp32, phase 9).  fp32 keeps LOSS_TOLS.
+BF16_LOSS_TOLS = (2e-3, 1e-2, 5e-2)
+BF16_GRAD_NORM_TOL = 1e-2
+DC_GRAD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}  # of each max |grad|
+CONV_CORE = re.compile(r"conv_(halo|gather)_kernel")
+CUDNN = re.compile(r"cudnn|xmma|dgrad|wgrad|fprop|implicit|gemm|cutlass|"
+                   r"sm90_|sm80_|nchwToNhwc|nhwcToNchw", re.I)
+
+
+def _plain_double_conv(x, w1, b1, w2, b2):
+    """DoubleConvolution as two F.conv2d + bias + relu, differentiated by
+    autograd: the plain composition, with kernel 1's arithmetic: each conv
+    and its bias in fp32 from the inputs as they are, z and y rounded to
+    x's dtype after the ReLU (cuDNN's bf16 conv would round the conv before
+    adding the bias, moving the ReLU masks by an ulp).  Returns (y, z)."""
+    import torch.nn.functional as F
+
+    def conv(t, w, b):
+        return F.conv2d(t.float().permute(0, 3, 1, 2),
+                        w.float().permute(3, 2, 0, 1), b.float(),
+                        padding=1).permute(0, 2, 3, 1)
+
+    z = F.relu(conv(x, w1, b1)).to(x.dtype)
+    return F.relu(conv(z, w2, b2)).to(x.dtype), z
+
+
+def phase_dc_training_batch(seed: int):
+    """Kernel 1 at the training batch (N = 32, bf16, z written, as the
+    train step calls it): y and z against the plain version, timed against
+    the cuDNN pair, device time; then ``double_conv2d``'s gradients at the
+    9 DoubleConv shapes, fp32 (TF32 off) and bf16, against autograd through
+    the plain composition, and the raw wrapper's refusal under grad.
+    Returns the kernel-1 training-batch record."""
+    import torch
+    import torch.nn.functional as F
+
+    from mdeical_image_segmentation_tpu_torch.ops.fused_conv import (
+        double_conv2d,
+        fused_double2d,
+        fused_double2d_reference,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    rec = {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0}
+    log(f"{'case':6s} {'N,H,W,Ci,C1,Co':30s} {'err y':>9s} {'err z':>9s} "
+        f"{'kernel ms':>10s} {'cuDNN ms':>9s} {'device ms':>10s}  rate")
+    for name, shape in DC_SHAPES:
+        shape = (TRAIN_BATCH_2D, *shape[1:])
+        args = _inputs(shape, torch.bfloat16, gen)
+        y, z = fused_double2d(*args)
+        y_ref, z_ref = fused_double2d_reference(*args)
+        errs = []
+        for what, got, want in (("y", y, y_ref), ("z", z, z_ref)):
+            got, want = got.float(), want.float()
+            errs.append((got - want).abs().max().item())
+            if (not torch.isfinite(got).all()
+                    or not torch.allclose(got, want, rtol=BF16_TOL,
+                                          atol=BF16_TOL)):
+                raise AssertionError(f"{name} bf16 N={shape[0]}: {what} "
+                                     f"differs from the plain version by "
+                                     f"{errs[-1]:.3e} (rtol = atol = "
+                                     f"{BF16_TOL})")
+        del y, z, y_ref, z_ref
+        k_ms, p_ms = _time_turns(lambda: fused_double2d(*args),
+                                 lambda: fused_double2d_reference(*args))
+        d_ms = _device_ms(lambda: fused_double2d(*args), launches=2)
+        flop, nbytes = _dc_flop_bytes(shape, 2, with_z=True)
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("device_ms", d_ms),
+                       ("bound_ms", _bound_ms(flop, nbytes, PEAK_BF16)[0])):
+            rec[key] += v
+        rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
+        log(f"{name:6s} {str(shape):30s} {errs[0]:9.2e} {errs[1]:9.2e} "
+            f"{k_ms:10.4f} {p_ms:9.4f} {_ms(d_ms):>10s}  "
+            f"{_rate(flop, k_ms, torch.bfloat16)}")
+        del args
+    log(f"[phase 11] kernel 1 at the training batch (N={TRAIN_BATCH_2D}, "
+        f"bf16, z written) over the 9 UNet shapes: window {rec['ms']:.4f} ms,"
+        f" device {_ms(rec['device_ms'])}, cuDNN pair {rec['plain_ms']:.4f} "
+        f"ms, bound {rec['bound_ms']:.4f} ms (operations); share window "
+        f"{_share(rec['bound_ms'], rec['ms'])}, device "
+        f"{_share(rec['bound_ms'], rec['device_ms'])}")
+
+    names = ("dx", "dw1", "db1", "dw2", "db2")
+    worst = {}
+    log(f"{'case':6s} {'dtype':9s} " + " ".join(f"{n:>9s}" for n in names)
+        + "  zeroed share")
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = DC_GRAD_TOL[str(dtype)[6:]]
+        worst[dtype] = 0.0
+        for name, shape in DC_SHAPES:
+            shape = (TRAIN_BATCH_2D, *shape[1:])
+            args = [t.requires_grad_() for t in _inputs(shape, dtype, gen)]
+            try:
+                fused_double2d(*args)
+            except RuntimeError as e:
+                if "double_conv2d" not in str(e):
+                    raise
+            else:
+                raise AssertionError("the raw fused_double2d ran on tensors "
+                                     "that require grad")
+            y = double_conv2d(*args)
+            with torch.no_grad():
+                _, z = fused_double2d(*args)
+                y_ref, z_ref = _plain_double_conv(*args)
+                # the ReLU's choice at its kink is not a gradient: zero the
+                # cotangent where the two y differ in sign or either lies
+                # within KINK·max|y| of 0, and around every position where
+                # the two z differ in sign (zero cotangent over its 3x3
+                # window makes dz there 0, so conv1's mask decides nothing)
+                lim = KINK * y_ref.abs().max()
+                near = (((y > 0) != (y_ref > 0)) | ((y > 0) & (y < lim))
+                        | ((y_ref > 0) & (y_ref < lim)))
+                flip = ((z > 0) != (z_ref > 0)).any(-1, keepdim=True)
+                flip = F.max_pool2d(flip.float().permute(0, 3, 1, 2), 3, 1,
+                                    1).permute(0, 2, 3, 1) > 0
+                zero = near | flip
+                if zero.float().mean().item() > 0.1:
+                    raise AssertionError(f"{name} {dtype}: the masks differ "
+                                         "at over 10% of the outputs")
+                g = torch.randn(y.shape, device="cuda", generator=gen).to(
+                    dtype).masked_fill_(zero, 0.0)
+                del y_ref, z_ref, z
+            got = torch.autograd.grad(y, args, g)
+            del y
+            want = torch.autograd.grad(_plain_double_conv(*args)[0], args, g)
+            errs = _rel_errs(names, got, want)
+            log(f"{name:6s} {str(dtype)[6:]:9s} "
+                + " ".join(f"{errs[n]:9.2e}" for n in names)
+                + f"  {zero.float().mean().item():.2e}")
+            worst[dtype] = max(worst[dtype], *errs.values())
+            if max(errs.values()) > tol:
+                raise AssertionError(
+                    f"double_conv2d {name} {dtype}: gradients differ from the "
+                    f"plain composition {errs} (limit {tol} x max |grad|)")
+            del args, got, want, g, zero, near, flip
+            torch.cuda.empty_cache()
+    log(f"[phase 11] double_conv2d gradients at the 9 DoubleConv shapes, "
+        f"N={TRAIN_BATCH_2D}: worst {worst[torch.float32]:.3e} (fp32, TF32 "
+        f"off, limit {DC_GRAD_TOL['float32']}), {worst[torch.bfloat16]:.3e} "
+        f"(bf16, limit {DC_GRAD_TOL['bfloat16']}) of max |grad|; the raw "
+        f"wrapper raises under grad")
+    rec["grad_err"] = max(worst.values())
+    return rec
+
+
+class UNet2DTraining:
+    """The 2D training setup of phase 11, the one way to build it: the
+    base-64 UNet (1 channel in and out) in ``compute_dtype`` with weights
+    from ``seed``, ``SyntheticSliceDataset(64, 256, 1)`` to train on and
+    40 more slices to evaluate, batch 32, AdamW at bench.py's rate (1e-3),
+    the other ``TrainingArguments`` at their defaults unless given."""
+
+    def __init__(self, seed: int, workdir: str):
+        from mdeical_image_segmentation_tpu_torch.data import (
+            SyntheticSliceDataset,
+        )
+
+        self.seed, self.workdir = seed, workdir
+        self.train_ds = SyntheticSliceDataset(64, 256, 1, seed=seed)
+        self.eval_ds = SyntheticSliceDataset(40, 256, 1, seed=seed + 7)
+
+    def trainer(self, name: str, compute_dtype: str = "bfloat16", **kw):
+        import torch
+
+        from mdeical_image_segmentation_tpu_torch.models import (
+            UNetConfig,
+            UNetModel,
+        )
+        from mdeical_image_segmentation_tpu_torch.train import (
+            Trainer,
+            TrainingArguments,
+        )
+
+        model = UNetModel(
+            UNetConfig(in_channels=1, out_channels=1, unet_type="UNet",
+                       base_features=64, compute_dtype=compute_dtype),
+            device="cuda", generator=torch.Generator().manual_seed(self.seed))
+        args = TrainingArguments(**{
+            "output_dir": os.path.join(self.workdir, name),
+            "per_device_train_batch_size": TRAIN_BATCH_2D,
+            "per_device_eval_batch_size": TRAIN_BATCH_2D,
+            "learning_rate": 1e-3, "seed": self.seed, "logging_steps": 5,
+            **kw})
+        return Trainer(model, args, self.train_ds, self.eval_ds,
+                       device="cuda")
+
+
+def _instrument_2d(trainer, rec, evals):
+    """Wrap the 2D trainer's step (synchronised ms, kernel-1 launches, the
+    loss, the pre-clip grad norm of the update) and its eval forward
+    (kernel-1 launches per eval batch)."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.ops import fused_conv
+
+    step_fn, eval_fn = trainer._train_step, trainer._eval_forward
+
+    def count():  # inside plain_path the plain version stands in: 0
+        return getattr(fused_conv.fused_double2d, "launches", 0)
+
+    def step(images, labels):
+        torch.cuda.synchronize()
+        before, t0 = count(), time.perf_counter()
+        loss = step_fn(images, labels)
+        torch.cuda.synchronize()
+        rec.append({"ms": (time.perf_counter() - t0) * 1e3,
+                    "loss": loss.item(),
+                    "grad_norm": trainer.last_grad_norm.item(),
+                    "launches": count() - before})
+        return loss
+
+    def eval_forward(batch):
+        before = count()
+        out = eval_fn(batch)
+        evals.append(count() - before)
+        return out
+
+    trainer._train_step, trainer._eval_forward = step, eval_forward
+
+
+def _profile_2d(trainer, steps: int = 3):
+    """Device time of ``steps`` train steps on one device batch, grouped:
+    the port's conv core (kernel 1), cuDNN (the conv backward; on the plain
+    path the forward too), the rest; wall and busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdeical_image_segmentation_tpu_torch.data import SliceCollator
+
+    batch = SliceCollator()([trainer.train_dataset[i]
+                             for i in range(TRAIN_BATCH_2D)])
+    images = torch.from_numpy(batch["images"]).cuda()
+    labels = torch.from_numpy(batch["labels"]).cuda()
+    step = type(trainer)._train_step.__get__(trainer)  # not instrumented
+    for _ in range(2):
+        step(images, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(images, labels)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    groups = {"kernel 1 (conv core)": 0.0, "cuDNN": 0.0, "the rest": 0.0}
+    times = device_times(prof)
+    for k, ms in times.items():
+        g = ("kernel 1 (conv core)" if CONV_CORE.search(k) else
+             "cuDNN" if CUDNN.search(k) else "the rest")
+        groups[g] += ms / steps
+    busy = sum(groups.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
+    return groups, busy, wall, [(k[:60], v / steps) for k, v in top]
+
+
+def phase_train_unet2d(seed: int, workdir: str):
+    """The base-64 bf16 UNet at 256², batch 32, through Trainer.train():
+    augmentation on, evaluation and checkpoints at steps 5 and 10; then the
+    plain path; then 3 steps of each path from the same weights and
+    batches, augmentation off, fp32 and bf16.  Returns the kernel-1
+    launches of the main run and the numbers to print."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.models import UNetModel
+    from mdeical_image_segmentation_tpu_torch.ops import fused_conv
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    setup = UNet2DTraining(seed, workdir)
+    main_kw = dict(max_steps=TRAIN_STEPS_2D, eval_steps=5, save_steps=5,
+                   save_total_limit=2, augment=True)
+    trainer = setup.trainer("unet2d_train", **main_kw)
+    log(f"[phase 11] UNet base 64, bf16 compute, fp32 master weights, 256², "
+        f"batch {TRAIN_BATCH_2D}; {len(setup.train_ds)} train and "
+        f"{len(setup.eval_ds)} eval slices; {trainer.args}")
+    rec, evals = [], []
+    _instrument_2d(trainer, rec, evals)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_conv.fused_double2d.launches = 0
+    t0 = time.perf_counter()
+    out = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_conv.fused_double2d.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, r in enumerate(rec):
+        log(f"  step {i + 1}: {r['ms']:.2f} ms, loss {r['loss']:.6f}, grad "
+            f"norm {r['grad_norm']:.4e}, kernel-1 launches {r['launches']}")
+    bad = [i + 1 for i, r in enumerate(rec)
+           if r["launches"] != 18 or not np.isfinite(r["loss"])]
+    # 2 evaluations x 2 passes (the mean threshold, then the sums) x 2
+    # batches (32 and a tail of 8)
+    if (bad or len(rec) != TRAIN_STEPS_2D or len(evals) != 8
+            or any(n != 18 for n in evals)
+            or launches != 18 * (len(rec) + len(evals))):
+        raise AssertionError(
+            f"steps {bad} off; {len(rec)} steps, eval batches {evals}, "
+            f"{launches} launches: want {TRAIN_STEPS_2D} steps and 8 eval "
+            "batches of 18 launches each, finite losses")
+    ckpts = sorted(d for d in os.listdir(trainer.args.output_dir)
+                   if d.startswith("checkpoint-"))
+    if ckpts != ["checkpoint-10", "checkpoint-5"]:
+        raise AssertionError(f"checkpoints {ckpts}")
+    reloaded = UNetModel.from_pretrained(
+        os.path.join(trainer.args.output_dir, "checkpoint-10"), device="cuda")
+    for (k, a), (_, b) in zip(reloaded.state_dict().items(),
+                              trainer.model.state_dict().items()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"checkpoint-10 reloads {k} differently")
+    metrics = trainer.evaluate()
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"eval metrics {metrics}")
+    steady = statistics.median(r["ms"] for r in rec[2:])
+    log(f"  train(): {len(rec)} steps + 2 evaluations in {wall:.2f} s; "
+        f"training_loss {out.training_loss:.6f}; eval {metrics}; "
+        f"checkpoints {ckpts} (checkpoint-10 reloads equal)")
+    groups, busy, prof_wall, top = _profile_2d(trainer)
+    del trainer, reloaded
+    torch.cuda.empty_cache()
+
+    # the plain path: the same run with kernel 1's plain version (cuDNN)
+    with plain_path():
+        plain = setup.trainer("unet2d_plain", max_steps=TRAIN_STEPS_2D,
+                              eval_strategy="no", save_steps=0, augment=True)
+        plain_rec = []
+        _instrument_2d(plain, plain_rec, [])
+        torch.cuda.reset_peak_memory_stats()
+        plain.train()
+        plain_peak = torch.cuda.max_memory_allocated() / 2**30
+        p_groups, p_busy, p_wall, p_top = _profile_2d(plain)
+    del plain
+    torch.cuda.empty_cache()
+    plain_steady = statistics.median(r["ms"] for r in plain_rec[2:])
+    log(f"[phase 11] train step (median of steps 3-{TRAIN_STEPS_2D}, "
+        f"synchronised): kernel path {steady:.2f} ms = "
+        f"{TRAIN_BATCH_2D / steady * 1e3:.1f} slices/s, peak "
+        f"{peak:.2f} GiB; plain path {plain_steady:.2f} ms = "
+        f"{TRAIN_BATCH_2D / plain_steady * 1e3:.1f} slices/s, peak "
+        f"{plain_peak:.2f} GiB")
+    for label, g, b, w, t in (("kernel", groups, busy, prof_wall, top),
+                              ("plain", p_groups, p_busy, p_wall, p_top)):
+        log(f"[phase 11] profiled {label} step (3 steps, one batch): "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in g.items())
+            + f"; device busy {b:.2f} of {w:.2f} ms wall ({100 * b / w:.1f}%)")
+        log("    largest: " + "; ".join(f"{k} {v:.2f}" for k, v in t))
+
+    # kernel path vs plain path from the same weights and batches, 3 steps,
+    # augmentation off, fp32 (TF32 off) and bf16
+    cmp_kw = dict(max_steps=3, eval_strategy="no", save_steps=0,
+                  augment=False)
+    gaps = {}
+    for dtype, tols, norm_tol in (("float32", LOSS_TOLS, GRAD_NORM_TOL),
+                                  ("bfloat16", BF16_LOSS_TOLS,
+                                   BF16_GRAD_NORM_TOL)):
+        runs = []
+        for plain_run in (False, True):
+            ctx = plain_path() if plain_run else contextlib.nullcontext()
+            with ctx:
+                t = setup.trainer(f"cmp_{dtype}_{int(plain_run)}", dtype,
+                                  **cmp_kw)
+                r = []
+                _instrument_2d(t, r, [])
+                t.train()
+            runs.append(r)
+            del t
+            torch.cuda.empty_cache()
+        k_rec, p_rec = runs
+        rels = [abs(k["loss"] - p["loss"]) / abs(p["loss"])
+                for k, p in zip(k_rec, p_rec)]
+        norm_rel = (abs(k_rec[0]["grad_norm"] - p_rec[0]["grad_norm"])
+                    / p_rec[0]["grad_norm"])
+        for i, (k, p) in enumerate(zip(k_rec, p_rec)):
+            log(f"  {dtype} step {i + 1}: loss kernel {k['loss']:.7f} plain "
+                f"{p['loss']:.7f} (rel {rels[i]:.2e}, limit {tols[i]}); ms "
+                f"kernel {k['ms']:.1f} plain {p['ms']:.1f}")
+        log(f"  {dtype} grad norm after step 1: kernel "
+            f"{k_rec[0]['grad_norm']:.7e} plain {p_rec[0]['grad_norm']:.7e} "
+            f"(rel {norm_rel:.2e}, limit {norm_tol})")
+        if any(r > t for r, t in zip(rels, tols)) or norm_rel > norm_tol:
+            raise AssertionError(f"2D training, {dtype}, kernel path vs plain "
+                                 f"path: losses {rels}, grad norm {norm_rel}"
+                                 " beyond the limits")
+        gaps[dtype] = (rels, norm_rel)
+    return {"launches": launches, "steady": steady,
+            "plain_steady": plain_steady, "peak": peak,
+            "plain_peak": plain_peak, "gaps": gaps}
+
+
 def main() -> int:
     import torch
 
@@ -2160,8 +2656,17 @@ def main() -> int:
         res_train_launches = phase_train_residual(SEED, workdir)
         log(f"[phase 10] ResidualUNet3D training ok; wall "
             f"{time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 11] 2D training: kernel 1 at the training batch, "
+            "double_conv2d's gradients, Trainer.train() of the base-64 bf16 "
+            "UNet at 256²")
+        dc_train = phase_dc_training_batch(SEED)
+        train2d = phase_train_unet2d(SEED, workdir)
+        log(f"[phase 11] 2D training ok; wall {time.time() - t_phase:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    if train2d["launches"] == 0:
+        raise AssertionError("double_conv2d was never launched in training")
 
     # launches of each kernel over the main-path runs it belongs to (each
     # run zeroes the counts just before and reads them just after)
@@ -2188,13 +2693,21 @@ def main() -> int:
                 "gn_bwd_reduce": "ops/norm.py:382",
                 "gn_bwd_dx": "ops/norm.py:399",
                 "overlap_add": "ops/overlap.py:100"}
+    log(f"2D training: kernel-1 launches {train2d['launches']} (serving "
+        f"{launches}); step {train2d['steady']:.2f} ms kernel path, "
+        f"{train2d['plain_steady']:.2f} ms plain path; peak "
+        f"{train2d['peak']:.2f} / {train2d['plain_peak']:.2f} GiB; "
+        f"kernel-vs-plain loss gaps {train2d['gaps']}")
     kernels = [{
         "name": "double_conv2d",
         "route": "cuda",
         "source": "mdeical_image_segmentation_tpu_torch/csrc/double_conv2d.cu",
         "replaces": "mdeical_image_segmentation_tpu/ops/fused_conv.py:420",
-        "launches": launches,
-        "max_abs_err": max_err,
+        # served batches (phase 2) and Trainer.train() (phase 11)
+        "launches": launches + train2d["launches"],
+        "launches_by_path": {"serve_2d": launches,
+                             "train_2d": train2d["launches"]},
+        "max_abs_err": max(max_err, dc_train["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": dc_bound,
@@ -2202,6 +2715,9 @@ def main() -> int:
         # the plain version is the library's: two cuDNN conv2d + relu
         "library_ms": plain_ms,
         "device_ms": None,
+        # the 9 shapes at the training batch (N=32, bf16, z written)
+        "train": {k: (None if isinstance(v, float) and math.isnan(v) else v)
+                  for k, v in dc_train.items()},
     }] + [{
         "name": k,
         "route": "cuda",

@@ -2,7 +2,8 @@
 
 The JAX package beside this one is the reference; this package keeps its
 module paths and names, so each part has an obvious counterpart there.  It
-imports ``torch`` and numpy, never jax, flax, msgpack or PIL.
+imports ``torch`` and numpy, never jax, flax, optax, msgpack, PIL, h5py,
+yaml, sklearn or matplotlib.
 
 Covered so far:
 
@@ -16,7 +17,13 @@ Covered so far:
   of ``ops.fused_conv.fused_conv3d``, then the overlap-add of
   ``ops.overlap``; CUDA in ``csrc/group_norm.cu``, ``csrc/gcr_conv3d.cu``
   and ``csrc/overlap_add.cu``), checkpoints (``train.checkpoint``) and 3D
-  slice serving (``serve.app.ModelRegistry.register_unet3d``).
+  slice serving (``serve.app.ModelRegistry.register_unet3d``);
+- 3D 'gcr' training (``train.trainer3d.UNetTrainer``);
+- 2D classic-UNet training (``cli.train2d`` → ``train.trainer2d.Trainer``
+  → ``UNetModel`` with its loss → ``ops.fused_conv.double_conv2d``, kernel
+  1's forward under an autograd Function), with the PNG datasets
+  (``data.png2d``, ``data.collate``), on-device augmentation
+  (``transforms.device2d``) and the 2D metrics (``metrics.metrics2d``).
 
 Public functions keep the JAX layout: channels-last activations and
 (*k, I, O) conv weights.
@@ -33,10 +40,13 @@ _SUBMODULES = (
     "configs",
     "data",
     "infer",
+    "losses",
+    "metrics",
     "models",
     "ops",
     "serve",
     "train",
+    "transforms",
     "utils",
 )
 

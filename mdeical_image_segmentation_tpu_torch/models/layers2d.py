@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.fused_conv import fused_double2d
+from ..ops.fused_conv import double_conv2d, fused_double2d
 from ..ops.image import center_crop
 
 
@@ -64,11 +64,15 @@ class TorchConv(nn.Module):
         _torch_default_init_(self.weight, self.bias,
                              self.weight[0].numel(), generator)
 
-    def hwio(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(kernel in the JAX layout (*k, I, O), bias) — what the fused
+    def hwio(self, dtype: Optional[torch.dtype] = None,
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(kernel in the JAX layout (*k, I, O), bias), contiguous and cast
+        to ``dtype`` (the parameters' own by default) — what the fused
         kernels take."""
-        w = self.weight
-        return w.permute(*range(2, w.ndim), 1, 0).contiguous(), self.bias
+        w, b = self.weight, self.bias
+        dtype = dtype or w.dtype
+        w = w.permute(*range(2, w.ndim), 1, 0).contiguous().to(dtype)
+        return w, (None if b is None else b.to(dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
@@ -108,8 +112,11 @@ class TorchConvTranspose(nn.Module):
 
 
 class DoubleConvolution(nn.Module):
-    """2 × (conv3x3 + ReLU) as one ``fused_double2d`` call: the CUDA kernel
-    on a CUDA tensor, the plain two-conv version on a CPU tensor."""
+    """2 × (conv3x3 + ReLU) as one call of kernel 1: the CUDA kernel on a
+    CUDA tensor, the plain two-conv version on a CPU tensor.  The weights
+    are cast to x's dtype at use (fp32 master weights under bf16 compute).
+    While autograd records, the call is ``double_conv2d`` (z kept for the
+    backward); otherwise ``fused_double2d`` without z (serving)."""
 
     def __init__(self, in_features: int, features: int, *, device=None):
         super().__init__()
@@ -121,9 +128,13 @@ class DoubleConvolution(nn.Module):
         self.TorchConv_1.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w1, b1 = self.TorchConv_0.hwio()
-        w2, b2 = self.TorchConv_1.hwio()
-        y, _ = fused_double2d(x.contiguous(), w1, b1, w2, b2, with_z=False)
+        w1, b1 = self.TorchConv_0.hwio(x.dtype)
+        w2, b2 = self.TorchConv_1.hwio(x.dtype)
+        x = x.contiguous()
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, w1, b1, w2, b2)):
+            return double_conv2d(x, w1, b1, w2, b2)
+        y, _ = fused_double2d(x, w1, b1, w2, b2, with_z=False)
         return y
 
 

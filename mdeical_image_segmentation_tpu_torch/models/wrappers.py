@@ -1,18 +1,22 @@
 """Config-driven 2D model bundles (the JAX package's ``models/wrappers.py``).
 
-``UNetModel`` pairs a ``UNetConfig`` with its module and reads and writes
-the JAX package's bundle format unchanged: ``config.json`` plus a flax
-``params.msgpack`` (through ``utils/flax_msgpack.py`` and
+``UNetModel`` pairs a ``UNetConfig`` with its module and its criterion
+(``bce_with_logits`` for one output channel, ``cross_entropy`` for more), and
+reads and writes the JAX package's bundle format unchanged: ``config.json``
+plus a flax ``params.msgpack`` (through ``utils/flax_msgpack.py`` and
 ``utils/param_bridge.py``).
 
 Precision policy, as in the JAX wrapper: parameters are float32
-(``param_dtype``); with ``compute_dtype="bfloat16"`` they are cast once, when
-the model is built or loaded, and the convs run in bf16; the logits are
-returned in float32.  Saving a bf16 model therefore writes the bf16-rounded
-values as float32 — the values the JAX package computes with under the same
-policy.
+(``param_dtype``), the master weights that training updates; with
+``compute_dtype="bfloat16"`` every conv casts them to bf16 at use (flax's
+``promote_dtype``), autograd carries the gradients back to float32, and the
+logits and the loss are float32.  A model built or loaded this way holds
+the float32 weights only.  Serving calls ``for_inference()``, which casts
+them once to ``compute_dtype`` (the casts at use then cost nothing) and
+stops their gradients: ``register_unet2d`` holds that copy.
 
-So far the port covers ``unet_type="UNet"`` and inference only.
+So far the port covers ``unet_type="UNet"``; the UNet-3+ family, remat and
+the other initializers raise.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 import torch.nn as nn
 
+from ..losses.losses2d import bce_with_logits, cross_entropy
 from ..utils import flax_msgpack
 from ..utils.param_bridge import flax_to_state_dict, state_dict_to_flax
 from .unet2d import UNet
@@ -66,6 +71,9 @@ class SegOutput:
     logits: Optional[torch.Tensor] = None
     labels: Optional[torch.Tensor] = None
 
+    def __getitem__(self, key):  # dict-style access, as in the JAX package
+        return getattr(self, key)
+
 
 def _checked_device(device: Union[str, torch.device]) -> torch.device:
     device = torch.device(device)
@@ -80,11 +88,13 @@ class UNetModel(nn.Module):
 
     ``UNetModel(config, device=..., generator=...)`` builds it with PyTorch's
     default conv init drawn on the CPU from ``generator`` (a fresh
-    ``torch.Generator`` seeded 0 when none is given), then moves it to
-    ``device`` in ``compute_dtype``: the card by default (an error without
-    one), the CPU only when asked (``device="cpu"``).  ``device="meta"``
-    builds the structure alone.  ``model(images)`` takes NHWC images and
-    returns ``SegOutput`` with float32 NHWC logits.
+    ``torch.Generator`` seeded 0 when none is given), then moves the float32
+    parameters to ``device``: the card by default (an error without one),
+    the CPU only when asked (``device="cpu"``).  ``device="meta"`` builds
+    the structure alone.  ``model(images, labels=None)`` takes NHWC images
+    (and labels: NHWC masks, or class maps for ``out_channels > 1``) and
+    returns ``SegOutput`` with float32 NHWC logits and, given labels, the
+    float32 loss.
     """
 
     def __init__(self, config: UNetConfig, *,
@@ -101,8 +111,17 @@ class UNetModel(nn.Module):
         if config.param_dtype != "float32":
             raise ValueError("the port keeps float32 parameters "
                              f"(param_dtype={config.param_dtype!r})")
+        if config.remat:
+            # remat_policy acts only under remat (the JAX CLI writes
+            # "save_convs" into every bundle's config.json), so it alone
+            # loads as it is
+            raise NotImplementedError(
+                f"remat (policy {config.remat_policy!r}) is not ported yet: "
+                "ROADMAP.md queue 1, item 15 (selective remat)")
         self.config = config
         self.compute_dtype = _DTYPES[config.compute_dtype]
+        self.criterion = (cross_entropy if config.out_channels > 1
+                          else bce_with_logits)
         device = _checked_device(device)
         build_on = device if device.type == "meta" else torch.device("cpu")
         self.module = UNet(config.in_channels, config.out_channels,
@@ -111,17 +130,21 @@ class UNetModel(nn.Module):
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
             self.module.reset_parameters(generator)
-            self.module.to(device=device, dtype=self.compute_dtype)
+            self.module.to(device=device)
         self.eval()
 
     def forward(self, images: torch.Tensor,
                 labels: Optional[torch.Tensor] = None) -> SegOutput:
-        if labels is not None:
-            raise NotImplementedError(
-                "losses are not ported yet: they come with the 2D training "
-                "slice (ROADMAP.md queue 1, item 6)")
-        logits = self.module(images.to(self.compute_dtype))
-        return SegOutput(logits=logits.float())
+        logits = self.module(images.to(self.compute_dtype)).float()
+        loss = None if labels is None else self.criterion(logits, labels)
+        return SegOutput(loss=loss, logits=logits, labels=labels)
+
+    def for_inference(self) -> "UNetModel":
+        """The serving copy, in place: parameters cast once to
+        ``compute_dtype``, no gradients, eval mode.  Returns ``self``."""
+        self.module.to(dtype=self.compute_dtype)
+        self.requires_grad_(False)
+        return self.eval()
 
     # -- persistence ---------------------------------------------------------
 
@@ -139,7 +162,8 @@ class UNetModel(nn.Module):
                         device: Union[str, torch.device] = "cuda",
                         ) -> "UNetModel":
         """Load a bundle saved by either package's ``save_pretrained`` onto
-        ``device`` (the card by default; ``"cpu"`` when asked)."""
+        ``device`` (the card by default; ``"cpu"`` when asked), with float32
+        parameters."""
         device = _checked_device(device)
         with open(os.path.join(path, "config.json")) as f:
             config = UNetConfig.from_dict(json.load(f))
@@ -147,5 +171,5 @@ class UNetModel(nn.Module):
         sd = flax_to_state_dict(
             flax_msgpack.load(os.path.join(path, "params.msgpack")))
         model.module.load_state_dict(sd, strict=True, assign=True)
-        model.module.to(device=device, dtype=model.compute_dtype)
+        model.module.to(device=device, dtype=torch.float32)
         return model

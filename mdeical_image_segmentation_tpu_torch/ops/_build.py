@@ -10,6 +10,10 @@ and the headers they include, such as the shared ``conv_tc.cuh``), so an
 edited source or header is rebuilt and an unchanged tree is reused.  The library is written to a temporary file and
 renamed into place, so two processes never load a half-written library.
 
+Plain C sources under ``csrc/`` (``*.c``, host code such as the PNG
+decoder's unfilter) are built the same way by ``host_library`` with the
+host C compiler, one library per source.
+
 Nothing here runs at import: ``load()`` builds and loads on the first call.
 """
 
@@ -153,6 +157,53 @@ def load() -> ctypes.CDLL:
             _declare(lib)
             _lib = lib
         return _lib
+
+
+HOST_CC_FLAGS = ("-O2", "-shared", "-fPIC")
+_host_libs: dict = {}
+
+
+def find_cc() -> str:
+    """Path of the host C compiler (``cc``, else ``gcc``; the machine with
+    the card has the one nvcc uses).  Raises if there is none."""
+    for name in ("cc", "gcc"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError(
+        "no C compiler found (cc or gcc on PATH): the port's host C code "
+        "(csrc/*.c, such as the PNG decoder's unfilter) is built from source "
+        "at first use")
+
+
+def host_library_path(source: str) -> Path:
+    """Where ``csrc/<source>`` is built: ``BUILD_DIR``, named by a hash of
+    the flags and the source."""
+    h = hashlib.sha256(" ".join(HOST_CC_FLAGS).encode())
+    h.update((CSRC / source).read_bytes())
+    return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
+
+
+def host_library(source: str) -> ctypes.CDLL:
+    """``csrc/<source>`` (plain C) compiled with the host C compiler into a
+    shared library on the first call of the process, then loaded; the same
+    temporary-file-and-rename as the kernel library."""
+    with _lock:
+        lib = _host_libs.get(source)
+        if lib is None:
+            path = host_library_path(source)
+            if not path.exists():
+                path.parent.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+                cmd = [find_cc(), *HOST_CC_FLAGS, "-o", str(tmp),
+                       str(CSRC / source)]
+                rcs, log = _run_all([cmd])
+                if rcs[0]:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(f"cc failed (rc {rcs[0]}):\n{log}")
+                os.replace(tmp, path)
+            lib = _host_libs[source] = ctypes.CDLL(str(path))
+        return lib
 
 
 def kernel(name: str):

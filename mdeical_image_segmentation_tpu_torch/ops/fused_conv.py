@@ -19,6 +19,13 @@ Dispatch is by the device of ``x`` alone: a CUDA tensor launches the kernel
 fallback and no switch.  ``fused_double2d.launches`` counts kernel launches:
 two per call on the card (conv1, conv2).
 
+``double_conv2d`` is the counterpart of the JAX package's custom-VJP
+``double_conv2d`` (``_dc_fwd`` / ``_dc_bwd``), a ``torch.autograd.Function``:
+the forward is ``fused_double2d`` with z kept; the backward takes the ReLU
+masks from the saved y and z and the convs' input and weight gradients from
+the library convolution backward (cuDNN on the card), as the JAX package
+takes them from XLA (``jax.linear_transpose``) outside any Pallas kernel.
+
 ``fused_conv3d`` is the counterpart of the JAX package's
 ``ops/fused_conv.py::fused_conv3d`` (the Pallas ``_gcr_kernel`` there,
 ``csrc/gcr_conv3d.cu`` here, one launch of the same tensor-core core, fp32
@@ -43,7 +50,8 @@ the conv's input and weight gradients from the library convolution backward
 (cuDNN on the card), as the JAX package takes them from XLA outside any
 Pallas kernel; then the GroupNorm backward kernels (``ops/norm.py``).  The
 raw wrappers stay forward only: called directly on a tensor that autograd
-would have to differentiate, the CUDA path raises.
+would have to differentiate, the CUDA path raises (the CPU path is the
+plain composition, which autograd differentiates).
 """
 
 from __future__ import annotations
@@ -95,6 +103,12 @@ def _check(x, w1, b1, w2, b2):
                         f"got {x.dtype}")
     if x.numel() == 0:
         raise ValueError("fused_double2d needs a non-empty x")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, b1, w2, b2)):
+        raise RuntimeError(
+            "fused_double2d: the raw kernel wrapper has no backward; train "
+            "through double_conv2d (an autograd Function), or call it under "
+            "torch.no_grad/inference_mode")
 
 
 def fused_double2d(
@@ -126,6 +140,61 @@ def fused_double2d(
 
 
 fused_double2d.launches = 0
+
+
+def _conv2d_backward(gm: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                     need_dx: bool, need_dw: bool
+                     ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Input and weight gradients of the stride-1, padding-1 conv2d of NHWC
+    ``x`` with an HWIO 3x3 ``w``, from the library convolution backward;
+    returned NHWC and HWIO.  The NCHW views of NHWC tensors are
+    channels-last, which cuDNN takes as they are."""
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        gm.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
+        w.permute(3, 2, 0, 1), None, [1, 1], [1, 1], [1, 1], False, [0, 0],
+        1, [need_dx, need_dw, False])
+    if dx is not None:
+        dx = dx.permute(0, 2, 3, 1)
+    if dw is not None:
+        dw = dw.permute(2, 3, 1, 0)
+    return dx, dw
+
+
+class _DoubleConv2dFn(torch.autograd.Function):
+    """relu(conv(relu(conv(x, w1) + b1), w2) + b2) with the JAX package's
+    custom VJP: fused forward, no forward recompute in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        y, z = fused_double2d(x, w1, b1, w2, b2, with_z=True)
+        ctx.save_for_backward(x, z, y, w1, w2)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, z, y, w1, w2 = ctx.saved_tensors
+        need_x, need_w1, need_b1, need_w2, need_b2 = ctx.needs_input_grad
+        # ReLU masks in one pass each (ATen's ReLU backward: g where y > 0,
+        # else 0); the bias sums accumulate in fp32 without an fp32 copy
+        gm2 = torch.ops.aten.threshold_backward(g.to(z.dtype), y, 0)
+        dz, dw2 = _conv2d_backward(gm2, z, w2, True, need_w2)
+        db2 = (gm2.sum((0, 1, 2), dtype=torch.float32).to(gm2.dtype)
+               if need_b2 else None)
+        gm1 = torch.ops.aten.threshold_backward(dz.to(x.dtype), z, 0)
+        del dz
+        dx, dw1 = _conv2d_backward(gm1, x, w1, need_x, need_w1)
+        db1 = (gm1.sum((0, 1, 2), dtype=torch.float32).to(gm1.dtype)
+               if need_b1 else None)
+        return (dx, None if dw1 is None else dw1.to(w1.dtype), db1,
+                None if dw2 is None else dw2.to(w2.dtype), db2)
+
+
+def double_conv2d(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                  w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The DoubleConvolution forward of :func:`fused_double2d` (kernel 1 on
+    a CUDA tensor, the plain version on a CPU tensor), differentiable in
+    every input: returns y; the backward uses the saved z and y."""
+    return _DoubleConv2dFn.apply(x, w1, b1, w2, b2)
 
 
 def fused_conv3d_reference(

@@ -109,7 +109,8 @@ class ModelRegistry:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device} requested but CUDA is not "
                                "available")
-        model = UNetModel.from_pretrained(path, device=device)
+        # the serving copy: weights cast once to the compute dtype
+        model = UNetModel.from_pretrained(path, device=device).for_inference()
         combos = mirror_combos((1, 2)) if tta else [[]]
         out_channels = model.config.out_channels
 

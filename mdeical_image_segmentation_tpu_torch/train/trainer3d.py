@@ -35,9 +35,8 @@ from __future__ import annotations
 
 import os
 from datetime import datetime
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, Optional
 
-import numpy as np
 import torch
 
 from ..models.blocks3d import set_dropout_generator
@@ -45,14 +44,13 @@ from ..utils.param_bridge import flax_to_state_dict, state_dict_to_flax
 from . import checkpoint as ckpt
 from .logging_utils import MetricWriter, RunningAverage, get_logger
 from .optimizers import ReduceLROnPlateau, set_learning_rate
+from .prefetch import device_batches
 
 logger = get_logger("UNetTrainer")
 
 PARALLEL_ITEM = "ROADMAP.md queue 1, item 25 (parallel modes)"
 CREATE_TRAINER_ITEM = ("ROADMAP.md queue 1, items 18 and 19 (HDF5 loaders "
                        "and the config-driven trainer)")
-
-Batch = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
 
 def get_number_of_learnable_parameters(model: torch.nn.Module) -> int:
@@ -198,44 +196,12 @@ class UNetTrainer:
 
     # -- batches -------------------------------------------------------------
 
-    def _to_device(self, t) -> Tuple[Batch, Optional[torch.cuda.Event]]:
-        """A host batch on the device: on CUDA copied from pinned memory on
-        the side stream, with the event the step waits for."""
-        arrays = (t[0], t[1], t[2] if len(t) > 2 else None)
-        if self._copy_stream is None:
-            return tuple(None if a is None else
-                         torch.as_tensor(np.asarray(a), device=self.device)
-                         for a in arrays), None
-        with torch.cuda.stream(self._copy_stream):
-            out = tuple(
-                None if a is None else
-                torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
-                    self.device, non_blocking=True)
-                for a in arrays)
-            done = torch.cuda.Event()
-            done.record(self._copy_stream)
-        return out, done
-
-    def _ready(self, batch: Batch, done: Optional[torch.cuda.Event]) -> Batch:
-        if done is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(done)
-            for t in batch:
-                if t is not None:
-                    t.record_stream(stream)
-        return batch
-
     def _device_batches(self, loader: Iterable):
         """Device batches one ahead: batch k + 1's copy is issued before
         step k is handed out."""
-        pending = None
-        for t in loader:
-            nxt = self._to_device(t)
-            if pending is not None:
-                yield self._ready(*pending)
-            pending = nxt
-        if pending is not None:
-            yield self._ready(*pending)
+        return device_batches(
+            ((t[0], t[1], t[2] if len(t) > 2 else None) for t in loader),
+            self.device, self._copy_stream)
 
     # -- steps ---------------------------------------------------------------
 

@@ -1,22 +1,31 @@
-"""A PNG codec on the standard library (``zlib``, ``struct``) and numpy.
+"""A PNG codec on the standard library (``zlib``, ``struct``), numpy and a
+small C unfilter.
 
-It takes the place of PIL on the serving path, where the JAX package calls
-``Image.open(path).convert("L" | "RGB")`` and ``Image.fromarray(mask).save``.
+It takes the place of PIL on the serving and 2D data paths, where the JAX
+package calls ``Image.open(path).convert("L" | "RGB")`` and
+``Image.fromarray(mask).save``.
 
-- ``decode``: 8-bit, non-interlaced PNGs of colour types 0 (grey), 2 (RGB),
-  3 (palette), 4 (grey + alpha) and 6 (RGBA), with all five row filters.
-- ``convert``: to "L" or "RGB" exactly as PIL's ``convert`` does:
-  L = (R*19595 + G*38470 + B*7471 + 0x8000) >> 16, alpha dropped, palette
-  entries looked up first.
+- ``decode``: non-interlaced PNGs of every colour type and bit depth the
+  format allows: grey (1, 2, 4, 8, 16 bits), RGB (8, 16), palette (1, 2, 4,
+  8), grey + alpha and RGBA (8, 16), with all five row filters.  The rows
+  are unfiltered in C (``csrc/png_unfilter.c``, built with the host C
+  compiler at the first decode and loaded with ctypes; without a compiler
+  the first decode raises).
+- ``convert``: to "L" or "RGB" exactly as PIL's ``convert`` does on what
+  ``Image.open`` gives: L = (R*19595 + G*38470 + B*7471 + 0x8000) >> 16,
+  alpha dropped, palette entries looked up first; sub-byte grey scaled to
+  0..255; 16-bit grey clipped to 255 (PIL's "I;16"), the other 16-bit
+  types cut to their high byte.
 - ``encode``: 8-bit grey (or grey+alpha, RGB, RGBA by channel count), one
   IDAT, filter 0 on every row.
 
-Anything else (16-bit or sub-byte depths, interlacing, a broken stream)
-raises ``PngError``, which the server answers with a 400.
+Interlacing, a bit depth the format does not allow for the colour type, or
+a broken stream raises ``PngError``, which the server answers with a 400.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 from dataclasses import dataclass
@@ -26,6 +35,8 @@ import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
 _COLOUR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}  # channels -> colour type
 
 
@@ -35,9 +46,12 @@ class PngError(ValueError):
 
 @dataclass
 class PngImage:
-    pixels: np.ndarray        # (H, W, channels) uint8; palette indices for type 3
+    # (H, W, channels) samples as stored: uint16 at depth 16, else uint8
+    # (sub-byte samples unpacked, unscaled); palette indices for type 3
+    pixels: np.ndarray
     colour_type: int
     palette: Optional[np.ndarray] = None  # (256, 3) uint8 for type 3
+    depth: int = 8
 
 
 def _chunks(data: bytes):
@@ -59,57 +73,42 @@ def _chunks(data: bytes):
     raise PngError("missing IEND chunk")
 
 
-def _unfilter_average(line: bytes, prev: bytes, bpp: int) -> bytearray:
-    cur = bytearray(line)
-    for i in range(min(bpp, len(cur))):
-        cur[i] = (cur[i] + (prev[i] >> 1)) & 0xFF
-    for i in range(bpp, len(cur)):
-        cur[i] = (cur[i] + ((cur[i - bpp] + prev[i]) >> 1)) & 0xFF
-    return cur
-
-
-def _unfilter_paeth(line: bytes, prev: bytes, bpp: int) -> bytearray:
-    cur = bytearray(line)
-    for i in range(min(bpp, len(cur))):  # a = c = 0: the predictor is b
-        cur[i] = (cur[i] + prev[i]) & 0xFF
-    for i in range(bpp, len(cur)):
-        a, b, c = cur[i - bpp], prev[i], prev[i - bpp]
-        p = a + b - c
-        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        cur[i] = (cur[i] + pred) & 0xFF
-    return cur
-
-
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """(h, stride) uint8 rows of the decompressed image data, unfiltered by
+    ``csrc/png_unfilter.c``."""
     if len(raw) < h * (stride + 1):
         raise PngError("image data shorter than the header says")
+    fn = _unfilter_fn()
+    src = np.frombuffer(raw, np.uint8, h * (stride + 1))
     out = np.empty((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for r in range(h):
-        pos = r * (stride + 1)
-        ftype = raw[pos]
-        line = np.frombuffer(raw, np.uint8, stride, pos + 1)
-        if ftype == 0:
-            cur = line
-        elif ftype == 1:  # Sub: running sum per byte lane, mod 256
-            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
-                            dtype=np.uint8).reshape(-1)
-        elif ftype == 2:  # Up
-            cur = line + prev
-        elif ftype == 3:
-            cur = np.frombuffer(
-                _unfilter_average(line.tobytes(), prev.tobytes(), bpp),
-                np.uint8)
-        elif ftype == 4:
-            cur = np.frombuffer(
-                _unfilter_paeth(line.tobytes(), prev.tobytes(), bpp),
-                np.uint8)
-        else:
-            raise PngError(f"unknown row filter type {ftype}")
-        out[r] = cur
-        prev = out[r]
+    bad = fn(src.ctypes.data, out.ctypes.data, h, stride, bpp)
+    if bad:
+        row = bad - 1
+        raise PngError(f"unknown row filter type {raw[row * (stride + 1)]}")
     return out
+
+
+def _unfilter_fn():
+    from ..ops import _build
+
+    fn = _build.host_library("png_unfilter.c").tpuseg_png_unfilter
+    if fn.restype is not ctypes.c_int64:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int64] * 3
+        fn.restype = ctypes.c_int64
+    return fn
+
+
+def _samples(rows: np.ndarray, h: int, w: int, ch: int, depth: int
+             ) -> np.ndarray:
+    """(H, W, ch) samples of unfiltered rows: big-endian uint16 at depth 16,
+    sub-byte samples unpacked (the last byte of a row may be padding)."""
+    if depth == 8:
+        return rows.reshape(h, w, ch)
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits @ weights).astype(np.uint8)[:, :w, None]
 
 
 def decode(data: bytes) -> PngImage:
@@ -135,9 +134,9 @@ def decode(data: bytes) -> PngImage:
     w, h, depth, colour_type, compression, filt, interlace = header
     if colour_type not in _CHANNELS:
         raise PngError(f"unsupported PNG colour type {colour_type}")
-    if depth != 8:
-        raise PngError(f"unsupported PNG bit depth {depth}: only 8-bit "
-                       "images are taken")
+    if depth not in _DEPTHS[colour_type]:
+        raise PngError(f"bad PNG bit depth {depth} for colour type "
+                       f"{colour_type}")
     if interlace != 0:
         raise PngError("interlaced PNGs are not supported")
     if compression != 0 or filt != 0:
@@ -151,8 +150,10 @@ def decode(data: bytes) -> PngImage:
     except zlib.error as e:
         raise PngError(f"corrupt image data: {e}") from None
     ch = _CHANNELS[colour_type]
-    rows = _unfilter(raw, h, w * ch, ch)
-    return PngImage(rows.reshape(h, w, ch), colour_type, palette)
+    bits = ch * depth
+    rows = _unfilter(raw, h, -(-w * bits // 8), max(bits // 8, 1))
+    return PngImage(_samples(rows, h, w, ch, depth), colour_type, palette,
+                    depth)
 
 
 def _luma(rgb: np.ndarray) -> np.ndarray:
@@ -160,9 +161,23 @@ def _luma(rgb: np.ndarray) -> np.ndarray:
     return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
 
 
+def _to_8bit(img: PngImage) -> np.ndarray:
+    """The samples as PIL's ``Image.open`` holds them in 8 bits: sub-byte
+    grey scaled to 0..255, 16-bit grey ("I;16") clipped to 255, the other
+    16-bit types cut to the high byte; palette indices as they are."""
+    px, ct, depth = img.pixels, img.colour_type, img.depth
+    if depth == 16:
+        if ct == 0:
+            return np.minimum(px, 255).astype(np.uint8)
+        return (px >> 8).astype(np.uint8)
+    if depth < 8 and ct == 0:
+        return px * np.uint8(255 // ((1 << depth) - 1))
+    return px
+
+
 def convert(img: PngImage, mode: str) -> np.ndarray:
     """PIL ``convert(mode)`` for mode "L" (→ (H, W)) or "RGB" (→ (H, W, 3))."""
-    px, ct = img.pixels, img.colour_type
+    px, ct = _to_8bit(img), img.colour_type
     if ct == 3:
         rgb = img.palette[px[..., 0]]
     elif ct in (2, 6):

@@ -88,3 +88,117 @@ def test_double_convolution_module_matches_two_convs():
         want = torch.relu(dc.TorchConv_1(torch.relu(dc.TorchConv_0(x))))
         got = dc(x)
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+# -- gradients: double_conv2d, the autograd Function ---------------------------
+
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # relative to max |grad|
+
+
+def _rel_err(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 8, 12, 8, 16, 16), (1, 7, 9, 1, 8, 6),
+                                   (2, 6, 5, 19, 12, 13)])
+def test_gradients_match_jax_vjp_and_plain_autograd(shape, dtype):
+    """dx, dw1, db1, dw2, db2 of ``double_conv2d`` against the JAX custom
+    VJP (its Pallas forward in interpret mode) and against torch autograd
+    through the plain composition (two conv2d + relu).  Float32 within 1e-4
+    of each gradient's max |value| (sums in different orders), bfloat16
+    within 2e-2 (both round every conv output to bf16)."""
+    import jax
+
+    arrays = _inputs(*shape, seed=sum(shape) + 11)
+    g = np.random.default_rng(5).standard_normal(
+        (*shape[:3], shape[5])).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jargs = [jnp.asarray(a, jdt) for a in arrays]
+    y_jax, vjp = jax.vjp(
+        lambda *a: jax_fc.double_conv2d(*a, True), *jargs)
+    want_jax = vjp(jnp.asarray(g, jdt))
+
+    tdt = getattr(torch, dtype)
+    targs = [torch.from_numpy(a).to(tdt).requires_grad_() for a in arrays]
+    y = fused_conv.double_conv2d(*targs)
+    assert y.dtype == tdt and y.grad_fn is not None
+    np.testing.assert_allclose(y.detach().float().numpy(),
+                               np.asarray(y_jax, np.float32),
+                               rtol=GRAD_TOL[dtype], atol=GRAD_TOL[dtype])
+    got = torch.autograd.grad(y, targs, torch.from_numpy(g).to(tdt))
+    assert [t.dtype for t in got] == [tdt] * 5
+
+    def plain(x, w1, b1, w2, b2):
+        conv = lambda t, w, b: torch.nn.functional.conv2d(
+            t.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b, padding=1
+        ).permute(0, 2, 3, 1)
+        return torch.relu(conv(torch.relu(conv(x, w1, b1)), w2, b2))
+
+    pargs = [torch.from_numpy(a).to(tdt).requires_grad_() for a in arrays]
+    want_plain = torch.autograd.grad(plain(*pargs), pargs,
+                                     torch.from_numpy(g).to(tdt))
+    for name, a, b, c in zip(("dx", "dw1", "db1", "dw2", "db2"), got,
+                             want_jax, want_plain):
+        a = a.float().numpy()
+        assert _rel_err(a, b) <= GRAD_TOL[dtype], (name, "jax")
+        assert _rel_err(a, c.float().numpy()) <= GRAD_TOL[dtype], (name,
+                                                                   "plain")
+
+
+def test_gradients_reach_fp32_master_weights_under_bf16_compute():
+    """The module casts fp32 weights to bf16 at use: the kernel call sees
+    bf16, autograd returns fp32 gradients equal to the bf16 ones upcast."""
+    g = torch.Generator().manual_seed(3)
+    dc = DoubleConvolution(3, 8)
+    dc.reset_parameters(g)
+    x = torch.rand(2, 9, 7, 3, generator=g).to(torch.bfloat16)
+    y = dc(x)
+    assert y.dtype == torch.bfloat16 and y.grad_fn is not None
+    y.float().square().sum().backward()
+    w1, b1 = dc.TorchConv_0.hwio(torch.bfloat16)
+    w2, b2 = dc.TorchConv_1.hwio(torch.bfloat16)
+    args = [t.detach().requires_grad_() for t in (w1, b1, w2, b2)]
+    fused_conv.double_conv2d(x, *args).float().square().sum().backward()
+    w = dc.TorchConv_0.weight
+    assert w.grad.dtype == torch.float32
+    torch.testing.assert_close(w.grad, args[0].grad.float().permute(3, 2, 0, 1),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(dc.TorchConv_1.bias.grad, args[3].grad.float(),
+                               rtol=0, atol=0)
+
+
+def test_module_without_autograd_takes_the_forward_only_call(monkeypatch):
+    """Under no_grad (serving) the module calls ``fused_double2d`` without
+    z; while autograd records it calls ``double_conv2d``."""
+    calls = []
+    real = fused_conv.fused_double2d
+
+    def spy(*a, with_z=True):
+        calls.append(with_z)
+        return real(*a, with_z=with_z)
+
+    monkeypatch.setattr(fused_conv, "fused_double2d", spy)
+    import mdeical_image_segmentation_tpu_torch.models.layers2d as layers2d
+    monkeypatch.setattr(layers2d, "fused_double2d", spy)
+    dc = DoubleConvolution(2, 4)
+    dc.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.rand(1, 5, 5, 2)
+    with torch.no_grad():
+        dc(x)
+    dc(x)
+    assert calls == [False, True]
+
+
+def test_raw_cuda_wrapper_refuses_tensors_that_need_grad():
+    """The guard sits in the CUDA path's checks (here called directly, as a
+    CUDA call would): a tensor that autograd tracks raises, under no_grad
+    it passes."""
+    x = torch.zeros(1, 4, 4, 2)
+    w1, b1 = torch.zeros(3, 3, 2, 3, requires_grad=True), torch.zeros(3)
+    w2, b2 = torch.zeros(3, 3, 3, 5), torch.zeros(5)
+    with pytest.raises(RuntimeError, match="double_conv2d"):
+        fused_conv._check(x, w1, b1, w2, b2)
+    with torch.no_grad():
+        fused_conv._check(x, w1, b1, w2, b2)

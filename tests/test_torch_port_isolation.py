@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of
 ``mdeical_image_segmentation_tpu_torch`` pulls in none of jax, flax, optax,
-msgpack, PIL, h5py or yaml (the machine with the card has none of them),
+msgpack, PIL, h5py, yaml, sklearn or matplotlib (the machine with the card
+has none of them),
 and its kernels are built for Hopper (sm_90a) by nvcc at first use, never at
 import."""
 
@@ -18,7 +19,8 @@ import mdeical_image_segmentation_tpu_torch as port
 from mdeical_image_segmentation_tpu_torch.ops import _build, fused_conv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "optax", "msgpack", "PIL", "h5py", "yaml")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "PIL", "h5py", "yaml",
+             "sklearn", "matplotlib")
 
 
 def _port_modules():
@@ -38,6 +40,8 @@ def test_every_module_imports_without_jax_flax_msgpack_pil():
         f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
         "assert not bad, bad\n"
         "assert 'torch' in sys.modules\n"
+        "from mdeical_image_segmentation_tpu_torch.ops import _build\n"
+        "assert _build._lib is None and not _build._host_libs  # no build\n"
         "print('ok', len(sys.modules))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -113,6 +117,21 @@ def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
         assert '#include "conv_tc.cuh"' in (csrc / src).read_text()
     pyproject = open(os.path.join(REPO, "pyproject.toml")).read()
     assert '"csrc/*.cu", "csrc/*.cuh"' in pyproject
+
+
+def test_host_c_library_is_named_by_its_source(tmp_path, monkeypatch):
+    """csrc/png_unfilter.c builds with the host C compiler into BUILD_DIR,
+    under a name that changes with the source."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.host_library_path("png_unfilter.c")
+    assert before.parent == _build.BUILD_DIR
+    assert before.name.startswith("libpng_unfilter_")
+    src = csrc / "png_unfilter.c"
+    src.write_text(src.read_text() + "\n/* edited */\n")
+    assert _build.host_library_path("png_unfilter.c") != before
+    assert "tpuseg_png_unfilter" in src.read_text()
 
 
 def test_missing_nvcc_raises(monkeypatch):

@@ -244,10 +244,15 @@ def test_http_error_paths(server):
     _, port, root = server
     status, body = _post(port, {"image_path": str(root / "missing.png")})
     assert status == 404
-    deep = str(root / "deep.png")
+    deep = str(root / "deep.png")  # 16-bit grey: decoded and served
     Image.fromarray(np.full((8, 8), 1000, np.uint16)).save(deep)
-    status, body = _post(port, {"image_path": deep})
-    assert status == 400 and "bit depth 16" in body["response"]
+    status, body = _post(port, {"image_path": deep, "return": "mask"})
+    assert status == 200 and np.asarray(body["response"]).shape == (RES, RES)
+    bad = str(root / "bad_depth.png")
+    with open(bad, "wb") as f:
+        f.write(_with_ihdr_byte(png.encode(np.zeros((8, 8), np.uint8)), 8, 3))
+    status, body = _post(port, {"image_path": bad})
+    assert status == 400 and "bit depth 3" in body["response"]
     status, body = _post(port, {"image_path": deep, "model": "nope"})
     assert status == 400
     status, body = _get(port, "/models")
@@ -365,17 +370,18 @@ def test_encoded_pngs_decode_identically_in_pil(shape):
     np.testing.assert_array_equal(got, arr.reshape(got.shape))
 
 
-def test_unsupported_pngs_raise_png_error():
-    buf = io.BytesIO()
-    Image.fromarray(np.zeros((4, 4), np.uint16)).save(buf, format="PNG")
-    with pytest.raises(png.PngError, match="bit depth"):
-        png.decode(buf.getvalue())
-    good = png.encode(np.zeros((4, 4), np.uint8))
+def _with_ihdr_byte(good: bytes, index: int, value: int) -> bytes:
     ihdr = bytearray(good[16:29])
-    ihdr[12] = 1  # interlace method: Adam7
+    ihdr[index] = value
     body = b"IHDR" + bytes(ihdr)
-    interlaced = (good[:12] + body + struct.pack(">I", zlib.crc32(body))
-                  + good[33:])
+    return good[:12] + body + struct.pack(">I", zlib.crc32(body)) + good[33:]
+
+
+def test_unsupported_pngs_raise_png_error():
+    good = png.encode(np.zeros((4, 4), np.uint8))
+    with pytest.raises(png.PngError, match="bit depth"):
+        png.decode(_with_ihdr_byte(good, 8, 3))  # no PNG has 3-bit grey
+    interlaced = _with_ihdr_byte(good, 12, 1)  # interlace method: Adam7
     with pytest.raises(png.PngError, match="interlaced"):
         png.decode(interlaced)
     corrupt = bytearray(good)

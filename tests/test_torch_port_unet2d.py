@@ -82,21 +82,44 @@ def test_seeded_init_is_reproducible_and_torch_default():
 
 
 def test_bf16_policy_casts_weights_once_and_returns_fp32():
+    """Training keeps float32 master weights (each conv casts them to bf16
+    at use, and their gradients come back float32); the serving copy of
+    ``for_inference`` casts them once and gives the same logits."""
     model = UNetModel(UNetConfig(base_features=4, compute_dtype="bfloat16"),
                       device="cpu")
-    assert all(p.dtype == torch.bfloat16 for p in model.parameters())
+    assert all(p.dtype == torch.float32 for p in model.parameters())
     x = torch.rand(1, 32, 32, 1, generator=torch.Generator().manual_seed(0))
+    out = model(x, (x > 0.5).float())
+    assert out.logits.dtype == torch.float32 and out.loss.dtype == torch.float32
+    out.loss.backward()
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               and torch.isfinite(p.grad).all() for p in model.parameters())
+    with torch.inference_mode():
+        train_logits = model(x).logits
+    served = model.for_inference()
+    assert served is model and not model.training
+    assert all(p.dtype == torch.bfloat16 and not p.requires_grad
+               for p in model.parameters())
     with torch.inference_mode():
         logits = model(x).logits
     assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
+    assert torch.equal(logits, train_logits)
 
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         UNetModel(UNetConfig(unet_type="UNet_3Plus"), device="cpu")
+    for policy in (None, "save_convs"):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            UNetModel(UNetConfig(base_features=2, remat=True,
+                                 remat_policy=policy), device="cpu")
+    # a policy without remat is inert, as in the JAX package (whose CLI
+    # writes one into every bundle)
+    UNetModel(UNetConfig(base_features=2, remat_policy="save_convs"),
+              device="cpu")
     model = UNetModel(UNetConfig(base_features=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, 16, 16, 1), torch.zeros(1, 16, 16, 1))
+    out = model(torch.zeros(1, 16, 16, 1), torch.zeros(1, 16, 16, 1))
+    assert out.loss is not None and out["loss"] is out.loss
 
 
 @pytest.mark.parametrize("in_hw,out_hw", [
