@@ -1,5 +1,6 @@
 """GPU smoke run of the PyTorch port: 2D serving, 3D sliding-window
-inference, 3D 'gcr' training and 2D classic-UNet training.
+inference, 3D 'gcr' training, 2D classic-UNet training and UNet-3+
+training and serving.
 
     python3 chip_smoke.py
 
@@ -138,7 +139,29 @@ wall time.
    rest).  Last, 3 steps of each path from the same weights and batches,
    augmentation off: fp32 (TF32 off) losses within LOSS_TOLS and the
    step-1 grad norm within 1e-4; bf16 within BF16_LOSS_TOLS and 1e-2.
-12. Prints the card's name and power limit, the kernels' JSON line (launches
+12. UNet-3+ (``phase_train_unet3plus``), the 2D configuration of record:
+   ``Trainer.train()`` of ``UNet_3Plus`` (3 channels in, 1 out, bf16 compute,
+   fp32 master weights, the hybrid F1 + MS-SSIM + IoU loss, BatchNorm) at
+   512², batch 5, AdamW at 5e-3 with the other ``TrainingArguments`` at
+   their defaults, augmentation off, on ``SyntheticSliceDataset(20, 512,
+   3)``: 10 steps, an evaluation (10 slices) and ``checkpoint-10``
+   (params and batch_stats, reloaded equal), once with remat off and once
+   with ``remat_policy="save_convs"``; step ms (median of steps 3-10),
+   images/s and peak memory of each, a ``torch.profiler`` split of the
+   remat-off step.  Then 3 steps of each with cuDNN's deterministic
+   algorithms: losses within ``U3P_REMAT_LOSS_TOLS``, running statistics
+   after step 1 within 1e-6 (a second update in the recompute would show)
+   and after step 3 within 1e-3.  One fp32 step (TF32 off) at 176², batch
+   2, through the ``Trainer`` on the card and on the CPU from the same
+   weights and batch: loss and running statistics within 1e-5; the same
+   batch's forward and backward in float64 on both: grad norm within 1e-4
+   (fp32 cannot resolve it there, see ``U3P_CPU_NORM_TOL``).
+   ``UNet_3Plus_DeepSup`` and ``UNet_3Plus_DeepSup_CGM``
+   3 steps each at 512² (CGM twice from one seed: the same losses).
+   ``register_unet2d`` serves checkpoint-10 and the CGM bundle at 512²; 8
+   requests each, every mask equal to the threshold of the registered
+   copy's forward.  The path launches none of the seven kernels.
+13. Prints the card's name and power limit, the kernels' JSON line (launches
    from the main-path runs, each run's counts zeroed just before it; ms,
    plain, library and bound ms summed over the model shapes: the 9 UNet
    DoubleConvs at N=2 in bf16, the 3D kernels' fp32 model shapes; device
@@ -2341,51 +2364,72 @@ def phase_dc_training_batch(seed: int):
 
 
 class UNet2DTraining:
-    """The 2D training setup of phase 11, the one way to build it: the
-    base-64 UNet (1 channel in and out) in ``compute_dtype`` with weights
-    from ``seed``, ``SyntheticSliceDataset(64, 256, 1)`` to train on and
-    40 more slices to evaluate, batch 32, AdamW at bench.py's rate (1e-3),
-    the other ``TrainingArguments`` at their defaults unless given."""
+    """The 2D training setup of phases 11 and 12, the one way to build it:
+    a ``unet_type`` model (the base-64 UNet, or the UNet-3+ family at its
+    fixed widths) with ``channels`` in and 1 out and weights from ``seed``,
+    ``SyntheticSliceDataset(n_train, resolution, channels)`` to train on and
+    ``n_eval`` more slices to evaluate, ``batch`` per step, AdamW at
+    ``learning_rate``, the other ``TrainingArguments`` at their defaults
+    unless given.  Phase 11: the UNet at 256², 1 channel, batch 32, 1e-3
+    (bench.py's row); phase 12: UNet-3+ at 512², 3 channels, batch 5,
+    5e-3 (``scripts/train.sh``)."""
 
-    def __init__(self, seed: int, workdir: str):
+    def __init__(self, seed: int, workdir: str, unet_type: str = "UNet",
+                 resolution: int = 256, channels: int = 1,
+                 n_train: int = 64, n_eval: int = 40,
+                 batch: int = TRAIN_BATCH_2D, learning_rate: float = 1e-3):
         from mdeical_image_segmentation_tpu_torch.data import (
             SyntheticSliceDataset,
         )
 
         self.seed, self.workdir = seed, workdir
-        self.train_ds = SyntheticSliceDataset(64, 256, 1, seed=seed)
-        self.eval_ds = SyntheticSliceDataset(40, 256, 1, seed=seed + 7)
+        self.unet_type, self.batch = unet_type, batch
+        self.channels, self.learning_rate = channels, learning_rate
+        self.train_ds = SyntheticSliceDataset(n_train, resolution, channels,
+                                              seed=seed)
+        self.eval_ds = (SyntheticSliceDataset(n_eval, resolution, channels,
+                                              seed=seed + 7)
+                        if n_eval else None)
 
-    def trainer(self, name: str, compute_dtype: str = "bfloat16", **kw):
+    def model(self, compute_dtype: str = "bfloat16", device: str = "cuda",
+              remat: bool = False, remat_policy=None):
         import torch
 
         from mdeical_image_segmentation_tpu_torch.models import (
             UNetConfig,
             UNetModel,
         )
+
+        return UNetModel(
+            UNetConfig(in_channels=self.channels, out_channels=1,
+                       unet_type=self.unet_type, base_features=64,
+                       compute_dtype=compute_dtype, remat=remat,
+                       remat_policy=remat_policy),
+            device=device, generator=torch.Generator().manual_seed(self.seed))
+
+    def trainer(self, name: str, compute_dtype: str = "bfloat16",
+                device: str = "cuda", remat: bool = False,
+                remat_policy=None, **kw):
         from mdeical_image_segmentation_tpu_torch.train import (
             Trainer,
             TrainingArguments,
         )
 
-        model = UNetModel(
-            UNetConfig(in_channels=1, out_channels=1, unet_type="UNet",
-                       base_features=64, compute_dtype=compute_dtype),
-            device="cuda", generator=torch.Generator().manual_seed(self.seed))
         args = TrainingArguments(**{
             "output_dir": os.path.join(self.workdir, name),
-            "per_device_train_batch_size": TRAIN_BATCH_2D,
-            "per_device_eval_batch_size": TRAIN_BATCH_2D,
-            "learning_rate": 1e-3, "seed": self.seed, "logging_steps": 5,
-            **kw})
-        return Trainer(model, args, self.train_ds, self.eval_ds,
-                       device="cuda")
+            "per_device_train_batch_size": self.batch,
+            "per_device_eval_batch_size": self.batch,
+            "learning_rate": self.learning_rate, "seed": self.seed,
+            "logging_steps": 5, **kw})
+        return Trainer(self.model(compute_dtype, device, remat, remat_policy),
+                       args, self.train_ds, self.eval_ds, device=device)
 
 
-def _instrument_2d(trainer, rec, evals):
+def _instrument_2d(trainer, rec, evals=None, stats_at=()):
     """Wrap the 2D trainer's step (synchronised ms, kernel-1 launches, the
-    loss, the pre-clip grad norm of the update) and its eval forward
-    (kernel-1 launches per eval batch)."""
+    loss, the pre-clip grad norm of the update and, after the steps in
+    ``stats_at``, the running statistics) and, given ``evals``, its eval
+    forward (kernel-1 launches per eval batch)."""
     import torch
 
     from mdeical_image_segmentation_tpu_torch.ops import fused_conv
@@ -2404,6 +2448,8 @@ def _instrument_2d(trainer, rec, evals):
                     "loss": loss.item(),
                     "grad_norm": trainer.last_grad_norm.item(),
                     "launches": count() - before})
+        if len(rec) in stats_at:
+            rec[-1]["stats"] = _running_stats(trainer.model)
         return loss
 
     def eval_forward(batch):
@@ -2412,20 +2458,26 @@ def _instrument_2d(trainer, rec, evals):
         evals.append(count() - before)
         return out
 
-    trainer._train_step, trainer._eval_forward = step, eval_forward
+    trainer._train_step = step
+    if evals is not None:
+        trainer._eval_forward = eval_forward
 
 
-def _profile_2d(trainer, steps: int = 3):
-    """Device time of ``steps`` train steps on one device batch, grouped:
-    the port's conv core (kernel 1), cuDNN (the conv backward; on the plain
-    path the forward too), the rest; wall and busy share."""
+DC2D_GROUPS = (("kernel 1 (conv core)", CONV_CORE), ("cuDNN", CUDNN))
+
+
+def _profile_2d(trainer, steps: int = 3, groups=DC2D_GROUPS):
+    """Device time of ``steps`` train steps on one device batch, grouped by
+    the first of ``groups`` (name, kernel-name pattern) that matches, else
+    "the rest" (phase 11: the port's conv core, cuDNN; phase 12: its own
+    groups); wall and busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from mdeical_image_segmentation_tpu_torch.data import SliceCollator
 
     batch = SliceCollator()([trainer.train_dataset[i]
-                             for i in range(TRAIN_BATCH_2D)])
+                             for i in range(trainer.train_batch)])
     images = torch.from_numpy(batch["images"]).cuda()
     labels = torch.from_numpy(batch["labels"]).cuda()
     step = type(trainer)._train_step.__get__(trainer)  # not instrumented
@@ -2439,15 +2491,15 @@ def _profile_2d(trainer, steps: int = 3):
             step(images, labels)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    groups = {"kernel 1 (conv core)": 0.0, "cuDNN": 0.0, "the rest": 0.0}
+    totals = {name: 0.0 for name, _ in groups}
+    totals["the rest"] = 0.0
     times = device_times(prof)
     for k, ms in times.items():
-        g = ("kernel 1 (conv core)" if CONV_CORE.search(k) else
-             "cuDNN" if CUDNN.search(k) else "the rest")
-        groups[g] += ms / steps
-    busy = sum(groups.values())
+        g = next((name for name, pat in groups if pat.search(k)), "the rest")
+        totals[g] += ms / steps
+    busy = sum(totals.values())
     top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
-    return groups, busy, wall, [(k[:60], v / steps) for k, v in top]
+    return totals, busy, wall, [(k[:70], v / steps) for k, v in top]
 
 
 def phase_train_unet2d(seed: int, workdir: str):
@@ -2522,7 +2574,7 @@ def phase_train_unet2d(seed: int, workdir: str):
         plain = setup.trainer("unet2d_plain", max_steps=TRAIN_STEPS_2D,
                               eval_strategy="no", save_steps=0, augment=True)
         plain_rec = []
-        _instrument_2d(plain, plain_rec, [])
+        _instrument_2d(plain, plain_rec)
         torch.cuda.reset_peak_memory_stats()
         plain.train()
         plain_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2558,7 +2610,7 @@ def phase_train_unet2d(seed: int, workdir: str):
                 t = setup.trainer(f"cmp_{dtype}_{int(plain_run)}", dtype,
                                   **cmp_kw)
                 r = []
-                _instrument_2d(t, r, [])
+                _instrument_2d(t, r)
                 t.train()
             runs.append(r)
             del t
@@ -2583,6 +2635,327 @@ def phase_train_unet2d(seed: int, workdir: str):
     return {"launches": launches, "steady": steady,
             "plain_steady": plain_steady, "peak": peak,
             "plain_peak": plain_peak, "gaps": gaps}
+
+
+# ---------------------------------------------------------------------------
+# 12. UNet-3+ training and serving (the 2D configuration of record)
+# ---------------------------------------------------------------------------
+
+U3P_RES = 512                # scripts/train.sh: 512², batch 5, lr 5e-3
+U3P_BATCH = 5
+U3P_STEPS = 10
+# remat on vs remat off, the same weights and batches, augmentation off,
+# 3 steps each with cuDNN's deterministic algorithms (the upsample's
+# backward is a fixed-order matmul): relative loss gaps at steps 1, 2, 3,
+# set before any run.  Remat recomputes the same operations on the same
+# inputs, so step 1 should agree to the bit; steps 2-3 get phase 11's bf16
+# kernel-vs-plain limits (AdamW turns a gradient that is rounding noise
+# into a ±lr step).  Running statistics after step 1 (one update from the
+# same forward: a second update in the recompute would show here) within
+# 1e-6, after step 3 within 1e-3.  (Without deterministic algorithms the
+# step-3 statistics moved 2e-2 between the two runs: atomics in the
+# backward, amplified by two AdamW steps at 5e-3.)
+U3P_REMAT_LOSS_TOLS = (1e-6, 1e-2, 5e-2)
+U3P_STATS_TOLS = {1: 1e-6, 3: 1e-3}
+# the card against the CPU: one fp32 step (TF32 off) at 176², batch 2,
+# through the Trainer: loss and running statistics within 1e-5.  Its
+# gradient norm sits below fp32's own resolution there: on the CPU,
+# weights scaled by 1 ± 2^-23 move the fp32 norm by 0.6-1.9e-4 from the
+# float64 one (BatchNorm over 242 values a channel at the bottleneck), so
+# the step-1 gradient norm is held within 1e-4 in float64, the forward
+# and backward of the same batch on both devices, and the fp32 norms are
+# printed beside it.
+U3P_CPU_RES, U3P_CPU_BATCH = 176, 2
+U3P_CPU_LOSS_TOL = 1e-5
+U3P_CPU_NORM_TOL = 1e-4
+U3P_CPU_STATS_TOL = 1e-5
+U3P_REQUESTS = 8             # per served bundle (UNet-3+ and CGM)
+
+
+def _running_stats(model):
+    import torch
+
+    return torch.cat([b.detach().float().flatten().cpu()
+                      for n, b in model.module.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))])
+
+
+def _stats_rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+# phase 12's profile groups: the upsample's forward is ATen's
+# interpolation kernel, its backward the only float32 GEMMs of the step
+U3P_GROUPS = (
+    ("upsample", re.compile(r"upsample|interp|sgemm|gemm_f32|magma", re.I)),
+    ("cuDNN conv", re.compile(r"cudnn|xmma|dgrad|wgrad|fprop|implicit_gemm|"
+                              r"conv2d|nchwToNhwc|nhwcToNchw", re.I)),
+    ("batch norm", re.compile(r"batch_norm|welford", re.I)),
+    ("copy/cast/cat", re.compile(r"copy|cast|CatArray|Memcpy|Memset", re.I)),
+)
+
+
+def _fp64_step(setup, device: str):
+    """(loss, gradient norm) of one training-mode forward and backward of
+    ``setup``'s model in float64 on its first batch, on ``device``."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.data import SliceCollator
+    from mdeical_image_segmentation_tpu_torch.losses import segmentation_loss
+
+    model = setup.model("float32", device)
+    model.module.double().train()
+    batch = SliceCollator()([setup.train_ds[i] for i in range(setup.batch)])
+    images = torch.from_numpy(batch["images"]).to(device, torch.float64)
+    labels = torch.from_numpy(batch["labels"]).to(device, torch.float64)
+    loss = segmentation_loss(model.module(images), labels)
+    loss.backward()
+    norm = torch.linalg.vector_norm(torch.stack(
+        [p.grad.norm() for p in model.parameters()]))
+    return loss.item(), norm.item()
+
+
+def _serve_u3p(registry, name: str, workdir: str, seed: int):
+    """``U3P_REQUESTS`` 512² RGB PNGs, one after another, through
+    ``SegmentationServer``; every mask must equal the threshold of the
+    registered copy's own forward of the same image (batch 1 both)."""
+    import numpy as np
+
+    from mdeical_image_segmentation_tpu_torch.serve import SegmentationServer
+    from mdeical_image_segmentation_tpu_torch.utils import png
+
+    rng = np.random.default_rng(seed)
+    srv = SegmentationServer(registry,
+                             output_dir=os.path.join(workdir, "masks"),
+                             max_batch=8, max_wait_ms=1.0)
+    port = srv.start(host="127.0.0.1", port=0).server_address[1]
+    entry = registry.get(name)
+    lat, fg = [], []
+    try:
+        for i in range(U3P_REQUESTS):
+            arr = rng.integers(0, 256, (U3P_RES, U3P_RES, 3), dtype=np.uint8)
+            path = os.path.join(workdir, f"{name}_{i:02d}.png")
+            png.write(path, arr)
+            t0 = time.perf_counter()
+            status, body = _post(port, {"image_path": path, "model": name,
+                                        "return": "mask"})
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if status != 200 or body.get("status") != 200:
+                raise AssertionError(f"{name} request {i}: {status} {body}")
+            mask = np.asarray(body["response"], np.uint8)
+            probs = entry.probs_forward(
+                arr[None].astype(np.float32) / 255.0)[0, ..., 0]
+            want = (probs > 0.5).astype(np.uint8)
+            if mask.shape != want.shape or not np.array_equal(mask, want):
+                raise AssertionError(
+                    f"{name} request {i}: the served mask differs from the "
+                    f"thresholded forward at {int((mask != want).sum())} "
+                    "pixels")
+            fg.append(float(mask.mean()))
+    finally:
+        srv.stop()
+    return statistics.median(lat), fg
+
+
+def phase_train_unet3plus(seed: int, workdir: str):
+    """UNet-3+ at the configuration of record through ``Trainer.train()``,
+    remat off then on (``save_convs``); the card against the CPU at 176²;
+    DeepSup and CGM 3 steps each; serving a UNet-3+ checkpoint and a CGM
+    bundle.  Returns the numbers to print."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.models import UNetModel
+    from mdeical_image_segmentation_tpu_torch.serve import ModelRegistry
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    setup = UNet2DTraining(seed, workdir, "UNet_3Plus", U3P_RES, 3,
+                           n_train=20, n_eval=10, batch=U3P_BATCH,
+                           learning_rate=5e-3)
+    out = {}
+    for remat in (False, True):
+        label = "remat save_convs" if remat else "remat off"
+        t = setup.trainer(f"u3p_remat{int(remat)}", remat=remat,
+                          remat_policy="save_convs" if remat else None,
+                          max_steps=U3P_STEPS, eval_steps=U3P_STEPS,
+                          save_steps=U3P_STEPS, augment=False)
+        if not remat:
+            log(f"[phase 12] UNet_3Plus, 3 channels in, 1 out, bf16 compute, "
+                f"fp32 master weights, {U3P_RES}², batch {U3P_BATCH}, hybrid "
+                f"F1 + MS-SSIM + IoU; {len(setup.train_ds)} train and "
+                f"{len(setup.eval_ds)} eval slices; "
+                f"{sum(p.numel() for p in t.model.parameters())} parameters; "
+                f"{t.args}")
+        rec = []
+        _instrument_2d(t, rec)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = t.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for i, r in enumerate(rec):
+            log(f"  {label} step {i + 1}: {r['ms']:.2f} ms, loss "
+                f"{r['loss']:.6f}, grad norm {r['grad_norm']:.4e}")
+        if (len(rec) != U3P_STEPS
+                or not all(np.isfinite(r["loss"]) for r in rec)):
+            raise AssertionError(f"UNet_3Plus {label}: {len(rec)} steps, "
+                                 f"losses {[r['loss'] for r in rec]}")
+        ckpt = os.path.join(t.args.output_dir, f"checkpoint-{U3P_STEPS}")
+        reloaded = UNetModel.from_pretrained(ckpt, device="cuda")
+        for (k, a), (_, b) in zip(reloaded.state_dict().items(),
+                                  t.model.state_dict().items()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{ckpt} reloads {k} differently")
+        steady = statistics.median(r["ms"] for r in rec[2:])
+        log(f"[phase 12] UNet_3Plus {label}: step {steady:.2f} ms (median "
+            f"of steps 3-{U3P_STEPS}, synchronised) = "
+            f"{U3P_BATCH / steady * 1e3:.2f} images/s; peak "
+            f"{peak:.2f} GiB over train() with its evaluation and "
+            f"checkpoint; {len(rec)} steps in {wall:.2f} s; training_loss "
+            f"{result.training_loss:.6f}; checkpoint-{U3P_STEPS} (params and "
+            f"batch_stats) reloads equal")
+        out[label] = {"step_ms": steady, "peak_gib": peak,
+                      "images_per_s": U3P_BATCH / steady * 1e3}
+        if not remat:
+            out["ckpt"] = ckpt
+            groups, busy, pwall, top = _profile_2d(t, 2, U3P_GROUPS)
+            log(f"[phase 12] profiled remat-off step (2 steps, one batch): "
+                + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items())
+                + f"; device busy {busy:.2f} of {pwall:.2f} ms wall "
+                f"({100 * busy / pwall:.1f}%)")
+            log("    largest: " + "; ".join(f"{k} {v:.2f}" for k, v in top))
+            out["profile"] = {"groups": groups, "busy": busy, "wall": pwall}
+        del t, reloaded
+        torch.cuda.empty_cache()
+    # remat on vs off: 3 steps each, deterministic cuDNN
+    torch.backends.cudnn.deterministic = True
+    try:
+        cmp = {}
+        for remat in (False, True):
+            t = setup.trainer(f"u3p_cmp{int(remat)}", remat=remat,
+                              remat_policy="save_convs" if remat else None,
+                              max_steps=3, eval_strategy="no", save_steps=0,
+                              augment=False)
+            cmp[remat] = []
+            _instrument_2d(t, cmp[remat], stats_at=U3P_STATS_TOLS)
+            t.train()
+            del t
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    off, on = cmp[False], cmp[True]
+    rels = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+            for a, b in zip(on, off)]
+    stats_rel = {k: _stats_rel(on[k - 1]["stats"], off[k - 1]["stats"])
+                 for k in U3P_STATS_TOLS}
+    log(f"[phase 12] remat on vs off (deterministic cuDNN), steps 1-3: loss "
+        f"gaps {', '.join(f'{r:.2e}' for r in rels)} (limits "
+        f"{U3P_REMAT_LOSS_TOLS}); running statistics after steps 1 and 3 "
+        f"within {stats_rel[1]:.2e} and {stats_rel[3]:.2e} relative (limits "
+        f"{U3P_STATS_TOLS[1]}, {U3P_STATS_TOLS[3]})")
+    if (len(rels) != 3
+            or any(r > t for r, t in zip(rels, U3P_REMAT_LOSS_TOLS))
+            or any(stats_rel[k] > t for k, t in U3P_STATS_TOLS.items())):
+        raise AssertionError("UNet_3Plus remat on vs off beyond the limits")
+    out["remat_gaps"] = rels + [stats_rel[1], stats_rel[3]]
+
+    # the card against the CPU: one fp32 step at 176², the same weights and
+    # batch (the CPU path is what the tests hold against the JAX package)
+    small = UNet2DTraining(seed, workdir, "UNet_3Plus", U3P_CPU_RES, 3,
+                           n_train=U3P_CPU_BATCH, n_eval=0,
+                           batch=U3P_CPU_BATCH, learning_rate=5e-3)
+    res = {}
+    for device in ("cuda", "cpu"):
+        t = small.trainer(f"u3p_{device}", "float32", device=device,
+                          max_steps=1, eval_strategy="no", save_steps=0,
+                          augment=False)
+        rec = []
+        _instrument_2d(t, rec)
+        t0 = time.perf_counter()
+        t.train()
+        res[device] = (rec[0], _running_stats(t.model),
+                       time.perf_counter() - t0)
+        del t
+    (g, g_stats, g_s), (c, c_stats, c_s) = res["cuda"], res["cpu"]
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    cpu_stats = _stats_rel(g_stats, c_stats)
+    f64 = {d: _fp64_step(small, d) for d in ("cuda", "cpu")}
+    norm_rel = abs(f64["cuda"][1] - f64["cpu"][1]) / f64["cpu"][1]
+    log(f"[phase 12] card vs CPU, UNet_3Plus fp32 (TF32 off) at "
+        f"{U3P_CPU_RES}², batch {U3P_CPU_BATCH}, one Trainer step: loss "
+        f"{g['loss']:.7f} / {c['loss']:.7f} (rel {loss_rel:.2e}, limit "
+        f"{U3P_CPU_LOSS_TOL}); running statistics {cpu_stats:.2e} (limit "
+        f"{U3P_CPU_STATS_TOL}); fp32 grad norm {g['grad_norm']:.7e} / "
+        f"{c['grad_norm']:.7e} ({g_s:.1f} s card, {c_s:.1f} s CPU); "
+        f"float64 step: loss {f64['cuda'][0]:.12f} / {f64['cpu'][0]:.12f}, "
+        f"grad norm {f64['cuda'][1]:.10e} / {f64['cpu'][1]:.10e} (rel "
+        f"{norm_rel:.2e}, limit {U3P_CPU_NORM_TOL}); the fp32 norms off the "
+        f"float64 one by {abs(g['grad_norm'] / f64['cpu'][1] - 1):.2e} "
+        f"(card), {abs(c['grad_norm'] / f64['cpu'][1] - 1):.2e} (CPU)")
+    if (loss_rel > U3P_CPU_LOSS_TOL or norm_rel > U3P_CPU_NORM_TOL
+            or cpu_stats > U3P_CPU_STATS_TOL):
+        raise AssertionError("UNet_3Plus: the card's step differs from the "
+                             "CPU's beyond the limits")
+    out["cpu_gaps"] = (loss_rel, norm_rel, cpu_stats)
+
+    # the other two types: 3 steps each at 512², batch 5; CGM twice
+    other = {}
+    for unet_type, runs in (("UNet_3Plus_DeepSup", 1),
+                            ("UNet_3Plus_DeepSup_CGM", 2)):
+        s = UNet2DTraining(seed, workdir, unet_type, U3P_RES, 3, n_train=15,
+                           n_eval=0, batch=U3P_BATCH, learning_rate=5e-3)
+        losses = []
+        for run in range(runs):
+            t = s.trainer(f"{unet_type}_{run}", max_steps=3,
+                          eval_strategy="no", save_steps=0, augment=False)
+            rec = []
+            _instrument_2d(t, rec)
+            t.train()
+            losses.append([r["loss"] for r in rec])
+            if not all(np.isfinite(v) for v in losses[-1]):
+                raise AssertionError(f"{unet_type}: losses {losses[-1]}")
+            log(f"  {unet_type} run {run + 1}: losses "
+                + ", ".join(f"{v:.6f}" for v in losses[-1])
+                + "; steps " + ", ".join(f"{r['ms']:.1f}" for r in rec)
+                + " ms")
+            if unet_type.endswith("CGM") and run == 0:
+                out["cgm_bundle"] = os.path.join(workdir, "cgm_bundle")
+                t.save_model(out["cgm_bundle"])
+            del t
+            torch.cuda.empty_cache()
+        if runs == 2:
+            gaps = [abs(a - b) / abs(b) for a, b in zip(*losses)]
+            log(f"[phase 12] CGM from one seed twice (its dropout from the "
+                f"trainer's generator): loss gaps "
+                f"{', '.join(f'{v:.2e}' for v in gaps)} (limits "
+                f"{U3P_REMAT_LOSS_TOLS})")
+            if any(v > t for v, t in zip(gaps, U3P_REMAT_LOSS_TOLS)):
+                raise AssertionError("CGM: the same seed gave other losses")
+        other[unet_type] = losses[0]
+    out["other"] = other
+
+    # serving: the UNet_3Plus checkpoint and the CGM bundle at 512²
+    registry = ModelRegistry()
+    t0 = time.time()
+    registry.register_unet2d("unet3plus", out["ckpt"], resolution=U3P_RES,
+                             device="cuda")
+    registry.register_unet2d("cgm", out["cgm_bundle"], resolution=U3P_RES,
+                             device="cuda")
+    log(f"[phase 12] registered UNet_3Plus checkpoint-{U3P_STEPS} and the "
+        f"CGM bundle (load + warm-up of batches 1..8 each) in "
+        f"{time.time() - t0:.2f} s")
+    for name in ("unet3plus", "cgm"):
+        p50, fg = _serve_u3p(registry, name, workdir, seed)
+        log(f"[phase 12] served {name}: {U3P_REQUESTS} requests at "
+            f"{U3P_RES}², one at a time, every mask equal to the thresholded "
+            f"forward of the registered copy; median latency {p50:.1f} ms; "
+            f"foreground shares {', '.join(f'{v:.3f}' for v in fg)}")
+        out[f"serve_{name}_p50_ms"] = p50
+    return out
 
 
 def main() -> int:
@@ -2663,6 +3036,12 @@ def main() -> int:
         dc_train = phase_dc_training_batch(SEED)
         train2d = phase_train_unet2d(SEED, workdir)
         log(f"[phase 11] 2D training ok; wall {time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 12] UNet-3+: Trainer.train() of UNet_3Plus at 512², "
+            "remat off and on; the card against the CPU; DeepSup and CGM; "
+            "serving")
+        u3p = phase_train_unet3plus(SEED, workdir)
+        log(f"[phase 12] UNet-3+ ok; wall {time.time() - t_phase:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if train2d["launches"] == 0:
@@ -2698,6 +3077,14 @@ def main() -> int:
         f"{train2d['plain_steady']:.2f} ms plain path; peak "
         f"{train2d['peak']:.2f} / {train2d['plain_peak']:.2f} GiB; "
         f"kernel-vs-plain loss gaps {train2d['gaps']}")
+    log(f"UNet-3+ (launches none of the seven kernels): "
+        + "; ".join(f"{k} {v['step_ms']:.2f} ms a step, "
+                    f"{v['images_per_s']:.2f} images/s, peak "
+                    f"{v['peak_gib']:.2f} GiB"
+                    for k, v in u3p.items() if k.startswith("remat "))
+        + f"; remat on/off loss gaps {u3p['remat_gaps']}; card vs CPU "
+        f"{u3p['cpu_gaps']}; served p50 {u3p['serve_unet3plus_p50_ms']:.1f}"
+        f" / {u3p['serve_cgm_p50_ms']:.1f} ms (UNet_3Plus / CGM); {smi}")
     kernels = [{
         "name": "double_conv2d",
         "route": "cuda",

@@ -23,7 +23,12 @@ Covered so far:
   → ``UNetModel`` with its loss → ``ops.fused_conv.double_conv2d``, kernel
   1's forward under an autograd Function), with the PNG datasets
   (``data.png2d``, ``data.collate``), on-device augmentation
-  (``transforms.device2d``) and the 2D metrics (``metrics.metrics2d``).
+  (``transforms.device2d``) and the 2D metrics (``metrics.metrics2d``);
+- the UNet-3+ family (``models.unet2d`` UNet3Plus, UNet3PlusDeepSup,
+  UNet3PlusDeepSupCGM) trained and served through the same entry points,
+  with BatchNorm (``ops.batchnorm``), the hybrid F1 + MS-SSIM + IoU loss
+  (``ops.msssim``, ``losses.losses2d``), remat (``ops.remat``) and the
+  initializers (``ops.initializers``), on cuDNN convs and PyTorch ops.
 
 Public functions keep the JAX layout: channels-last activations and
 (*k, I, O) conv weights.

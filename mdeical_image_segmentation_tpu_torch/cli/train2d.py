@@ -9,8 +9,9 @@ Argparse → a timestamped output directory → the DRIVE or BUSI datasets (or
 ``--synthetic N`` slices) → ``TrainingArguments`` → ``UNetConfig`` /
 ``UNetModel`` → ``Trainer`` → train, evaluate, and a final bundle under
 ``<run>/final``.  It trains on the card unless ``--device cpu`` is given.
-``--unet_type`` keeps the reference default (UNet_3Plus), which is not
-ported yet: pass ``--unet_type UNet``.  ``--remat on`` raises likewise.
+The default ``--unet_type UNet_3Plus`` trains the reference's 512² config;
+``--remat auto`` turns remat on for the UNet-3+ family at >= 384 px, with
+``--remat_policy`` (default ``save_convs``, ``ops/remat.py``).
 """
 
 import argparse
@@ -52,7 +53,7 @@ def parse_args(argv=None):
     p.add_argument("--base_features", type=int, default=64)
     p.add_argument("--remat", choices=["auto", "on", "off"], default="auto",
                    help="rematerialize blocks; 'auto' turns it on for the "
-                   "UNet-3+ family at >= 384 px (not ported yet)")
+                   "UNet-3+ family at >= 384 px")
     p.add_argument("--remat_policy",
                    choices=["none", "save_convs", "save_convs_norms",
                             "everything"],
@@ -112,6 +113,8 @@ def main(argv=None):
                      and args.resolution >= 384)
     else:
         use_remat = args.remat == "on"
+    if use_remat:
+        print(f"remat enabled ({args.unet_type} @ {args.resolution}px)")
 
     config = UNetConfig(
         in_channels=args.in_channels, out_channels=args.out_channels,

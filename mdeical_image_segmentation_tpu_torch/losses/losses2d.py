@@ -2,14 +2,15 @@
 
 Each loss takes ``(logits, targets)`` channels-last and applies the sigmoid
 itself; the reductions are global over the whole batch, not per sample.
-The hybrid UNet-3+ loss (MS-SSIM + F1 + IoU) waits for its slice.
+``segmentation_loss`` is UNet-3+'s hybrid F1 + MS-SSIM + IoU; its MS-SSIM
+needs images of more than 160 px a side.
 """
 
 from __future__ import annotations
 
 import torch
 
-HYBRID_ITEM = "ROADMAP.md queue 1, item 14 (hybrid loss and MS-SSIM)"
+from ..ops.msssim import ms_ssim
 
 
 def f1_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -32,14 +33,15 @@ def iou_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def msssim_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(f"msssim_loss is not ported yet ({HYBRID_ITEM})")
+    """1 − MS-SSIM(sigmoid(logits), targets), data_range 1."""
+    return 1.0 - ms_ssim(torch.sigmoid(logits), targets, data_range=1.0)
 
 
 def segmentation_loss(logits: torch.Tensor, targets: torch.Tensor
                       ) -> torch.Tensor:
-    raise NotImplementedError(
-        f"segmentation_loss (F1 + MS-SSIM + IoU) is not ported yet "
-        f"({HYBRID_ITEM})")
+    """The hybrid pixel/patch/map-level loss: F1 + MS-SSIM + IoU."""
+    return (f1_loss(logits, targets) + msssim_loss(logits, targets)
+            + iou_loss(logits, targets))
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor

@@ -9,8 +9,8 @@ returns a 0-d tensor and is differentiable in ``input``.
 ``get_loss_criterion(config)`` builds the loss from ``config['loss']`` with
 the JAX package's defaults and wrapper rules: ``ignore_index`` wraps a
 non-CE loss in ``MaskingLossWrapper``; ``skip_last_target`` adds
-``SkipLastTargetChannelWrapper``.  ``SegmentationLoss`` (F1 + MS-SSIM + IoU)
-raises until its 2D parts are ported.
+``SkipLastTargetChannelWrapper``.  ``SegmentationLoss`` is the 2D hybrid
+F1 + MS-SSIM + IoU for 2D-variant models.
 """
 
 from __future__ import annotations
@@ -20,10 +20,9 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-Loss = Callable[..., torch.Tensor]
+from .losses2d import segmentation_loss
 
-SEGMENTATION_LOSS_ITEM = ("ROADMAP.md queue 1, item 14 (losses2d."
-                          "segmentation_loss and MS-SSIM)")
+Loss = Callable[..., torch.Tensor]
 
 
 def _tensor(v) -> Optional[torch.Tensor]:
@@ -270,11 +269,21 @@ class SkipLastTargetChannelWrapper:
 
 
 class SegmentationLoss:
-    """Hybrid F1 + MS-SSIM + IoU of the 2D models: not ported yet."""
+    """The 2D hybrid F1 + MS-SSIM + IoU in the 3D registry, for 2D-variant
+    models: a singleton depth axis of (N, 1, H, W, C) inputs and targets is
+    squeezed out before the planar MS-SSIM; a deeper volume raises."""
 
-    def __init__(self):
-        raise NotImplementedError(
-            f"SegmentationLoss is not ported yet ({SEGMENTATION_LOSS_ITEM})")
+    def __call__(self, input, target):
+        if input.ndim == 5:
+            if input.shape[1] != 1:
+                raise ValueError(
+                    "SegmentationLoss is 2D (F1 + MS-SSIM + IoU); got a "
+                    f"depth-{input.shape[1]} volume — use a 2D-variant "
+                    "model (UNet2D/ResidualUNet2D) or a volumetric loss")
+            input = input.squeeze(1)
+        if target.ndim == 5:
+            target = target.squeeze(1)
+        return segmentation_loss(input, target)
 
 
 def _create_loss(name: str, loss_config: Dict[str, Any], weight,

@@ -1,5 +1,5 @@
-"""Models of the port (the JAX package's ``models``; the classic UNet and
-the 3D UNet family so far)."""
+"""Models of the port (the JAX package's ``models``: the classic UNet, the
+UNet-3+ family and the 3D UNet family so far)."""
 
 from .blocks3d import (
     DoubleConv,
@@ -10,13 +10,18 @@ from .blocks3d import (
     TransposeConvUpsampling,
 )
 from .layers2d import (
+    ConvBNReLU,
     DoubleConvolution,
+    TorchBatchNorm,
     TorchConv,
     TorchConvTranspose,
+    UNetConv2,
+    UNetUp,
+    UNetUpOrigin,
     UpSample,
     crop_and_concat,
 )
-from .unet2d import UNet
+from .unet2d import UNet, UNet3Plus, UNet3PlusDeepSup, UNet3PlusDeepSupCGM
 from .unet3d import (
     MODELS_3D,
     AbstractUNet,
@@ -24,10 +29,11 @@ from .unet3d import (
     UNet3D,
     get_model,
 )
-from .wrappers import SegOutput, UNetConfig, UNetModel
+from .wrappers import UNET_TYPES, SegOutput, UNetConfig, UNetModel
 
 __all__ = [
     "AbstractUNet",
+    "ConvBNReLU",
     "Decoder",
     "DoubleConv",
     "DoubleConvolution",
@@ -37,13 +43,21 @@ __all__ = [
     "ResidualUNet3D",
     "SegOutput",
     "SingleConv",
+    "TorchBatchNorm",
     "TorchConv",
     "TorchConvTranspose",
     "TransposeConvUpsampling",
+    "UNET_TYPES",
     "UNet",
     "UNet3D",
+    "UNet3Plus",
+    "UNet3PlusDeepSup",
+    "UNet3PlusDeepSupCGM",
     "UNetConfig",
+    "UNetConv2",
     "UNetModel",
+    "UNetUp",
+    "UNetUpOrigin",
     "UpSample",
     "crop_and_concat",
     "get_model",

@@ -1,22 +1,28 @@
 """Config-driven 2D model bundles (the JAX package's ``models/wrappers.py``).
 
-``UNetModel`` pairs a ``UNetConfig`` with its module and its criterion
-(``bce_with_logits`` for one output channel, ``cross_entropy`` for more), and
-reads and writes the JAX package's bundle format unchanged: ``config.json``
-plus a flax ``params.msgpack`` (through ``utils/flax_msgpack.py`` and
-``utils/param_bridge.py``).
+``UNetModel`` pairs a ``UNetConfig`` with the module its ``unet_type`` names
+and with its criterion: for the classic UNet ``bce_with_logits`` (one output
+channel) or ``cross_entropy`` (more), for the UNet-3+ family the hybrid
+``segmentation_loss``.  A deep-supervision model's loss is summed over its 5
+heads and its ``logits`` are head 1 (for ``UNet_3Plus_DeepSup_CGM``
+probabilities already, which the criterion's sigmoid squashes a second
+time, as the JAX package does).  It reads and writes the JAX package's
+bundle format unchanged: ``config.json`` plus a flax ``params.msgpack``
+holding ``params`` and, with BatchNorm, ``batch_stats`` (through
+``utils/flax_msgpack.py`` and ``utils/param_bridge.py``).
 
 Precision policy, as in the JAX wrapper: parameters are float32
 (``param_dtype``), the master weights that training updates; with
 ``compute_dtype="bfloat16"`` every conv casts them to bf16 at use (flax's
 ``promote_dtype``), autograd carries the gradients back to float32, and the
-logits and the loss are float32.  A model built or loaded this way holds
+logits and the loss are float32.  BatchNorm keeps its scale, bias and
+running statistics float32 and normalizes in float32, casting its output
+to the compute dtype, as flax does.  A model built or loaded this way holds
 the float32 weights only.  Serving calls ``for_inference()``, which casts
-them once to ``compute_dtype`` (the casts at use then cost nothing) and
-stops their gradients: ``register_unet2d`` holds that copy.
-
-So far the port covers ``unet_type="UNet"``; the UNet-3+ family, remat and
-the other initializers raise.
+the conv weights once to ``compute_dtype`` (the casts at use then cost
+nothing), leaves BatchNorm float32 and stops every gradient:
+``register_unet2d`` holds that copy.  ``remat`` / ``remat_policy`` reach
+every block (``ops/remat.py``).
 """
 
 from __future__ import annotations
@@ -29,10 +35,18 @@ from typing import Any, Dict, Optional, Union
 import torch
 import torch.nn as nn
 
-from ..losses.losses2d import bce_with_logits, cross_entropy
+from ..losses.losses2d import bce_with_logits, cross_entropy, segmentation_loss
 from ..utils import flax_msgpack
 from ..utils.param_bridge import flax_to_state_dict, state_dict_to_flax
-from .unet2d import UNet
+from .layers2d import TorchBatchNorm
+from .unet2d import UNet, UNet3Plus, UNet3PlusDeepSup, UNet3PlusDeepSupCGM
+
+UNET_TYPES = {
+    "UNet": UNet,
+    "UNet_3Plus": UNet3Plus,
+    "UNet_3Plus_DeepSup": UNet3PlusDeepSup,
+    "UNet_3Plus_DeepSup_CGM": UNet3PlusDeepSupCGM,
+}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -84,48 +98,49 @@ def _checked_device(device: Union[str, torch.device]) -> torch.device:
 
 
 class UNetModel(nn.Module):
-    """The classic UNet bundle.
+    """The 2D model bundle.
 
-    ``UNetModel(config, device=..., generator=...)`` builds it with PyTorch's
-    default conv init drawn on the CPU from ``generator`` (a fresh
+    ``UNetModel(config, device=..., generator=...)`` builds it with its
+    initializers drawn on the CPU from ``generator`` (a fresh
     ``torch.Generator`` seeded 0 when none is given), then moves the float32
     parameters to ``device``: the card by default (an error without one),
     the CPU only when asked (``device="cpu"``).  ``device="meta"`` builds
-    the structure alone.  ``model(images, labels=None)`` takes NHWC images
-    (and labels: NHWC masks, or class maps for ``out_channels > 1``) and
-    returns ``SegOutput`` with float32 NHWC logits and, given labels, the
-    float32 loss.
+    the structure alone.  ``model(images, labels=None, generator=None)``
+    takes NHWC images (and labels: NHWC masks, or class maps for
+    ``out_channels > 1``) and returns ``SegOutput`` with float32 NHWC logits
+    and, given labels, the float32 loss; ``generator`` drives CGM's dropout
+    in training mode.
     """
 
     def __init__(self, config: UNetConfig, *,
                  device: Union[str, torch.device] = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.unet_type != "UNet":
-            raise NotImplementedError(
-                f"unet_type={config.unet_type!r} is not ported yet: the "
-                "UNet-3+ family is ROADMAP.md queue 1, item 13")
+        cls = UNET_TYPES.get(config.unet_type)
+        if cls is None:
+            raise KeyError(f"unknown unet_type {config.unet_type!r}; one of "
+                           f"{sorted(UNET_TYPES)}")
         if config.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype={config.compute_dtype!r}: "
                              f"expected one of {sorted(_DTYPES)}")
         if config.param_dtype != "float32":
             raise ValueError("the port keeps float32 parameters "
                              f"(param_dtype={config.param_dtype!r})")
-        if config.remat:
-            # remat_policy acts only under remat (the JAX CLI writes
-            # "save_convs" into every bundle's config.json), so it alone
-            # loads as it is
-            raise NotImplementedError(
-                f"remat (policy {config.remat_policy!r}) is not ported yet: "
-                "ROADMAP.md queue 1, item 15 (selective remat)")
         self.config = config
         self.compute_dtype = _DTYPES[config.compute_dtype]
-        self.criterion = (cross_entropy if config.out_channels > 1
-                          else bce_with_logits)
         device = _checked_device(device)
         build_on = device if device.type == "meta" else torch.device("cpu")
-        self.module = UNet(config.in_channels, config.out_channels,
-                           config.base_features, device=build_on)
+        rm = dict(remat=config.remat, remat_policy=config.remat_policy,
+                  device=build_on)
+        if config.unet_type == "UNet":
+            self.criterion = (cross_entropy if config.out_channels > 1
+                              else bce_with_logits)
+            self.module = cls(config.in_channels, config.out_channels,
+                              config.base_features, **rm)
+        else:
+            self.criterion = segmentation_loss
+            self.module = cls(config.in_channels, config.out_channels,
+                              bn_axis_name=config.bn_axis_name, **rm)
         if device.type != "meta":
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
@@ -134,23 +149,36 @@ class UNetModel(nn.Module):
         self.eval()
 
     def forward(self, images: torch.Tensor,
-                labels: Optional[torch.Tensor] = None) -> SegOutput:
-        logits = self.module(images.to(self.compute_dtype)).float()
+                labels: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> SegOutput:
+        raw = self.module(images.to(self.compute_dtype), generator)
+        if isinstance(raw, tuple):  # deep supervision: 5 heads
+            heads = tuple(d.float() for d in raw)
+            loss = None if labels is None else sum(
+                self.criterion(d, labels) for d in heads)
+            return SegOutput(loss=loss, logits=heads[0], labels=labels)
+        logits = raw.float()
         loss = None if labels is None else self.criterion(logits, labels)
         return SegOutput(loss=loss, logits=logits, labels=labels)
 
     def for_inference(self) -> "UNetModel":
-        """The serving copy, in place: parameters cast once to
-        ``compute_dtype``, no gradients, eval mode.  Returns ``self``."""
-        self.module.to(dtype=self.compute_dtype)
+        """The serving copy, in place: conv parameters cast once to
+        ``compute_dtype`` (BatchNorm's stay float32, as flax keeps them), no
+        gradients, eval mode.  Returns ``self``."""
+        for m in self.module.modules():
+            if isinstance(m, TorchBatchNorm):
+                continue
+            for p in m.parameters(recurse=False):
+                p.data = p.data.to(self.compute_dtype)
         self.requires_grad_(False)
         return self.eval()
 
     # -- persistence ---------------------------------------------------------
 
     def save_pretrained(self, path: str) -> None:
-        """``config.json`` + flax ``params.msgpack``, loadable by the JAX
-        package's ``UNetModel.from_pretrained``."""
+        """``config.json`` + flax ``params.msgpack`` (``params``, and
+        ``batch_stats`` with BatchNorm), loadable by the JAX package's
+        ``UNetModel.from_pretrained``."""
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, "config.json"), "w") as f:
             json.dump(self.config.to_dict(), f, indent=2)
@@ -163,7 +191,7 @@ class UNetModel(nn.Module):
                         ) -> "UNetModel":
         """Load a bundle saved by either package's ``save_pretrained`` onto
         ``device`` (the card by default; ``"cpu"`` when asked), with float32
-        parameters."""
+        parameters and BatchNorm statistics."""
         device = _checked_device(device)
         with open(os.path.join(path, "config.json")) as f:
             config = UNetConfig.from_dict(json.load(f))

@@ -1,5 +1,4 @@
-"""Channels-last image ops (the JAX package's ``ops/image.py``; the ops the
-classic UNet and the 3D UNet family need so far).
+"""Channels-last image ops (the JAX package's ``ops/image.py``).
 
 Inputs are (N, H, W, C) or (N, D, H, W, C).  ``x.permute(0, 3, 1, 2)`` is a
 channels-last strided NCHW view, which PyTorch's kernels read without a
@@ -11,8 +10,11 @@ pool and are not carried over.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -87,6 +89,112 @@ def interpolate_nearest_nd(x: torch.Tensor,
             x = torch.index_select(
                 x, axis, nearest_resize_index(in_size, out_size).to(x.device))
     return x
+
+
+INTERPOLATE_MAX_OUTPUT = 2 ** 31 - 1  # elements per F.interpolate call
+
+
+@functools.lru_cache(maxsize=256)
+def _linear_resize_matrix(in_size: int, out_size: int,
+                          align_corners: bool) -> np.ndarray:
+    """(out_size, in_size) row-stochastic interpolation matrix of one axis,
+    float32, built as the JAX package builds it.
+
+    align_corners=False: source = (i + 0.5)·in/out − 0.5, clamped to the
+    input; align_corners=True: source = i·(in − 1)/(out − 1)."""
+    m = np.zeros((out_size, in_size), dtype=np.float32)
+    if in_size == 1:
+        m[:, 0] = 1.0
+        return m
+    for i in range(out_size):
+        if align_corners:
+            src = i * (in_size - 1) / (out_size - 1) if out_size > 1 else 0.0
+        else:
+            src = (i + 0.5) * in_size / out_size - 0.5
+            src = min(max(src, 0.0), in_size - 1)
+        lo = int(np.floor(src))
+        hi = min(lo + 1, in_size - 1)
+        frac = src - lo
+        m[i, lo] += 1.0 - frac
+        m[i, hi] += frac
+    return m
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_matrix_t(in_size: int, out_size: int, align_corners: bool,
+                     device: torch.device) -> torch.Tensor:
+    """The transposed matrix on ``device``, copied there once (a pageable
+    copy in every backward would wait for the card)."""
+    return torch.from_numpy(_linear_resize_matrix(
+        in_size, out_size, align_corners).T.copy()).to(device)
+
+
+class _Resize(torch.autograd.Function):
+    """Forward: ``F.interpolate`` of the channels-first view, in x's dtype
+    (a bf16 input is interpolated in float32 and rounded once).  Backward:
+    the transpose of each axis' interpolation matrix applied to the float32
+    cotangent, one matmul per axis: a fixed summation order, where
+    ``F.interpolate``'s own backward adds into the input's gradient with
+    atomics in its dtype (bf16 on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, out_spatial, align_corners):
+        ctx.in_spatial = tuple(x.shape[1:-1])
+        ctx.align_corners = align_corners
+        mode = "bilinear" if len(out_spatial) == 2 else "trilinear"
+        # the channels-last kernel takes outputs under 2^31 elements (a
+        # served batch of 8 at 512² upsamples hd5 to 2.1e9): split the batch
+        per = max(1, math.prod(out_spatial) * x.shape[-1])
+        ys = [_to_channels_last(F.interpolate(
+                  _to_channels_first(part), size=out_spatial, mode=mode,
+                  align_corners=align_corners))
+              for part in x.split(max(1, INTERPOLATE_MAX_OUTPUT // per))]
+        return ys[0] if len(ys) == 1 else torch.cat(ys)
+
+    @staticmethod
+    def backward(ctx, g):
+        dtype = g.dtype
+        g = g.float()
+        for axis, in_size in enumerate(ctx.in_spatial, start=1):
+            out_size = g.shape[axis]
+            if out_size == in_size:
+                continue
+            mat_t = _resize_matrix_t(in_size, out_size, ctx.align_corners,
+                                     g.device)
+            lead, trail = g.shape[:axis], g.shape[axis + 1:]
+            g = torch.matmul(mat_t, g.reshape(-1, out_size, math.prod(trail)))
+            g = g.reshape(*lead, in_size, *trail)
+        return g.to(dtype), None, None
+
+
+def resize_bilinear(x: torch.Tensor, out_spatial: Sequence[int], *,
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear (2 spatial dims) or trilinear (3) resize of a channels-last
+    tensor to ``out_spatial``.  The JAX package interpolates in float32 and
+    casts once; so does this forward (a bf16 value may differ by one ulp
+    where the two round a float32 value differently), and its backward
+    sums the gradient in float32 in a fixed order (``_Resize``)."""
+    out_spatial = tuple(out_spatial)
+    if len(out_spatial) not in (2, 3) or len(out_spatial) != x.ndim - 2:
+        raise ValueError(f"out_spatial {out_spatial} for a {x.ndim}-d tensor")
+    if tuple(x.shape[1:-1]) == out_spatial:
+        return x
+    return _Resize.apply(x, out_spatial, align_corners)
+
+
+def upsample_bilinear2d(x: torch.Tensor, scale: int, *,
+                        align_corners: bool = False) -> torch.Tensor:
+    """``nn.Upsample(scale_factor=scale, mode='bilinear')`` on an NHWC
+    tensor."""
+    _, h, w, _ = x.shape
+    return resize_bilinear(x, (h * scale, w * scale),
+                           align_corners=align_corners)
+
+
+def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Integer-factor nearest upsampling of every spatial dim of a
+    channels-last tensor."""
+    return interpolate_nearest_nd(x, tuple(s * scale for s in x.shape[1:-1]))
 
 
 def center_crop(x: torch.Tensor, out_spatial: Sequence[int]) -> torch.Tensor:

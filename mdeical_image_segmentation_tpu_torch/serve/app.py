@@ -94,7 +94,10 @@ class ModelRegistry:
         serve it on ``device``.
 
         ``tta=True`` serves a mirror flip ensemble (4 passes over H/W,
-        averaged in logit space before the final activation).
+        averaged before the final activation).  Every ``unet_type`` serves
+        its head 1; a ``*_CGM`` model's output is a probability already and
+        is served as it is, the others' logits through a sigmoid (softmax
+        for more than one class).
 
         On CUDA this builds the kernels and runs one warm-up forward for each
         power-of-two batch up to ``max_batch``, on the calling thread, before
@@ -113,9 +116,12 @@ class ModelRegistry:
         model = UNetModel.from_pretrained(path, device=device).for_inference()
         combos = mirror_combos((1, 2)) if tta else [[]]
         out_channels = model.config.out_channels
+        is_prob = model.config.unet_type.endswith("CGM")
 
         def probs(x):
             logits = flip_ensemble(lambda xx: model(xx).logits, combos, x)
+            if is_prob:
+                return logits
             if out_channels > 1:
                 return torch.softmax(logits, dim=-1)
             return torch.sigmoid(logits)

@@ -3,7 +3,8 @@
 The JAX ``TrainState`` is one pytree (step, params, batch stats, optimizer
 state) threaded through a jitted step.  Here the model and the optimizer
 hold their tensors themselves, so the state is a small mutable record of
-them, the step counters and the learning-rate schedule.
+them (BatchNorm's running statistics are the model's buffers), the step
+counters and the learning-rate schedule.
 """
 
 from __future__ import annotations

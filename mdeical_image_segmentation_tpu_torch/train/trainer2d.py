@@ -18,17 +18,25 @@ hook and callbacks.  The semantics are the JAX package's:
 - the train loss summed on the device every step and read only at logging
   boundaries; ``training_loss`` averages every step;
 - train-time augmentation on the device (``transforms.device2d``) from a
-  generator seeded ``seed + 1``;
+  generator seeded ``seed + 1``, CGM's dropout from one seeded ``seed + 2``;
+- the model in training mode for steps (BatchNorm on batch statistics, its
+  running statistics updated once per micro-step, as under
+  ``optax.MultiSteps``) and in eval mode for evaluation (running
+  statistics); a parameter that gets no gradient in a step (CGM's gate
+  conv, behind an argmax) takes a zero one, so AdamW still decays it as
+  optax does;
 - streaming evaluation: two passes (the mean-of-sigmoided-predictions
   threshold, then thresholded IoU/Dice sums), one pass for a fixed
   ``eval_threshold``, argmax macro IoU/Dice for more than one class;
-- ``checkpoint-N/`` bundles (``config.json`` + flax ``params.msgpack``)
-  with ``save_total_limit`` rotation.
+- ``checkpoint-N/`` bundles (``config.json`` + flax ``params.msgpack``
+  with ``batch_stats`` for BatchNorm models) with ``save_total_limit``
+  rotation.
 
 PyTorch in place of jit: the model is a ``UNetModel`` holding float32
 master weights on the device the trainer runs on (the card by default;
 ``device="cpu"`` when asked); ``loss.backward()`` runs ``double_conv2d``,
-whose forward is kernel 1 on the card.  Host batches reach the card from
+whose forward is kernel 1 on the card (the classic UNet; the UNet-3+
+family runs cuDNN convs and PyTorch ops).  Host batches reach the card from
 pinned memory on a side stream, one batch ahead; ``dataset_on_device``
 keeps the train set on the card as uint8 and samples i.i.d. batches from a
 device generator.  The JAX scale-out options (``mesh``,
@@ -237,6 +245,8 @@ class Trainer:
         self.state = create_train_state(self.model, optimizer, schedule)
         self._gen = torch.Generator(device=self.device).manual_seed(
             self.args.seed + 1)
+        self._drop_gen = torch.Generator(device=self.device).manual_seed(
+            self.args.seed + 2)
 
     # -- steps ---------------------------------------------------------------
 
@@ -244,7 +254,11 @@ class Trainer:
         """One optimizer step on the accumulated gradients: average them
         over the micro-steps, clip, set the scheduled rate, AdamW."""
         st, args = self.state, self.args
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        for p in params:
+            if p.grad is None:  # optax updates (and decays) it all the same
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
         k = max(args.gradient_accumulation_steps, 1)
         if k > 1:
             torch._foreach_div_(grads, float(k))
@@ -267,7 +281,7 @@ class Trainer:
             images, labels = augment_batch(images, labels, self._aug_cfg,
                                            self._gen)
         self.model.train()
-        loss = self.model(images, labels).loss
+        loss = self.model(images, labels, generator=self._drop_gen).loss
         loss.backward()
         st = self.state
         st.step += 1

@@ -12,6 +12,11 @@ over 2D and 3D kernels:
   scatters the kernel): the spatial taps are flipped along every axis;
 - ``<path>/GroupNorm_0/{scale,bias}`` ↔ ``<path>.GroupNorm_0.{weight,bias}``
   (the fused 'gcr' path of the 3D blocks keeps these paths too);
+- ``<path>/BatchNorm_0/{scale,bias}`` ↔ ``<path>.{weight,bias}`` of the
+  ``TorchBatchNorm`` module at ``<path>``, and the ``batch_stats``
+  collection's ``<path>/BatchNorm_0/{mean,var}`` ↔ its ``running_mean`` /
+  ``running_var`` buffers (a torch ``num_batches_tracked`` has no flax
+  counterpart and is dropped);
 
 where ``<path>`` joins the module names with ``/`` in flax and ``.`` in
 torch (``encoder0/basic_module/SingleConv1/TorchConv_0`` ↔ ``encoder0.
@@ -32,6 +37,9 @@ import torch
 _INNER = {"Conv_0": False, "ConvTranspose_0": True}  # name -> is transposed
 _GN = "GroupNorm_0"
 _GN_LEAVES = {"scale": "weight", "bias": "bias"}  # flax -> torch
+_BN = "BatchNorm_0"
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}  # flax -> torch
+_BN_MODULE = "TorchBatchNorm"
 
 
 def _leaves(tree: Mapping[str, Any], prefix=()):
@@ -68,12 +76,20 @@ def _kernel_to_flax(a: np.ndarray, transposed: bool) -> np.ndarray:
 
 
 def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """``{"params": tree}`` (or the bare params tree) → torch ``state_dict``."""
+    """``{"params": tree, "batch_stats": tree}`` (``batch_stats`` only with
+    BatchNorm; or the bare params tree) → torch ``state_dict``."""
     params = variables.get("params", variables)
     sd: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(variables.get("batch_stats", {})):
+        if len(path) < 3 or path[-2] != _BN or path[-1] not in _BN_STATS:
+            raise ValueError(f"unexpected batch_stats leaf {'/'.join(path)}")
+        sd[".".join(path[:-2]) + "." + _BN_STATS[path[-1]]] = (
+            torch.from_numpy(np.array(value, dtype=np.float32, order="C")))
     for path, value in _leaves(params):
         a = np.asarray(value)
-        if len(path) >= 2 and path[-2] == _GN and path[-1] in _GN_LEAVES:
+        if len(path) >= 3 and path[-2] == _BN and path[-1] in _GN_LEAVES:
+            key = ".".join(path[:-2]) + "." + _GN_LEAVES[path[-1]]
+        elif len(path) >= 2 and path[-2] == _GN and path[-1] in _GN_LEAVES:
             key = ".".join(path[:-1]) + "." + _GN_LEAVES[path[-1]]
         elif (len(path) >= 3 and path[-2] in _INNER
               and path[-1] in ("kernel", "bias")):
@@ -87,29 +103,46 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _node(tree: Dict[str, Any], path) -> Dict[str, Any]:
+    for m in path:
+        tree = tree.setdefault(m, {})
+    return tree
+
+
 def state_dict_to_flax(sd: Mapping[str, Any]) -> Dict[str, Any]:
     """torch ``state_dict`` → ``{"params": tree}`` of float32 numpy arrays,
-    in the order of ``sd`` (module registration order)."""
+    in the order of ``sd`` (module registration order), plus
+    ``"batch_stats"`` when the model has BatchNorm."""
     params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
     for key, value in sd.items():
         *mods, name = key.split(".")
+        if name == "num_batches_tracked":
+            continue
+        bn = bool(mods) and mods[-1].startswith(_BN_MODULE)
+        if bn and name in ("running_mean", "running_var"):
+            _node(stats, (*mods, _BN))[
+                "mean" if name == "running_mean" else "var"] = (
+                    np.ascontiguousarray(_to_numpy(value)))
+            continue
         if not mods or name not in ("weight", "bias"):
             raise ValueError(f"unexpected state_dict entry {key}")
         a = _to_numpy(value)
+        if bn:
+            _node(params, (*mods, _BN))[
+                "scale" if name == "weight" else "bias"] = (
+                    np.ascontiguousarray(a))
+            continue
         if mods[-1] == _GN:
-            node = params
-            for m in mods:
-                node = node.setdefault(m, {})
-            node["scale" if name == "weight" else "bias"] = (
+            _node(params, mods)["scale" if name == "weight" else "bias"] = (
                 np.ascontiguousarray(a))
             continue
         transposed = _is_transposed(mods[-1])
         if name == "weight":
             a = _kernel_to_flax(a, transposed)
-        node = params
-        for m in mods:
-            node = node.setdefault(m, {})
-        inner = node.setdefault(
-            "ConvTranspose_0" if transposed else "Conv_0", {})
+        inner = _node(params, (*mods, "ConvTranspose_0" if transposed
+                               else "Conv_0"))
         inner["kernel" if name == "weight" else "bias"] = np.ascontiguousarray(a)
+    if stats:
+        return {"params": params, "batch_stats": stats}
     return {"params": params}

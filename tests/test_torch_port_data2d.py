@@ -68,10 +68,21 @@ def test_cross_entropy_matches_jax(with_channel):
 
 
 def test_hybrid_losses_raise_until_their_slice():
+    """Ported with their slice (6): below MS-SSIM's 161 px the hybrid
+    losses raise the JAX package's size error; at 176² they match it."""
     x = torch.zeros(1, 8, 8, 1)
     for fn in (losses2d.msssim_loss, losses2d.segmentation_loss):
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(ValueError, match="too small"):
             fn(x, x)
+    rng = np.random.default_rng(9)
+    logits = rng.standard_normal((1, 176, 176, 1)).astype(np.float32)
+    labels = (rng.random((1, 176, 176, 1)) < 0.5).astype(np.float32)
+    for name in ("msssim_loss", "segmentation_loss"):
+        want = float(getattr(jax_losses, name)(jnp.asarray(logits),
+                                               jnp.asarray(labels)))
+        got = float(getattr(losses2d, name)(torch.from_numpy(logits),
+                                            torch.from_numpy(labels)))
+        np.testing.assert_allclose(got, want, rtol=LOSS_TOL)
 
 
 # -- metrics -------------------------------------------------------------------

@@ -150,8 +150,10 @@ def test_wrappers_follow_the_jax_composition_rules():
 def test_unknown_and_unported_losses_raise():
     with pytest.raises(RuntimeError, match="Unsupported loss"):
         losses3d.get_loss_criterion({"loss": {"name": "FocalLoss"}})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        losses3d.get_loss_criterion({"loss": {"name": "SegmentationLoss"}})
+    # ported with the hybrid loss (slice 6): the registry builds it now
+    assert isinstance(
+        losses3d.get_loss_criterion({"loss": {"name": "SegmentationLoss"}}),
+        losses3d.SegmentationLoss)
     with pytest.raises(KeyError, match="loss function"):
         losses3d.get_loss_criterion({})
 

@@ -107,12 +107,24 @@ def test_bf16_policy_casts_weights_once_and_returns_fp32():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNetModel(UNetConfig(unet_type="UNet_3Plus"), device="cpu")
+    """What is left unported raises and names its ROADMAP item (sync-BN
+    over a mesh axis, item 25); an unknown ``unet_type`` raises as in JAX;
+    the UNet-3+ family and remat (slice 6) now build and run."""
+    with pytest.raises(NotImplementedError, match="item 25"):
+        UNetModel(UNetConfig(unet_type="UNet_3Plus", bn_axis_name="batch"),
+                  device="cpu")
+    with pytest.raises(KeyError, match="UNet_4Plus"):
+        UNetModel(UNetConfig(unet_type="UNet_4Plus"), device="cpu")
+    x = torch.zeros(1, 32, 32, 1)
+    assert UNetModel(UNetConfig(unet_type="UNet_3Plus"), device="cpu")(
+        x).logits.shape == (1, 32, 32, 1)
     for policy in (None, "save_convs"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            UNetModel(UNetConfig(base_features=2, remat=True,
-                                 remat_policy=policy), device="cpu")
+        model = UNetModel(UNetConfig(base_features=2, remat=True,
+                                     remat_policy=policy), device="cpu")
+        model.train()
+        model(torch.rand(1, 16, 16, 1), torch.ones(1, 16, 16, 1)
+              ).loss.backward()
+        assert all(p.grad is not None for p in model.parameters())
     # a policy without remat is inert, as in the JAX package (whose CLI
     # writes one into every bundle)
     UNetModel(UNetConfig(base_features=2, remat_policy="save_convs"),
