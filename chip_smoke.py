@@ -1,6 +1,7 @@
 """GPU smoke run of the PyTorch port: 2D serving, 3D sliding-window
-inference, 3D 'gcr' training, 2D classic-UNet training and UNet-3+
-training and serving.
+inference, 3D 'gcr' training, 2D classic-UNet training, UNet-3+ training
+and serving, and the config-driven 3D pipeline (YAML configs, HDF5
+volumes).
 
     python3 chip_smoke.py
 
@@ -161,13 +162,43 @@ wall time.
    ``register_unet2d`` serves checkpoint-10 and the CGM bundle at 512²; 8
    requests each, every mask equal to the threshold of the registered
    copy's forward.  The path launches none of the seven kernels.
-13. Prints the card's name and power limit, the kernels' JSON line (launches
-   from the main-path runs, each run's counts zeroed just before it; ms,
-   plain, library and bound ms summed over the model shapes: the 9 UNet
-   DoubleConvs at N=2 in bf16, the 3D kernels' fp32 model shapes; device
-   ms where phases 6-7 measured it, else null; kernel 1 also its launches
-   by path, serving and training, and under ``train`` its numbers at the
-   training batch), and last ``{"ok": true, "device": {...}}``.
+13. Config-driven training from HDF5 (``phase_config_train``): a seeded
+   80x350x350 training volume and an 80x170x340 validation volume, each
+   labelled by its smoothed raw above the 25th percentile (every train
+   window above FilterSliceBuilder's 0.6), written chunked + gzip with the
+   port's HDF5 codec; ``cli/train3d.py --config configs/unet3d_train.yml``
+   with overrides only for the file paths, ``trainer.checkpoint_dir``,
+   ``max_num_iterations`` 10, ``validate_after_iters`` and
+   ``log_after_iters`` 3 (model, patch, stride and the whole transformer
+   pipeline, ElasticDeformation included, as the yml has them): 11 steps
+   (the seeded ElasticDeformation fires first at sample 10), each with 14
+   GN-conv, 14 GN-statistics, 14 GN-affine, 14 bwd-reduce and
+   13 bwd-dx launches; last and best checkpoints and the copied config.
+   Prints the device step (median, synchronised) beside phase 9's
+   in-memory step, the time the trainer waited in each ``next()`` of its
+   train loader, the HDF5 reads (time, MiB) and the host ms per sample of
+   each transform of the yml's pipelines on this machine's CPU (one patch;
+   a transform with a probability timed firing).
+14. Config-driven prediction to HDF5 (``phase_config_predict``): phase 3's
+   seeded 80x340x510 volume written as HDF5; ``cli/predict3d.py --config
+   configs/unet3d_predict.yml`` with overrides only for ``model_path``
+   (phase 13's best checkpoint), ``output_dir`` and the file path: per
+   batch 14 GN-conv and 14 GN-statistics launches, one overlap-add per
+   batch.  ``predict_volume_predictions.h5`` read back with the port's
+   reader must equal, bit for bit, the in-memory
+   ``StandardPredictor._device_accumulate`` map of the same volume and
+   weights (``standardized_patch_batches``) divided as ``_save_results``
+   divides, and lie within 1e-3 of the plain path.  Prints the whole
+   ``predict3d`` wall time and the HDF5 write time.
+15. Prints the card's name and power limit, the kernels' JSON line (launches
+   from the main-path runs, each run's counts zeroed just before it, and
+   for the 3D kernels their launches on the config-driven paths of phases
+   13 and 14; ms, plain, library and bound ms summed over the model shapes:
+   the 9 UNet DoubleConvs at N=2 in bf16, the 3D kernels' fp32 model
+   shapes; device ms where phases 6-7 measured it, else null; kernel 1
+   also its launches by path, serving and training, and under ``train``
+   its numbers at the training batch), and last ``{"ok": true, "device":
+   {...}}``.
 """
 
 from __future__ import annotations
@@ -710,38 +741,12 @@ KERNELS_3D = ("gcr_conv3d", "gn_stats", "gn_affine", "gn_bwd_reduce",
 
 
 def read_yaml_subset(path: str) -> dict:
-    """Read the block mappings, scalars (int, float, bool, string) and
-    inline lists of a config file such as configs/unet3d_predict.yml or
-    configs/unet3d_train.yml (the card's machine has no PyYAML); block list
-    items ('- ...') are skipped, and the keys nested under them land in the
-    enclosing mapping."""
-    root: dict = {}
-    stack = [(-1, root)]
-    for raw in open(path):
-        line = raw.split("#", 1)[0].rstrip()
-        if not line.strip() or line.strip().startswith("- "):
-            continue
-        indent = len(line) - len(line.lstrip())
-        key, _, value = line.strip().partition(":")
-        while stack[-1][0] >= indent:
-            stack.pop()
-        parent = stack[-1][1]
-        value = value.strip()
-        if not value:
-            parent[key] = {}
-            stack.append((indent, parent[key]))
-        elif value.startswith("["):
-            parent[key] = json.loads(value)
-        elif value in ("true", "false"):
-            parent[key] = value == "true"
-        else:
-            for kind in (int, float, str):
-                try:
-                    parent[key] = kind(value)
-                    break
-                except ValueError:
-                    continue
-    return root
+    """A config file such as configs/unet3d_predict.yml or
+    configs/unet3d_train.yml, read with the port's YAML reader (the card's
+    machine has no PyYAML)."""
+    from mdeical_image_segmentation_tpu_torch.utils import yaml_io
+
+    return yaml_io.load(path)
 
 
 def _counts():
@@ -1859,9 +1864,8 @@ def phase_autograd(seed: int, shapes):
     return worst
 
 
-def _smooth_label(raw):
-    """A binary label with blobs: a 9-wide moving average of the volume
-    along each axis, thresholded at 0."""
+def _smoothed(raw):
+    """A 9-wide moving average of the volume along each axis (float64)."""
     import numpy as np
 
     v = raw.astype(np.float64)
@@ -1871,7 +1875,14 @@ def _smooth_label(raw):
         n = v.shape[axis]
         v = (np.take(c, range(9, 9 + n), axis=axis)
              - np.take(c, range(0, n), axis=axis)) / 9.0
-    return (v > 0).astype(np.float32)
+    return v
+
+
+def _smooth_label(raw):
+    """A binary label with blobs: the smoothed volume thresholded at 0."""
+    import numpy as np
+
+    return (_smoothed(raw) > 0).astype(np.float32)
 
 
 class _PatchDataset:
@@ -2958,6 +2969,394 @@ def phase_train_unet3plus(seed: int, workdir: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the config-driven 3D pipeline: cli/train3d.py and cli/predict3d.py on
+# configs/unet3d_train.yml and configs/unet3d_predict.yml, HDF5 volumes
+# ---------------------------------------------------------------------------
+
+H5_TRAIN_VOLUME = (80, 350, 350)  # 1 x 3 x 3 train patches at 40x90x90
+H5_VAL_VOLUME = (80, 170, 340)    # 2 val patches at stride = patch
+H5_LABEL_QUANTILE = 25  # label: the smoothed raw above this percentile
+# trainer.max_num_iterations: 11 steps, over the epoch's 9 patches and into
+# the next; the train pipelines' seeded ElasticDeformation fires first at
+# sample 10, so one step waits for it
+H5_STEPS = 10
+
+
+def _write_h5_volume(path, raw, label=None):
+    """A volume (and its label) as users' files usually are: chunked and
+    gzip-compressed (h5py's chunk guess, level 4), with the port's codec."""
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5
+
+    with hdf5.File(path, "w") as f:
+        f.create_dataset("raw", data=raw, compression="gzip")
+        if label is not None:
+            f.create_dataset("label", data=label, compression="gzip")
+    return os.path.getsize(path)
+
+
+def _foreground_label(raw):
+    """The smoothed raw above its 25th percentile, uint8: patches well above
+    FilterSliceBuilder's 0.6 foreground threshold."""
+    import numpy as np
+
+    v = _smoothed(raw)
+    return (v > np.percentile(v, H5_LABEL_QUANTILE)).astype(np.uint8)
+
+
+class _io_timer:
+    """Within this block, every HDF5 dataset read and dataset write of the
+    port's codec is timed (host clock) and its bytes counted."""
+
+    def __enter__(self):
+        from mdeical_image_segmentation_tpu_torch.utils import hdf5
+
+        self.reads = self.read_bytes = self.read_s = 0.0
+        self.write_bytes = self.write_s = 0.0
+        self.saved = (hdf5.Dataset.__getitem__, hdf5.File.create_dataset)
+        get, create = self.saved
+        timer = self
+
+        def timed_get(ds, index):
+            t0 = time.perf_counter()
+            out = get(ds, index)
+            timer.read_s += time.perf_counter() - t0
+            timer.reads += 1
+            timer.read_bytes += out.nbytes
+            return out
+
+        def timed_create(f, name, data=None, **kw):
+            t0 = time.perf_counter()
+            out = create(f, name, data, **kw)
+            timer.write_s += time.perf_counter() - t0
+            timer.write_bytes += data.nbytes
+            return out
+
+        hdf5.Dataset.__getitem__ = timed_get
+        hdf5.File.create_dataset = timed_create
+        return self
+
+    def __exit__(self, *exc):
+        from mdeical_image_segmentation_tpu_torch.utils import hdf5
+
+        hdf5.Dataset.__getitem__, hdf5.File.create_dataset = self.saved
+
+
+class _TimedLoader:
+    """The trainer's train loader with the host time the trainer waits in
+    each ``next()`` noted (ms)."""
+
+    def __init__(self, loader, waits):
+        self.loader, self.waits = loader, waits
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                self.waits.append((time.perf_counter() - t0) * 1e3)
+                yield batch
+        finally:
+            it.close()
+
+
+def _transform_times(cfg, raw_patch, label_patch):
+    """Host ms of each transform of the train pipelines on one patch, on
+    this machine's CPU; a transform that fires with a probability is timed
+    firing, and its expected cost is that times the probability."""
+    import numpy as np
+
+    from mdeical_image_segmentation_tpu_torch.transforms.volume import (
+        TRANSFORMS,
+    )
+
+    rows = []
+    for name, m in (("raw", raw_patch), ("label", label_patch)):
+        for c in cfg["loaders"]["train"]["transformer"][name]:
+            t = TRANSFORMS.get(c["name"])(
+                random_state=np.random.RandomState(SEED), **c)
+            p = getattr(t, "execution_probability", 1.0)
+            if p < 1.0:
+                t.execution_probability = 1.0
+            t0 = time.perf_counter()
+            m = t(m)
+            ms = (time.perf_counter() - t0) * 1e3
+            rows.append((name, c["name"], ms, p))
+    return rows
+
+
+def phase_config_train(seed: int, workdir: str, in_memory_step_ms: float):
+    """cli/train3d.py on configs/unet3d_train.yml, its overrides only the
+    file paths, the checkpoint directory and the step counts: the model,
+    patch, stride and whole transformer pipeline as the yml has them."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.cli import train3d
+    from mdeical_image_segmentation_tpu_torch.train import trainer3d
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5
+
+    raw = seeded_volume(H5_TRAIN_VOLUME, seed + 4)
+    val_raw = seeded_volume(H5_VAL_VOLUME, seed + 5)
+    label, val_label = _foreground_label(raw), _foreground_label(val_raw)
+    t0 = time.perf_counter()
+    train_h5 = os.path.join(workdir, "train_volume.h5")
+    val_h5 = os.path.join(workdir, "val_volume.h5")
+    sizes = (_write_h5_volume(train_h5, raw, label),
+             _write_h5_volume(val_h5, val_raw, val_label))
+    write_s = time.perf_counter() - t0
+    cfg = read_yaml_subset(TRAIN_YML)
+    sb = cfg["loaders"]["train"]["slice_builder"]
+    windows = [tuple(slice(o, o + p) for o, p in zip(origin, sb["patch_shape"]))
+               for origin in _windows(H5_TRAIN_VOLUME, sb["patch_shape"],
+                                      sb["stride_shape"])]
+    shares = [float(label[w].mean()) for w in windows]
+    log(f"[phase 13] wrote {train_h5} ({H5_TRAIN_VOLUME}, raw float32 + "
+        f"label uint8, {sizes[0] / 2**20:.1f} MiB) and the val volume "
+        f"({H5_VAL_VOLUME}, {sizes[1] / 2**20:.1f} MiB), chunked + gzip, in "
+        f"{write_s:.2f} s; label: smoothed raw above its "
+        f"{H5_LABEL_QUANTILE}th percentile, foreground share of the "
+        f"{len(shares)} train windows {min(shares):.3f}-{max(shares):.3f} "
+        f"(threshold {sb['threshold']})")
+    run_dir = os.path.join(workdir, "config_train")
+    argv = ["--config", TRAIN_YML,
+            "--loaders.train.file_paths", repr([train_h5]),
+            "--loaders.val.file_paths", repr([val_h5]),
+            "--trainer.checkpoint_dir", run_dir,
+            "--trainer.max_num_iterations", str(H5_STEPS),
+            "--trainer.validate_after_iters", "3",
+            "--trainer.log_after_iters", "3"]
+    log(f"  train3d argv: {' '.join(argv)}")
+    rec, waits = [], []
+    made = []
+    create = trainer3d.create_trainer
+
+    def instrumented(config):
+        t = create(config)
+        _instrument(t, rec)
+        t.loaders["train"] = _TimedLoader(t.loaders["train"], waits)
+        made.append(t)
+        return t
+
+    trainer3d.create_trainer = instrumented
+    threads = set(threading.enumerate())
+    try:
+        with _io_timer() as io:
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            trainer = train3d.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counts()
+    finally:
+        trainer3d.create_trainer = create
+    # a loader's prefetch thread (VolumeLoader's "producer") sees that the
+    # trainer stopped only after the sample it is assembling: wait for it,
+    # so that the next phase runs on an idle host, and release the loaders'
+    # worker threads
+    t0 = time.perf_counter()
+    for t in set(threading.enumerate()) - threads:
+        if t.name.endswith("(producer)"):
+            t.join(timeout=120)
+    drain = time.perf_counter() - t0
+    trainer.loaders["train"].loader.close()
+    trainer.loaders["val"].close()
+    if trainer is not made[0]:
+        raise AssertionError("train3d did not return the trainer it built")
+    if next(trainer.model.parameters()).device.type != DEVICE:
+        raise AssertionError(f"train3d's model is not on {DEVICE}")
+    n_train = len(trainer.loaders["train"])
+    convs = 2 * (2 * cfg["model"]["num_levels"] - 1)
+    want = {"gcr_conv3d": convs, "gn_stats": convs, "gn_affine": convs,
+            "gn_bwd_reduce": convs, "gn_bwd_dx": convs - 1, "overlap_add": 0}
+    for i, r in enumerate(rec):
+        log(f"  step {i + 1}: {r['ms']:.1f} ms, loss {r['loss']:.6f}, "
+            f"launches {r['launches']}")
+        if r["launches"] != want or not np.isfinite(r["loss"]):
+            raise AssertionError(f"step {i + 1}: {r}, want launches {want} "
+                                 "and a finite loss")
+    log("  loader waits per batch pulled (ms; the trainer pulls batch k + 1 "
+        "before it runs step k): " + ", ".join(f"{w:.1f}" for w in waits))
+    if len(rec) != H5_STEPS + 1:
+        raise AssertionError(f"{len(rec)} steps, want {H5_STEPS + 1}")
+    for name in ("last_checkpoint.msgpack", "best_checkpoint.msgpack",
+                 os.path.join("logs", "config.yml")):
+        if not os.path.exists(os.path.join(run_dir, name)):
+            raise AssertionError(f"train3d wrote no {name}")
+    copied = read_yaml_subset(os.path.join(run_dir, "logs", "config.yml"))
+    if (copied["trainer"]["max_num_iterations"] != H5_STEPS
+            or copied["loaders"]["train"]["transformer"]
+            != cfg["loaders"]["train"]["transformer"]):
+        raise AssertionError("the copied config is not the resolved one")
+    step = statistics.median(r["ms"] for r in rec[1:])
+    wait = statistics.median(waits[1:])
+    log(f"[phase 13] train3d: {len(rec)} steps + 3 validations in "
+        f"{wall:.2f} s ({n_train} train patches kept by FilterSliceBuilder "
+        f"of {len(windows)}); device step median {step:.1f} ms (phase 9's "
+        f"in-memory step {in_memory_step_ms:.1f} ms); loader wait median "
+        f"{wait:.1f} ms, max {max(waits):.1f} ms, total "
+        f"{sum(waits) / 1e3:.2f} s of the {wall:.2f} s; host share of the "
+        f"steps' wall (wait / (wait + step)) "
+        f"{sum(waits) / (sum(waits) + sum(r['ms'] for r in rec)):.3f}; the "
+        f"prefetch thread finished its last sample {drain:.2f} s after fit "
+        "returned")
+    log(f"[phase 13] HDF5 reads: {io.reads:.0f} dataset reads, "
+        f"{io.read_bytes / 2**20:.1f} MiB out, {io.read_s:.2f} s")
+    with hdf5.File(train_h5) as f:
+        w = windows[0]
+        raw_patch, label_patch = f["raw"][w], f["label"][w]
+    rows = _transform_times(cfg, raw_patch, label_patch)
+    expected = {}
+    for pipe, name, ms, p in rows:
+        expected[pipe] = expected.get(pipe, 0.0) + ms * p
+    log(f"[phase 13] transforms, host ms per sample on this machine's CPU "
+        f"(one {'x'.join(map(str, raw_patch.shape))} patch; a transform "
+        "with a probability timed firing): " + "; ".join(
+            f"{pipe} {name} {ms:.1f}" + (f" (p {p}: {ms * p:.1f} expected)"
+                                         if p < 1 else "")
+            for pipe, name, ms, p in rows)
+        + f"; expected per sample: raw {expected['raw']:.1f}, label "
+        f"{expected['label']:.1f}")
+    best = os.path.join(run_dir, "best_checkpoint.msgpack")
+    del trainer, made
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step, "wait_ms": wait,
+            "waits_s": sum(waits) / 1e3, "wall_s": wall, "best": best,
+            "expected_ms": expected, "read_s": io.read_s,
+            "read_mib": io.read_bytes / 2**20}
+
+
+def standardized_patch_batches(raw, slices, batch_size):
+    """In memory, the batches the HDF5 test dataset and loader give for the
+    predict yml's pipeline (Standardize per halo-padded window, then
+    ToTensor(expand_dims)): the windows are views of the mirror-padded
+    volume, as the dataset's are."""
+    import numpy as np
+
+    from mdeical_image_segmentation_tpu_torch.data.slice_builder import (
+        get_slice_builder,
+    )
+    from mdeical_image_segmentation_tpu_torch.data.volume_utils import (
+        create_padded_indexes,
+        mirror_pad,
+    )
+    from mdeical_image_segmentation_tpu_torch.transforms.volume import (
+        Standardize,
+        ToTensor,
+    )
+
+    halo = slices["halo_shape"]
+    padded = mirror_pad(raw, halo)
+    windows = get_slice_builder(raw, None, None, slices).raw_slices
+    to_tensor = ToTensor(expand_dims=True)
+    for b0 in range(0, len(windows), batch_size):
+        idx = windows[b0:b0 + batch_size]
+        yield np.stack([to_tensor(Standardize()(
+            padded[create_padded_indexes(w, halo)])) for w in idx]), idx
+
+
+def phase_config_predict(seed: int, workdir: str, checkpoint: str):
+    """cli/predict3d.py on configs/unet3d_predict.yml, its overrides only
+    model_path, output_dir and the file path; the file it writes against
+    the in-memory predictor and the plain path."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.cli import predict3d
+    from mdeical_image_segmentation_tpu_torch.infer import (
+        predictor as predictor_lib,
+    )
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5
+
+    raw = seeded_volume(VOLUME_3D, seed)
+    path = os.path.join(workdir, "predict_volume.h5")
+    _write_h5_volume(path, raw)
+    out_dir = os.path.join(workdir, "predictions")
+    argv = ["--config", PREDICT_YML, "--model_path", checkpoint,
+            "--output_dir", out_dir,
+            "--loaders.test.file_paths", repr([path])]
+    log(f"[phase 14] predict3d argv: {' '.join(argv)}")
+    rec, made = [], []
+    get = predictor_lib.get_predictor
+
+    def instrumented(model, output_dir, config, **kw):
+        p = get(model, output_dir, config, **kw)
+        _timed_batches(p, rec)
+        made.append(p)
+        return p
+
+    predictor_lib.get_predictor = instrumented
+    try:
+        with _io_timer() as io:
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            outputs = predict3d.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counts()
+    finally:
+        predictor_lib.get_predictor = get
+    for i, (ms, n) in enumerate(rec):
+        log(f"  batch {i}: {ms:.1f} ms, launches {n}")
+        if n["gcr_conv3d"] != 14 or n["gn_stats"] != 14:
+            raise AssertionError(f"batch {i}: {n}, want 14 gcr_conv3d and "
+                                 "14 gn_stats launches")
+    if len(rec) != 2 or launches["overlap_add"] != len(rec):
+        raise AssertionError(f"{launches} over {len(rec)} batches: want 2 "
+                             "batches, one overlap_add each")
+    want_file = os.path.join(out_dir, "predict_volume_predictions.h5")
+    if [str(o) for o in outputs] != [want_file]:
+        raise AssertionError(f"predict3d wrote {outputs}, want {want_file}")
+    with hdf5.File(want_file) as f:
+        got = f["predictions"][:]
+        compression = f["predictions"].compression
+    log(f"[phase 14] predict3d: {wall:.2f} s in all; HDF5 write "
+        f"{io.write_s:.2f} s ({io.write_bytes / 2**20:.1f} MiB, "
+        f"{compression}), reads {io.read_s:.2f} s "
+        f"({io.read_bytes / 2**20:.1f} MiB); {want_file} holds "
+        f"'predictions' {got.shape} {got.dtype}")
+
+    cfg = read_yaml_subset(PREDICT_YML)
+    slices, batch_size = (cfg["loaders"]["test"]["slice_builder"],
+                          cfg["loaders"]["batch_size"])
+    model = made[0].model
+    config = {"model": cfg["model"], "predictor": cfg["predictor"]}
+    pred = get(model, None, config)
+    acc, cnt = pred._device_accumulate(
+        standardized_patch_batches(raw, slices, batch_size), raw.shape,
+        slices["halo_shape"])
+    want = acc / cnt
+    if got.shape != want.shape or got.dtype != want.dtype or not (
+            np.array_equal(got, want)):
+        diff = (float(np.abs(got - want).max()) if got.shape == want.shape
+                else None)
+        raise AssertionError(f"the prediction file differs from the "
+                             f"in-memory map: {got.shape} {got.dtype} vs "
+                             f"{want.shape} {want.dtype}, max |diff| {diff}")
+    log("  the file equals the in-memory _device_accumulate map, divided as "
+        "_save_results divides, bit for bit")
+    with plain_path():
+        plain = get(model, None, config)
+        plain_maps = plain._device_accumulate(
+            standardized_patch_batches(raw, slices, batch_size), raw.shape,
+            slices["halo_shape"])
+    err = _check_maps("config-driven UNet3D predictor", (acc, cnt),
+                      plain_maps, UNET3D_MAP_TOL)
+    del pred, plain, made, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_s": wall, "write_s": io.write_s,
+            "err": err}
+
+
 def main() -> int:
     import torch
 
@@ -3042,6 +3441,18 @@ def main() -> int:
             "serving")
         u3p = phase_train_unet3plus(SEED, workdir)
         log(f"[phase 12] UNet-3+ ok; wall {time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 13] cli/train3d.py on configs/unet3d_train.yml from "
+            "gzip HDF5 volumes")
+        cfg_train = phase_config_train(SEED, workdir, step_ms)
+        log(f"[phase 13] config-driven training ok; wall "
+            f"{time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 14] cli/predict3d.py on configs/unet3d_predict.yml, "
+            "phase 13's best checkpoint, to HDF5")
+        cfg_predict = phase_config_predict(SEED, workdir, cfg_train["best"])
+        log(f"[phase 14] config-driven prediction ok; wall "
+            f"{time.time() - t_phase:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if train2d["launches"] == 0:
@@ -3050,7 +3461,8 @@ def main() -> int:
     # launches of each kernel over the main-path runs it belongs to (each
     # run zeroes the counts just before and reads them just after)
     runs = (unet3d_launches, res_launches, serve3d_launches, train_launches,
-            res_train_launches)
+            res_train_launches, cfg_train["launches"],
+            cfg_predict["launches"])
     launches_3d = {k: sum(r[k] for r in runs) for k in KERNELS_3D}
     for k, n in launches_3d.items():
         if n == 0:
@@ -3062,7 +3474,11 @@ def main() -> int:
         f"{unet3d_err:.3e} (UNet3D), {res_err:.3e} (ResidualUNet3D); worst "
         f"autograd gradient error {grad_err:.3e}; UNet3D train step "
         f"{step_ms:.1f} ms kernel path, {plain_step_ms:.1f} ms plain path, "
-        f"peak {peak:.2f} GiB")
+        f"peak {peak:.2f} GiB; config-driven train3d {cfg_train['launches']}"
+        f" (device step {cfg_train['step_ms']:.1f} ms, loader wait "
+        f"{cfg_train['wait_ms']:.1f} ms), predict3d "
+        f"{cfg_predict['launches']} ({cfg_predict['wall_s']:.2f} s, map "
+        f"vs plain {cfg_predict['err']:.3e})")
 
     sources = {"gcr_conv3d": "gcr_conv3d.cu", "gn_stats": "group_norm.cu",
                "gn_affine": "group_norm.cu", "gn_bwd_reduce": "group_norm.cu",
@@ -3111,6 +3527,8 @@ def main() -> int:
         "source": f"mdeical_image_segmentation_tpu_torch/csrc/{sources[k]}",
         "replaces": f"mdeical_image_segmentation_tpu/{replaces[k]}",
         "launches": launches_3d[k],
+        "launches_by_path": {"config_train3d": cfg_train["launches"][k],
+                             "config_predict3d": cfg_predict["launches"][k]},
         "max_abs_err": k3d[k]["err"],
         "ms": k3d[k]["ms"],
         "plain_ms": k3d[k]["plain_ms"],

@@ -29,6 +29,12 @@ Covered so far:
   with BatchNorm (``ops.batchnorm``), the hybrid F1 + MS-SSIM + IoU loss
   (``ops.msssim``, ``losses.losses2d``), remat (``ops.remat``) and the
   initializers (``ops.initializers``), on cuDNN convs and PyTorch ops.
+- the config-driven 3D pipeline (``cli.train3d`` → ``configs.config`` →
+  ``train.trainer3d.create_trainer`` → ``data.loaders.get_train_loaders``
+  → ``data.hdf5`` → ``transforms.volume``; ``cli.predict3d`` →
+  ``data.loaders.get_test_loaders`` → ``StandardPredictor.__call__``), on
+  the port's own YAML reader and writer (``utils.yaml_io``) and HDF5 codec
+  (``utils.hdf5``).
 
 Public functions keep the JAX layout: channels-last activations and
 (*k, I, O) conv weights.

@@ -1,0 +1,29 @@
+"""Config-driven 3D training (the JAX package's ``cli/train3d.py``).
+
+    python -m mdeical_image_segmentation_tpu_torch.cli.train3d \\
+        --config configs/unet3d_train.yml \\
+        --loaders.train.file_paths "['/data/train']" \\
+        --loaders.val.file_paths "['/data/val']" [--device cpu]
+
+Loads the YAML config with its dotted overrides (``--a.b value`` or
+``a.b=value``), builds the trainer (``train/trainer3d.create_trainer``: on
+the card unless ``device: cpu``), snapshots the resolved config into the
+checkpoint directory and trains.
+"""
+
+import sys
+
+
+def main(argv=None):
+    from ..configs import copy_config, load_config
+    from ..train import trainer3d
+
+    config = load_config(argv if argv is not None else sys.argv[1:])
+    trainer = trainer3d.create_trainer(config)
+    copy_config(config, trainer.checkpoint_dir)
+    trainer.fit()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -7,21 +7,31 @@
 of yielding nothing, optional worker threads per batch, and a daemon
 prefetch thread that stops when its consumer abandons the iterator.  The
 trainer takes any iterable of (input, target[, weight]) batches as a loader,
-so in-memory datasets need no files.  ``get_train_loaders`` and
-``get_test_loaders`` (HDF5 datasets and the volume transforms) raise until
-those are ported.
+so in-memory datasets need no files.
+
+``get_train_loaders`` and ``get_test_loaders`` assemble them from a config's
+``loaders`` section over the HDF5 datasets (``data/hdf5.py``), found by name
+in ``DATASETS``.  ``device_cache: true`` (volumes kept and augmented on the
+device) raises until ``data/device_cache.py`` is ported.
 """
 
 from __future__ import annotations
 
 import collections.abc
+import os
 import queue
 import threading
 from typing import Any, Callable, Dict, Iterator, Sequence
 
 import numpy as np
 
-DATA_ITEM = "ROADMAP.md queue 1, item 18 (HDF5 datasets and volume transforms)"
+from ..configs.registry import Registry
+from ..logging_utils import get_logger
+
+logger = get_logger("Dataset")
+
+DEVICE_CACHE_ITEM = "ROADMAP.md queue 1, item 18 (data/device_cache.py)"
+DATASETS = Registry("dataset")
 
 
 class ConcatDataset:
@@ -162,12 +172,95 @@ class VolumeLoader:
             cancel.set()
 
 
-def get_train_loaders(config: Dict[str, Any], n_devices: int = 1):
-    raise NotImplementedError(f"get_train_loaders is not ported yet "
-                              f"({DATA_ITEM}); pass the trainer in-memory "
-                              "loaders")
+def _register_builtin_datasets():
+    from .hdf5 import DSB2018Dataset, LazyHDF5Dataset, StandardHDF5Dataset
+
+    for cls in (StandardHDF5Dataset, LazyHDF5Dataset, DSB2018Dataset):
+        if cls.__name__ not in DATASETS:
+            DATASETS.register(cls.__name__)(cls)
 
 
-def get_test_loaders(config: Dict[str, Any], n_devices: int = 1):
-    raise NotImplementedError(f"get_test_loaders is not ported yet "
-                              f"({DATA_ITEM})")
+def _dataset_class(loaders_config: Dict[str, Any]):
+    _register_builtin_datasets()
+    name = loaders_config.get("dataset")
+    if name is None:
+        name = "StandardHDF5Dataset"
+        logger.warning(f"loaders config names no dataset class; defaulting "
+                       f"to '{name}'")
+    return DATASETS.get(name)
+
+
+def get_train_loaders(config: Dict[str, Any], n_devices: int = 1
+                      ) -> Dict[str, VolumeLoader]:
+    """``{'train': loader, 'val': loader}`` from ``config['loaders']``: the
+    batch is ``batch_size`` x ``n_devices``; the train loader shuffles and
+    drops a short tail; both use ``num_workers`` threads per batch and
+    prefetch 2 batches when they have workers."""
+    if "loaders" not in config:
+        raise KeyError("config is missing its 'loaders' section")
+    loaders_config = config["loaders"]
+    if loaders_config.get("device_cache"):
+        raise NotImplementedError(
+            f"loaders.device_cache: {DEVICE_CACHE_ITEM}; drop the option to "
+            "use the host loader")
+    logger.info("assembling train/val loaders")
+    dataset_class = _dataset_class(loaders_config)
+
+    # the leakage guard compares the expanded file lists: a val file listed
+    # inside a train directory is caught
+    from .volume_utils import traverse_h5_paths
+
+    def files(phase):
+        return {os.path.realpath(p) for p in
+                traverse_h5_paths(loaders_config[phase]["file_paths"])}
+
+    shared = files("train") & files("val")
+    if shared:
+        raise ValueError("train and val file_paths intersect — the val "
+                         f"volumes would leak into training: "
+                         f"{sorted(shared)}")
+
+    train_datasets = dataset_class.create_datasets(loaders_config,
+                                                   phase="train")
+    val_datasets = dataset_class.create_datasets(loaders_config, phase="val")
+
+    batch_size = loaders_config.get("batch_size", 1)
+    if n_devices > 1:
+        logger.info(f"{n_devices} devices available. Using batch_size = "
+                    f"{n_devices} * {batch_size}")
+        batch_size = batch_size * n_devices
+    num_workers = loaders_config.get("num_workers", 1)
+    logger.info(f"train/val loaders: {num_workers} worker threads")
+    prefetch = 2 if num_workers else 0
+    return {
+        "train": VolumeLoader(ConcatDataset(train_datasets),
+                              batch_size=batch_size, shuffle=True,
+                              prefetch=prefetch, drop_last=True,
+                              num_workers=num_workers),
+        "val": VolumeLoader(ConcatDataset(val_datasets),
+                            batch_size=batch_size, shuffle=False,
+                            prefetch=prefetch, num_workers=num_workers),
+    }
+
+
+def get_test_loaders(config: Dict[str, Any], n_devices: int = 1
+                     ) -> Iterator[VolumeLoader]:
+    """A generator of one test loader per file of
+    ``config['loaders']['test']``, each collating with its dataset's
+    ``prediction_collate``."""
+    if "loaders" not in config:
+        raise KeyError("config is missing its 'loaders' section")
+    loaders_config = config["loaders"]
+    logger.info("assembling test loaders")
+    dataset_class = _dataset_class(loaders_config)
+    test_datasets = dataset_class.create_datasets(loaders_config,
+                                                  phase="test")
+    batch_size = loaders_config.get("batch_size", 1)
+    if n_devices > 1:
+        batch_size = batch_size * n_devices
+    for test_dataset in test_datasets:
+        logger.info(f"test volume: {test_dataset.file_path}")
+        collate_fn = getattr(test_dataset, "prediction_collate",
+                             default_prediction_collate)
+        yield VolumeLoader(test_dataset, batch_size=batch_size,
+                           collate_fn=collate_fn)

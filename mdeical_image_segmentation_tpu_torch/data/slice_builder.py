@@ -1,17 +1,20 @@
 """Patch indexing over volumes (the JAX package's
-``data/slice_builder.py``; ``SliceBuilder`` so far, found by name through
-``get_slice_builder``).
+``data/slice_builder.py``: ``SliceBuilder`` and ``FilterSliceBuilder``,
+found by name through ``get_slice_builder``).
 
 A volume of shape DxHxW (or CxDxHxW) is tiled into fixed-shape patches at
 stride intervals, z-major; the walk always covers the tail of every axis
 (a last patch flush with the end is added when the strided walk stops
-short).  numpy only.
+short).  ``FilterSliceBuilder`` drops mostly-background patches, with the
+JAX package's RandomState(47) rescue stream.  numpy only.
 """
 
 from __future__ import annotations
 
 import itertools
 from typing import Any, Dict, List, Tuple
+
+import numpy as np
 
 from ..configs.registry import Registry
 
@@ -91,6 +94,41 @@ class SliceBuilder:
             raise ValueError(f"patch_shape needs 3 axes, got {patch_shape}")
         if patch_shape[1] < 64 or patch_shape[2] < 64:
             raise ValueError("patch H and W must be at least 64")
+
+
+@SLICE_BUILDERS.register("FilterSliceBuilder")
+class FilterSliceBuilder(SliceBuilder):
+    """Keeps the patches whose non-ignore label fraction exceeds
+    ``threshold``, plus a ``slack_acceptance`` rescue of the others: a
+    ``RandomState(47)`` draw made only for a patch that fails the fraction
+    test.  The weight slices are filtered with the raw and label ones."""
+
+    def __init__(self, raw_dataset, label_dataset, weight_dataset,
+                 patch_shape, stride_shape, ignore_index=None, threshold=0.6,
+                 slack_acceptance=0.01, **kwargs):
+        super().__init__(raw_dataset, label_dataset, weight_dataset,
+                         patch_shape, stride_shape, **kwargs)
+        if label_dataset is None:
+            return
+        rescue_rng = np.random.RandomState(47)
+
+        def keep(label_window) -> bool:
+            patch = label_dataset[label_window]
+            if ignore_index is not None:
+                patch = np.copy(patch)
+                patch[patch == ignore_index] = 0
+            foreground = np.count_nonzero(patch != 0) / patch.size
+            return (foreground > threshold
+                    or rescue_rng.rand() < slack_acceptance)
+
+        keep_mask = [keep(w) for w in self._label_slices]
+        self._raw_slices = [s for s, k in zip(self._raw_slices, keep_mask)
+                            if k]
+        self._label_slices = [s for s, k in zip(self._label_slices,
+                                                keep_mask) if k]
+        if self._weight_slices is not None:
+            self._weight_slices = [s for s, k in zip(self._weight_slices,
+                                                     keep_mask) if k]
 
 
 def get_slice_builder(raws, labels, weight_maps, config: Dict[str, Any]):

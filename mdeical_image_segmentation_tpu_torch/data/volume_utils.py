@@ -1,10 +1,12 @@
 """Volume helpers (the JAX package's ``data/volume_utils.py``): global
-stats, halo mirror padding, padded patch indexes; and
+stats, halo mirror padding, padded patch indexes, HDF5 path traversal; and
 ``padded_patch_batches``, the in-memory counterpart of the HDF5 test
 dataset and loader that feeds a predictor.  numpy only."""
 
 from __future__ import annotations
 
+import glob
+import os
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,6 +60,22 @@ def create_padded_indexes(indexes: Sequence[slice],
         slice(index.start, index.stop + 2 * halo)
         for index, halo in zip(indexes, halo_shape)
     )
+
+
+def traverse_h5_paths(file_paths: Sequence[str]) -> List[str]:
+    """Expand directories to the *.h5 / *.hdf / *.hdf5 / *.hd5 files inside
+    them (in glob order, extension by extension); files pass through."""
+    if not isinstance(file_paths, list):
+        raise TypeError(f"file_paths must be a list, got "
+                        f"{type(file_paths).__name__}")
+    results = []
+    for file_path in file_paths:
+        if os.path.isdir(file_path):
+            for ext in ("*.h5", "*.hdf", "*.hdf5", "*.hd5"):
+                results.extend(glob.glob(os.path.join(file_path, ext)))
+        else:
+            results.append(file_path)
+    return results
 
 
 def padded_patch_batches(raw: np.ndarray, slice_builder: Dict[str, Any],

@@ -8,28 +8,50 @@ and count maps with the overlap-add kernel (``ops/overlap.py``), the maps
 staying on the device until the volume is done.  As in the JAX package, the
 raw network output (logits) is averaged unless ``apply_activation``.
 
-A test loader is any iterable of ``(patches (B, D, H, W, C), [index
-tuples])`` — ``data/volume_utils.padded_patch_batches`` makes one from an
-in-memory volume.  Not ported yet: ``__call__`` (reads and writes HDF5,
-with the HDF5 dataset, loaders, config loader and CLI; ROADMAP.md queue 1,
-item 20), the Lazy and DSB predictors (item 20) and ``quantize="int8"``
-(item 21).
+``_device_accumulate`` takes any iterable of ``(patches (B, D, H, W, C),
+[index tuples])`` — ``data/volume_utils.padded_patch_batches`` makes one
+from an in-memory volume.  ``__call__`` takes a test loader over an HDF5
+dataset (``data/loaders.get_test_loaders``) and writes the averaged map
+(or, with ``save_segmentation``, its argmax as uint16) gzip-compressed to
+``<output_dir>/<name>_predictions.h5`` through the port's HDF5 codec
+(``utils/hdf5.py``); with ``accumulate_on_device=False`` the patches are
+summed on the host with uint8 counts, as the JAX package does.  Not ported
+yet: the Lazy and DSB predictors (ROADMAP.md queue 1, item 20) and
+``quantize="int8"`` (item 21).
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
+import time
+from pathlib import Path
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..logging_utils import get_logger
 from ..ops.overlap import overlap_add_into
 from ..ops.tta import flip_ensemble, mirror_combos
+from ..utils import hdf5
 
-PREDICT_ITEM = "ROADMAP.md queue 1, item 20 (HDF5 predictor I/O)"
+logger = get_logger("UNetPredictor")
+
+PREDICT_ITEM = ("ROADMAP.md queue 1, item 20 (LazyPredictor and "
+                "DSB2018Predictor)")
 INT8_ITEM = "ROADMAP.md queue 1, item 21 (int8 PTQ)"
+
+
+def _get_output_file(dataset, suffix: str = "_predictions",
+                     output_dir: Optional[str] = None) -> Path:
+    """``<output_dir or the input's directory>/<name><suffix>.h5``."""
+    input_dir, file_name = os.path.split(dataset.file_path)
+    if output_dir is None:
+        output_dir = input_dir
+    return Path(output_dir) / (os.path.splitext(file_name)[0] + suffix
+                               + ".h5")
 
 
 def _unpad_channels_last(batch: torch.Tensor, halo) -> torch.Tensor:
@@ -110,6 +132,12 @@ class StandardPredictor:
             x = torch.cat([x, pad], dim=0)
         return self._forward(x), n
 
+    def _predict_batch(self, input) -> np.ndarray:
+        """The host variant: the batch's output fetched, padded rows
+        dropped."""
+        out, n = self._predict_batch_device(input)
+        return out.cpu().numpy()[:n]
+
     def _prefetch_batches(self, test_loader: Iterable, depth: int = 2):
         """Iterate ``(input, indices)`` with the host assembly of the next
         batch running one ahead in a worker thread."""
@@ -165,10 +193,55 @@ class StandardPredictor:
         return (np.moveaxis(acc.cpu().numpy(), -1, 0),
                 np.moveaxis(cnt.cpu().numpy(), -1, 0))
 
-    def __call__(self, test_loader):
-        raise NotImplementedError(
-            f"StandardPredictor.__call__ reads and writes HDF5: "
-            f"{PREDICT_ITEM}")
+    def __call__(self, test_loader) -> Path:
+        """Predict the loader's volume and write it; returns the file."""
+        dataset = test_loader.dataset
+        logger.info(f"Processing '{dataset.file_path}'...")
+        start = time.perf_counter()
+        logger.info(f"Running inference on {len(test_loader)} batches")
+        volume_shape = tuple(dataset.volume_shape())
+        n_ch = 1 if self.prediction_channel is not None else self.out_channels
+        output_file = _get_output_file(dataset, output_dir=self.output_dir)
+        os.makedirs(os.path.dirname(str(output_file)) or ".", exist_ok=True)
+        patch_halo = dataset.halo_shape
+        if self.accumulate_on_device:
+            prediction_map, normalization_mask = self._device_accumulate(
+                test_loader, volume_shape, patch_halo)
+        else:
+            prediction_map, normalization_mask = (
+                self._allocate_prediction_maps((n_ch,) + volume_shape))
+            for input, indices in test_loader:
+                prediction = _unpad_channels_last(
+                    self._predict_batch(np.asarray(input)), patch_halo)
+                prediction = np.moveaxis(prediction, -1, 1)  # (N, C, D, H, W)
+                for pred, index in zip(prediction, indices):
+                    if self.prediction_channel is not None:
+                        pred = pred[self.prediction_channel:
+                                    self.prediction_channel + 1]
+                    index = (slice(0, n_ch),) + tuple(index)
+                    prediction_map[index] += pred
+                    normalization_mask[index] += 1
+        logger.info(f"Finished inference in "
+                    f"{time.perf_counter() - start:.2f} seconds")
+        what = ("segmentation" if self.save_segmentation
+                else "probability maps")
+        logger.info(f"Saving {what} to: {output_file}")
+        with hdf5.File(output_file, "w") as h5_output_file:
+            self._save_results(prediction_map, normalization_mask,
+                               h5_output_file)
+        return output_file
+
+    def _allocate_prediction_maps(self, output_shape):
+        return (np.zeros(output_shape, dtype="float32"),
+                np.zeros(output_shape, dtype="uint8"))
+
+    def _save_results(self, prediction_map, normalization_mask,
+                      output_file) -> None:
+        result = prediction_map / normalization_mask
+        if self.save_segmentation:
+            result = np.argmax(result, axis=0).astype("uint16")
+        output_file.create_dataset(self.output_dataset, data=result,
+                                   compression="gzip")
 
 
 PREDICTORS: Dict[str, Any] = {"StandardPredictor": StandardPredictor}

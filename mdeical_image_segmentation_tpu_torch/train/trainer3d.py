@@ -25,10 +25,11 @@ boundaries and at the end of an epoch.  On a CUDA device the next batch is
 copied from pinned memory on a side stream while the current step runs.
 
 Loaders are any iterables of (input, target[, weight]) numpy batches,
-channels-last (N, D, H, W, C); ``create_trainer`` (the YAML config, HDF5
-loaders) waits for the data slice.  The TPU scale-out options (``mesh``,
-``tensor_parallel``, ``zero1``, ``spatial_halo``) and orbax checkpoints
-raise.
+channels-last (N, D, H, W, C).  ``create_trainer`` builds the trainer from a
+config (``configs/config.py``) with the HDF5 loaders (``data/loaders.py``),
+on the card unless ``device: cpu``.  The TPU scale-out options (a
+``parallel:`` section, ``mesh``, ``tensor_parallel``, ``zero1``,
+``spatial_halo``) and orbax checkpoints raise.
 """
 
 from __future__ import annotations
@@ -49,20 +50,68 @@ from .prefetch import device_batches
 logger = get_logger("UNetTrainer")
 
 PARALLEL_ITEM = "ROADMAP.md queue 1, item 25 (parallel modes)"
-CREATE_TRAINER_ITEM = ("ROADMAP.md queue 1, items 18 and 19 (HDF5 loaders "
-                       "and the config-driven trainer)")
 
 
 def get_number_of_learnable_parameters(model: torch.nn.Module) -> int:
     return sum(p.numel() for p in model.parameters() if p.requires_grad)
 
 
+def config_device(config: Dict[str, Any]) -> torch.device:
+    """The device a config asks for: ``"auto"`` (the default) and
+    ``"cuda"`` mean the card, and raise without one; ``"cpu"`` runs on the
+    CPU."""
+    name = str(config.get("device", "auto"))
+    if name == "cpu":
+        return torch.device("cpu")
+    if name == "auto" or name.startswith("cuda"):
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {name!r} needs a CUDA card and none "
+                               "is available; set device: cpu (--device "
+                               "cpu) to run on the CPU")
+        return torch.device("cuda" if name == "auto" else name)
+    raise ValueError(f"device {name!r}: 'auto', 'cuda' or 'cpu'")
+
+
 def create_trainer(config: Dict[str, Any]) -> "UNetTrainer":
-    raise NotImplementedError(
-        f"create_trainer is not ported yet ({CREATE_TRAINER_ITEM}); build "
-        "UNetTrainer from get_model, get_loss_criterion, "
-        "get_evaluation_metric, create_optimizer and create_lr_scheduler "
-        "with in-memory loaders")
+    """Model, loss, metric, loaders, optimizer, scheduler and trainer from a
+    config: the model's weights drawn from a generator seeded with
+    ``config['seed']`` (default 0), on ``config_device(config)``."""
+    from ..data.loaders import get_train_loaders
+    from ..losses import get_loss_criterion
+    from ..metrics import get_evaluation_metric
+    from ..models import get_model
+    from .logging_utils import get_tensorboard_formatter
+    from .optimizers import create_lr_scheduler, create_optimizer
+
+    if config.get("parallel"):
+        raise NotImplementedError(
+            f"parallel: {sorted(config['parallel'])}: the port trains on one "
+            f"device so far ({PARALLEL_ITEM})")
+    device = config_device(config)
+    seed = config.get("seed", 0)
+    # drawn on the CPU, so the card and the CPU start from the same weights
+    model = get_model(config["model"],
+                      generator=torch.Generator().manual_seed(seed))
+    model = model.to(device)
+    loss_criterion = get_loss_criterion(config)
+    eval_criterion = get_evaluation_metric(config)
+    loaders = get_train_loaders(config)
+    optimizer_config = config["optimizer"]
+    optimizer = create_optimizer(optimizer_config, model.parameters())
+    base_lr = optimizer_config.get("learning_rate", 1e-3)
+    lr_scheduler = create_lr_scheduler(config.get("lr_scheduler", None),
+                                       base_lr)
+    trainer_config = dict(config["trainer"])
+    tensorboard_formatter = get_tensorboard_formatter(
+        trainer_config.pop("tensorboard_formatter", None))
+    resume = trainer_config.pop("resume", None)
+    pre_trained = trainer_config.pop("pre_trained", None)
+    return UNetTrainer(
+        model=model, optimizer=optimizer, base_lr=base_lr,
+        lr_scheduler=lr_scheduler, loss_criterion=loss_criterion,
+        eval_criterion=eval_criterion, loaders=loaders,
+        tensorboard_formatter=tensorboard_formatter, resume=resume,
+        pre_trained=pre_trained, seed=seed, **trainer_config)
 
 
 class UNetTrainer:

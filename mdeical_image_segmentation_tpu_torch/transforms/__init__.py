@@ -1,5 +1,6 @@
-"""Transforms of the port (the JAX package's ``transforms``; the on-device
-2D train-time augmentation so far)."""
+"""Transforms of the port (the JAX package's ``transforms``): the on-device
+2D train-time augmentation here; the host-side volume transforms in
+``transforms.volume`` (with ``transforms.skimage_compat``)."""
 
 from .device2d import (
     Augment2DConfig,

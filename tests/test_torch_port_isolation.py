@@ -32,11 +32,14 @@ def _port_modules():
 
 def test_every_module_imports_without_jax_flax_msgpack_pil():
     modules = _port_modules()
-    # 56 with the UNet-3+ slice; its new modules are named so a rename
-    # cannot drop them from the walk unseen
-    assert len(modules) >= 56
+    # 64 with the config-driven 3D slice; the newer modules are named so a
+    # rename cannot drop them from the walk unseen
+    assert len(modules) >= 64
     for name in ("ops.initializers", "ops.batchnorm", "ops.msssim",
-                 "ops.remat", "ops.image", "models.unet2d"):
+                 "ops.remat", "ops.image", "models.unet2d",
+                 "utils.yaml_io", "utils.hdf5", "configs.config",
+                 "transforms.volume", "transforms.skimage_compat",
+                 "data.hdf5", "cli.train3d", "cli.predict3d"):
         assert f"{port.__name__}.{name}" in modules, name
     code = (
         "import importlib, sys\n"
@@ -48,6 +51,47 @@ def test_every_module_imports_without_jax_flax_msgpack_pil():
         "from mdeical_image_segmentation_tpu_torch.ops import _build\n"
         "assert _build._lib is None and not _build._host_libs  # no build\n"
         "print('ok', len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.startswith("ok")
+
+
+def test_3d_clis_run_without_h5py_and_yaml(tmp_path):
+    """In a process where importing h5py or yaml fails (as on the card's
+    machine), both CLIs' modules import, read the yml configs and an HDF5
+    file the port writes."""
+    code = (
+        "import builtins, sys\n"
+        "real = builtins.__import__\n"
+        "def guarded(name, *a, **k):\n"
+        f"    if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "        raise ImportError(f'no {name} here')\n"
+        "    return real(name, *a, **k)\n"
+        "builtins.__import__ = guarded\n"
+        "import numpy as np\n"
+        "from mdeical_image_segmentation_tpu_torch.cli import predict3d, "
+        "train3d\n"
+        "from mdeical_image_segmentation_tpu_torch.configs import "
+        "load_config\n"
+        "from mdeical_image_segmentation_tpu_torch.data import hdf5 as d\n"
+        "from mdeical_image_segmentation_tpu_torch.utils import hdf5\n"
+        "cfg = load_config(['--config', 'configs/unet3d_train.yml'])\n"
+        "assert cfg['loaders']['train']['transformer']['raw'][3]['axes'] "
+        "== [[2, 1]]\n"
+        "assert load_config(['--config', 'configs/unet3d_predict.yml'])"
+        "['loaders']['batch_size'] == 4\n"
+        f"p = {str(tmp_path / 'v.h5')!r}\n"
+        "with hdf5.File(p, 'w') as f:\n"
+        "    f.create_dataset('raw', data=np.ones((4, 8, 8), 'f4'), "
+        "compression='gzip')\n"
+        "with hdf5.File(p) as f:\n"
+        "    assert f['raw'][:].sum() == 256\n"
+        f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

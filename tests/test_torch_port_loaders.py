@@ -102,12 +102,6 @@ def test_assembly_errors_reach_the_consumer():
         list(loaders.VolumeLoader(Broken(4), batch_size=1, prefetch=2))
 
 
-def test_hdf5_loaders_raise_naming_item_18():
-    for fn in (loaders.get_train_loaders, loaders.get_test_loaders):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            fn({"loaders": {}})
-
-
 def test_running_average_and_formatter_match_jax():
     ours, theirs = logging_utils.RunningAverage(), jax_log.RunningAverage()
     for v, n in ((1.0, 2), (4.0, 1), (0.5, 3)):

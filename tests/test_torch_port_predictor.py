@@ -30,6 +30,7 @@ from mdeical_image_segmentation_tpu.ops import image as jax_image
 from mdeical_image_segmentation_tpu.serve import ModelRegistry as JaxRegistry
 from mdeical_image_segmentation_tpu.train import save_checkpoint as jax_save
 from mdeical_image_segmentation_tpu_torch.data import slice_builder, volume_utils
+from mdeical_image_segmentation_tpu_torch.data.loaders import get_test_loaders
 from mdeical_image_segmentation_tpu_torch.infer import (
     StandardPredictor,
     get_predictor,
@@ -182,7 +183,8 @@ def test_get_predictor_reads_the_predict_config(models):
         get_predictor(model, "out", {**cfg, "predictor": {
             "name": "LazyPredictor"}})
     with pytest.raises(NotImplementedError, match="item 20"):
-        pred([])
+        list(get_test_loaders({"loaders": {"dataset": "LazyHDF5Dataset",
+                                           "test": {"file_paths": []}}}))
     with pytest.raises(ValueError, match="unknown predictor config keys"):
         get_predictor(model, "out", {**cfg, "predictor": {"typo": 1}})
 

@@ -309,5 +309,6 @@ def test_unported_options_raise():
         _port_trainer("/nonexistent", zero1=True)
     with pytest.raises(NotImplementedError, match="item 25"):
         _port_trainer("/nonexistent", mesh=object())
-    with pytest.raises(NotImplementedError, match="items 18 and 19"):
-        trainer3d.create_trainer(CFG)
+    with pytest.raises(NotImplementedError, match=r"item 18 \(data/device"):
+        trainer3d.create_trainer({**CFG, "device": "cpu", "loaders": {
+            "device_cache": True}})
