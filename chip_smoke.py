@@ -1,7 +1,8 @@
 """GPU smoke run of the PyTorch port: 2D serving, 3D sliding-window
 inference, 3D 'gcr' training, 2D classic-UNet training, UNet-3+ training
-and serving, and the config-driven 3D pipeline (YAML configs, HDF5
-volumes).
+and serving, the config-driven 3D pipeline (YAML configs, HDF5 volumes),
+and the rest of the 3D family (bf16, device_cache, ResidualUNetSE3D,
+BatchNorm, UNet2D / ResidualUNet2D, remat).
 
     python3 chip_smoke.py
 
@@ -190,11 +191,48 @@ wall time.
    weights (``standardized_patch_batches``) divided as ``_save_results``
    divides, and lie within 1e-3 of the plain path.  Prints the whole
    ``predict3d`` wall time and the HDF5 write time.
-15. Prints the card's name and power limit, the kernels' JSON line (launches
+15. bf16 3D (``phase_train_bf16``): (a) phase 9's configuration with
+   ``model.dtype: bfloat16`` (fp32 master weights), (b) bench.py's
+   ``unet3d_fmaps32_64x128x128`` (UNet3D f_maps 32, 'gcr', bf16, batch 2,
+   x = ``RandomState(0).rand``, y = x > 0.5, BCEDice, Adam 1e-3) and (c)
+   its ``residual_unet3d_fmaps32_64x128x128``, each through UNetTrainer on
+   the kernel path (5, 5 and 2 steps) and the plain path (3, 3 and 2):
+   losses within ``BF16_LOSS_TOLS`` and the step-1 grad norm within 1e-2;
+   launches per step asserted (the first SingleConv reads the float32
+   image, so it runs the GroupNorm module and cuDNN; the other 13 kernel 2
+   in bf16), every bf16 count of kernels 2 and 3a-3d above 0; step ms
+   (median of steps 3+), patches/s, peak memory beside phase 9's fp32
+   step.  One bf16 ``StandardPredictor`` batch of phase 3's configuration
+   (its seeded weights): the map within 3e-2 x max(1, |map|) of the plain
+   bf16 path and 1e-1 of the fp32 map, one overlap-add.  Kernel 2 in bf16
+   at (a)'s 13 fused shapes against its plain version (2e-2), timed in
+   turns with it and cuDNN's bf16 conv3d; the bound at the bf16 peak.
+16. ``device_cache`` (``phase_device_cache``): bench.py's
+   ``unet3d_e2e_train_device_cache`` configuration (a 128x256x256
+   ``RandomState(0).rand`` volume, label > 0.6, gzip HDF5 written by the
+   port; Standardize + RandomFlip; UNet3D f_maps 32, fp32, batch 2, patch
+   = stride = 64x128x128) through ``create_trainer(...).fit()``: one warm
+   epoch, then 3 timed (12 steps), with ``device_cache: true``
+   (``is_device_cached`` asserted) and with the host loader; ms a step,
+   patches/s, the loader wait per batch, the cache's bytes on the card;
+   then ``configs/unet3d_train.yml`` with ``device_cache: true`` must come
+   back as a ``VolumeLoader`` with the fallback warning.
+17. The rest of the family and remat (``phase_family_and_remat``):
+   ResidualUNetSE3D (f_maps 32, 5 levels), UNet3D 'bcr' (f_maps 32; no
+   kernel on its path), both at 64x128x128, batch 2, and UNet2D /
+   ResidualUNet2D (f_maps 64, 'gcr', batch 8 at 256²): 3 steps each on the
+   kernel path and the plain path, losses within ``LOSS_TOLS``, launches
+   per step asserted; the 'bcr' step card vs CPU at 32x64x64 (loss and
+   running statistics within 1e-5); phase 9's configuration under remat
+   ('save_convs_norms', None) and off, 3 steps each with deterministic
+   cuDNN: every loss and parameter equal to the bit, peak memory of each,
+   launches per policy (None runs kernel 2 and 3a twice a step).
+18. Prints the card's name and power limit, the kernels' JSON line (launches
    from the main-path runs, each run's counts zeroed just before it, and
-   for the 3D kernels their launches on the config-driven paths of phases
-   13 and 14; ms, plain, library and bound ms summed over the model shapes:
-   the 9 UNet DoubleConvs at N=2 in bf16, the 3D kernels' fp32 model
+   for the 3D kernels their launches on each path of phases 13-17 under
+   ``launches_by_path``; ms, plain, library and bound ms summed over the
+   model shapes: the 9 UNet DoubleConvs at N=2 in bf16, the 3D kernels'
+   fp32 model shapes, and a ``gcr_conv3d_bf16`` row at phase 15's bf16
    shapes; device ms where phases 6-7 measured it, else null; kernel 1
    also its launches by path, serving and training, and under ``train``
    its numbers at the training batch), and last ``{"ok": true, "device":
@@ -205,6 +243,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import gc
 import http.client
 import json
 import math
@@ -766,6 +805,23 @@ def _zero_counts():
     for fn in (fused_conv.fused_conv3d, norm.gn_channel_sums, norm.gn_affine,
                norm.gn_bwd_reduce, norm.gn_bwd_dx, overlap.overlap_add_into):
         fn.launches = 0
+        fn.launches_by_dtype.clear()
+
+
+def _dtype_counts():
+    """{kernel: {"float32": n, "bfloat16": n}}: the wrappers' launches split
+    by the dtype of the tensor each launch read."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.ops import fused_conv, norm, overlap
+
+    fns = {"gcr_conv3d": fused_conv.fused_conv3d,
+           "gn_stats": norm.gn_channel_sums, "gn_affine": norm.gn_affine,
+           "gn_bwd_reduce": norm.gn_bwd_reduce, "gn_bwd_dx": norm.gn_bwd_dx,
+           "overlap_add": overlap.overlap_add_into}
+    return {k: {name: fn.launches_by_dtype[dt] for name, dt in
+                (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
+            for k, fn in fns.items()}
 
 
 class plain_path:
@@ -2036,7 +2092,8 @@ class UNet3DTraining:
                              seed=self.seed, **trainer_kw)
 
 
-def _compare_runs(name, rec, plain_rec, steps):
+def _compare_runs(name, rec, plain_rec, steps, loss_tols=LOSS_TOLS,
+                  norm_tol=GRAD_NORM_TOL):
     """Losses of the first ``steps`` steps, the global grad norm after step
     1 and each parameter's step-1 gradient, kernel path vs plain path."""
     bad = []
@@ -2044,14 +2101,14 @@ def _compare_runs(name, rec, plain_rec, steps):
         k, p = rec[i]["loss"], plain_rec[i]["loss"]
         rel = abs(k - p) / abs(p)
         log(f"  step {i + 1}: loss kernel {k:.7f} plain {p:.7f} (rel "
-            f"{rel:.2e}, limit {LOSS_TOLS[i]}); ms kernel "
+            f"{rel:.2e}, limit {loss_tols[i]}); ms kernel "
             f"{rec[i]['ms']:.1f} plain {plain_rec[i]['ms']:.1f}")
-        if rel > LOSS_TOLS[i]:
+        if rel > loss_tols[i]:
             bad.append(f"step {i + 1} loss {rel:.2e}")
     gk, gp = rec[0]["grad_norm"], plain_rec[0]["grad_norm"]
     norm_err = abs(gk - gp) / gp
     log(f"  global grad norm after step 1: kernel {gk:.7e} plain {gp:.7e} "
-        f"(rel {norm_err:.2e}, limit {GRAD_NORM_TOL})")
+        f"(rel {norm_err:.2e}, limit {norm_tol})")
     per_param = sorted(
         ((float((g - plain_rec[0]["grads"][n]).abs().max()
                 / plain_rec[0]["grads"][n].abs().max().clamp_min(1e-30)), n)
@@ -2059,7 +2116,7 @@ def _compare_runs(name, rec, plain_rec, steps):
     log(f"  step-1 gradients, max |kernel - plain| / max |plain| per "
         f"parameter, worst 4 of {len(per_param)}: "
         + ", ".join(f"{n} {e:.2e}" for e, n in per_param[:4]))
-    if norm_err > GRAD_NORM_TOL:
+    if norm_err > norm_tol:
         bad.append(f"grad norm {norm_err:.2e}")
     if bad:
         raise AssertionError(f"{name}, kernel path vs plain path: "
@@ -3048,6 +3105,8 @@ class _TimedLoader:
 
     def __init__(self, loader, waits):
         self.loader, self.waits = loader, waits
+        # a device-cached loader's batches are taken as they come
+        self.is_device_cached = getattr(loader, "is_device_cached", False)
 
     def __len__(self):
         return len(self.loader)
@@ -3357,6 +3416,694 @@ def phase_config_predict(seed: int, workdir: str, checkpoint: str):
             "err": err}
 
 
+# ---------------------------------------------------------------------------
+# The rest of the 3D family: bf16 compute, device_cache, ResidualUNetSE3D,
+# BatchNorm, the 2D members and remat
+# ---------------------------------------------------------------------------
+
+# bench.py:134-183 (bench_unet3d): 'gcr', bf16, batch 2 at 64x128x128, x =
+# RandomState(0).rand, y = x > 0.5, BCEDice, Adam 1e-3; its rows
+# unet3d_fmaps32_64x128x128 and residual_unet3d_fmaps32_64x128x128
+# (bench.py:693, :701)
+BENCH_3D_ROWS = (
+    ("unet3d_fmaps32_64x128x128",
+     {"name": "UNet3D", "in_channels": 1, "out_channels": 1, "f_maps": 32,
+      "num_levels": 4, "layer_order": "gcr", "dtype": "bfloat16"}, 5, 3),
+    ("residual_unet3d_fmaps32_64x128x128",
+     {"name": "ResidualUNet3D", "in_channels": 1, "out_channels": 1,
+      "f_maps": 32, "num_levels": 5, "layer_order": "gcr",
+      "dtype": "bfloat16"}, 2, 2),
+)
+BENCH_3D_BATCH = 2
+BENCH_3D_PATCH = (64, 128, 128)
+BENCH_3D_CFG = {"loss": {"name": "BCEDiceLoss"},
+                "eval_metric": {"name": "MeanIoU"},
+                "optimizer": {"name": "Adam", "learning_rate": 1e-3},
+                "lr_scheduler": None, "trainer": {}}
+BF16_STEPS = 5           # phase 15 (a): step ms is the median of steps 3-5
+# the bf16 predictor batch's averaged map, x max(1, |map|): against the
+# plain bf16 path (both round every layer's output to bf16; the CPU tests
+# hold bf16 logits to 3e-2 of max |y|) and against the fp32 map (bf16's 8
+# bits, about 4e-3 relative, compounded through 14 layers)
+BF16_MAP_TOL = 3e-2
+BF16_FP32_MAP_TOL = 1e-1
+BF16_PREDICT_VOLUME = (80, 340, 340)  # 1 x 2 x 2 patches: one batch of 4
+# bench.py:228-300 (bench_device_cache_e2e): a RandomState(0).rand
+# 128x256x256 train volume, label > 0.6, val its first 64 slices;
+# Standardize + RandomFlip; UNet3D f_maps 32, 'gcr', fp32, batch 2, patch =
+# stride = 64x128x128 (8 patches, 4 steps an epoch)
+DC_VOLUME = (128, 256, 256)
+DC_TIMED_EPOCHS = 3
+# phase 17's runs: (name, model, volume, patch, batch); bench's patch
+FAMILY_ROWS = (
+    ("ResidualUNetSE3D", {"name": "ResidualUNetSE3D", "in_channels": 1,
+                          "out_channels": 1, "f_maps": 32, "num_levels": 5,
+                          "layer_order": "gcr"},
+     (64, 128, 256), (64, 128, 128), 2),
+    ("UNet3D 'bcr'", {"name": "UNet3D", "in_channels": 1, "out_channels": 1,
+                      "f_maps": 32, "num_levels": 4, "layer_order": "bcr"},
+     (64, 128, 256), (64, 128, 128), 2),
+    ("UNet2D", {"name": "UNet2D", "in_channels": 1, "out_channels": 1,
+                "f_maps": 64, "num_levels": 4, "layer_order": "gcr"},
+     (8, 256, 256), (1, 256, 256), 8),
+    ("ResidualUNet2D", {"name": "ResidualUNet2D", "in_channels": 1,
+                        "out_channels": 1, "f_maps": 64, "num_levels": 5,
+                        "layer_order": "gcr"},
+     (8, 256, 256), (1, 256, 256), 8),
+)
+FAMILY_STEPS = 3
+BCR_CPU_PATCH = (32, 64, 64)
+CPU_TOL = 1e-5           # 'bcr' step, card vs CPU: loss and running stats
+REMAT_STEPS = 3
+
+
+def _per_step(convs_fused, gn_module, gcr_dx=True):
+    """Launches a training step makes: ``convs_fused`` fused 'gcr'
+    SingleConvs (kernel 2 and 3a forward; 3b's recompute, 3c and 3d
+    backward), ``gn_module`` GroupNorm modules (3a and 3b forward; 3c and 3d
+    backward); with ``gcr_dx`` the model's first GroupNorm reads the image,
+    which needs no dx."""
+    n_dx = convs_fused + gn_module - (1 if gcr_dx else 0)
+    return {"gcr_conv3d": convs_fused,
+            "gn_stats": convs_fused + gn_module,
+            "gn_affine": convs_fused + gn_module,
+            "gn_bwd_reduce": convs_fused + gn_module,
+            "gn_bwd_dx": n_dx, "overlap_add": 0}
+
+
+def _paired_runs(label, model_cfg, cfg, make_loaders, ckpt, workdir, steps,
+                 plain_steps, want=None):
+    """``steps`` steps of UNetTrainer on the kernel path, then
+    ``plain_steps`` on the plain path from the same weights and batches:
+    (records, plain records, launches by dtype, peak GiB, plain peak)."""
+    import numpy as np
+    import torch
+
+    kw = dict(max_num_iterations=steps - 1, validate_after_iters=10**9,
+              log_after_iters=10**9)
+    trainer = _make_trainer(model_cfg, cfg, make_loaders(),
+                            os.path.join(workdir, label), ckpt, **kw)
+    rec = []
+    _instrument(trainer, rec)
+    torch.cuda.synchronize()
+    # earlier phases' trainers may still await collection: the peak is
+    # read over this run's own tensors and whatever else stays alive
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    trainer.fit()
+    by_dtype = _dtype_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, r in enumerate(rec):
+        log(f"  step {i + 1}: {r['ms']:.1f} ms, loss {r['loss']:.6f}, "
+            f"launches {r['launches']}")
+        if (want is not None and r["launches"] != want) or not np.isfinite(
+                r["loss"]):
+            raise AssertionError(f"{label} step {i + 1}: {r['launches']}, "
+                                 f"want {want} and a finite loss")
+    if len(rec) != steps:
+        raise AssertionError(f"{label}: {len(rec)} steps, want {steps}")
+    # _instrument's wrapper holds the trainer in a cycle: collect it now,
+    # or its weights and Adam state stay in the next run's peak
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    with plain_path():
+        plain = _make_trainer(model_cfg, cfg, make_loaders(),
+                              os.path.join(workdir, label + "_plain"), ckpt,
+                              **{**kw, "max_num_iterations": plain_steps - 1})
+        plain_rec = []
+        _instrument(plain, plain_rec)
+        torch.cuda.reset_peak_memory_stats()
+        plain.fit()
+        plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, plain_rec, by_dtype, peak, plain_peak
+
+
+def _steady(rec, skip=2):
+    return statistics.median(r["ms"] for r in rec[skip:] or rec[-1:])
+
+
+def _bf16_gcr_shapes(model_cfg, patch, batch):
+    """The input shapes (and Co) of every bf16 fused 'gcr' SingleConv of
+    ``model_cfg`` at ``patch``: one no-grad forward with hooks."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.models import (
+        SingleConv,
+        get_model,
+    )
+
+    model = get_model(model_cfg, device=DEVICE).eval()
+    for p in model.parameters():
+        torch.nn.init.normal_(p, std=0.02)
+    found = []
+
+    def hook(mod, args):
+        if mod.fused and args[0].dtype == torch.bfloat16:
+            found.append((tuple(args[0].shape),
+                          mod.TorchConv_0.weight.shape[0]))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, SingleConv)]
+    with torch.no_grad():
+        model(torch.zeros((batch, *patch, model_cfg["in_channels"]),
+                          device=DEVICE))
+    for h in handles:
+        h.remove()
+    del model
+    torch.cuda.empty_cache()
+    return found
+
+
+def phase_bf16_forward_convs(seed: int, shapes):
+    """Kernel 2 in bf16 at the bf16 training step's fused shapes against
+    its plain version (affine rounded to bf16, cuDNN conv3d in bf16) within
+    2e-2, timed in turns with the plain version and cuDNN's conv3d alone;
+    the bound at the bf16 peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from mdeical_image_segmentation_tpu_torch.ops import fused_conv
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    rec = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "op_ms": 0.0, "byte_ms": 0.0}
+    flop_sum = 0.0
+    for shape, co in shapes:
+        ci = shape[-1]
+        x = _rand(gen, shape, torch.bfloat16)
+        k = _rand(gen, (3, 3, 3, ci, co), torch.bfloat16, (27 * ci) ** -0.5)
+        a = torch.rand((shape[0], ci), device=DEVICE, generator=gen) + 0.5
+        b = 0.5 * torch.randn((shape[0], ci), device=DEVICE, generator=gen)
+        err = _compare(f"gcr_conv3d bf16 {shape}->{co}",
+                       fused_conv.fused_conv3d(x, k, a, b),
+                       fused_conv.fused_conv3d_reference(x, k, a, b),
+                       BF16_TOL)
+        xc, kc = x.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2)
+        k_ms, p_ms, l_ms = _time_turns(
+            lambda: fused_conv.fused_conv3d(x, k, a, b),
+            lambda: fused_conv.fused_conv3d_reference(x, k, a, b),
+            lambda: F.conv3d(xc, kc, padding=1))
+        flop, nbytes = _gcr_flop_bytes(shape, co, 3, 2)
+        rec["err"] = max(rec["err"], err)
+        rec["ms"] += k_ms
+        rec["plain_ms"] += p_ms
+        rec["library_ms"] += l_ms
+        rec["bound_ms"] += _bound_ms(flop, nbytes, PEAK_BF16)[0]
+        rec["op_ms"] += flop / PEAK_BF16 * 1e3
+        rec["byte_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+        flop_sum += flop
+        log(f"  bf16 fwd {str(shape):26s} -> {co:4d}: err {err:.2e}; kernel "
+            f"{k_ms:8.3f} ms {_rate(flop, k_ms, torch.bfloat16)}; plain "
+            f"{p_ms:8.3f} ms; cuDNN {l_ms:8.3f} ms")
+        del x, k, xc, kc
+        torch.cuda.empty_cache()
+    log(f"[phase 15] kernel 2 in bf16 at the {len(shapes)} fused shapes of "
+        f"the bf16 training step: kernel {rec['ms']:.3f} ms, plain "
+        f"{rec['plain_ms']:.3f} ms, cuDNN conv3d {rec['library_ms']:.3f} ms; "
+        f"bound {rec['bound_ms']:.3f} ms (share "
+        f"{_share(rec['bound_ms'], rec['ms'])}); kernel "
+        f"{_rate(flop_sum, rec['ms'], torch.bfloat16)}")
+    return rec
+
+
+def _bf16_predictor_batch(seed: int):
+    """One batch of 4 patches of phase 3's configuration (its weights, from
+    the same seed) through ``StandardPredictor`` with the model in bf16:
+    its averaged map against the fp32 model's and against the plain bf16
+    path."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.data.volume_utils import (
+        padded_patch_batches,
+    )
+    from mdeical_image_segmentation_tpu_torch.infer import get_predictor
+    from mdeical_image_segmentation_tpu_torch.models import get_model
+
+    cfg = read_yaml_subset(PREDICT_YML)
+    slices, batch_size = (cfg["loaders"]["test"]["slice_builder"],
+                          cfg["loaders"]["batch_size"])
+    state = get_model(cfg["model"], generator=torch.Generator().manual_seed(
+        seed)).state_dict()
+    raw = seeded_volume(BF16_PREDICT_VOLUME, seed + 6)
+
+    def run(dtype):
+        model_cfg = {**cfg["model"], "dtype": dtype}
+        model = get_model(model_cfg, device=DEVICE)
+        model.load_state_dict(state)
+        model.eval()
+        pred = get_predictor(model, None, {"model": model_cfg,
+                                           "predictor": cfg["predictor"]})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc, cnt = pred._device_accumulate(
+            padded_patch_batches(raw, slices, batch_size), raw.shape,
+            slices["halo_shape"])
+        ms = (time.perf_counter() - t0) * 1e3
+        del model, pred
+        torch.cuda.empty_cache()
+        return acc / cnt, cnt, ms
+
+    run("float32")  # warm-ups: cuDNN's algorithms, allocator growth
+    f32, cnt32, ms32 = run("float32")
+    run("bfloat16")
+    _zero_counts()
+    b16, cnt16, ms16 = run("bfloat16")
+    counts, by_dtype = _counts(), _dtype_counts()
+    with plain_path():
+        plain, _, plain_ms = run("bfloat16")
+    if not np.isfinite(b16).all() or cnt16.min() < 1 or (
+            not np.array_equal(cnt16, cnt32)):
+        raise AssertionError("bf16 predictor: non-finite map or counts that "
+                             "differ from the fp32 run")
+    scale = max(1.0, float(np.abs(plain).max()))
+    err_plain = float(np.abs(b16 - plain).max())
+    err_f32 = float(np.abs(b16 - f32).max())
+    log(f"  bf16 predictor batch of 4 (volume {BF16_PREDICT_VOLUME}): "
+        f"{ms16:.1f} ms (fp32 {ms32:.1f} ms, plain bf16 {plain_ms:.1f} ms); "
+        f"map vs plain bf16 {err_plain:.3e} (limit {BF16_MAP_TOL} x "
+        f"{scale:.3f}), vs fp32 {err_f32:.3e} (limit {BF16_FP32_MAP_TOL} x "
+        f"{scale:.3f}); launches {counts}, by dtype {by_dtype}")
+    convs = 2 * (2 * cfg["model"]["num_levels"] - 1)
+    # the first SingleConv reads the float32 image: GroupNorm module, cuDNN
+    want = {"gcr_conv3d": convs - 1, "gn_stats": convs, "gn_affine": 1,
+            "gn_bwd_reduce": 0, "gn_bwd_dx": 0, "overlap_add": 1}
+    if counts != want or by_dtype["gcr_conv3d"]["bfloat16"] != convs - 1:
+        raise AssertionError(f"bf16 predictor batch: {counts} {by_dtype}, "
+                             f"want {want}, kernel 2 in bf16")
+    if err_plain > BF16_MAP_TOL * scale or err_f32 > BF16_FP32_MAP_TOL * scale:
+        raise AssertionError(f"bf16 predictor map: {err_plain:.3e} from the "
+                             f"plain path, {err_f32:.3e} from fp32")
+    return {"launches": counts, "by_dtype": by_dtype, "ms": ms16,
+            "fp32_ms": ms32, "plain_ms": plain_ms, "err": err_plain}
+
+
+def phase_train_bf16(seed: int, workdir: str, fp32_step_ms: float):
+    """(a) phase 9's configuration with ``model.dtype: bfloat16``; (b) and
+    (c) bench.py's bf16 3D rows, each through UNetTrainer on the kernel
+    path and the plain path; the bf16 predictor batch; kernel 2 in bf16 at
+    (a)'s shapes."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.data.loaders import VolumeLoader
+
+    out = {"runs": {}, "launches": {}, "by_dtype": {}}
+
+    def note(label, rec, plain_rec, by_dtype, peak, plain_peak, batch):
+        step = _steady(rec)
+        plain_step = _steady(plain_rec)
+        out["runs"][label] = {"step_ms": step, "plain_step_ms": plain_step,
+                              "patches_per_s": batch * 1e3 / step,
+                              "peak_gib": peak, "plain_peak_gib": plain_peak}
+        for k, v in by_dtype.items():
+            tot = out["by_dtype"].setdefault(k, {"float32": 0, "bfloat16": 0})
+            for d, n in v.items():
+                tot[d] += n
+        log(f"[phase 15] {label}: step {step:.1f} ms (median of steps 3+), "
+            f"{batch * 1e3 / step:.2f} patches/s, peak {peak:.2f} GiB; plain "
+            f"path {plain_step:.1f} ms, peak {plain_peak:.2f} GiB; launches "
+            f"by dtype {by_dtype}")
+        for k in ("gcr_conv3d", "gn_stats", "gn_affine", "gn_bwd_reduce",
+                  "gn_bwd_dx"):
+            if by_dtype[k]["bfloat16"] == 0:
+                raise AssertionError(f"{label}: {k} never launched in bf16")
+
+    # (a) phase 9's configuration in bf16
+    setup = UNet3DTraining(seed, os.path.join(workdir, "bf16_a"))
+    model_cfg = {**setup.model_cfg, "dtype": "bfloat16"}
+    batch = setup.batch_size
+
+    def loaders_a():
+        return {"train": VolumeLoader(setup.train_ds, batch, shuffle=True,
+                                      seed=seed, drop_last=True),
+                "val": VolumeLoader(setup.val_ds, batch)}
+
+    convs = 2 * (2 * model_cfg["num_levels"] - 1)
+    want = _per_step(convs, 0)
+    want["gcr_conv3d"] = want["gn_bwd_dx"] = convs - 1  # the first conv's
+    log(f"[phase 15] (a) {model_cfg}, batch {batch}, patch 80x170x170, "
+        f"{BF16_STEPS} steps kernel path, 3 plain")
+    rec, plain_rec, by_dtype, peak, plain_peak = _paired_runs(
+        "bf16_a", model_cfg, setup.cfg, loaders_a, setup.checkpoint, workdir,
+        BF16_STEPS, 3, want)
+    _compare_runs("bf16 UNet3D (a)", rec, plain_rec, 3, BF16_LOSS_TOLS,
+                  BF16_GRAD_NORM_TOL)
+    note("(a) phase 9's UNet3D in bf16", rec, plain_rec, by_dtype, peak,
+         plain_peak, batch)
+    out["launches"]["a"] = by_dtype
+    log(f"[phase 15] (a) bf16 step {_steady(rec):.1f} ms against phase 9's "
+        f"fp32 step {fp32_step_ms:.1f} ms in this call")
+    out["fp32_step_ms"] = fp32_step_ms
+    shapes = _bf16_gcr_shapes(
+        model_cfg, setup.cfg["loaders"]["train"]["slice_builder"][
+            "patch_shape"], batch)
+
+    # (b), (c): bench.py's rows on its own batches
+    rs = np.random.RandomState(0)
+    x = rs.rand(BENCH_3D_BATCH, *BENCH_3D_PATCH, 1).astype(np.float32)
+    y = (x > 0.5).astype(np.float32)
+    for (label, cfg_m, steps, plain_steps), tag in zip(BENCH_3D_ROWS, "bc"):
+        ckpt = _initial_checkpoint(cfg_m, seed, workdir, f"bf16_{tag}_init")
+        per = (_per_step(2 * (2 * cfg_m["num_levels"] - 1), 0)
+               if cfg_m["name"] == "UNet3D" else
+               _per_step(2 * cfg_m["num_levels"] - 1,
+                         2 * cfg_m["num_levels"] - 1, gcr_dx=False))
+        if cfg_m["name"] == "UNet3D":
+            per["gcr_conv3d"] = per["gn_bwd_dx"] = per["gcr_conv3d"] - 1
+        log(f"[phase 15] ({tag}) bench.py's {label}: {cfg_m}, batch "
+            f"{BENCH_3D_BATCH}, RandomState(0).rand, y = x > 0.5; {steps} "
+            f"steps, {plain_steps} plain")
+        rec, plain_rec, by_dtype, peak, plain_peak = _paired_runs(
+            f"bf16_{tag}", cfg_m, BENCH_3D_CFG,
+            lambda: {"train": [(x, y)] * steps, "val": [(x, y)]}, ckpt,
+            workdir, steps, plain_steps, per)
+        _compare_runs(f"bf16 {label}", rec, plain_rec, min(3, plain_steps),
+                      BF16_LOSS_TOLS, BF16_GRAD_NORM_TOL)
+        note(f"({tag}) {label}", rec, plain_rec, by_dtype, peak, plain_peak,
+             BENCH_3D_BATCH)
+        out["launches"][tag] = by_dtype
+    out["predict"] = _bf16_predictor_batch(seed)
+    out["k2"] = phase_bf16_forward_convs(seed, shapes)
+    return out
+
+
+def phase_device_cache(seed: int, workdir: str):
+    """bench.py's unet3d_e2e_train_device_cache configuration through
+    ``create_trainer(...).fit()``: one warm epoch and 3 timed, with
+    ``device_cache: true`` and with the host loader; then the yml's
+    pipeline with ``device_cache: true``, which must fall back."""
+    import copy
+    import logging
+
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.data import loaders as loaders_mod
+    from mdeical_image_segmentation_tpu_torch.train.trainer3d import (
+        create_trainer,
+    )
+
+    rs = np.random.RandomState(0)
+    raw = rs.rand(*DC_VOLUME).astype(np.float32)
+    files = {}
+    for name, sl in (("train", slice(None)), ("val", slice(0, 64))):
+        files[name] = os.path.join(workdir, f"dc_{name}.h5")
+        _write_h5_volume(files[name], raw[sl], (raw[sl] > 0.6).astype(
+            np.uint8))
+
+    def phase(name):
+        tt = {"name": "ToTensor", "expand_dims": True}
+        return {"transformer": {"raw": [{"name": "Standardize"},
+                                        {"name": "RandomFlip"}, tt],
+                                "label": [{"name": "RandomFlip"}, tt]},
+                "slice_builder": {"name": "SliceBuilder",
+                                  "patch_shape": list(BENCH_3D_PATCH),
+                                  "stride_shape": list(BENCH_3D_PATCH),
+                                  "skip_shape_check": True},
+                "file_paths": [files[name]]}
+
+    base = {
+        "device": DEVICE, "seed": seed,
+        "model": {"name": "UNet3D", "in_channels": 1, "out_channels": 1,
+                  "f_maps": 32, "num_levels": 4, "layer_order": "gcr",
+                  "num_groups": 8, "final_sigmoid": True},
+        "loss": {"name": "BCEDiceLoss"}, "eval_metric": {"name": "MeanIoU"},
+        "optimizer": {"name": "Adam", "learning_rate": 2e-4},
+        "trainer": {"max_num_epochs": 1, "max_num_iterations": 10**9,
+                    "validate_after_iters": 10**9, "log_after_iters": 10**9,
+                    "skip_train_validation": True},
+        "loaders": {"dataset": "StandardHDF5Dataset",
+                    "batch_size": BENCH_3D_BATCH, "num_workers": 2,
+                    "train": phase("train"), "val": phase("val")}}
+    results = {}
+    for device_cache in (True, False):
+        cfg = copy.deepcopy(base)
+        cfg["loaders"]["device_cache"] = device_cache
+        cfg["trainer"]["checkpoint_dir"] = os.path.join(
+            workdir, f"dc_{device_cache}")
+        trainer = create_trainer(cfg)
+        loader = trainer.loaders["train"]
+        if device_cache and not getattr(loader, "is_device_cached", False):
+            raise AssertionError("device_cache: true fell back to the host "
+                                 "loader on the bench configuration")
+        waits = []
+        trainer.loaders["train"] = _TimedLoader(loader, waits)
+        trainer.fit()  # the warm epoch
+        torch.cuda.synchronize()
+        n0 = trainer.num_iterations
+        waits.clear()
+        _zero_counts()
+        trainer.max_num_epochs = 1 + DC_TIMED_EPOCHS
+        t0 = time.perf_counter()
+        trainer.fit()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps = trainer.num_iterations - n0
+        launches = _counts()
+        per = _per_step(2 * (2 * 4 - 1), 0)
+        if steps != 4 * DC_TIMED_EPOCHS or launches != {
+                k: v * steps for k, v in per.items()}:
+            raise AssertionError(f"device_cache={device_cache}: {steps} "
+                                 f"steps, launches {launches}")
+        key = "device_cache" if device_cache else "host_loader"
+        results[key] = {"ms_per_step": dt / steps * 1e3,
+                        "patches_per_s": steps * BENCH_3D_BATCH / dt,
+                        "wait_ms": statistics.median(waits),
+                        "wait_max_ms": max(waits), "launches": launches,
+                        "nbytes": getattr(loader, "nbytes", None)}
+        log(f"[phase 16] {key}: {steps} steps in {dt:.3f} s, "
+            f"{dt / steps * 1e3:.1f} ms a step, "
+            f"{steps * BENCH_3D_BATCH / dt:.2f} patches/s; loader wait per "
+            f"batch median {statistics.median(waits):.2f} ms, max "
+            f"{max(waits):.2f} ms ({', '.join(f'{w:.1f}' for w in waits)})"
+            + (f"; cache {loader.nbytes / 2**20:.1f} MiB on the device"
+               if device_cache else ""))
+        if not device_cache:
+            loader.close()
+        trainer.loaders["val"].close()
+        del trainer, loader
+        torch.cuda.empty_cache()
+
+    # configs/unet3d_train.yml with device_cache: true runs on the host
+    ycfg = read_yaml_subset(TRAIN_YML)
+    ylabel = _foreground_label(raw)
+    for name, sl in (("yml_train", slice(None)), ("yml_val", slice(0, 80))):
+        files[name] = os.path.join(workdir, f"{name}.h5")
+        _write_h5_volume(files[name], raw[sl], ylabel[sl])
+    ycfg["loaders"]["device_cache"] = True
+    ycfg["loaders"]["train"]["file_paths"] = [files["yml_train"]]
+    ycfg["loaders"]["val"]["file_paths"] = [files["yml_val"]]
+
+    class _Warnings(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    handler = _Warnings()
+    loaders_mod.logger.addHandler(handler)
+    try:
+        got = loaders_mod.get_train_loaders(ycfg, device=torch.device(DEVICE))
+    finally:
+        loaders_mod.logger.removeHandler(handler)
+    fell_back = [m for m in handler.messages if "falling back" in m]
+    if not isinstance(got["train"], loaders_mod.VolumeLoader) or not any(
+            "RandomRotate" in m or "ElasticDeformation" in m
+            for m in fell_back):
+        raise AssertionError(f"the yml with device_cache: true gave "
+                             f"{type(got['train']).__name__}, warnings "
+                             f"{handler.messages}")
+    log(f"[phase 16] configs/unet3d_train.yml with device_cache: true: "
+        f"{type(got['train']).__name__} and the warning {fell_back[0]!r}")
+    got["train"].close()
+    got["val"].close()
+    results["launches"] = results["device_cache"]["launches"]
+    return results
+
+
+def _family_loaders(volume_shape, patch, batch, seed):
+    from mdeical_image_segmentation_tpu_torch.data.loaders import VolumeLoader
+
+    raw = seeded_volume(volume_shape, seed)
+    ds = _PatchDataset(raw, _smooth_label(raw), patch, patch)
+
+    def make():
+        return {"train": VolumeLoader(ds, batch, shuffle=True, seed=seed,
+                                      drop_last=True),
+                "val": VolumeLoader(ds, batch)}
+    return make, ds
+
+
+def _bcr_card_vs_cpu(seed: int, model_cfg, workdir: str):
+    """One training step of the 'bcr' UNet3D at 32x64x64 from the same
+    weights and batch on the card and on the CPU (fp32, TF32 off): the
+    loss and the running statistics after the step."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.losses import (
+        get_loss_criterion,
+    )
+    from mdeical_image_segmentation_tpu_torch.models import get_model
+
+    raw = seeded_volume(BCR_CPU_PATCH, seed + 9)
+    x = torch.from_numpy(raw)[None, ..., None]
+    t = torch.from_numpy(_smooth_label(raw))[None, ..., None]
+    x, t = torch.cat([x, x.flip(1)]), torch.cat([t, t.flip(1)])
+    init = get_model(model_cfg, generator=torch.Generator().manual_seed(seed))
+    state = {k: v.clone() for k, v in init.state_dict().items()}
+    res = {}
+    for device in (DEVICE, "cpu"):
+        model = get_model(model_cfg, device=device)
+        model.load_state_dict(state)
+        model.train()
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        loss = get_loss_criterion({"loss": {"name": "BCEDiceLoss"}})(
+            model(x.to(device)), t.to(device))
+        loss.backward()
+        opt.step()
+        stats = torch.cat([b.detach().cpu().flatten()
+                           for n, b in model.named_buffers()
+                           if n.endswith(("running_mean", "running_var"))])
+        res[device] = (loss.item(), stats)
+    (lk, sk), (lc, sc) = res[DEVICE], res["cpu"]
+    loss_err, stats_err = abs(lk - lc) / abs(lc), _stats_rel(sk, sc)
+    log(f"  'bcr' step at {BCR_CPU_PATCH}, batch 2, card vs CPU: loss "
+        f"{lk:.7f} / {lc:.7f} (rel {loss_err:.2e}), running statistics "
+        f"rel {stats_err:.2e} (limit {CPU_TOL} each)")
+    if loss_err > CPU_TOL or stats_err > CPU_TOL:
+        raise AssertionError("'bcr' card vs CPU beyond the limits")
+    return loss_err, stats_err
+
+
+def phase_family_and_remat(seed: int, workdir: str):
+    """ResidualUNetSE3D, UNet3D 'bcr', UNet2D and ResidualUNet2D: 3 steps
+    each on the kernel path and the plain path; the 'bcr' step card vs
+    CPU; phase 9's configuration under remat ('save_convs_norms' and None)
+    against remat off, to the bit."""
+    import numpy as np
+    import torch
+
+    out = {"runs": {}, "launches": {}}
+    cfg = read_yaml_subset(TRAIN_YML)
+    for label, model_cfg, volume, patch, batch in FAMILY_ROWS:
+        make, ds = _family_loaders(volume, patch, batch, seed + 7)
+        levels = model_cfg["num_levels"]
+        if "b" in model_cfg["layer_order"]:
+            want = {k: 0 for k in KERNELS_3D}
+        elif model_cfg["name"].startswith("Residual"):
+            fused = 0 if model_cfg["name"].endswith("2D") else 2 * levels - 1
+            want = _per_step(fused, 2 * (2 * levels - 1) - fused,
+                             gcr_dx=False)
+        else:  # UNet2D: every GroupNorm is a module
+            want = _per_step(0, 2 * (2 * levels - 1))
+        ckpt = _initial_checkpoint(model_cfg, seed, workdir,
+                                   f"family_{len(out['runs'])}")
+        log(f"[phase 17] {label}: {model_cfg}, {len(ds)} patches of "
+            f"{patch} from a seeded {volume} volume, batch {batch}; "
+            f"{FAMILY_STEPS} steps each path; launches a step {want}")
+        rec, plain_rec, by_dtype, peak, plain_peak = _paired_runs(
+            f"family_{label}", model_cfg, cfg, make, ckpt, workdir,
+            FAMILY_STEPS, FAMILY_STEPS, want)
+        _compare_runs(label, rec, plain_rec, FAMILY_STEPS)
+        out["runs"][label] = {"step_ms": _steady(rec, 1),
+                              "plain_step_ms": _steady(plain_rec, 1),
+                              "peak_gib": peak, "batch": batch}
+        out["launches"][label] = _counts_from(rec)
+        log(f"[phase 17] {label}: step {_steady(rec, 1):.1f} ms (median of "
+            f"steps 2-3; plain {_steady(plain_rec, 1):.1f}), peak "
+            f"{peak:.2f} GiB")
+        if "b" in model_cfg["layer_order"]:
+            out["bcr_cpu"] = _bcr_card_vs_cpu(seed, model_cfg, workdir)
+
+    # remat on phase 9's configuration: deterministic cuDNN, every loss and
+    # parameter equal to the bit to remat off
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+           torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    # MaxPool3d's backward has no deterministic twin and warns: its windows
+    # do not overlap here, so each gradient element gets one addition
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        setup = UNet3DTraining(seed, os.path.join(workdir, "remat"))
+        base_cfg = setup.model_cfg
+        runs = {}
+        convs = 2 * (2 * base_cfg["num_levels"] - 1)
+        for policy in ("off", "save_convs_norms", None):
+            setup.model_cfg = (base_cfg if policy == "off" else
+                               {**base_cfg, "remat": True,
+                                "remat_policy": policy})
+            trainer = setup.trainer(f"remat_{policy}",
+                                    max_num_iterations=REMAT_STEPS - 1,
+                                    validate_after_iters=10**9,
+                                    log_after_iters=10**9)
+            rec = []
+            _instrument(trainer, rec)
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            trainer.fit()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            launches = _counts()
+            want = _per_step(convs, 0)
+            if policy is None:  # the forward runs again in the backward
+                want["gcr_conv3d"] *= 2
+                want["gn_stats"] *= 2
+            per = {k: v * REMAT_STEPS for k, v in want.items()}
+            if launches != per:
+                raise AssertionError(f"remat {policy}: launches {launches},"
+                                     f" want {per}")
+            params = [p.detach().clone() for p in
+                      trainer.model.parameters()]
+            runs[str(policy)] = {"losses": [r["loss"] for r in rec],
+                                 "ms": _steady(rec, 1), "peak_gib": peak,
+                                 "params": params, "launches": launches}
+            log(f"[phase 17] remat {policy}: losses "
+                f"{[f'{r:.9f}' for r in runs[str(policy)]['losses']]}, "
+                f"step {_steady(rec, 1):.1f} ms, peak {peak:.2f} GiB, "
+                f"launches {launches}")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        off = runs["off"]
+        for policy in ("save_convs_norms", "None"):
+            r = runs[policy]
+            same = r["losses"] == off["losses"] and all(
+                torch.equal(a, b) for a, b in zip(r["params"],
+                                                  off["params"]))
+            if not same:
+                raise AssertionError(f"remat {policy} differs from remat off"
+                                     f" ({r['losses']} vs {off['losses']})")
+        log("[phase 17] remat save_convs_norms and None: every loss and "
+            "parameter equal to remat off, bit for bit")
+        out["remat"] = {k: {kk: vv for kk, vv in v.items()
+                            if kk != "params"} for k, v in runs.items()}
+        out["launches"]["remat"] = {
+            k: sum(r["launches"][k] for r in runs.values())
+            for k in KERNELS_3D}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            det[0], det[1])
+        torch.use_deterministic_algorithms(det[2])
+    if not np.isfinite([r["ms"] for r in runs.values()]).all():
+        raise AssertionError("remat: non-finite step times")
+    return out
+
+
+def _counts_from(rec):
+    """The launches of a run's steps, summed."""
+    return {k: sum(r["launches"][k] for r in rec) for k in KERNELS_3D}
+
+
 def main() -> int:
     import torch
 
@@ -3453,6 +4200,22 @@ def main() -> int:
         cfg_predict = phase_config_predict(SEED, workdir, cfg_train["best"])
         log(f"[phase 14] config-driven prediction ok; wall "
             f"{time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 15] bf16 3D training: phase 9's configuration and "
+            "bench.py's 3D rows; a bf16 predictor batch; kernel 2 in bf16")
+        bf16 = phase_train_bf16(SEED, workdir, step_ms)
+        log(f"[phase 15] bf16 3D ok; wall {time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 16] device_cache: bench.py's unet3d_e2e_train_device_cache"
+            " through create_trainer(...).fit(), against the host loader")
+        dcache = phase_device_cache(SEED, workdir)
+        log(f"[phase 16] device_cache ok; wall {time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 17] ResidualUNetSE3D, UNet3D 'bcr', UNet2D, "
+            "ResidualUNet2D; remat on phase 9's configuration")
+        family = phase_family_and_remat(SEED, workdir)
+        log(f"[phase 17] family and remat ok; wall "
+            f"{time.time() - t_phase:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if train2d["launches"] == 0:
@@ -3460,10 +4223,23 @@ def main() -> int:
 
     # launches of each kernel over the main-path runs it belongs to (each
     # run zeroes the counts just before and reads them just after)
+    def summed(*rs):
+        return {k: sum(r[k] for r in rs) for k in KERNELS_3D}
+
+    new_paths = {
+        "train_3d_bf16": summed(*({k: sum(v.values()) for k, v in r.items()}
+                                  for r in bf16["launches"].values())),
+        "predict_3d_bf16": bf16["predict"]["launches"],
+        "device_cache": dcache["launches"],
+        "remat": family["launches"]["remat"],
+        "se3d": family["launches"]["ResidualUNetSE3D"],
+        "unet2d_3dfamily": summed(family["launches"]["UNet2D"],
+                                  family["launches"]["ResidualUNet2D"]),
+    }
     runs = (unet3d_launches, res_launches, serve3d_launches, train_launches,
             res_train_launches, cfg_train["launches"],
-            cfg_predict["launches"])
-    launches_3d = {k: sum(r[k] for r in runs) for k in KERNELS_3D}
+            cfg_predict["launches"], *new_paths.values())
+    launches_3d = summed(*runs)
     for k, n in launches_3d.items():
         if n == 0:
             raise AssertionError(f"{k} was never launched on the main path")
@@ -3528,7 +4304,8 @@ def main() -> int:
         "replaces": f"mdeical_image_segmentation_tpu/{replaces[k]}",
         "launches": launches_3d[k],
         "launches_by_path": {"config_train3d": cfg_train["launches"][k],
-                             "config_predict3d": cfg_predict["launches"][k]},
+                             "config_predict3d": cfg_predict["launches"][k],
+                             **{path: n[k] for path, n in new_paths.items()}},
         "max_abs_err": k3d[k]["err"],
         "ms": k3d[k]["ms"],
         "plain_ms": k3d[k]["plain_ms"],
@@ -3541,6 +4318,51 @@ def main() -> int:
                       or math.isnan(k3d[k]["device_ms"])
                       else k3d[k]["device_ms"]),
     } for k in KERNELS_3D]
+    k2 = bf16["k2"]
+    bf16_k2_launches = (bf16["by_dtype"]["gcr_conv3d"]["bfloat16"]
+                        + bf16["predict"]["by_dtype"]["gcr_conv3d"]["bfloat16"])
+    if bf16_k2_launches == 0:
+        raise AssertionError("kernel 2 never ran in bf16 on a model path")
+    kernels.append({
+        "name": "gcr_conv3d_bf16",
+        "route": "cuda",
+        "source": "mdeical_image_segmentation_tpu_torch/csrc/gcr_conv3d.cu",
+        "replaces": f"mdeical_image_segmentation_tpu/{replaces['gcr_conv3d']}",
+        # kernel 2's bf16 launches on the bf16 paths of phase 15
+        "launches": bf16_k2_launches,
+        "launches_by_path": {
+            "train_3d_bf16": bf16["by_dtype"]["gcr_conv3d"]["bfloat16"],
+            "predict_3d_bf16":
+                bf16["predict"]["by_dtype"]["gcr_conv3d"]["bfloat16"]},
+        "max_abs_err": k2["err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": ("operations" if k2["op_ms"] >= k2["byte_ms"]
+                     else "bytes"),
+        # cuDNN's bf16 conv3d alone, on the same inputs, without the affine
+        "library_ms": k2["library_ms"],
+        "device_ms": None,
+    })
+    log("bf16 3D (phase 15): " + "; ".join(
+        f"{k} {v['step_ms']:.1f} ms a step, {v['patches_per_s']:.2f} "
+        f"patches/s, peak {v['peak_gib']:.2f} GiB (plain "
+        f"{v['plain_step_ms']:.1f} ms)" for k, v in bf16["runs"].items())
+        + f"; fp32 phase 9 {bf16['fp32_step_ms']:.1f} ms; predictor batch "
+        f"{bf16['predict']['ms']:.1f} ms (fp32 {bf16['predict']['fp32_ms']:.1f})"
+        f"; launches by dtype {bf16['by_dtype']}")
+    log("device_cache (phase 16): " + "; ".join(
+        f"{k} {dcache[k]['ms_per_step']:.1f} ms a step, "
+        f"{dcache[k]['patches_per_s']:.2f} patches/s, wait median "
+        f"{dcache[k]['wait_ms']:.2f} ms" for k in ("device_cache",
+                                                   "host_loader"))
+        + f"; cache {dcache['device_cache']['nbytes'] / 2**20:.1f} MiB")
+    log("family and remat (phase 17): " + "; ".join(
+        f"{k} {v['step_ms']:.1f} ms a step (plain {v['plain_step_ms']:.1f}), "
+        f"peak {v['peak_gib']:.2f} GiB" for k, v in family["runs"].items())
+        + "; remat " + "; ".join(
+            f"{k} {v['ms']:.1f} ms, peak {v['peak_gib']:.2f} GiB"
+            for k, v in family["remat"].items()))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

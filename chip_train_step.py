@@ -5,12 +5,15 @@ configs/unet3d_train.yml (f_maps 64, batch 1, 80x170x170 patch, fp32, TF32
 off), built by ``chip_smoke.UNet3DTraining`` exactly as ``chip_smoke.py``
 phase 9 builds it, and the sliding-window predictor of phases 3 and 4.
 
-    python3 chip_train_step.py [--steps 3] [--predictors] [--loss-seeds 0 1 2 3]
+    python3 chip_train_step.py [--steps 3] [--dtype bfloat16] [--predictors]
+                               [--loss-seeds 0 1 2 3]
 
 Needs one CUDA card and the checkout it sits in; imports nothing of JAX.
 
 Profile (``--steps`` > 0): two warm-up steps, then ``--steps`` steps under
-``torch.profiler`` on the kernel path and on the plain path; per step, the
+``torch.profiler`` on the kernel path and on the plain path, with the
+model in ``--dtype`` (float32, or bfloat16: ``chip_smoke.py`` phase 15's
+bf16 cell, fp32 master weights); per step, the
 device time of each group of kernels (self CUDA time summed by kernel
 name), the device busy time against the wall time, and the 12 largest
 kernels.  Groups: the port's conv core (``conv_halo_kernel`` /
@@ -254,6 +257,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=3,
                     help="profiled steps per path (0: no profile)")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32",
+                    help="compute dtype of the profiled training step")
     ap.add_argument("--predictors", action="store_true",
                     help="profile the UNet3D and ResidualUNet3D predictors")
     ap.add_argument("--loss-seeds", type=int, nargs="*", default=[],
@@ -271,13 +277,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
         if args.steps > 0:
             setup = chip_smoke.UNet3DTraining(chip_smoke.SEED, work)
+            setup.model_cfg = {**setup.model_cfg, "dtype": args.dtype}
             for title, plain, _ in RUNS[:2]:
                 with (chip_smoke.plain_path() if plain
                       else contextlib.nullcontext()):
                     trainer = setup.trainer(f"profile_{title}",
                                             max_num_iterations=100)
                     by_name, wall = _profile(trainer, args.steps)
-                    _report(f"{title} path", by_name, wall, args.steps)
+                    _report(f"{title} path, {args.dtype}", by_name, wall,
+                            args.steps)
                     del trainer
                     torch.cuda.empty_cache()
             del setup

@@ -34,7 +34,11 @@ Covered so far:
   → ``data.hdf5`` → ``transforms.volume``; ``cli.predict3d`` →
   ``data.loaders.get_test_loaders`` → ``StandardPredictor.__call__``), on
   the port's own YAML reader and writer (``utils.yaml_io``) and HDF5 codec
-  (``utils.hdf5``).
+  (``utils.hdf5``);
+- the rest of the 3D family: bf16 compute, remat of the Encoders and
+  Decoders (``ops.remat``), ``ResidualUNetSE3D`` (``models.se3d``), the
+  BatchNorm orders, ``UNet2D`` and ``ResidualUNet2D``, and device-resident
+  train volumes (``data.device_cache``, ``loaders.device_cache: true``).
 
 Public functions keep the JAX layout: channels-last activations and
 (*k, I, O) conv weights.

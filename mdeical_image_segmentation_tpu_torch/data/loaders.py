@@ -11,8 +11,10 @@ so in-memory datasets need no files.
 
 ``get_train_loaders`` and ``get_test_loaders`` assemble them from a config's
 ``loaders`` section over the HDF5 datasets (``data/hdf5.py``), found by name
-in ``DATASETS``.  ``device_cache: true`` (volumes kept and augmented on the
-device) raises until ``data/device_cache.py`` is ported.
+in ``DATASETS``.  With ``device_cache: true`` and a device, the train loader
+keeps the volumes on the device and samples there
+(``data/device_cache.py``); a pipeline or dataset it cannot take falls back
+to the host loader with a warning, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from ..logging_utils import get_logger
 
 logger = get_logger("Dataset")
 
-DEVICE_CACHE_ITEM = "ROADMAP.md queue 1, item 18 (data/device_cache.py)"
 DATASETS = Registry("dataset")
 
 
@@ -190,19 +191,18 @@ def _dataset_class(loaders_config: Dict[str, Any]):
     return DATASETS.get(name)
 
 
-def get_train_loaders(config: Dict[str, Any], n_devices: int = 1
-                      ) -> Dict[str, VolumeLoader]:
+def get_train_loaders(config: Dict[str, Any], n_devices: int = 1,
+                      device=None) -> Dict[str, Any]:
     """``{'train': loader, 'val': loader}`` from ``config['loaders']``: the
     batch is ``batch_size`` x ``n_devices``; the train loader shuffles and
     drops a short tail; both use ``num_workers`` threads per batch and
-    prefetch 2 batches when they have workers."""
+    prefetch 2 batches when they have workers.  ``device_cache: true`` with
+    a ``device`` makes the train loader a ``DeviceCachedVolumeLoader`` on
+    it (``device_cache_dtype``, ``device_cache_budget_gb``), or the host
+    loader with a warning where that loader cannot run."""
     if "loaders" not in config:
         raise KeyError("config is missing its 'loaders' section")
     loaders_config = config["loaders"]
-    if loaders_config.get("device_cache"):
-        raise NotImplementedError(
-            f"loaders.device_cache: {DEVICE_CACHE_ITEM}; drop the option to "
-            "use the host loader")
     logger.info("assembling train/val loaders")
     dataset_class = _dataset_class(loaders_config)
 
@@ -232,11 +232,35 @@ def get_train_loaders(config: Dict[str, Any], n_devices: int = 1
     num_workers = loaders_config.get("num_workers", 1)
     logger.info(f"train/val loaders: {num_workers} worker threads")
     prefetch = 2 if num_workers else 0
+
+    train_loader = None
+    if loaders_config.get("device_cache") and device is None:
+        logger.warning("device_cache requested but no device was given (a "
+                       "bare get_train_loaders call) — using the host loader")
+    elif loaders_config.get("device_cache"):
+        from .device_cache import (
+            DeviceCachedVolumeLoader,
+            DeviceCacheUnsupported,
+        )
+
+        try:
+            train_loader = DeviceCachedVolumeLoader(
+                train_datasets, batch_size=batch_size, device=device,
+                seed=config.get("seed", 0),
+                cache_dtype=loaders_config.get("device_cache_dtype",
+                                               "float32"),
+                budget_gb=float(loaders_config.get("device_cache_budget_gb",
+                                                   4.0)))
+        except DeviceCacheUnsupported as e:
+            logger.warning(f"device_cache requested but unsupported ({e}); "
+                           "falling back to the host loader")
+    if train_loader is None:
+        train_loader = VolumeLoader(ConcatDataset(train_datasets),
+                                    batch_size=batch_size, shuffle=True,
+                                    prefetch=prefetch, drop_last=True,
+                                    num_workers=num_workers)
     return {
-        "train": VolumeLoader(ConcatDataset(train_datasets),
-                              batch_size=batch_size, shuffle=True,
-                              prefetch=prefetch, drop_last=True,
-                              num_workers=num_workers),
+        "train": train_loader,
         "val": VolumeLoader(ConcatDataset(val_datasets),
                             batch_size=batch_size, shuffle=False,
                             prefetch=prefetch, num_workers=num_workers),

@@ -106,15 +106,26 @@ class StandardPredictor:
         """Fix the batch size and build the patch forward (TTA ensemble and
         activation included).  PyTorch runs eagerly: nothing is traced."""
         model = self.model
-        # (N, D, H, W, C): 'mirror-hw' skips the depth axis
-        combos = (None if self.tta is None else mirror_combos(
-            (2, 3) if self.tta == "mirror-hw" else (1, 2, 3)))
+        # a 2D model sees (N, H, W, C), the depth axis of its patches
+        # squeezed; (N, D, H, W, C) otherwise, where 'mirror-hw' skips depth
+        is2d = not getattr(model, "is3d", True)
+        if self.tta is None:
+            combos = None
+        elif is2d:
+            combos = mirror_combos((1, 2))
+        else:
+            combos = mirror_combos((2, 3) if self.tta == "mirror-hw"
+                                   else (1, 2, 3))
         act = model.final_activation() if self.apply_activation else None
 
         def forward(x: torch.Tensor) -> torch.Tensor:
             with torch.inference_mode():
+                if is2d:
+                    x = x.squeeze(1)
                 out = (model(x) if combos is None
                        else flip_ensemble(model, combos, x))
+                if is2d:
+                    out = out.unsqueeze(1)
                 return act(out) if act is not None else out
 
         self._forward = forward

@@ -1,11 +1,12 @@
 """Models of the port (the JAX package's ``models``: the classic UNet, the
-UNet-3+ family and the 3D UNet family so far)."""
+UNet-3+ family and the 3D UNet family with its 2D members)."""
 
 from .blocks3d import (
     DoubleConv,
     Decoder,
     Encoder,
     ResNetBlock,
+    ResNetBlockSE,
     SingleConv,
     TransposeConvUpsampling,
 )
@@ -25,7 +26,10 @@ from .unet2d import UNet, UNet3Plus, UNet3PlusDeepSup, UNet3PlusDeepSupCGM
 from .unet3d import (
     MODELS_3D,
     AbstractUNet,
+    ResidualUNet2D,
     ResidualUNet3D,
+    ResidualUNetSE3D,
+    UNet2D,
     UNet3D,
     get_model,
 )
@@ -40,7 +44,10 @@ __all__ = [
     "Encoder",
     "MODELS_3D",
     "ResNetBlock",
+    "ResNetBlockSE",
+    "ResidualUNet2D",
     "ResidualUNet3D",
+    "ResidualUNetSE3D",
     "SegOutput",
     "SingleConv",
     "TorchBatchNorm",
@@ -49,6 +56,7 @@ __all__ = [
     "TransposeConvUpsampling",
     "UNET_TYPES",
     "UNet",
+    "UNet2D",
     "UNet3D",
     "UNet3Plus",
     "UNet3PlusDeepSup",

@@ -1,43 +1,61 @@
-"""3D conv blocks built from layer-order strings (the JAX package's
-``models/blocks3d.py``), channels-last (N, D, H, W, C).
+"""3D and 2D conv blocks built from layer-order strings (the JAX package's
+``models/blocks3d.py``), channels-last: (N, D, H, W, C) when ``is3d``, else
+(N, H, W, C).
 
 The order string composes a conv layer out of:
 
-    c = conv (bias only when no norm is in the order)
+    c = conv (bias only when no norm is in the order; any symmetric padding)
     g = GroupNorm (groups clamp to 1 when the channels are fewer; it
         normalizes the in- or out-channels by its place relative to 'c')
+    b = BatchNorm with flax's semantics (momentum 0.9, eps 1e-5, batch
+        statistics in training mode and running statistics in eval mode;
+        ``ops/batchnorm.py``), under the flax scope name ``BatchNorm_0``
     r = ReLU  l = LeakyReLU  e = ELU
     d = dropout  D = channel dropout (whole (sample, channel) feature maps,
         torch Dropout3d), active in training mode only
-    b = BatchNorm (not ported yet: ROADMAP item 16)
 
 Blocks: ``SingleConv``, ``DoubleConv`` (the encoder halves the channels of
 its first conv unless upscale is 1, never below its input), ``ResNetBlock``
 (1x1 shortcut when the channels change, conv2 with the full order, conv3
-without its non-linearity, non-linearity after the sum), ``Encoder``
-(optional pooling + block), ``TransposeConvUpsampling`` and ``Decoder``
-(upsample + join + block: DoubleConv ⇒ nearest interpolation and concat
-``[skip, x]``; ResNetBlock ⇒ deconv and sum).
+without its non-linearity, non-linearity after the sum), ``ResNetBlockSE``
+(a ResNetBlock and a squeeze-excitation gate, ``models/se3d.py``),
+``Encoder`` (optional pooling + block), ``TransposeConvUpsampling`` and
+``Decoder`` (upsample + join + block: DoubleConv ⇒ nearest interpolation
+and concat ``[skip, x]``; ResNetBlock ⇒ deconv and sum; an explicit mode
+other than nearest and deconv ⇒ the bilinear / trilinear resize and
+concat).
 
 Unlike flax, a torch module builds its parameters up front, so every block
 takes its input channel count.  Children carry the flax scope names
-(``SingleConv1``, ``GroupNorm_0``, ``TorchConv_0``, ``conv1``,
-``basic_module``, ``upsampling``) so ``utils/param_bridge.py`` maps the two
-trees leaf for leaf.
+(``SingleConv1``, ``GroupNorm_0``, ``BatchNorm_0``, ``TorchConv_0``,
+``conv1``, ``basic_module``, ``upsampling``, ``ResNetBlock_0``,
+``ChannelSpatialSELayer_0``) so ``utils/param_bridge.py`` maps the two trees
+leaf for leaf.
 
-A ``SingleConv`` of order 'gcr' with a 3x3x3 kernel and padding 1 takes the
-fused path, as in the JAX package: the GroupNorm statistics kernel and the
-fused GroupNorm-apply + conv3d + ReLU kernel (``ops/fused_conv.py``), the
-normalized tensor never stored.  Every other order with 'g' runs the
-``GroupNorm`` module (statistics and affine kernels) and then ``TorchConv``.
-Both are autograd Functions whose backward runs the GroupNorm backward
-kernels.
+``dtype`` is flax's: None computes in the input's dtype; ``torch.bfloat16``
+keeps the parameters float32 and casts x and each weight to bf16 at use
+(flax's ``promote_dtype``), outside the autograd Functions, so autograd
+hands each weight's gradient back to its float32 parameter.  GroupNorm keeps
+float32 statistics and writes bf16; BatchNorm computes in float32 and
+writes bf16.
+
+A 3D ``SingleConv`` of order 'gcr' with a 3x3x3 kernel and padding 1 takes
+the fused path, as in the JAX package: the GroupNorm statistics kernel and
+the fused GroupNorm-apply + conv3d + ReLU kernel (``ops/fused_conv.py``),
+the normalized tensor never stored, in float32 or bf16.  Every other order
+with 'g', every 2D block, and under bf16 compute the first SingleConv (whose
+input, the float32 image, the JAX package normalizes in float32 before it
+rounds the result to bf16) run the ``GroupNorm`` module (statistics and
+affine kernels) and then ``TorchConv``.  Both are autograd Functions whose
+backward runs the GroupNorm backward kernels.
 
 ``module.train()`` takes the place of the JAX package's ``train`` flag.  As
 that flag defaults to False, ``SingleConv`` (and the models of
 ``unet3d.py``) start in eval mode.  Dropout draws its masks from the
 generator that ``set_dropout_generator`` gives it (the global generator
-until then).
+until then).  Under remat a block runs twice; its ``replay`` record
+(``ops/remat.py``) hands the recompute the first run's masks and keeps it
+from updating the running statistics again.
 """
 
 from __future__ import annotations
@@ -49,14 +67,17 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.fused_conv import gcr_fused_conv
-from ..ops.image import avg_pool_nd, interpolate_nearest_nd, max_pool_nd
+from ..ops.image import (
+    avg_pool_nd,
+    interpolate_nearest_nd,
+    max_pool_nd,
+    resize_bilinear,
+)
 from ..ops.norm import GroupNorm
-from .layers2d import TorchConv, TorchConvTranspose
+from .layers2d import TorchBatchNorm, TorchConv, TorchConvTranspose
+from .se3d import se_module
 
 IntOrTuple = Union[int, Sequence[int]]
-
-BATCHNORM_ITEM = "ROADMAP.md queue 1, item 16 (BatchNorm layer orders)"
-SE_ITEM = "ROADMAP.md queue 1, item 16 (ResNetBlockSE and models/se3d.py)"
 
 
 def _ktuple(k: IntOrTuple, nsp: int) -> Tuple[int, ...]:
@@ -79,6 +100,8 @@ class Dropout(nn.Module):
     keep per (sample, channel) and broadcasts it over the spatial dims.  The
     identity in eval mode, which it starts in."""
 
+    replay = None  # set by ops/remat.checkpoint_block around a recompute
+
     def __init__(self, p: float, channel: bool = False):
         super().__init__()
         self.p = float(p)
@@ -93,8 +116,12 @@ class Dropout(nn.Module):
             return torch.zeros_like(x)
         shape = ((x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
                  if self.channel else x.shape)
-        keep = torch.rand(shape, generator=self.generator,
-                          device=x.device) >= self.p
+
+        def draw():
+            return torch.rand(shape, generator=self.generator,
+                              device=x.device) >= self.p
+
+        keep = draw() if self.replay is None else self.replay.keep_mask(draw)
         return x * keep / (1.0 - self.p)
 
 
@@ -110,10 +137,13 @@ def set_dropout_generator(model: nn.Module,
 class SingleConv(nn.Module):
     """Order-string conv layer (reference SingleConv)."""
 
+    replay = None  # set by ops/remat.checkpoint_block around a recompute
+
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: IntOrTuple = 3, order: str = "gcr",
                  num_groups: int = 8, padding: IntOrTuple = 1,
-                 dropout_prob: float = 0.1, *, device=None):
+                 dropout_prob: float = 0.1, is3d: bool = True,
+                 dtype: Optional[torch.dtype] = None, *, device=None):
         super().__init__()
         if "c" not in order:
             raise ValueError("Conv layer MUST be present")
@@ -124,21 +154,18 @@ class SingleConv(nn.Module):
         if bad:
             raise ValueError(f"Unsupported layer type {sorted(bad)}. MUST be "
                              f"one of ['b', 'g', 'r', 'l', 'e', 'c', 'd', 'D']")
-        if "b" in order:
-            raise NotImplementedError(f"order {order!r}: {BATCHNORM_ITEM}")
-        ks = _ktuple(kernel_size, 3)
-        pad = _ktuple(padding, 3)
-        if pad != tuple(k // 2 for k in ks):
-            raise NotImplementedError(
-                f"padding {pad} for kernel {ks}: the port's TorchConv pads "
-                "'SAME'")
+        nsp = 3 if is3d else 2
+        ks = _ktuple(kernel_size, nsp)
+        pad = _ktuple(padding, nsp)
         self.order = order
+        self.dtype = dtype
         channels = in_channels
         for char in order:
             if char == "c":
                 self.TorchConv_0 = TorchConv(
-                    in_channels, out_channels, ks,
-                    use_bias="g" not in order, device=device)
+                    in_channels, out_channels, ks, padding=pad,
+                    use_bias=not ("g" in order or "b" in order), dtype=dtype,
+                    device=device)
                 channels = out_channels
             elif char == "g":
                 groups = 1 if channels < num_groups else num_groups
@@ -148,22 +175,35 @@ class SingleConv(nn.Module):
                         f"divisible by num_groups. num_channels={channels}, "
                         f"num_groups={groups}")
                 self.GroupNorm_0 = GroupNorm(channels, groups, 1e-5,
-                                             device=device)
+                                             dtype=dtype, device=device)
+            elif char == "b":
+                self.BatchNorm_0 = TorchBatchNorm(channels, device=device)
             elif char == "d":
                 self.dropout = Dropout(dropout_prob)
             elif char == "D":
                 self.channel_dropout = Dropout(dropout_prob, channel=True)
         # the fused path: GN statistics kernel + fused GN-apply/conv/ReLU
-        self.fused = order == "gcr" and ks == (3, 3, 3)
+        self.fused = (order == "gcr" and is3d and ks == (3, 3, 3)
+                      and pad == (1, 1, 1))
         self.train(False)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         reset_tree(self, generator)
 
+    def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        bn = self.BatchNorm_0
+        y, stats = bn.normalize(x)
+        if self.replay is None or not self.replay.recompute:
+            bn.update(stats)
+        return y if self.dtype is None else y.to(self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused:
+        # the fused kernel reads x in the compute dtype; an input in another
+        # dtype (the float32 image under bf16 compute) is normalized in its
+        # own dtype and rounded once, as the JAX package's GroupNorm does
+        if self.fused and (self.dtype is None or x.dtype == self.dtype):
             gn = self.GroupNorm_0
-            kernel, _ = self.TorchConv_0.hwio()
+            kernel, _ = self.TorchConv_0.hwio(x.dtype)
             return gcr_fused_conv(x.contiguous(), gn.weight, gn.bias, kernel,
                                   gn.num_groups, gn.epsilon)
         for char in self.order:
@@ -177,6 +217,8 @@ class SingleConv(nn.Module):
                 x = self.TorchConv_0(x)
             elif char == "g":
                 x = self.GroupNorm_0(x)
+            elif char == "b":
+                x = self._batch_norm(x)
             elif char == "d":
                 x = self.dropout(x)
             elif char == "D":
@@ -193,7 +235,8 @@ class DoubleConv(nn.Module):
                  kernel_size: IntOrTuple = 3, order: str = "gcr",
                  num_groups: int = 8, padding: IntOrTuple = 1,
                  upscale: int = 2,
-                 dropout_prob: Union[float, Sequence[float]] = 0.1, *,
+                 dropout_prob: Union[float, Sequence[float]] = 0.1,
+                 is3d: bool = True, dtype: Optional[torch.dtype] = None, *,
                  device=None):
         super().__init__()
         if isinstance(dropout_prob, (list, tuple)):
@@ -206,11 +249,11 @@ class DoubleConv(nn.Module):
         else:
             conv1_out = out_channels
         self.SingleConv1 = SingleConv(in_channels, conv1_out, kernel_size,
-                                      order, num_groups, padding, p1,
-                                      device=device)
+                                      order, num_groups, padding, p1, is3d,
+                                      dtype, device=device)
         self.SingleConv2 = SingleConv(conv1_out, out_channels, kernel_size,
-                                      order, num_groups, padding, p2,
-                                      device=device)
+                                      order, num_groups, padding, p2, is3d,
+                                      dtype, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         reset_tree(self, generator)
@@ -226,21 +269,25 @@ class ResNetBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: IntOrTuple = 3, order: str = "cge",
-                 num_groups: int = 8, *, device=None):
+                 num_groups: int = 8, is3d: bool = True,
+                 dtype: Optional[torch.dtype] = None, *, device=None):
         super().__init__()
+        nsp = 3 if is3d else 2
         if in_channels != out_channels:
-            self.conv1 = TorchConv(in_channels, out_channels, (1, 1, 1),
-                                   device=device)
+            self.conv1 = TorchConv(in_channels, out_channels, (1,) * nsp,
+                                   dtype=dtype, device=device)
         else:
             self.conv1 = None
         self.order = order
         self.conv2 = SingleConv(out_channels, out_channels, kernel_size,
-                                order, num_groups, device=device)
+                                order, num_groups, is3d=is3d, dtype=dtype,
+                                device=device)
         n_order = order
         for c in "rel":
             n_order = n_order.replace(c, "")
         self.conv3 = SingleConv(out_channels, out_channels, kernel_size,
-                                n_order, num_groups, device=device)
+                                n_order, num_groups, is3d=is3d, dtype=dtype,
+                                device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         reset_tree(self, generator)
@@ -256,20 +303,45 @@ class ResNetBlock(nn.Module):
         return F.relu(out)
 
 
+class ResNetBlockSE(nn.Module):
+    """A ResNetBlock followed by the concurrent channel and spatial
+    squeeze-excitation gate (scSE, as the JAX model family always builds
+    it)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: IntOrTuple = 3, order: str = "cge",
+                 num_groups: int = 8, is3d: bool = True,
+                 dtype: Optional[torch.dtype] = None, *, device=None):
+        super().__init__()
+        self.ResNetBlock_0 = ResNetBlock(in_channels, out_channels,
+                                         kernel_size, order, num_groups,
+                                         is3d, dtype, device=device)
+        self.ChannelSpatialSELayer_0 = se_module(
+            "scse", out_channels, 3 if is3d else 2, dtype=dtype,
+            device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        reset_tree(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ChannelSpatialSELayer_0(self.ResNetBlock_0(x))
+
+
 def _make_basic_module(basic_module: str, in_channels: int,
                        out_channels: int, *, encoder: bool,
                        kernel_size: IntOrTuple, order: str, num_groups: int,
                        padding: IntOrTuple, upscale: int, dropout_prob,
-                       device) -> nn.Module:
+                       is3d: bool, dtype, device) -> nn.Module:
     if basic_module == "DoubleConv":
         return DoubleConv(in_channels, out_channels, encoder, kernel_size,
                           order, num_groups, padding, upscale, dropout_prob,
-                          device=device)
+                          is3d, dtype, device=device)
     if basic_module == "ResNetBlock":
         return ResNetBlock(in_channels, out_channels, kernel_size, order,
-                           num_groups, device=device)
+                           num_groups, is3d, dtype, device=device)
     if basic_module == "ResNetBlockSE":
-        raise NotImplementedError(f"basic_module 'ResNetBlockSE': {SE_ITEM}")
+        return ResNetBlockSE(in_channels, out_channels, kernel_size, order,
+                             num_groups, is3d, dtype, device=device)
     raise ValueError(f"Unsupported basic_module {basic_module!r}")
 
 
@@ -282,7 +354,8 @@ class Encoder(nn.Module):
                  basic_module: str = "DoubleConv",
                  conv_layer_order: str = "gcr", num_groups: int = 8,
                  padding: IntOrTuple = 1, upscale: int = 2,
-                 dropout_prob: Union[float, Sequence[float]] = 0.1, *,
+                 dropout_prob: Union[float, Sequence[float]] = 0.1,
+                 is3d: bool = True, dtype: Optional[torch.dtype] = None, *,
                  device=None):
         super().__init__()
         if pool_type not in ("max", "avg"):
@@ -294,7 +367,7 @@ class Encoder(nn.Module):
             basic_module, in_channels, out_channels, encoder=True,
             kernel_size=conv_kernel_size, order=conv_layer_order,
             num_groups=num_groups, padding=padding, upscale=upscale,
-            dropout_prob=dropout_prob, device=device)
+            dropout_prob=dropout_prob, is3d=is3d, dtype=dtype, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         reset_tree(self, generator)
@@ -311,10 +384,12 @@ class TransposeConvUpsampling(TorchConvTranspose):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: IntOrTuple = 3, scale_factor: IntOrTuple = 2,
-                 *, device=None):
-        super().__init__(in_channels, out_channels, _ktuple(kernel_size, 3),
-                         _ktuple(scale_factor, 3), padding=1, use_bias=False,
-                         device=device)
+                 is3d: bool = True, dtype: Optional[torch.dtype] = None, *,
+                 device=None):
+        nsp = 3 if is3d else 2
+        super().__init__(in_channels, out_channels, _ktuple(kernel_size, nsp),
+                         _ktuple(scale_factor, nsp), padding=1,
+                         use_bias=False, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, output_size: Sequence[int]
                 ) -> torch.Tensor:
@@ -324,7 +399,10 @@ class TransposeConvUpsampling(TorchConvTranspose):
 class Decoder(nn.Module):
     """Upsample + join + basic block.  'default' upsampling: DoubleConv ⇒
     nearest interpolation and concat ``[skip, x]``; ResNetBlock ⇒ deconv and
-    sum.  ``in_channels`` are x's, ``skip_channels`` the encoder
+    sum.  An explicit 'nearest' concats, 'deconv' sums, any other mode
+    (the interpolating 'linear' / 'bilinear' / 'trilinear' / ...) runs the
+    bilinear or trilinear resize and concats; None or 'none' concats x as it
+    is.  ``in_channels`` are x's, ``skip_channels`` the encoder
     features'."""
 
     def __init__(self, in_channels: int, skip_channels: int,
@@ -333,7 +411,8 @@ class Decoder(nn.Module):
                  basic_module: str = "DoubleConv",
                  conv_layer_order: str = "gcr", num_groups: int = 8,
                  padding: IntOrTuple = 1, upsample: Optional[str] = "default",
-                 dropout_prob: Union[float, Sequence[float]] = 0.1, *,
+                 dropout_prob: Union[float, Sequence[float]] = 0.1,
+                 is3d: bool = True, dtype: Optional[torch.dtype] = None, *,
                  device=None):
         super().__init__()
         if upsample is None or upsample == "none":
@@ -341,17 +420,17 @@ class Decoder(nn.Module):
         elif upsample == "default":
             deconv = basic_module != "DoubleConv"
             mode, concat = ("deconv", False) if deconv else ("nearest", True)
-        elif upsample in ("nearest", "deconv"):
-            mode, concat = upsample, upsample == "nearest"
+        elif upsample == "deconv":
+            mode, concat = "deconv", False
+        elif upsample == "nearest":
+            mode, concat = "nearest", True
         else:
-            raise NotImplementedError(
-                f"upsample {upsample!r}: only nearest interpolation and the "
-                "deconv are ported (ROADMAP.md queue 1, item 16)")
+            mode, concat = "linear", True
         self.mode, self.concat = mode, concat
         if mode == "deconv":
             self.upsampling = TransposeConvUpsampling(
                 in_channels, out_channels, conv_kernel_size, scale_factor,
-                device=device)
+                is3d, dtype, device=device)
             x_channels = out_channels
         else:
             x_channels = in_channels
@@ -360,7 +439,7 @@ class Decoder(nn.Module):
             basic_module, block_in, out_channels, encoder=False,
             kernel_size=conv_kernel_size, order=conv_layer_order,
             num_groups=num_groups, padding=padding, upscale=2,
-            dropout_prob=dropout_prob, device=device)
+            dropout_prob=dropout_prob, is3d=is3d, dtype=dtype, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         reset_tree(self, generator)
@@ -372,6 +451,8 @@ class Decoder(nn.Module):
             x = self.upsampling(x, output_size)
         elif self.mode == "nearest":
             x = interpolate_nearest_nd(x, output_size)
+        elif self.mode == "linear":
+            x = resize_bilinear(x, output_size)
         if self.concat:
             x = torch.cat([encoder_features, x], dim=-1)
         else:

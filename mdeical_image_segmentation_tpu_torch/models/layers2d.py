@@ -52,15 +52,19 @@ def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
 class TorchConv(nn.Module):
     """Channels-last conv (2D or 3D by ``len(kernel_size)``) with flax's
     'SAME' padding (odd kernels; under a stride the extra row goes after,
-    as XLA pads), bias optional.  ``kernel_init`` is 'torch_default' or an
+    as XLA pads), or an explicit symmetric ``padding`` per spatial dim
+    (stride 1), bias optional.  ``kernel_init`` is 'torch_default' or an
     ``init_weights`` scheme ('normal', 'xavier', 'kaiming', 'orthogonal');
-    the bias always takes PyTorch's default."""
+    the bias always takes PyTorch's default.  ``dtype`` set (flax's
+    ``dtype``): x, weight and bias are cast to it at use, the parameters
+    stay float32; unset, the conv computes in x's dtype."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Sequence[int] = (3, 3), *,
                  strides: Optional[Sequence[int]] = None,
+                 padding: Optional[Sequence[int]] = None,
                  use_bias: bool = True, kernel_init: str = "torch_default",
-                 device=None):
+                 dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         ks = tuple(kernel_size)
         if len(ks) not in (2, 3) or any(k % 2 == 0 for k in ks):
@@ -68,8 +72,13 @@ class TorchConv(nn.Module):
         tinit.conv_kernel_init(kernel_init)  # unknown names raise here
         self.kernel_size = ks
         self.strides = tuple(strides) if strides else (1,) * len(ks)
+        if padding is not None and self.strides != (1,) * len(ks):
+            raise ValueError("TorchConv takes an explicit padding at stride 1"
+                             " only")
         self.kernel_init = kernel_init
-        self.padding = tuple(k // 2 for k in ks)
+        self.dtype = dtype
+        self.padding = (tuple(k // 2 for k in ks) if padding is None
+                        else tuple(padding))
         self._conv = F.conv2d if len(ks) == 2 else F.conv3d
         self.weight = nn.Parameter(
             torch.empty((features, in_features, *ks), device=device))
@@ -90,6 +99,8 @@ class TorchConv(nn.Module):
         return w, (None if b is None else b.to(dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         padding = self.padding
         if self.strides != (1,) * len(self.strides):
@@ -108,17 +119,18 @@ class TorchConv(nn.Module):
 
 class TorchConvTranspose(nn.Module):
     """Channels-last ``nn.ConvTranspose{2,3}d(k, s, padding)`` (2D or 3D by
-    ``len(kernel_size)``), bias optional."""
+    ``len(kernel_size)``), bias optional; ``dtype`` as for ``TorchConv``."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Sequence[int] = (2, 2),
                  strides: Sequence[int] = (2, 2), *, padding: int = 0,
                  use_bias: bool = True, kernel_init: str = "torch_default",
-                 device=None):
+                 dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         ks = tuple(kernel_size)
         tinit.conv_kernel_init(kernel_init)
         self.kernel_init = kernel_init
+        self.dtype = dtype
         self.strides = tuple(strides)
         self.padding = padding
         self._conv = {2: F.conv_transpose2d, 3: F.conv_transpose3d}[len(ks)]
@@ -132,6 +144,8 @@ class TorchConvTranspose(nn.Module):
         tinit.init_conv_(self.weight, self.bias, self.kernel_init, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         y = self._conv(_channels_first(x), self.weight.to(x.dtype), bias,
                        stride=self.strides, padding=self.padding)

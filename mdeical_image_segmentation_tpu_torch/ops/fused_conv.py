@@ -37,7 +37,8 @@ reaches device memory::
 
 stride 1, torch padding ``((kd-1)//2, 1, 1)`` of the NORMALIZED tensor, no
 bias, NDHWC activations and (kd, 3, 3, Ci, Co) weights, a and b (N, Ci)
-fp32.  Same dispatch rule; ``.launches`` counts one per call (no split-K
+fp32.  Same dispatch rule; ``.launches`` counts one per call, split by x's
+dtype in ``.launches_by_dtype`` (no split-K
 pass: the core picks a smaller tile for small shapes instead).
 
 ``gcr_fused_conv`` is the counterpart of the JAX package's custom-VJP
@@ -56,6 +57,7 @@ plain composition, which autograd differentiates).
 
 from __future__ import annotations
 
+import collections
 from typing import Optional, Tuple
 
 import torch
@@ -279,10 +281,12 @@ def fused_conv3d(
     )
     _build.check(rc, "gcr_conv3d launch")
     fused_conv3d.launches += 1
+    fused_conv3d.launches_by_dtype[x.dtype] += 1
     return y
 
 
 fused_conv3d.launches = 0
+fused_conv3d.launches_by_dtype = collections.Counter()
 
 
 def _conv3d_backward(gy: torch.Tensor, x_aff: torch.Tensor,

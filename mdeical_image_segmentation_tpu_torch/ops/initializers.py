@@ -5,7 +5,9 @@ The reference picks an initializer by module class name: conv weights get
 normal(0, 0.02), xavier-normal, kaiming-normal (fan_in, a=0) or orthogonal,
 and norm scales N(1, 0.02²) with zero bias.  Modules that never call that
 hook keep PyTorch's conv default: kaiming-uniform(a=sqrt(5)), i.e.
-U(±1/sqrt(fan_in)) for the weight and the bias alike.
+U(±1/sqrt(fan_in)) for the weight and the bias alike.  The squeeze-excitation
+gates' dense layers keep flax's ``Dense`` default (``lecun_normal``, zero
+bias).
 
 The port stores weights the PyTorch way (conv ``(O, I, *k)``, ConvTranspose
 ``(I, O, *k)``), so PyTorch's own fan rule applies to both as it stands:
@@ -69,6 +71,15 @@ def torch_conv_default_bias(b: torch.Tensor, fan_in: int,
     fan_in."""
     bound = 1.0 / math.sqrt(fan_in)
     nn.init.uniform_(b, -bound, bound, generator=generator)
+
+
+def lecun_normal(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's ``Dense`` default kernel init on a torch ``(out, in)`` weight:
+    a normal truncated at ±2 std whose variance after truncation is
+    1 / fan_in (std = sqrt(1 / fan_in) / 0.8796...)."""
+    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
 
 
 def norm_scale_002(w: torch.Tensor, generator: torch.Generator) -> None:

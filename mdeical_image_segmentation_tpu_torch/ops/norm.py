@@ -22,7 +22,8 @@ that runs those kernels forward and backward.
 
 The four wrappers dispatch by the device of x alone: a CUDA tensor launches
 the kernel in ``csrc/group_norm.cu`` (or raises), a CPU tensor runs the plain
-PyTorch version.  Each keeps a ``.launches`` count.  Called directly on a
+PyTorch version.  Each keeps a ``.launches`` count, split by x's dtype in
+``.launches_by_dtype``.  Called directly on a
 tensor that autograd would have to differentiate, a CUDA wrapper raises: the
 gradient runs through ``group_norm`` (``GroupNorm``) or
 ``fused_conv.gcr_fused_conv``.
@@ -30,6 +31,7 @@ gradient runs through ``group_norm`` (``GroupNorm``) or
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import Optional, Tuple
 
@@ -144,10 +146,12 @@ def gn_channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         rows, c, g, _DTYPE_CODES[x.dtype], dev, _build.current_stream(dev))
     _build.check(rc, "gn_stats launch")
     gn_channel_sums.launches += 1
+    gn_channel_sums.launches_by_dtype[x.dtype] += 1
     return s1, s2
 
 
 gn_channel_sums.launches = 0
+gn_channel_sums.launches_by_dtype = collections.Counter()
 
 
 def gn_affine_reference(x: torch.Tensor, a: torch.Tensor,
@@ -176,10 +180,12 @@ def gn_affine(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor
         _build.current_stream(dev))
     _build.check(rc, "gn_affine launch")
     gn_affine.launches += 1
+    gn_affine.launches_by_dtype[x.dtype] += 1
     return y
 
 
 gn_affine.launches = 0
+gn_affine.launches_by_dtype = collections.Counter()
 
 
 def gn_bwd_reduce_reference(x: torch.Tensor, g: torch.Tensor,
@@ -219,10 +225,12 @@ def gn_bwd_reduce(x: torch.Tensor, g: torch.Tensor, mean_c: torch.Tensor,
         _DTYPE_CODES[x.dtype], dev, _build.current_stream(dev))
     _build.check(rc, "gn_bwd_reduce launch")
     gn_bwd_reduce.launches += 1
+    gn_bwd_reduce.launches_by_dtype[x.dtype] += 1
     return c1, c2
 
 
 gn_bwd_reduce.launches = 0
+gn_bwd_reduce.launches_by_dtype = collections.Counter()
 
 
 def gn_bwd_dx_reference(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
@@ -253,10 +261,12 @@ def gn_bwd_dx(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
         _DTYPE_CODES[x.dtype], dev, _build.current_stream(dev))
     _build.check(rc, "gn_bwd_dx launch")
     gn_bwd_dx.launches += 1
+    gn_bwd_dx.launches_by_dtype[x.dtype] += 1
     return dx
 
 
 gn_bwd_dx.launches = 0
+gn_bwd_dx.launches_by_dtype = collections.Counter()
 
 
 def group_stats(s1: torch.Tensor, s2: torch.Tensor, num_groups: int,

@@ -18,11 +18,13 @@ passes the halo-stripped network output, read in place).  ``starts`` and
 reads them on the host to find each launch's bounding box and hands them to
 the kernel by value, so it copies nothing to the device and never waits for
 it.  It launches once per ``CHUNK`` patches, in patch order;
-``overlap_add_into.launches`` counts the launches.
+``overlap_add_into.launches`` counts the launches, and
+``.launches_by_dtype`` splits them by the patches' dtype.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -123,10 +125,12 @@ def overlap_add_into(acc: torch.Tensor, cnt: torch.Tensor,
                 _DTYPE_CODES[patches.dtype], dev, stream)
         _build.check(rc, "overlap_add launch")
         overlap_add_into.launches += 1
+        overlap_add_into.launches_by_dtype[patches.dtype] += 1
     return acc, cnt
 
 
 overlap_add_into.launches = 0
+overlap_add_into.launches_by_dtype = collections.Counter()
 
 
 def overlap_add(patches: torch.Tensor, starts,

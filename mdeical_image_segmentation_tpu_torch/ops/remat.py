@@ -1,4 +1,4 @@
-"""Rematerialization of the 2D models' blocks (the JAX package's
+"""Rematerialization of the 2D and 3D models' blocks (the JAX package's
 ``ops/remat.py``).
 
 The JAX package wraps each block (``UNetConv2``, ``ConvBNReLU``, the
@@ -27,6 +27,31 @@ BatchNorm's running statistics are updated once per forward, outside the
 recomputed functions: a non-reentrant checkpoint re-runs the Python
 forward in the backward, and an update inside it would run twice (JAX's
 remat is functional and updates them once).  Unknown policy names raise.
+
+The 3D family (``models/unet3d.py``) wraps each ``Encoder`` and
+``Decoder`` as the JAX package wraps them in ``nn.remat``
+(``checkpoint_block``).  Its blocks are built of autograd Functions that
+keep their own residuals: the fused 'gcr' SingleConv
+(``fused_conv.gcr_fused_conv``) keeps its input, its output (the conv's,
+after the ReLU) and the (N, C) GroupNorm statistics, and never stores the
+normalized tensor; the ``GroupNorm`` Function keeps its input and the
+statistics.  So:
+
+- ``None`` — the whole Encoder / Decoder runs under one non-reentrant
+  checkpoint and again in the backward (kernel 2 and the GroupNorm
+  statistics kernel launch twice a step for each fused SingleConv);
+- ``"save_convs"``, ``"save_convs_norms"``, ``"everything"`` — the blocks
+  run as they are: what their Functions keep is the conv outputs and the
+  statistics, which is what those policies keep.  The unfused orders keep
+  a little more than the JAX policies (the norm's output before the conv
+  under ``save_convs``, each ReLU's output).
+
+A recompute must draw the same dropout masks and must not update the
+BatchNorm running statistics a second time: ``checkpoint_block`` hands the
+block's modules a ``Replay`` record, in which the first run stores its
+masks (the recompute reads them back in call order) and which tells the
+recompute to leave the running statistics alone.  The masks are kept as
+booleans, one byte an element, where JAX re-derives them from its key.
 """
 
 from __future__ import annotations
@@ -110,3 +135,46 @@ def run_block(fn: Callable, x: torch.Tensor, *, remat: bool,
     if remat and policy is None and torch.is_grad_enabled():
         return _recompute(fn, x)
     return fn(x)
+
+
+class Replay:
+    """What the first run of a rematerialized block drew, for its
+    recompute: the dropout keep-masks in call order.  ``recompute`` is set
+    once the first run is over."""
+
+    def __init__(self):
+        self.masks: List[torch.Tensor] = []
+        self.recompute = False
+        self.pos = 0
+
+    def keep_mask(self, draw: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """``draw()`` on the first run, its result again in the recompute."""
+        if self.recompute:
+            mask = self.masks[self.pos]
+            self.pos += 1
+            return mask
+        mask = draw()
+        self.masks.append(mask)
+        return mask
+
+
+def checkpoint_block(block: torch.nn.Module, *args: torch.Tensor):
+    """``block(*args)`` under a non-reentrant checkpoint: only the inputs
+    are kept and the block runs again in the backward.  Every submodule
+    with a ``replay`` attribute (dropout, BatchNorm holders) gets the same
+    ``Replay`` for both runs."""
+    replay = Replay()
+    holders = [m for m in block.modules() if hasattr(m, "replay")]
+
+    def body(*inputs):
+        replay.pos = 0
+        for m in holders:
+            m.replay = replay
+        try:
+            return block(*inputs)
+        finally:
+            for m in holders:
+                m.replay = None
+            replay.recompute = True
+
+    return _recompute(body, *args)

@@ -217,11 +217,13 @@ class ModelRegistry:
                         device: Union[str, torch.device] = "cuda",
                         max_batch: int = 8):
         """Load a 3D-family model (``model_config`` is a config's ``model``
-        section) from a training checkpoint of either package and serve
-        single 2D slices on ``device``: each slice is replicated to the
-        least depth that survives the model's (num_levels - 1) poolings,
-        ``2**(num_levels - 1)``, and the middle output slice is returned
-        (pseudo-3D slice serving).  Builds the kernels and warms every
+        section, any member and dtype; BatchNorm statistics come from the
+        checkpoint's ``batch_stats``) from a training checkpoint of either
+        package and serve single 2D slices on ``device``: a 3D model sees
+        each slice replicated to the least depth that survives its
+        (num_levels - 1) poolings, ``2**(num_levels - 1)``, and the middle
+        output slice is returned (pseudo-3D slice serving); a 2D member
+        takes the slice as it is.  Builds the kernels and warms every
         power-of-two batch up to ``max_batch`` before it registers."""
         from ..models import get_model
         from ..train import load_checkpoint
@@ -232,18 +234,18 @@ class ModelRegistry:
             raise RuntimeError(f"device {device} requested but CUDA is not "
                                "available")
         model = get_model(model_config, device=device)
-        ms = load_checkpoint(path)["model_state_dict"]
-        if ms.get("batch_stats"):
-            _not_ported("a model with BatchNorm statistics",
-                        "item 16 (BatchNorm layer orders)")
-        model.load_state_dict(flax_to_state_dict(ms["params"]))
+        model.load_state_dict(flax_to_state_dict(
+            load_checkpoint(path)["model_state_dict"]))
         model.eval()
         act = model.final_activation()
         depth = 2 ** (max(int(model.num_levels), 1) - 1)
 
         def probs(x):
-            x3 = x[:, None].expand(-1, depth, -1, -1, -1)
-            out = model(x3.contiguous())[:, depth // 2]
+            if not model.is3d:  # UNet2D / ResidualUNet2D take the slice
+                out = model(x.contiguous())
+            else:
+                x3 = x[:, None].expand(-1, depth, -1, -1, -1)
+                out = model(x3.contiguous())[:, depth // 2]
             return act(out) if act is not None else out
 
         self._register_probs(name, probs, model.in_channels,

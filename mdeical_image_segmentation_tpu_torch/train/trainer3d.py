@@ -19,15 +19,24 @@ weights (drawn from a seeded generator, or loaded by ``pre_trained`` /
 ``resume``) on the device the trainer runs on; ``model.train()`` /
 ``model.eval()`` replace the ``train`` flag; ``loss.backward()`` runs the
 autograd Functions of the fused 'gcr' blocks and of GroupNorm, whose
-backward are CUDA kernels on the card.  The
-train loss is summed on the device and read only at log and validation
-boundaries and at the end of an epoch.  On a CUDA device the next batch is
-copied from pinned memory on a side stream while the current step runs.
+backward are CUDA kernels on the card.  A bf16 model keeps float32
+parameters: the loss is computed in float32 on its float32 output and Adam
+updates the float32 parameters.  A model with BatchNorm carries its running
+statistics in its buffers; checkpoints hold them as ``batch_stats``.  The
+2D members of the family (``UNet2D``, ``ResidualUNet2D``) take the
+(N, 1, H, W, C) batches with the depth axis squeezed, as the JAX trainer
+does.  The train loss is summed on the device and read only at log and
+validation boundaries and at the end of an epoch.  On a CUDA device the
+next batch is copied from pinned memory on a side stream while the current
+step runs; a device-cached train loader (``data/device_cache.py``,
+``is_device_cached``) hands out batches already on the card, which are
+taken as they are.
 
 Loaders are any iterables of (input, target[, weight]) numpy batches,
 channels-last (N, D, H, W, C).  ``create_trainer`` builds the trainer from a
-config (``configs/config.py``) with the HDF5 loaders (``data/loaders.py``),
-on the card unless ``device: cpu``.  The TPU scale-out options (a
+config (``configs/config.py``) with the HDF5 loaders (``data/loaders.py``;
+``loaders.device_cache`` keeps the train volumes on the card), on the card
+unless ``device: cpu``.  The TPU scale-out options (a
 ``parallel:`` section, ``mesh``, ``tensor_parallel``, ``zero1``,
 ``spatial_halo``) and orbax checkpoints raise.
 """
@@ -95,7 +104,7 @@ def create_trainer(config: Dict[str, Any]) -> "UNetTrainer":
     model = model.to(device)
     loss_criterion = get_loss_criterion(config)
     eval_criterion = get_evaluation_metric(config)
-    loaders = get_train_loaders(config)
+    loaders = get_train_loaders(config, device=device)
     optimizer_config = config["optimizer"]
     optimizer = create_optimizer(optimizer_config, model.parameters())
     base_lr = optimizer_config.get("learning_rate", 1e-3)
@@ -216,7 +225,7 @@ class UNetTrainer:
                     f" '{path}'...")
         saved = ckpt.load_checkpoint(path)
         self.model.load_state_dict(
-            flax_to_state_dict(saved["model_state_dict"]["params"]))
+            flax_to_state_dict(saved["model_state_dict"]))
         if not with_state:
             return
         ckpt.load_optimizer_state(self.optimizer, self.model,
@@ -234,10 +243,8 @@ class UNetTrainer:
         ckpt.save_checkpoint({
             "num_epochs": self.num_epochs + 1,
             "num_iterations": self.num_iterations,
-            "model_state_dict": {
-                "params": state_dict_to_flax(self.model.state_dict())[
-                    "params"],
-                "batch_stats": {}},
+            "model_state_dict": {"batch_stats": {}, **state_dict_to_flax(
+                self.model.state_dict())},
             "best_eval_score": self.best_eval_score,
             "optimizer_state_dict": ckpt.optimizer_state_tree(
                 self.optimizer, self.model),
@@ -247,12 +254,22 @@ class UNetTrainer:
 
     def _device_batches(self, loader: Iterable):
         """Device batches one ahead: batch k + 1's copy is issued before
-        step k is handed out."""
+        step k is handed out.  A device-cached loader's batches are on the
+        device already."""
+        if getattr(loader, "is_device_cached", False):
+            return iter(loader)
         return device_batches(
             ((t[0], t[1], t[2] if len(t) > 2 else None) for t in loader),
             self.device, self._copy_stream)
 
     # -- steps ---------------------------------------------------------------
+
+    def _apply_model(self, input: torch.Tensor) -> torch.Tensor:
+        """The model's forward; a 2D model sees the depth axis squeezed and
+        its output gets it back."""
+        if getattr(self.model, "is3d", True):
+            return self.model(input)
+        return self.model(input.squeeze(1)).unsqueeze(1)
 
     def _loss(self, output, target, weight):
         if weight is None:
@@ -263,7 +280,7 @@ class UNetTrainer:
         """One optimizer step; returns the detached loss and output."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        output = self.model(input)
+        output = self._apply_model(input)
         loss = self._loss(output, target, weight)
         loss.backward()
         set_learning_rate(self.optimizer, self.current_lr)
@@ -363,7 +380,7 @@ class UNetTrainer:
         for i, (input, target, weight) in enumerate(
                 self._device_batches(self.loaders["val"])):
             logger.info(f"Validation iteration {i}")
-            output = self.model(input)
+            output = self._apply_model(input)
             loss = self._loss(output, target, weight)
             val_losses.update(float(loss), input.shape[0])
             if i % 100 == 0:

@@ -13,10 +13,15 @@ over 2D and 3D kernels:
 - ``<path>/GroupNorm_0/{scale,bias}`` ↔ ``<path>.GroupNorm_0.{weight,bias}``
   (the fused 'gcr' path of the 3D blocks keeps these paths too);
 - ``<path>/BatchNorm_0/{scale,bias}`` ↔ ``<path>.{weight,bias}`` of the
-  ``TorchBatchNorm`` module at ``<path>``, and the ``batch_stats``
-  collection's ``<path>/BatchNorm_0/{mean,var}`` ↔ its ``running_mean`` /
+  ``TorchBatchNorm*`` module at ``<path>`` (the 2D layers), or of the
+  module named ``BatchNorm_0`` at ``<path>.BatchNorm_0`` (the 3D blocks'
+  SingleConv), and the ``batch_stats`` collection's
+  ``<path>/BatchNorm_0/{mean,var}`` ↔ its ``running_mean`` /
   ``running_var`` buffers (a torch ``num_batches_tracked`` has no flax
   counterpart and is dropped);
+- ``<path>/Dense_k/kernel`` (flax ``(in, out)``) ↔ ``<path>.Dense_k.weight``
+  (torch ``(out, in)``), and ``<path>/Dense_k/bias`` ↔ its bias (the
+  squeeze-excitation gates);
 
 where ``<path>`` joins the module names with ``/`` in flax and ``.`` in
 torch (``encoder0/basic_module/SingleConv1/TorchConv_0`` ↔ ``encoder0.
@@ -40,6 +45,15 @@ _GN_LEAVES = {"scale": "weight", "bias": "bias"}  # flax -> torch
 _BN = "BatchNorm_0"
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}  # flax -> torch
 _BN_MODULE = "TorchBatchNorm"
+_DENSE = "Dense_"
+
+
+def _bn_module(path) -> str:
+    """The torch module of the flax leaf ``<path>/BatchNorm_0/<leaf>``: the
+    ``TorchBatchNorm*`` scope itself, else a child named ``BatchNorm_0``."""
+    if len(path) >= 3 and path[-3].startswith(_BN_MODULE):
+        return ".".join(path[:-2])
+    return ".".join(path[:-1])
 
 
 def _leaves(tree: Mapping[str, Any], prefix=()):
@@ -81,16 +95,22 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     params = variables.get("params", variables)
     sd: Dict[str, torch.Tensor] = {}
     for path, value in _leaves(variables.get("batch_stats", {})):
-        if len(path) < 3 or path[-2] != _BN or path[-1] not in _BN_STATS:
+        if len(path) < 2 or path[-2] != _BN or path[-1] not in _BN_STATS:
             raise ValueError(f"unexpected batch_stats leaf {'/'.join(path)}")
-        sd[".".join(path[:-2]) + "." + _BN_STATS[path[-1]]] = (
+        sd[_bn_module(path) + "." + _BN_STATS[path[-1]]] = (
             torch.from_numpy(np.array(value, dtype=np.float32, order="C")))
     for path, value in _leaves(params):
         a = np.asarray(value)
-        if len(path) >= 3 and path[-2] == _BN and path[-1] in _GN_LEAVES:
-            key = ".".join(path[:-2]) + "." + _GN_LEAVES[path[-1]]
+        if len(path) >= 2 and path[-2] == _BN and path[-1] in _GN_LEAVES:
+            key = _bn_module(path) + "." + _GN_LEAVES[path[-1]]
         elif len(path) >= 2 and path[-2] == _GN and path[-1] in _GN_LEAVES:
             key = ".".join(path[:-1]) + "." + _GN_LEAVES[path[-1]]
+        elif (len(path) >= 2 and path[-2].startswith(_DENSE)
+              and path[-1] in ("kernel", "bias")):
+            if path[-1] == "kernel":
+                a = a.T
+            key = ".".join(path[:-1]) + (".weight" if path[-1] == "kernel"
+                                         else ".bias")
         elif (len(path) >= 3 and path[-2] in _INNER
               and path[-1] in ("kernel", "bias")):
             if path[-1] == "kernel":
@@ -119,9 +139,11 @@ def state_dict_to_flax(sd: Mapping[str, Any]) -> Dict[str, Any]:
         *mods, name = key.split(".")
         if name == "num_batches_tracked":
             continue
-        bn = bool(mods) and mods[-1].startswith(_BN_MODULE)
+        bn = bool(mods) and (mods[-1].startswith(_BN_MODULE)
+                             or mods[-1] == _BN)
+        bn_path = (*mods, _BN) if bn and mods[-1] != _BN else tuple(mods)
         if bn and name in ("running_mean", "running_var"):
-            _node(stats, (*mods, _BN))[
+            _node(stats, bn_path)[
                 "mean" if name == "running_mean" else "var"] = (
                     np.ascontiguousarray(_to_numpy(value)))
             continue
@@ -129,9 +151,13 @@ def state_dict_to_flax(sd: Mapping[str, Any]) -> Dict[str, Any]:
             raise ValueError(f"unexpected state_dict entry {key}")
         a = _to_numpy(value)
         if bn:
-            _node(params, (*mods, _BN))[
+            _node(params, bn_path)[
                 "scale" if name == "weight" else "bias"] = (
                     np.ascontiguousarray(a))
+            continue
+        if mods[-1].startswith(_DENSE):
+            _node(params, mods)["kernel" if name == "weight" else "bias"] = (
+                np.ascontiguousarray(a.T if name == "weight" else a))
             continue
         if mods[-1] == _GN:
             _node(params, mods)["scale" if name == "weight" else "bias"] = (

@@ -6,8 +6,9 @@ normalization, halo padding), and ``get_train_loaders`` /
 ``get_test_loaders`` over ``configs/unet3d_train.yml``'s and
 ``configs/unet3d_predict.yml``'s pipelines — the same batches, bit for bit,
 with both ``GLOBAL_RANDOM_STATE``s reset to ``RandomState(47)``.  Also the
-port's own contracts: ``device_cache: true``, ``LazyHDF5Dataset`` and
-``DSB2018Dataset`` raise naming their items, the train/val leakage guard,
+port's own contracts: ``device_cache: true`` on the yml's pipeline falls
+back to the host loader, ``LazyHDF5Dataset`` and ``DSB2018Dataset`` raise
+naming their items, the train/val leakage guard,
 unreadable files skipped.  The in-memory batches ``chip_smoke.py`` holds
 the prediction file against equal the test loader's."""
 
@@ -240,9 +241,12 @@ def test_test_loaders_match_jax_and_the_in_memory_batches(tmp_path):
 
 def test_unported_options_and_names_raise(tmp_path):
     cfg = _train_config(tmp_path, n_train=1)
+    # device_cache is ported (test_torch_port_device_cache.py): the yml's
+    # pipeline (RandomRotate, ElasticDeformation) has no device form, so
+    # it falls back to the host loader, as in the JAX package
     cfg["loaders"]["device_cache"] = True
-    with pytest.raises(NotImplementedError, match=r"item 18 \(data/device"):
-        loaders.get_train_loaders(cfg)
+    assert isinstance(loaders.get_train_loaders(cfg, device="cpu")["train"],
+                      loaders.VolumeLoader)
     cfg["loaders"]["device_cache"] = False
     for name, item in (("LazyHDF5Dataset", "item 20"),
                        ("DSB2018Dataset", "item 20")):

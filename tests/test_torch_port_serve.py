@@ -266,11 +266,11 @@ def test_unported_entry_points_raise(bundles):
     for fn in (reg.register_exported, reg.register_sam):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn("x", "y")
-    # 3D serving is ported (test_torch_port_predictor.py); the 3D models
-    # that are not yet still raise, naming their ROADMAP item
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        reg.register_unet3d("x", "y", {"name": "ResidualUNetSE3D"},
-                            device="cpu")
+    # 3D serving is ported for every model of the family
+    # (test_torch_port_predictor.py, test_torch_port_batchnorm3d.py); a
+    # name outside it raises before any file is read
+    with pytest.raises(KeyError, match="unknown model"):
+        reg.register_unet3d("x", "y", {"name": "VNet"}, device="cpu")
     with pytest.raises(SystemExit, match="ROADMAP"):
         serve_cli.main(["--exported", "name=a,path=b"])
     with pytest.raises(SystemExit, match="ROADMAP"):

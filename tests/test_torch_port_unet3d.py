@@ -167,26 +167,42 @@ def test_final_activation_and_registry():
     assert get_model({**CONFIGS["unet3d_f4_l2_sigmoid"],
                       "is_segmentation": False}).final_activation() is None
     assert unet3d.ResidualUNet3D().num_levels == 5
-    for name in ("ResidualUNetSE3D", "UNet2D", "ResidualUNet2D"):
+    # every name of the JAX package's MODELS_3D builds, with its defaults
+    for name, levels, is3d in (("ResidualUNetSE3D", 5, True),
+                               ("UNet2D", 4, False),
+                               ("ResidualUNet2D", 5, False)):
         assert name in unet3d.MODELS_3D
-        with pytest.raises(NotImplementedError, match="item 16"):
-            get_model({"name": name})
+        m = get_model({"name": name, "f_maps": 8})
+        assert (m.num_levels, m.is3d) == (levels, is3d), name
     with pytest.raises(KeyError, match="unknown model"):
         get_model({"name": "VNet"})
-    # fp32 only so far: bf16 compute comes with 3D training
+    # float32 (also spelled out) and bfloat16 compute; others raise
     for dtype in (None, "float32"):
-        get_model({**CONFIGS["unet3d_f4_l2_sigmoid"], "dtype": dtype})
-    with pytest.raises(NotImplementedError, match="bf16 compute"):
-        get_model({**CONFIGS["unet3d_f4_l2_sigmoid"], "dtype": "bfloat16"})
+        assert get_model({**CONFIGS["unet3d_f4_l2_sigmoid"],
+                          "dtype": dtype}).dtype is None
+    assert get_model({**CONFIGS["unet3d_f4_l2_sigmoid"],
+                      "dtype": "bfloat16"}).dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        get_model({**CONFIGS["unet3d_f4_l2_sigmoid"], "dtype": "float16"})
 
 
 def test_blocks_refuse_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        blocks3d.SingleConv(4, 8, order="cbr")
-    with pytest.raises(NotImplementedError, match="ResNetBlockSE"):
-        blocks3d.Encoder(1, 4, basic_module="ResNetBlockSE")
+    """Every order, block and upsampler of the JAX package builds now (the
+    BatchNorm orders, ResNetBlockSE, any padding, the interpolating
+    upsamplers); what the JAX package refuses, the port refuses too."""
+    assert isinstance(blocks3d.SingleConv(4, 8, order="cbr").BatchNorm_0,
+                      torch.nn.Module)
+    assert isinstance(blocks3d.Encoder(1, 4, basic_module="ResNetBlockSE")
+                      .basic_module, blocks3d.ResNetBlockSE)
+    assert blocks3d.SingleConv(4, 8, kernel_size=3, padding=0
+                               ).TorchConv_0.padding == (0, 0, 0)
+    assert blocks3d.Decoder(16, 8, 8, upsample="trilinear").mode == "linear"
     with pytest.raises(ValueError, match="Non-linearity"):
         blocks3d.SingleConv(4, 8, order="rcg")
+    with pytest.raises(ValueError, match="Unsupported basic_module"):
+        blocks3d.Encoder(1, 4, basic_module="DenseBlock")
+    with pytest.raises(ValueError, match="Unsupported layer type"):
+        blocks3d.SingleConv(4, 8, order="cxr")
 
 
 @pytest.mark.parametrize("order", ["gcr", "cgr", "gce", "cr", "gcl", "gcrd"])
