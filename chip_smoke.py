@@ -1,10 +1,11 @@
 """GPU smoke run of the PyTorch port: 2D serving, 3D sliding-window
 inference, 3D 'gcr' training, 2D classic-UNet training, UNet-3+ training
 and serving, the config-driven 3D pipeline (YAML configs, HDF5 volumes),
-and the rest of the 3D family (bf16, device_cache, ResidualUNetSE3D,
-BatchNorm, UNet2D / ResidualUNet2D, remat).
+the rest of the 3D family (bf16, device_cache, ResidualUNetSE3D,
+BatchNorm, UNet2D / ResidualUNet2D, remat) and int8 post-training
+quantization.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phase 18]
 
 Needs one CUDA card, nvcc and the checkout this file sits in; imports nothing
 of JAX (nor PyYAML or h5py).  It exits non-zero, without printing a result,
@@ -227,7 +228,43 @@ wall time.
    ('save_convs_norms', None) and off, 3 steps each with deterministic
    cuDNN: every loss and parameter equal to the bit, peak memory of each,
    launches per policy (None runs kernel 2 and 3a twice a step).
-18. Prints the card's name and power limit, the kernels' JSON line (launches
+18. int8 post-training quantization (``phase_int8``; ``--phase 18`` runs the
+   kernel build and this phase alone): (b) bench.py's int8 row
+   (``bench_int8_infer``: UNet3D f_maps 32, 'gcr', bf16, batch 2 at
+   64x128x128, ``RandomState(0).rand``, calibrated on that batch): the
+   float forward (kernel 2) and the int8 forward, each the best of 5
+   CUDA-event blocks of 3 forwards, in turns; 14 ``int8_conv`` launches a
+   forward and the output equal (within 1e-3 of max |y|; measured equal)
+   to the same forward with ``int8_conv_reference`` in place of the
+   kernel. (c) ``cli/predict3d.py`` on a copy of
+   ``configs/unet3d_predict.yml`` with ``quantize: int8`` uncommented,
+   beside the yml as it is, phase 3's seeded weights and volume as gzip
+   HDF5: batch 0 calibrates (no int8 launch), batch 1 runs 14
+   ``int8_conv``, 14 GN-statistics and 14 GN-affine launches and no
+   kernel 2; ms a batch of both runs, the int8 map's gap to the float map.
+   (d) ``tests/test_int8_fidelity.py``'s recipe on the card: three seeded
+   24x48x48 blob volumes (14 blobs, noise 0.2) written with the port's
+   HDF5 codec, UNet3D f_maps 16, 2 levels, trained 60 iterations by
+   ``create_trainer(...).fit()``, the held-out volume predicted float and
+   int8 (``calib_batches: 2``): float dice > 0.5, |Δdice| < 0.05, voxel
+   agreement > 0.97. (e) ``register_unet2d(quantize="int8",
+   calib_batches=1)`` on phase 2's bundle beside the float model; one
+   dispatched batch of 8 calibrates (no int8 launch), then 8 clients POST
+   32 PNGs to each model: p50 / p99 from the clients' clocks, a device
+   batch of 8 through dispatch + fetch, 18 ``int8_conv`` launches a batch;
+   the served int8 masks equal to the plain int8 forward's on >= 99.9% of
+   pixels and to the float masks on >= 98% (with random weights the masks
+   at 0.5 are empty, so the agreement split at the float probabilities'
+   median is printed beside). (a) the kernel against
+   ``int8_conv_reference`` at every int8 conv shape (b)-(e) gave it, plus
+   ``INT8_RAGGED``: the int32 sums and the outputs equal to the bit (the
+   plain version at N = 1 where x holds over 2^28 elements); the kernel's
+   event window and ``torch.profiler`` device time, the plain version's
+   ms, cuDNN's float conv at the same shape (labelled as the float conv:
+   PyTorch has no one-call int8 conv on CUDA), the bound (ops at the 1979
+   TOP/s int8 peak or bytes at 3.35 TB/s) and its share; summed per
+   configuration.
+19. Prints the card's name and power limit, the kernels' JSON line (launches
    from the main-path runs, each run's counts zeroed just before it, and
    for the 3D kernels their launches on each path of phases 13-17 under
    ``launches_by_path``; ms, plain, library and bound ms summed over the
@@ -235,8 +272,9 @@ wall time.
    fp32 model shapes, and a ``gcr_conv3d_bf16`` row at phase 15's bf16
    shapes; device ms where phases 6-7 measured it, else null; kernel 1
    also its launches by path, serving and training, and under ``train``
-   its numbers at the training batch), and last ``{"ok": true, "device":
-   {...}}``.
+   its numbers at the training batch; ``int8_conv`` with its launches by
+   path over (b)-(e) and its times over (b)'s shapes), and last ``{"ok":
+   true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -396,6 +434,15 @@ def _log_ptxas(build_log: str) -> None:
             if m:
                 name = (f"{m[1]}<{'fp32' if m[2] == 'f' else 'bf16'}, tile "
                         f"{m[3]}/{m[4]}/{m[5]}, affine {m[6]}>")
+            m = re.search(r"(int8_\w+?_kernel)I(f|13__nv_bfloat16)"
+                          r"(f|13__nv_bfloat16|S1_|i)(?:Lb([01])|\w*?HTileI"
+                          r"Li(\d+)ELi(\d+)E)", name)
+            if m:
+                types = {"f": "fp32", "13__nv_bfloat16": "bf16", "i": "s32"}
+                out = types.get(m[3], types[m[2]])  # S1_: as the input
+                name = (f"{m[1]}<in {types[m[2]]}, out {out}, "
+                        + (f"vec {m[4]}>" if m[4] is not None
+                           else f"tile {m[5]}/{m[6]}>"))
         elif "registers" in line or "spill" in line:
             log(f"  ptxas {name[:72]}: {line.split(':', 1)[-1].strip()}")
 
@@ -1298,9 +1345,10 @@ def device_times(prof):
 
 
 def _device_ms(fn, launches: int = 1, repeats: int = 5,
-               tries: int = 3) -> float:
+               tries: int = 3, name: str = "") -> float:
     """Device time of one call of ``fn``, which launches ``launches``
-    kernels of one kind: the mean self device time of the kernel events
+    kernels of one kind (whose name holds ``name``, where ``fn`` launches
+    smaller ones too): the mean self device time of those kernel events
     ``torch.profiler`` recorded over ``repeats`` calls after a warm-up,
     times ``launches``.  Host work between launches is not in it; the event
     window of ``_time_turns`` holds both.  The tracer drops an event now
@@ -1323,7 +1371,7 @@ def _device_ms(fn, launches: int = 1, repeats: int = 5,
             dev = getattr(evt, "self_device_time_total", None)
             if dev is None:
                 dev = getattr(evt, "self_cuda_time_total", 0.0)
-            if dev and evt.device_type.name == "CUDA":
+            if dev and evt.device_type.name == "CUDA" and name in evt.key:
                 total += dev / 1e3
                 count += evt.count
         if count:
@@ -4099,14 +4147,826 @@ def phase_family_and_remat(seed: int, workdir: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: int8 post-training quantization (W8A8) on the card
+# ---------------------------------------------------------------------------
+
+PEAK_INT8 = 1979e12      # published dense int8 tensor-core rate, H100 SXM
+# bench.py:185-225 (bench_int8_infer): UNet3D f_maps 32, 4 levels, 'gcr',
+# bf16, batch 2 at 64x128x128, x = RandomState(0).rand, calibrated on x
+BENCH_INT8_MODEL = {"name": "UNet3D", "in_channels": 1, "out_channels": 1,
+                    "f_maps": 32, "num_levels": 4, "layer_order": "gcr",
+                    "dtype": "bfloat16"}
+BENCH_INT8_X = (2, 64, 128, 128, 1)
+INT8_BLOCKS = 5          # (b): best of this many blocks ...
+INT8_BLOCK_FORWARDS = 3  # ... of this many forwards each
+# tests/test_int8_fidelity.py: three seeded blob volumes, UNet3D f_maps 16,
+# 2 levels, 'gcr', 60 iterations, patch 16x32x32, calib_batches 2
+FIDELITY_VOLUME = (24, 48, 48)
+FIDELITY_MODEL = {"name": "UNet3D", "in_channels": 1, "out_channels": 1,
+                  "f_maps": 16, "num_levels": 2, "layer_order": "gcr",
+                  "final_sigmoid": True}
+FIDELITY_PATCH = [16, 32, 32]
+FIDELITY_DICE = 0.5      # the float model must have learned the task
+FIDELITY_DELTA = 0.05    # |dice_float - dice_int8|
+FIDELITY_AGREE = 0.97    # voxel agreement, float vs int8
+INT8_SERVE_BASE, INT8_SERVE_RES = 64, 256  # (e) phase 2's bundle
+INT8_SERVE_EQUAL = 0.999  # (e) served int8 masks vs the plain int8 forward
+INT8_SERVE_AGREE = 0.98   # (e) served int8 masks vs the float masks
+INT8_PLAIN_MAX_NUMEL = 2 ** 28  # (a) the plain version at N = 1 above this
+# (a) beside the models' shapes: a 1x3x3 window with Ci = 16 mod 32 and odd
+# H, W; Co not a multiple of 64; ragged Ci (the element-wise gather); a 2D
+# Ci = 8 conv from bf16 into fp32; a 3x3x3 conv without padding
+INT8_RAGGED = (
+    ("ragged", (1, 5, 19, 23, 48), "float32", (24, 48, 1, 3, 3),
+     ((0, 0), (1, 1), (1, 1)), "float32", True),
+    ("ragged", (2, 3, 9, 17, 16), "bfloat16", (70, 16, 3, 3, 3),
+     ((1, 1), (1, 1), (1, 1)), "bfloat16", False),
+    ("ragged", (1, 7, 11, 13, 40), "float32", (5, 40, 3, 3, 3),
+     ((1, 1), (1, 1), (1, 1)), "float32", True),
+    ("ragged", (3, 9, 31, 8), "bfloat16", (65, 8, 3, 3),
+     ((1, 1), (1, 1)), "float32", True),
+    ("ragged", (2, 6, 6, 6, 32), "float32", (16, 32, 3, 3, 3),
+     ((0, 0), (0, 0), (0, 0)), "float32", True),
+)
+# (b) int8 forward vs the plain int8 forward, of max |y|: the same GroupNorm
+# kernels feed both, so the convs see the same inputs and give the same
+# integers
+INT8_OUT_TOL = 1e-3
+
+
+def _int8_counts():
+    from mdeical_image_segmentation_tpu_torch.ops import quant
+
+    return {**_counts(), "int8_conv": quant.int8_conv.launches}
+
+
+def _zero_int8_counts():
+    from mdeical_image_segmentation_tpu_torch.ops import quant
+
+    _zero_counts()
+    quant.int8_conv.launches = 0
+
+
+class plain_int8:
+    """Within this block the int8 convs run ``int8_conv_reference`` (an
+    exact float64 conv of the int8 values and the same float32 epilogue) on
+    the card; every other op, the GroupNorm kernels included, is as it was,
+    so the convs see the same inputs."""
+
+    def __enter__(self):
+        from mdeical_image_segmentation_tpu_torch.ops import quant
+
+        self.saved = quant.int8_conv
+        quant.int8_conv = quant.int8_conv_reference
+        return self
+
+    def __exit__(self, *exc):
+        from mdeical_image_segmentation_tpu_torch.ops import quant
+
+        quant.int8_conv = self.saved
+
+
+def _record_int8_shapes(model, shapes: set, tag: str):
+    """Forward pre-hooks noting every quantized conv's call in int8 mode:
+    (tag, x shape, x dtype, weight shape, pads, out dtype, bias)."""
+    from mdeical_image_segmentation_tpu_torch.models.layers2d import TorchConv
+    from mdeical_image_segmentation_tpu_torch.ops import quant
+
+    def hook(mod, args):
+        x = args[0]
+        if quant.mode() == "int8" and quant.quantizable(mod.kernel_size,
+                                                        x.shape[-1]):
+            shapes.add((tag, tuple(x.shape), str(x.dtype)[6:],
+                        tuple(mod.weight.shape), tuple(mod._pads(x)),
+                        str(mod.dtype or x.dtype)[6:], mod.bias is not None))
+
+    return [m.register_forward_pre_hook(hook) for m in model.modules()
+            if isinstance(m, TorchConv)]
+
+
+def _best_ms(fn, blocks=INT8_BLOCKS, per_block=INT8_BLOCK_FORWARDS):
+    """ms of one call: the best of ``blocks`` CUDA-event windows of
+    ``per_block`` calls each, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(blocks):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        for _ in range(per_block):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        best = min(best, s.elapsed_time(e) / per_block)
+    return best
+
+
+def _int8_bench_row(seed: int, shapes: set):
+    """(b) bench.py's int8 row as the port runs it."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.models import get_model
+    from mdeical_image_segmentation_tpu_torch.ops import quant
+
+    model = get_model(BENCH_INT8_MODEL,
+                      generator=torch.Generator().manual_seed(seed))
+    model = model.to(DEVICE).eval()
+    x = torch.from_numpy(np.random.RandomState(0).rand(*BENCH_INT8_X)
+                         .astype(np.float32)).to(DEVICE)
+    scales = quant.calibrate(model, model, [x])
+
+    def float_fwd():
+        return model(x)
+
+    def int8_fwd():
+        with quant.quant_mode("int8", scales, model):
+            return model(x)
+
+    with torch.inference_mode():
+        y_f = float_fwd().float()
+        handles = _record_int8_shapes(model, shapes, "bench")
+        torch.cuda.synchronize()
+        _zero_int8_counts()
+        y_q = int8_fwd().float()
+        torch.cuda.synchronize()
+        launches = _int8_counts()
+        for h in handles:
+            h.remove()
+        with plain_int8():
+            y_p = int8_fwd().float()
+        # in turns: float, int8, int8, float
+        f1, q1 = _best_ms(float_fwd), _best_ms(int8_fwd)
+        q2, f2 = _best_ms(int8_fwd), _best_ms(float_fwd)
+    for name, y in (("float", y_f), ("int8", y_q), ("plain int8", y_p)):
+        if not torch.isfinite(y).all() or y.shape != (*BENCH_INT8_X[:-1], 1):
+            raise AssertionError(f"(b) {name} forward: {tuple(y.shape)}, "
+                                 "non-finite or wrong shape")
+    gap_plain = float((y_q - y_p).abs().max() / y_p.abs().max())
+    gap_float = float((y_q - y_f).abs().max() / y_f.abs().max())
+    agree = float(((y_q > 0) == (y_f > 0)).float().mean())
+    float_ms, int8_ms = min(f1, f2), min(q1, q2)
+    log(f"[phase 18] (b) bench.py int8 row (UNet3D f_maps 32, bf16, batch 2,"
+        f" 64x128x128): float forward (kernel 2) {float_ms:.3f} ms "
+        f"({f1:.3f} / {f2:.3f}), int8 forward {int8_ms:.3f} ms ({q1:.3f} / "
+        f"{q2:.3f}); int8 / float {int8_ms / float_ms:.3f}; launches per "
+        f"int8 forward {launches}; int8 vs plain int8 (same GroupNorm "
+        f"kernels) max |Δ| {gap_plain:.3e} of max |y|; int8 vs float "
+        f"{gap_float:.3e} of max |y|, sign agreement {agree:.4f}")
+    if gap_plain > INT8_OUT_TOL:
+        raise AssertionError(f"(b) int8 forward differs from the plain int8 "
+                             f"forward by {gap_plain:.3e} of max |y|")
+    if launches["int8_conv"] != 14 or launches["gcr_conv3d"] != 0:
+        raise AssertionError(f"(b) {launches}: want 14 int8_conv launches "
+                             "(13 'gcr' convs and the final conv) and no "
+                             "kernel 2")
+    del model
+    torch.cuda.empty_cache()
+    return {"float_ms": float_ms, "int8_ms": int8_ms,
+            "gap_plain": gap_plain, "gap_float": gap_float,
+            "launches": launches["int8_conv"], "counts": launches}
+
+
+def _instrument_int8(pred, rec):
+    """Time each batch of a predictor (synchronised host clock) and note
+    its mode and the launches it made."""
+    import torch
+
+    orig = pred._predict_batch_device
+
+    def timed(input):
+        mode = ("float" if pred.quantize is None else
+                "calib" if pred._calib_seen < pred.calib_batches else "int8")
+        torch.cuda.synchronize()
+        before, t0 = _int8_counts(), time.perf_counter()
+        out = orig(input)
+        torch.cuda.synchronize()
+        after = _int8_counts()
+        rec.append((mode, (time.perf_counter() - t0) * 1e3,
+                    {k: after[k] - before[k] for k in after}))
+        return out
+
+    pred._predict_batch_device = timed
+
+
+def _int8_predict_cli(seed: int, workdir: str, shapes: set):
+    """(c) cli/predict3d.py on a copy of configs/unet3d_predict.yml with
+    ``quantize: int8``, phase 3's seeded weights and volume, beside the
+    float yml."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.cli import predict3d
+    from mdeical_image_segmentation_tpu_torch.infer import (
+        predictor as predictor_lib,
+    )
+    from mdeical_image_segmentation_tpu_torch.models import get_model
+    from mdeical_image_segmentation_tpu_torch.train import save_checkpoint
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5
+    from mdeical_image_segmentation_tpu_torch.utils.param_bridge import (
+        state_dict_to_flax,
+    )
+
+    text = open(PREDICT_YML).read()
+    line = "  # quantize: int8"
+    if line not in text:
+        raise AssertionError(f"{PREDICT_YML} no longer documents '{line}'")
+    int8_yml = os.path.join(workdir, "unet3d_predict_int8.yml")
+    with open(int8_yml, "w") as f:
+        f.write(text.replace(line, "  quantize: int8", 1))
+    cfg = read_yaml_subset(PREDICT_YML)
+    ckpt = save_checkpoint(
+        {"model_state_dict": state_dict_to_flax(get_model(
+            cfg["model"], generator=torch.Generator().manual_seed(seed)
+        ).state_dict()), "best_eval_score": 0.0, "num_iterations": 0},
+        True, os.path.join(workdir, "int8_ckpt"))
+    raw = seeded_volume(VOLUME_3D, seed)
+    path = os.path.join(workdir, "int8_volume.h5")
+    _write_h5_volume(path, raw)
+
+    get = predictor_lib.get_predictor
+    runs = {}
+    for name, yml in (("float", PREDICT_YML), ("int8", int8_yml)):
+        rec, made = [], []
+        handles = []
+
+        def instrumented(model, output_dir, config, **kw):
+            p = get(model, output_dir, config, **kw)
+            _instrument_int8(p, rec)
+            if name == "int8":
+                handles.extend(_record_int8_shapes(model, shapes,
+                                                   "predictor"))
+            made.append(p)
+            return p
+
+        out_dir = os.path.join(workdir, f"pred_{name}")
+        argv = ["--config", yml, "--model_path", ckpt, "--output_dir",
+                out_dir, "--loaders.test.file_paths", repr([path]),
+                "--device", DEVICE]
+        predictor_lib.get_predictor = instrumented
+        try:
+            torch.cuda.synchronize()
+            _zero_int8_counts()
+            t0 = time.perf_counter()
+            predict3d.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _int8_counts()
+        finally:
+            predictor_lib.get_predictor = get
+            for h in handles:
+                h.remove()
+        with hdf5.File(os.path.join(out_dir, "int8_volume_predictions.h5")
+                       ) as f:
+            got = f["predictions"][:]
+        runs[name] = {"rec": rec, "wall": wall, "launches": launches,
+                      "map": got, "quantize": made[0].quantize}
+        for i, (mode, ms, n) in enumerate(rec):
+            log(f"  {name} batch {i} ({mode}): {ms:.1f} ms, launches {n}")
+        del made
+        torch.cuda.empty_cache()
+    f_run, q_run = runs["float"], runs["int8"]
+    if q_run["quantize"] != "int8" or f_run["quantize"] is not None:
+        raise AssertionError("(c) the int8 yml did not reach the predictor")
+    modes = [m for m, _, _ in q_run["rec"]]
+    if modes != ["calib", "int8"]:
+        raise AssertionError(f"(c) batch modes {modes}: want calib, int8")
+    for mode, _, n in q_run["rec"]:
+        want = {"calib": 0, "int8": 14}[mode]
+        if (n["int8_conv"] != want or n["gcr_conv3d"] != 0
+                or n["gn_stats"] != 14 or n["gn_affine"] != 14):
+            raise AssertionError(f"(c) {mode} batch {n}: want {want} "
+                                 "int8_conv, 14 gn_stats and 14 gn_affine "
+                                 "launches, no kernel 2")
+    if q_run["launches"]["overlap_add"] != 2:
+        raise AssertionError(f"(c) {q_run['launches']}: want one overlap-add "
+                             "per batch")
+    fmap, qmap = f_run["map"], q_run["map"]
+    if fmap.shape != qmap.shape or not np.isfinite(qmap).all():
+        raise AssertionError(f"(c) int8 map {qmap.shape} vs float "
+                             f"{fmap.shape}, or non-finite")
+    gap = float(np.abs(qmap - fmap).max())
+    scale = float(np.abs(fmap).max())
+    f_ms = [ms for _, ms, _ in f_run["rec"]]
+    calib_ms = [ms for m, ms, _ in q_run["rec"] if m == "calib"]
+    int8_ms = [ms for m, ms, _ in q_run["rec"] if m == "int8"]
+    log(f"[phase 18] (c) predict3d, UNet3D f_maps 64 fp32, batch 4 of "
+        f"112x234x234: float batches {[round(v, 1) for v in f_ms]} ms, "
+        f"int8 run calib batch {[round(v, 1) for v in calib_ms]} ms, int8 "
+        f"batch {[round(v, 1) for v in int8_ms]} ms; whole run float "
+        f"{f_run['wall']:.2f} s, int8 {q_run['wall']:.2f} s; int8 map vs "
+        f"float map max |Δ| {gap:.4e} (max |float| {scale:.4f}, mean |Δ| "
+        f"{float(np.abs(qmap - fmap).mean()):.4e})")
+    return {"float_ms": f_ms, "calib_ms": calib_ms, "int8_ms": int8_ms,
+            "gap": gap, "scale": scale,
+            "launches": q_run["launches"]["int8_conv"],
+            "counts": q_run["launches"]}
+
+
+def fidelity_volume(path, shape, n_blobs, seed):
+    """tests/test_int8_fidelity.py's blob phantom: ``n_blobs`` Gaussian
+    blobs, label = field > 0.5, raw = field + 0.2·noise, written with the
+    port's HDF5 codec; returns the label."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    d, h, w = shape
+    zz, yy, xx = np.meshgrid(np.arange(d), np.arange(h), np.arange(w),
+                             indexing="ij")
+    field = np.zeros(shape, np.float32)
+    for _ in range(n_blobs):
+        c = rs.rand(3) * [d, h, w]
+        r = rs.uniform(3.0, 7.0)
+        d2 = ((zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2) / r ** 2
+        field = np.maximum(field, np.exp(-d2).astype(np.float32))
+    label = (field > 0.5).astype(np.uint8)
+    raw = field + rs.randn(*shape).astype(np.float32) * 0.2
+    _write_h5_volume(path, raw, label)
+    return label
+
+
+def _fidelity_phase(fp, patch, stride):
+    return {"transformer": {"raw": [{"name": "Standardize"},
+                                    {"name": "ToTensor", "expand_dims": True}],
+                            "label": [{"name": "ToTensor",
+                                       "expand_dims": True}]},
+            "slice_builder": {"name": "SliceBuilder", "patch_shape": patch,
+                              "stride_shape": stride,
+                              "skip_shape_check": True},
+            "file_paths": [fp]}
+
+
+def _dice(pred, gt):
+    import numpy as np
+
+    inter = float(np.logical_and(pred, gt).sum())
+    return 2 * inter / max(float(pred.sum() + gt.sum()), 1.0)
+
+
+def _int8_fidelity(workdir: str, shapes: set):
+    """(d) tests/test_int8_fidelity.py's recipe on the card: train, then
+    predict the held-out volume float and int8."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.data.loaders import (
+        get_test_loaders,
+    )
+    from mdeical_image_segmentation_tpu_torch.infer import get_predictor
+    from mdeical_image_segmentation_tpu_torch.models import get_model
+    from mdeical_image_segmentation_tpu_torch.train import load_checkpoint
+    from mdeical_image_segmentation_tpu_torch.train.trainer3d import (
+        create_trainer,
+    )
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5
+    from mdeical_image_segmentation_tpu_torch.utils.param_bridge import (
+        flax_to_state_dict,
+    )
+
+    root = os.path.join(workdir, "fidelity")
+    os.makedirs(root, exist_ok=True)
+    for name, seed in (("train", 0), ("val", 1)):
+        fidelity_volume(f"{root}/{name}.h5", FIDELITY_VOLUME, 14, seed)
+    gt = fidelity_volume(f"{root}/test.h5", FIDELITY_VOLUME, 14, 2)
+    cfg = {
+        "device": DEVICE,
+        "model": FIDELITY_MODEL,
+        "loss": {"name": "BCEDiceLoss"},
+        "eval_metric": {"name": "DiceCoefficient"},
+        "optimizer": {"name": "Adam", "learning_rate": 2e-3},
+        "lr_scheduler": {"name": "ReduceLROnPlateau", "mode": "max",
+                         "factor": 0.5, "patience": 10},
+        "trainer": {"checkpoint_dir": f"{root}/ckpt", "max_num_epochs": 1000,
+                    "max_num_iterations": 60, "validate_after_iters": 30,
+                    "log_after_iters": 30},
+        "loaders": {"dataset": "StandardHDF5Dataset", "batch_size": 1,
+                    "train": _fidelity_phase(f"{root}/train.h5",
+                                             FIDELITY_PATCH, [8, 16, 16]),
+                    "val": _fidelity_phase(f"{root}/val.h5", FIDELITY_PATCH,
+                                           FIDELITY_PATCH)},
+    }
+    t0 = time.perf_counter()
+    create_trainer(cfg).fit()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    ms = load_checkpoint(f"{root}/ckpt/best_checkpoint.msgpack")[
+        "model_state_dict"]
+    model = get_model(FIDELITY_MODEL, device=DEVICE)
+    model.load_state_dict(flax_to_state_dict(ms))
+    model.eval()
+    preds, launches = {}, {}
+    for tag, pcfg in (("float", {"apply_activation": True}),
+                      ("int8", {"apply_activation": True, "quantize": "int8",
+                                "calib_batches": 2})):
+        out_dir = f"{root}/pred_{tag}"
+        os.makedirs(out_dir, exist_ok=True)
+        config = {"model": FIDELITY_MODEL,
+                  "predictor": dict(pcfg, name="StandardPredictor"),
+                  "loaders": {"dataset": "StandardHDF5Dataset",
+                              "batch_size": 2,
+                              "test": _fidelity_phase(f"{root}/test.h5",
+                                                      FIDELITY_PATCH,
+                                                      [8, 16, 16])}}
+        predictor = get_predictor(model, out_dir, config)
+        handles = _record_int8_shapes(model, shapes, "fidelity")
+        _zero_int8_counts()
+        for loader in get_test_loaders(config):
+            predictor(loader)
+        torch.cuda.synchronize()
+        launches[tag] = _int8_counts()["int8_conv"]
+        for h in handles:
+            h.remove()
+        with hdf5.File(f"{out_dir}/test_predictions.h5") as f:
+            prob = f["predictions"][:]
+        preds[tag] = (prob[0] if prob.ndim == 4 else prob) > 0.5
+    d_f, d_q = _dice(preds["float"], gt), _dice(preds["int8"], gt)
+    agree = float((preds["float"] == preds["int8"]).mean())
+    log(f"[phase 18] (d) fidelity (UNet3D f_maps 16, 2 levels, 60 "
+        f"iterations in {train_s:.1f} s): dice float {d_f:.4f}, int8 "
+        f"{d_q:.4f}, |Δdice| {abs(d_f - d_q):.4f}, voxel agreement "
+        f"{agree:.5f}; int8_conv launches {launches}")
+    if d_f <= FIDELITY_DICE:
+        raise AssertionError(f"(d) float dice {d_f:.4f} too low to judge "
+                             "fidelity")
+    if abs(d_f - d_q) >= FIDELITY_DELTA or agree <= FIDELITY_AGREE:
+        raise AssertionError(f"(d) int8 fidelity: dice {d_f:.4f} vs "
+                             f"{d_q:.4f}, agreement {agree:.5f}")
+    if launches["float"] != 0 or launches["int8"] == 0:
+        raise AssertionError(f"(d) int8_conv launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+    return {"dice_float": d_f, "dice_int8": d_q, "agree": agree,
+            "launches": launches["int8"]}
+
+
+def _int8_serving(seed: int, workdir: str, shapes: set):
+    """(e) register_unet2d(quantize="int8", calib_batches=1) on phase 2's
+    bundle beside the float model, 8 clients each."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.data.png2d import nearest_resize
+    from mdeical_image_segmentation_tpu_torch.models import (
+        UNetConfig,
+        UNetModel,
+    )
+    from mdeical_image_segmentation_tpu_torch.ops import quant
+    from mdeical_image_segmentation_tpu_torch.serve import (
+        ModelRegistry,
+        SegmentationServer,
+    )
+    from mdeical_image_segmentation_tpu_torch.utils import png
+
+    res, max_batch, clients, per_client = INT8_SERVE_RES, 8, 8, 4
+    config = UNetConfig(in_channels=1, out_channels=1, unet_type="UNet",
+                        base_features=INT8_SERVE_BASE,
+                        compute_dtype="bfloat16")
+    bundle = os.path.join(workdir, "unet2d_base64_bf16")
+    UNetModel(config, device="cpu",
+              generator=torch.Generator().manual_seed(seed)
+              ).save_pretrained(bundle)
+    registry = ModelRegistry()
+    t0 = time.time()
+    registry.register_unet2d("float", bundle, resolution=res, device=DEVICE,
+                             max_batch=max_batch)
+    t1 = time.time()
+    registry.register_unet2d("int8", bundle, resolution=res, device=DEVICE,
+                             max_batch=max_batch, quantize="int8",
+                             calib_batches=1)
+    log(f"[phase 18] (e) registered float in {t1 - t0:.2f} s, int8 in "
+        f"{time.time() - t1:.2f} s (warm-up of batches 1..{max_batch})")
+    q_entry, f_entry = registry.get("int8"), registry.get("float")
+    if q_entry.quant_scales:
+        raise AssertionError("(e) the warm-up fed the served scales")
+
+    rng = np.random.default_rng(seed)
+    images, arrays = [], []
+    for i in range(clients * per_client):
+        h, w = ((256, 256), (200, 310), (384, 384), (97, 130))[i % 4]
+        yy, xx = np.mgrid[:h, :w]
+        blob = (((yy - h / 2) ** 2 + (xx - w / 3) ** 2) < (min(h, w) / 3) ** 2)
+        grey = (blob * 150 + rng.integers(0, 60, (h, w))).astype(np.uint8)
+        path = os.path.join(workdir, f"int8_scan_{i:02d}.png")
+        png.write(path, grey)
+        images.append(path)
+        arrays.append(nearest_resize(grey[..., None], (res, res)))
+    x = np.stack(arrays)
+
+    # the first dispatched batch calibrates: the first 8 images, as one
+    # device batch, before the clients come
+    _zero_int8_counts()
+    q_entry.forward(x[:max_batch])
+    torch.cuda.synchronize()
+    if quant.int8_conv.launches != 0 or not q_entry.quant_scales:
+        raise AssertionError("(e) the calibration batch launched int8 convs "
+                             "or recorded no scales")
+    model = UNetModel.from_pretrained(bundle, device=DEVICE)
+    srv = SegmentationServer(registry,
+                             output_dir=os.path.join(workdir, "int8_masks"),
+                             max_batch=max_batch, max_wait_ms=5.0)
+    port = srv.start(host="127.0.0.1", port=0).server_address[1]
+    out = {}
+    try:
+        for name in ("float", "int8"):
+            replies = [None] * len(images)
+            lat = [0.0] * len(images)
+
+            def client(k):
+                for i in range(k, len(images), clients):
+                    t = time.perf_counter()
+                    replies[i] = _post(port, {"image_path": images[i],
+                                              "model": name,
+                                              "return": "mask"})
+                    lat[i] = (time.perf_counter() - t) * 1e3
+
+            occ0 = srv.engine.occupancy().get(name, {"batches": 0})["batches"]
+            _zero_int8_counts()
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(clients)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            if any(t.is_alive() for t in threads):
+                raise AssertionError("(e) a client did not finish in 600 s")
+            batches = srv.engine.occupancy()[name]["batches"] - occ0
+            launches = quant.int8_conv.launches
+            masks = []
+            for i, (status, body) in enumerate(replies):
+                if status != 200 or body.get("status") != 200:
+                    raise AssertionError(f"(e) {name} request {i}: {status}")
+                masks.append(np.asarray(body["response"], np.uint8))
+            entry = registry.get(name)
+            x8 = x[:max_batch]
+            batch_ms = _median_ms(lambda: entry.fetch(entry.dispatch(x8)),
+                                  repeats=5)
+            out[name] = {"masks": np.stack(masks), "batches": batches,
+                         "launches": launches,
+                         "p50": float(np.percentile(lat, 50)),
+                         "p99": float(np.percentile(lat, 99)),
+                         "batch_ms": batch_ms}
+            log(f"[phase 18] (e) {name}: {len(images)} requests, {batches} "
+                f"device batches, p50 {out[name]['p50']:.2f} ms, p99 "
+                f"{out[name]['p99']:.2f} ms; a batch of {max_batch} through "
+                f"dispatch + fetch {batch_ms:.3f} ms; int8_conv launches "
+                f"{launches}")
+    finally:
+        srv.stop()
+    if out["float"]["launches"] != 0:
+        raise AssertionError("(e) the float model launched int8 convs")
+    if out["int8"]["launches"] != 18 * out["int8"]["batches"]:
+        raise AssertionError(f"(e) {out['int8']['launches']} int8_conv "
+                             f"launches for {out['int8']['batches']} batches "
+                             "(want 18: 17 DoubleConv convs past the stem and "
+                             "the 1x1 head)")
+
+    # the plain int8 forward on the served scales, and the float
+    # probabilities, one batch of 8 at a time
+    xt = torch.from_numpy(x).to(DEVICE).float() / 255.0
+    with torch.inference_mode():
+        with plain_int8(), quant.quant_mode("int8", q_entry.quant_scales,
+                                            model):
+            p_q = torch.cat([torch.sigmoid(model(xt[i:i + max_batch]).logits)
+                             for i in range(0, len(x), max_batch)])
+        # the served int8 program once more, for the shapes (a) checks
+        with quant.quant_mode("int8", q_entry.quant_scales, model):
+            hooks = _record_int8_shapes(model.module, shapes, "serve")
+            model(xt[:max_batch])
+            for h in hooks:
+                h.remove()
+    p_q = p_q[..., 0].cpu().numpy()
+    p_f = np.concatenate([f_entry.probs_forward(x[i:i + max_batch]
+                                                .astype(np.float32) / 255.0)
+                          for i in range(0, len(x), max_batch)])[..., 0]
+    plain_masks = (p_q > 0.5).astype(np.uint8)
+    equal = float((out["int8"]["masks"] == plain_masks).mean())
+    agree = float((out["int8"]["masks"] == out["float"]["masks"]).mean())
+    thr = float(np.median(p_f))  # a split where the masks are not empty
+    split = float(((p_q > thr) == (p_f > thr)).mean())
+    log(f"[phase 18] (e) served int8 masks vs the plain int8 forward: "
+        f"{equal:.6f} equal; vs the served float masks: {agree:.6f}; mask "
+        f"foreground {out['int8']['masks'].mean():.4f} (int8), "
+        f"{out['float']['masks'].mean():.4f} (float); int8 vs float "
+        f"probabilities max |Δ| {float(np.abs(p_q - p_f).max()):.3e}, split "
+        f"at the float median {thr:.5f}: {split:.5f} agree")
+    if equal < INT8_SERVE_EQUAL or agree < INT8_SERVE_AGREE:
+        raise AssertionError(f"(e) served int8 masks: {equal:.6f} equal to "
+                             f"the plain int8 forward, {agree:.6f} agree "
+                             "with float")
+    del model
+    torch.cuda.empty_cache()
+    return {"float": {k: v for k, v in out["float"].items() if k != "masks"},
+            "int8": {k: v for k, v in out["int8"].items() if k != "masks"},
+            "equal": equal, "agree": agree, "median_split": split,
+            "launches": out["int8"]["launches"]}
+
+
+def _int8_case(shape_key, gen):
+    """Seeded inputs of one recorded conv call: x, the quantized weight, a
+    scale that clips the top 5%, the bias."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.ops import quant
+
+    _, xs, xdt, ws, pads, odt, has_bias = shape_key
+    x = torch.randn(xs, device=DEVICE, generator=gen).to(
+        getattr(torch, xdt))
+    w = torch.randn(ws, device=DEVICE, generator=gen) / math.sqrt(
+        ws[1] * math.prod(ws[2:]))
+    qw = quant.quantize_weight(w)
+    x_scale = torch.clamp_min(x.float().abs().amax() * 0.95, 1e-12) / 127.0
+    bias = (0.1 * torch.randn(ws[0], device=DEVICE, generator=gen)
+            if has_bias else None)
+    return x, qw, x_scale, bias, [tuple(p) for p in pads], getattr(torch, odt)
+
+
+def _int8_kernel_checks(seed: int, shapes: set):
+    """(a) the kernel against ``int8_conv_reference`` at every recorded
+    shape: the int32 sums and the outputs equal to the bit; times."""
+    import torch
+    import torch.nn.functional as F
+
+    from mdeical_image_segmentation_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    sums = {}
+    worst = 0.0
+    log(f"{'config':9s} {'x (N, *spatial, Ci)':28s} {'in':5s} {'k':9s} "
+        f"{'Co':>5s} {'window ms':>10s} {'device ms':>10s} {'plain ms':>10s} "
+        f"{'cuDNN ms':>10s} {'bound ms':>9s} {'share':>6s}")
+    for key in sorted(shapes) + list(INT8_RAGGED):
+        tag, xs, xdt, ws, pads, odt, _ = key
+        x, qw, s, bias, pads, out_dtype = _int8_case(key, gen)
+        kw = dict(pads=pads, bias=bias, out_dtype=out_dtype)
+        n_check = xs[0] if x.numel() <= INT8_PLAIN_MAX_NUMEL else 1
+        xc = x[:n_check].contiguous()
+        acc = quant.int8_conv(xc, qw, s, pads=pads, accumulators=True)
+        y = quant.int8_conv(xc, qw, s, **kw)
+        # the plain version once, timed: its sums, then its epilogue
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        acc_ref = quant.int8_conv_reference(xc, qw, s, pads=pads,
+                                            accumulators=True)
+        y_ref = quant.int8_rescale(acc_ref, s * qw.w_scale, bias, out_dtype)
+        ev[1].record()
+        torch.cuda.synchronize()
+        p_ms = ev[0].elapsed_time(ev[1])
+        if not torch.equal(acc, acc_ref):
+            raise AssertionError(f"(a) {key}: int32 sums differ, max "
+                                 f"{(acc - acc_ref).abs().max().item()}")
+        if not torch.equal(y, y_ref):
+            err = (y.float() - y_ref.float()).abs().max().item()
+            raise AssertionError(f"(a) {key}: outputs differ by {err:.3e}")
+        del acc, acc_ref, y, y_ref
+        nsp = len(ws) - 2
+        conv = F.conv2d if nsp == 2 else F.conv3d
+        wf = torch.randn(ws, device=DEVICE, generator=gen).to(x.dtype)
+        xf = x.movedim(-1, 1)  # channels-last strided view, as TorchConv
+        lo = tuple(p[0] for p in pads)
+
+        def kernel():
+            return quant.int8_conv(x, qw, s, **kw)
+
+        def cudnn():
+            return conv(xf, wf, padding=lo)
+
+        k_ms, c_ms = _time_turns(kernel, cudnn, budget_s=0.3)
+        d_ms = _device_ms(kernel, repeats=3, tries=8,
+                          name="tpuseg_int8::int8_")
+        out_pos = xs[0] * math.prod(
+            n + 2 * p[0] - k + 1 for n, p, k in zip(xs[1:-1], pads, ws[2:]))
+        taps_ci = ws[1] * math.prod(ws[2:])
+        ops = 2.0 * out_pos * ws[0] * taps_ci
+        nbytes = (x.numel() * x.element_size() + qw.w_q.numel()
+                  + out_pos * ws[0] * torch.empty((), dtype=out_dtype)
+                  .element_size())
+        bound, by = _bound_ms(ops, nbytes, PEAK_INT8)
+        log(f"{tag:9s} {str(xs):28s} {xdt[:5]:5s} {str(tuple(ws[2:])):9s} "
+            f"{ws[0]:5d} {k_ms:10.3f} {_ms(d_ms):>10s} {p_ms:10.3f} "
+            f"{c_ms:10.3f} {bound:9.4f} {_share(bound, k_ms):>6s}"
+            + (f"  (plain at N={n_check})" if n_check != xs[0] else ""))
+        t = sums.setdefault(tag, {"n": 0, "window": 0.0, "device": 0.0,
+                                  "plain": 0.0, "cudnn": 0.0, "bound": 0.0,
+                                  "op": 0.0, "byte": 0.0, "plain_at_n1": 0,
+                                  "n_dev": 0, "bound_dev": 0.0})
+        t["n"] += 1
+        t["plain_at_n1"] += n_check != xs[0]
+        for k, v in (("window", k_ms), ("plain", p_ms),
+                     ("cudnn", c_ms), ("bound", bound),
+                     ("op", ops / PEAK_INT8 * 1e3),
+                     ("byte", nbytes / HBM_BYTES_PER_S * 1e3)):
+            t[k] += v
+        if not math.isnan(d_ms):  # the tracer kept this kernel's events
+            t["n_dev"] += 1
+            t["device"] += d_ms
+            t["bound_dev"] += bound
+        del x, xc, wf, xf
+        torch.cuda.empty_cache()
+    for tag, t in sums.items():
+        if t["n_dev"] < t["n"]:  # a sum over fewer shapes is no total
+            t["device"] = math.nan
+        log(f"[phase 18] (a) int8_conv over the {t['n']} {tag} shapes: "
+            f"event window {t['window']:.4f} ms, device {_ms(t['device'])}"
+            f" (traced at {t['n_dev']}; there {t['bound_dev']:.4f} ms of "
+            f"bound), plain {t['plain']:.4f} ms ({t['plain_at_n1']} at N=1), "
+            f"cuDNN float conv {t['cudnn']:.4f} ms; bound {t['bound']:.4f} "
+            f"ms (share: window {_share(t['bound'], t['window'])}, device "
+            f"{_share(t['bound'], t['device'])}); every int32 sum and output "
+            "equal to the plain version's")
+    return sums, worst
+
+
+def phase_int8(seed: int, workdir: str):
+    """Phase 18: the int8 path on the card; returns the kernels-line
+    numbers of ``int8_conv``."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    shapes: set = set()
+    t0 = time.time()
+    bench = _int8_bench_row(seed, shapes)
+    log(f"[phase 18] (b) wall {time.time() - t0:.1f} s")
+    t0 = time.time()
+    predict = _int8_predict_cli(seed, workdir, shapes)
+    log(f"[phase 18] (c) wall {time.time() - t0:.1f} s")
+    t0 = time.time()
+    fidelity = _int8_fidelity(workdir, shapes)
+    log(f"[phase 18] (d) wall {time.time() - t0:.1f} s")
+    t0 = time.time()
+    serving = _int8_serving(seed, workdir, shapes)
+    log(f"[phase 18] (e) wall {time.time() - t0:.1f} s")
+    t0 = time.time()
+    sums, worst = _int8_kernel_checks(seed, shapes)
+    log(f"[phase 18] (a) {len(shapes)} model shapes and {len(INT8_RAGGED)} "
+        f"ragged ones; wall {time.time() - t0:.1f} s")
+    b = sums["bench"]
+    return {
+        "launches": (bench["launches"] + predict["launches"]
+                     + fidelity["launches"] + serving["launches"]),
+        "launches_by_path": {"bench_int8_forward": bench["launches"],
+                             "predict3d_int8": predict["launches"],
+                             "fidelity_predictor": fidelity["launches"],
+                             "serve_2d_int8": serving["launches"]},
+        "max_abs_err": worst,
+        "ms": b["window"], "plain_ms": b["plain"], "bound_ms": b["bound"],
+        "bound_by": "operations" if b["op"] >= b["byte"] else "bytes",
+        "device_ms": None if math.isnan(b["device"]) else b["device"],
+        "cudnn_float_conv_ms": b["cudnn"],
+        # the 3D kernels' launches on the int8 paths (3a, 3b, 4)
+        "counts": {"bench_int8_forward": bench.pop("counts"),
+                   "predict3d_int8": predict.pop("counts")},
+        "bench": bench, "predict": predict,
+        "fidelity": fidelity,
+        "serving": {k: serving[k] for k in ("equal", "agree",
+                                            "median_split")}
+        | {f"{m}_{k}": serving[m][k] for m in ("float", "int8")
+           for k in ("p50", "p99", "batch_ms")},
+        "sums": sums,
+    }
+
+
 def _counts_from(rec):
     """The launches of a run's steps, summed."""
     return {k: sum(r["launches"][k] for r in rec) for k in KERNELS_3D}
 
 
-def main() -> int:
+def _int8_kernel_row(int8: dict) -> dict:
+    """The kernels-line entry of ``int8_conv`` (no TPU kernel: the JAX
+    package leaves its int8 conv to XLA); its times at bench.py's int8 row
+    shapes (b), cuDNN's float conv there beside, no one-call library int8
+    conv on CUDA."""
+    return {
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "mdeical_image_segmentation_tpu_torch/csrc/int8_conv.cu",
+        # no TPU kernel: the JAX package's int8 conv is XLA's
+        "replaces": "mdeical_image_segmentation_tpu/ops/quant.py:123",
+        "tpu_kernel": False,
+        "launches": int8["launches"],
+        "launches_by_path": int8["launches_by_path"],
+        "max_abs_err": int8["max_abs_err"],
+        "ms": int8["ms"],
+        "plain_ms": int8["plain_ms"],
+        "bound_ms": int8["bound_ms"],
+        "bound_by": int8["bound_by"],
+        "library_ms": None,
+        "device_ms": int8["device_ms"],
+        "cudnn_float_conv_ms": int8["cudnn_float_conv_ms"],
+    }
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phase", type=int, choices=(18,), default=None,
+                        help="run the kernel build and this phase alone")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -4118,6 +4978,29 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"port {port.__name__} from {ROOT}; torch {torch.__version__} "
         f"(CUDA {torch.version.cuda}); {torch.cuda.get_device_name(0)}")
+    if args.phase == 18:
+        from mdeical_image_segmentation_tpu_torch.ops import _build
+
+        _build.load()
+        _log_ptxas(_build.build_log_path().read_text())
+        build_dir = os.path.join(ROOT, "build")
+        os.makedirs(build_dir, exist_ok=True)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_int8_", dir=build_dir)
+        try:
+            t_phase = time.time()
+            int8 = phase_int8(SEED, workdir)
+            log(f"[phase 18] int8 ok; wall {time.time() - t_phase:.1f} s")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"int8 (phase 18): {json.dumps({k: v for k, v in int8.items() if k not in ('sums', 'counts')})}")
+        print(smi)
+        print(json.dumps({"kernels": [_int8_kernel_row(int8)]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
 
     t_phase = time.time()
     max_err, ms, plain_ms, dc_bound = phase_kernels(SEED)
@@ -4216,6 +5099,12 @@ def main() -> int:
         family = phase_family_and_remat(SEED, workdir)
         log(f"[phase 17] family and remat ok; wall "
             f"{time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 18] int8 PTQ: bench.py's int8 row, predict3d with "
+            "quantize: int8, the trained-model fidelity leg, int8 serving, "
+            "the int8 conv against its plain version at every shape")
+        int8 = phase_int8(SEED, workdir)
+        log(f"[phase 18] int8 ok; wall {time.time() - t_phase:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if train2d["launches"] == 0:
@@ -4235,6 +5124,7 @@ def main() -> int:
         "se3d": family["launches"]["ResidualUNetSE3D"],
         "unet2d_3dfamily": summed(family["launches"]["UNet2D"],
                                   family["launches"]["ResidualUNet2D"]),
+        **int8["counts"],
     }
     runs = (unet3d_launches, res_launches, serve3d_launches, train_launches,
             res_train_launches, cfg_train["launches"],
@@ -4363,6 +5253,10 @@ def main() -> int:
         + "; remat " + "; ".join(
             f"{k} {v['ms']:.1f} ms, peak {v['peak_gib']:.2f} GiB"
             for k, v in family["remat"].items()))
+    log(f"int8 (phase 18): {json.dumps({k: v for k, v in int8.items() if k not in ('sums', 'counts')})}")
+    if int8["launches"] == 0:
+        raise AssertionError("int8_conv was never launched on the main path")
+    kernels.append(_int8_kernel_row(int8))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

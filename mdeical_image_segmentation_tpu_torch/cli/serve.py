@@ -5,7 +5,9 @@
         [--unet2d name=breast,path=...] [--port 6076] [--device cuda]
 
 Each ``--unet2d`` adds a 2D bundle saved by either package's
-``UNetModel.save_pretrained``; the first becomes the default.  ``--demo``
+``UNetModel.save_pretrained``; the first becomes the default.
+``quantize=int8`` serves it through the W8A8 conv path, calibrated on its
+first ``calib_batches`` (default 1) request batches.  ``--demo``
 starts with a small UNet initialized from a fixed seed (for smoke-testing
 the API without trained weights).  ``--device`` defaults to ``cuda``; asking
 for CUDA on a machine without it is an error, never a CPU run.
@@ -39,7 +41,7 @@ def main(argv=None):
     parser.add_argument(
         "--unet2d", action="append", default=[],
         help="name=<model name>,path=<save_pretrained dir>[,resolution=512]"
-             "[,tta=1]"
+             "[,quantize=int8][,calib_batches=1][,tta=1]"
     )
     parser.add_argument("--exported", action="append", default=[],
                         help="not ported yet (ROADMAP.md queue 1, item 23)")
@@ -70,11 +72,10 @@ def main(argv=None):
     registry = ModelRegistry()
     for spec in args.unet2d:
         kv = dict(item.split("=", 1) for item in spec.split(","))
-        if "quantize" in kv:
-            raise SystemExit("--unet2d quantize=...: int8 serving is not "
-                             "ported yet (ROADMAP.md queue 1, item 21)")
         registry.register_unet2d(
             kv["name"], kv["path"], resolution=int(kv.get("resolution", 512)),
+            quantize=kv.get("quantize"),
+            calib_batches=int(kv.get("calib_batches", 1)),
             tta=_parse_bool("tta", kv.get("tta", "0")),
             device=device, max_batch=args.max_batch,
         )

@@ -16,8 +16,14 @@ dataset (``data/loaders.get_test_loaders``) and writes the averaged map
 ``<output_dir>/<name>_predictions.h5`` through the port's HDF5 codec
 (``utils/hdf5.py``); with ``accumulate_on_device=False`` the patches are
 summed on the host with uint8 counts, as the JAX package does.  Not ported
-yet: the Lazy and DSB predictors (ROADMAP.md queue 1, item 20) and
-``quantize="int8"`` (item 21).
+yet: the Lazy and DSB predictors (ROADMAP.md queue 1, item 20).
+
+``quantize="int8"`` runs the W8A8 path (``ops/quant.py``), as the JAX
+package does: the first ``calib_batches`` batches run the float forward
+while they record each conv's activation absmax (their float output goes to
+the overlap-add), the rest run the int8 convs with those scales.  The tail
+batch is padded before either.  The scales live on the predictor
+(``quant_scales``), outside the model's parameters.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from ..logging_utils import get_logger
+from ..ops import quant
 from ..ops.overlap import overlap_add_into
 from ..ops.tta import flip_ensemble, mirror_combos
 from ..utils import hdf5
@@ -41,7 +48,6 @@ logger = get_logger("UNetPredictor")
 
 PREDICT_ITEM = ("ROADMAP.md queue 1, item 20 (LazyPredictor and "
                 "DSB2018Predictor)")
-INT8_ITEM = "ROADMAP.md queue 1, item 21 (int8 PTQ)"
 
 
 def _get_output_file(dataset, suffix: str = "_predictions",
@@ -73,7 +79,7 @@ class StandardPredictor:
                  prediction_channel: Optional[int] = None,
                  apply_activation: bool = False,
                  quantize: Optional[str] = None,
-                 calib_batches: int = 1,  # read with quantize (not ported)
+                 calib_batches: int = 1,
                  tta: Optional[str] = None,
                  accumulate_on_device: bool = True, device=None, **kwargs):
         if kwargs:
@@ -82,8 +88,6 @@ class StandardPredictor:
         if quantize not in (None, "int8"):
             raise ValueError(f"predictor quantize={quantize!r}: expected "
                              "'int8'")
-        if quantize is not None:
-            raise NotImplementedError(f"quantize={quantize!r}: {INT8_ITEM}")
         if tta not in (None, "mirror", "mirror-hw"):
             raise ValueError(f"predictor tta={tta!r}: expected 'mirror' or "
                              "'mirror-hw'")
@@ -94,6 +98,10 @@ class StandardPredictor:
         self.save_segmentation = save_segmentation
         self.prediction_channel = prediction_channel
         self.apply_activation = apply_activation
+        self.quantize = quantize
+        self.calib_batches = max(1, int(calib_batches))
+        self.quant_scales: Dict[str, torch.Tensor] = {}
+        self._calib_seen = 0
         self.tta = tta
         self.accumulate_on_device = accumulate_on_device
         self.device = torch.device(
@@ -141,7 +149,14 @@ class StandardPredictor:
         if n < self._batch_size:
             pad = x[-1:].expand(self._batch_size - n, *x.shape[1:])
             x = torch.cat([x, pad], dim=0)
-        return self._forward(x), n
+        if self.quantize is None:
+            return self._forward(x), n
+        calib = self._calib_seen < self.calib_batches
+        with quant.quant_mode("calib" if calib else "int8",
+                              self.quant_scales, self.model):
+            out = self._forward(x)
+        self._calib_seen += calib
+        return out, n
 
     def _predict_batch(self, input) -> np.ndarray:
         """The host variant: the batch's output fetched, padded rows

@@ -40,7 +40,7 @@ float32 statistics and writes bf16; BatchNorm computes in float32 and
 writes bf16.
 
 A 3D ``SingleConv`` of order 'gcr' with a 3x3x3 kernel and padding 1 takes
-the fused path, as in the JAX package: the GroupNorm statistics kernel and
+the fused path (with int8 PTQ off, ``ops/quant.py``), as in the JAX package: the GroupNorm statistics kernel and
 the fused GroupNorm-apply + conv3d + ReLU kernel (``ops/fused_conv.py``),
 the normalized tensor never stored, in float32 or bf16.  Every other order
 with 'g', every 2D block, and under bf16 compute the first SingleConv (whose
@@ -66,6 +66,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import quant
 from ..ops.fused_conv import gcr_fused_conv
 from ..ops.image import (
     avg_pool_nd,
@@ -200,8 +201,11 @@ class SingleConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # the fused kernel reads x in the compute dtype; an input in another
         # dtype (the float32 image under bf16 compute) is normalized in its
-        # own dtype and rounded once, as the JAX package's GroupNorm does
-        if self.fused and (self.dtype is None or x.dtype == self.dtype):
+        # own dtype and rounded once, as the JAX package's GroupNorm does.
+        # Under int8 PTQ (calib or int8) the conv goes through TorchConv, so
+        # the fused kernel stands aside, as in the JAX package.
+        if (self.fused and (self.dtype is None or x.dtype == self.dtype)
+                and quant.mode() == "off"):
             gn = self.GroupNorm_0
             kernel, _ = self.TorchConv_0.hwio(x.dtype)
             return gcr_fused_conv(x.contiguous(), gn.weight, gn.bias, kernel,

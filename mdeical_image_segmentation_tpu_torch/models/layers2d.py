@@ -19,7 +19,7 @@ statistics float32 under any compute dtype.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..ops import batchnorm
 from ..ops import initializers as tinit
+from ..ops import quant
 from ..ops.fused_conv import double_conv2d, fused_double2d
 from ..ops.image import center_crop, upsample_bilinear2d
 from ..ops.remat import run_block, run_stages
@@ -84,6 +85,8 @@ class TorchConv(nn.Module):
             torch.empty((features, in_features, *ks), device=device))
         self.bias = (nn.Parameter(torch.empty((features,), device=device))
                      if use_bias else None)
+        # (weight version, its int8 quantization): outside the state_dict
+        self._quantized = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         tinit.init_conv_(self.weight, self.bias, self.kernel_init, generator)
@@ -98,14 +101,26 @@ class TorchConv(nn.Module):
         w = w.permute(*range(2, w.ndim), 1, 0).contiguous().to(dtype)
         return w, (None if b is None else b.to(dtype))
 
+    def _pads(self, x: torch.Tensor) -> List[Tuple[int, int]]:
+        """(before, after) padding per spatial dim: the explicit padding, or
+        flax's 'SAME' under a stride."""
+        if self.strides == (1,) * len(self.strides):
+            return [(p, p) for p in self.padding]
+        return [_same_pads(n, k, s) for n, k, s in
+                zip(x.shape[1:-1], self.kernel_size, self.strides)]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        qmode = quant.mode()
+        if qmode != "off" and quant.quantizable(self.kernel_size, x.shape[-1]):
+            if qmode == "int8":
+                return self._int8_forward(x)
+            quant.observe(self, x)  # calib: the float conv's input absmax
         if self.dtype is not None:
             x = x.to(self.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         padding = self.padding
         if self.strides != (1,) * len(self.strides):
-            pads = [_same_pads(n, k, s) for n, k, s in
-                    zip(x.shape[1:-1], self.kernel_size, self.strides)]
+            pads = self._pads(x)
             if all(lo == hi for lo, hi in pads):
                 padding = tuple(lo for lo, _ in pads)
             else:  # F.pad order: last dim first; channels unpadded
@@ -115,6 +130,21 @@ class TorchConv(nn.Module):
         y = self._conv(_channels_first(x), self.weight.to(x.dtype), bias,
                        stride=self.strides, padding=padding)
         return _channels_last(y)
+
+    def _int8_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The W8A8 conv (``ops/quant.py``): x quantized in its own dtype
+        with the calibrated scale, the weight per output channel (once per
+        weight version), the float32 rescale and bias, rounded to ``dtype``
+        (x's dtype when unset)."""
+        x_scale = quant.x_scale(self)
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        if self._quantized is None or self._quantized[0] != key:
+            self._quantized = (key, quant.quantize_weight(w))
+        return quant.int8_conv(x.contiguous(), self._quantized[1], x_scale,
+                               pads=self._pads(x), strides=self.strides,
+                               bias=self.bias,
+                               out_dtype=self.dtype or x.dtype)
 
 
 class TorchConvTranspose(nn.Module):
@@ -341,6 +371,11 @@ class DoubleConvolution(nn.Module):
                          policy=self.remat_policy)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.mode() != "off":
+            # int8 PTQ calibrates and quantizes through TorchConv: kernel 1
+            # would bypass both convs, so it stands aside, as in JAX
+            x = F.relu(self.TorchConv_0(x))
+            return F.relu(self.TorchConv_1(x))
         w1, b1 = self.TorchConv_0.hwio(x.dtype)
         w2, b2 = self.TorchConv_1.hwio(x.dtype)
         x = x.contiguous()

@@ -31,7 +31,7 @@ from typing import List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("double_conv2d.cu", "group_norm.cu", "gcr_conv3d.cu",
-           "overlap_add.cu")
+           "overlap_add.cu", "int8_conv.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -136,6 +136,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         # patch strides sb, sz, sy, sx, sc, D, H, W, z0, y0, x0, bz, by, bx,
         # dtype, device, stream
         "tpuseg_overlap_add": [p] * 5 + [i] * 5 + [q] * 5 + [i] * 11 + [p],
+        # x, w (Co, Kp) int8, x_scale, x_scale * w_scale, bias or null, y,
+        # N, D, H, W, Ci, Co, KD, KH, KW, PD, PH, PW, Kp, in dtype, out
+        # dtype, device, stream
+        "tpuseg_int8_conv_forward": [p] * 6 + [i] * 16 + [p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -20,7 +20,9 @@ def flip_ensemble(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                   x: torch.Tensor) -> torch.Tensor:
     """Mean of ``apply_fn(flip(x, c))`` flipped back into place, over every
     axis combination ``c`` in ``combos`` (averaged in the space ``apply_fn``
-    returns: logits at the serving call site)."""
+    returns: logits at the serving call site).  Under the int8 PTQ 'calib'
+    mode (``ops/quant.py``) every pass folds its activations into the same
+    scales dict, so calibration observes every flip variant."""
     acc = None
     for c in combos:
         o = apply_fn(torch.flip(x, list(c)) if c else x)

@@ -37,6 +37,7 @@ import torch
 
 from ..data.png2d import nearest_resize
 from ..logging_utils import get_logger
+from ..ops import quant
 from ..utils import png
 
 logger = get_logger("serve")
@@ -66,6 +67,9 @@ class ModelEntry:
     # Float-contract probe: float images in [0,1] → float probabilities.
     # Not used by the HTTP engine; exists for tests and fidelity checks.
     probs_forward: Optional[Callable[..., np.ndarray]] = None
+    # int8 PTQ serving: the activation scales the first request batches
+    # calibrate ({conv path: absmax}, filled in place); None when float
+    quant_scales: Optional[Dict[str, torch.Tensor]] = None
 
 
 def _not_ported(what: str, item: str):
@@ -87,7 +91,8 @@ class ModelRegistry:
 
     def register_unet2d(self, name: str, path: str, *, threshold: float = 0.5,
                         resolution: int = 512, default: bool = False,
-                        quantize: Optional[str] = None, tta: bool = False,
+                        quantize: Optional[str] = None, calib_batches: int = 1,
+                        tta: bool = False,
                         device: Union[str, torch.device] = "cuda",
                         max_batch: int = 8):
         """Load a 2D bundle saved by either package's ``save_pretrained`` and
@@ -99,26 +104,40 @@ class ModelRegistry:
         is served as it is, the others' logits through a sigmoid (softmax
         for more than one class).
 
+        ``quantize='int8'`` serves through the W8A8 conv path
+        (``ops/quant.py``): the first ``calib_batches`` dispatched request
+        batches run the float forward while they record the activation
+        scales, later ones the int8 convs (safe: each model has one engine
+        worker thread).  The conv weights stay float32 and are quantized from
+        them, as the JAX package quantizes its float32 parameters; the TTA
+        ensemble composes (calibration sees every flip).
+
         On CUDA this builds the kernels and runs one warm-up forward for each
         power-of-two batch up to ``max_batch``, on the calling thread, before
         the model is registered — so no request pays for a build or a first
-        launch."""
+        launch.  Under int8 the warm-up runs the float forward and the int8
+        forward on scales of its own, thrown away: the served scales come
+        from the first real batches only."""
         from ..models import UNetModel
         from ..ops.tta import flip_ensemble, mirror_combos
 
-        if quantize is not None:
-            _not_ported(f"quantize={quantize!r} serving", "item 21 (int8 PTQ)")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize={quantize!r}: expected 'int8'")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device} requested but CUDA is not "
                                "available")
-        # the serving copy: weights cast once to the compute dtype
-        model = UNetModel.from_pretrained(path, device=device).for_inference()
+        model = UNetModel.from_pretrained(path, device=device)
+        if quantize is None:
+            # the serving copy: weights cast once to the compute dtype
+            model.for_inference()
+        else:
+            model.requires_grad_(False)
         combos = mirror_combos((1, 2)) if tta else [[]]
         out_channels = model.config.out_channels
         is_prob = model.config.unet_type.endswith("CGM")
 
-        def probs(x):
+        def float_probs(x):
             logits = flip_ensemble(lambda xx: model(xx).logits, combos, x)
             if is_prob:
                 return logits
@@ -126,20 +145,50 @@ class ModelRegistry:
                 return torch.softmax(logits, dim=-1)
             return torch.sigmoid(logits)
 
+        probs, warm = float_probs, None
+        if quantize == "int8":
+            state = {"seen": 0, "scales": {}}
+            n_calib = max(1, int(calib_batches))
+
+            def probs(x):
+                calib = state["seen"] < n_calib
+                with quant.quant_mode("calib" if calib else "int8",
+                                      state["scales"], model):
+                    p = float_probs(x)
+                state["seen"] += calib
+                return p
+
+            def warm(x):
+                float_probs(x)
+                scratch: dict = {}
+                for m in ("calib", "int8"):
+                    with quant.quant_mode(m, scratch, model):
+                        float_probs(x)
+
         self._register_probs(name, probs, model.config.in_channels,
                              out_channels, resolution=resolution,
                              threshold=threshold, device=device,
-                             max_batch=max_batch, default=default)
+                             max_batch=max_batch, default=default,
+                             float_probs=float_probs, warm=warm,
+                             quant_scales=state["scales"] if quantize
+                             else None)
 
     def _register_probs(self, name: str, probs: Callable, in_channels: int,
                         out_channels: int, *, resolution: int,
                         threshold: float, device: torch.device,
-                        max_batch: int, default: bool) -> None:
+                        max_batch: int, default: bool,
+                        float_probs: Optional[Callable] = None,
+                        warm: Optional[Callable] = None,
+                        quant_scales: Optional[dict] = None) -> None:
         """Register ``probs`` (float images (N, H, W, C) in [0, 1] on the
         device → probabilities (N, H, W, out)) behind the uint8-in,
         mask-out engine contract.  On CUDA this builds the kernels and runs
         one warm-up forward for each power-of-two batch up to
-        ``max_batch`` first."""
+        ``max_batch`` first: through ``warm`` when given (called on the
+        float images; what it returns is dropped), else the served forward.
+        ``float_probs`` (``probs`` by default) backs the entry's float
+        probe."""
+        float_probs = float_probs or probs
         from ..ops import _build
 
         if out_channels > 1:
@@ -180,14 +229,19 @@ class ModelRegistry:
 
         def np_probs(x):
             with torch.inference_mode():
-                return probs(to_device(x).float()).cpu().numpy()
+                return float_probs(to_device(x).float()).cpu().numpy()
 
         if device.type == "cuda":
             _build.load()
         b = 1
         while b <= max_batch:
-            np_forward(np.zeros((b, resolution, resolution, in_channels),
-                                np.uint8))
+            zeros = np.zeros((b, resolution, resolution, in_channels),
+                             np.uint8)
+            if warm is None:
+                np_forward(zeros)
+            else:
+                with torch.inference_mode():
+                    warm(to_device(zeros).float() / 255.0)
             b *= 2
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -203,6 +257,7 @@ class ModelRegistry:
                 n_classes=max(int(out_channels), 2),
                 probs_forward=np_probs,
                 ready=ready,
+                quant_scales=quant_scales,
             ),
             default=default,
         )

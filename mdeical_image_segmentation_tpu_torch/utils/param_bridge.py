@@ -23,6 +23,10 @@ over 2D and 3D kernels:
   (torch ``(out, in)``), and ``<path>/Dense_k/bias`` ↔ its bias (the
   squeeze-excitation gates);
 
+- the int8 PTQ ``quant`` collection's ``<path>/Conv_0/x_absmax`` ↔ the
+  scales dict's ``<path>`` (``quant_to_torch`` / ``quant_to_flax``; the
+  scales stay outside the ``state_dict``, see ``ops/quant.py``);
+
 where ``<path>`` joins the module names with ``/`` in flax and ``.`` in
 torch (``encoder0/basic_module/SingleConv1/TorchConv_0`` ↔ ``encoder0.
 basic_module.SingleConv1.TorchConv_0``).  On the torch side a transposed
@@ -172,3 +176,28 @@ def state_dict_to_flax(sd: Mapping[str, Any]) -> Dict[str, Any]:
     if stats:
         return {"params": params, "batch_stats": stats}
     return {"params": params}
+
+
+_ABSMAX = "x_absmax"
+
+
+def quant_to_torch(quant: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``{"quant": tree}`` (or the bare tree) → the port's
+    scales dict ``{module path: 0-d float32 tensor}``."""
+    scales: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(quant.get("quant", quant)):
+        if len(path) < 3 or path[-2] != "Conv_0" or path[-1] != _ABSMAX:
+            raise ValueError(f"unexpected quant leaf {'/'.join(path)}")
+        scales[".".join(path[:-2])] = torch.tensor(
+            np.asarray(value, dtype=np.float32))
+    return scales
+
+
+def quant_to_flax(scales: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's scales dict → ``{"quant": tree}`` of float32 numpy
+    scalars, as the JAX package's ``calibrate`` returns it."""
+    tree: Dict[str, Any] = {}
+    for key, value in scales.items():
+        _node(tree, (*key.split("."), "Conv_0"))[_ABSMAX] = np.asarray(
+            _to_numpy(value), dtype=np.float32)
+    return {"quant": tree}

@@ -40,7 +40,7 @@ def test_every_module_imports_without_jax_flax_msgpack_pil():
                  "utils.yaml_io", "utils.hdf5", "configs.config",
                  "transforms.volume", "transforms.skimage_compat",
                  "data.hdf5", "cli.train3d", "cli.predict3d",
-                 "models.se3d", "data.device_cache"):
+                 "models.se3d", "data.device_cache", "ops.quant"):
         assert f"{port.__name__}.{name}" in modules, name
     code = (
         "import importlib, sys\n"
@@ -134,7 +134,7 @@ def test_nvcc_command_targets_sm90a():
     """One nvcc per source, started together, then one link."""
     compiles, link = _build.nvcc_commands(
         "nvcc", _build.BUILD_DIR / "lib.so", _build.BUILD_DIR / "obj")
-    assert len(compiles) == len(_build.SOURCES) == 4
+    assert len(compiles) == len(_build.SOURCES) == 5
     for cmd, src in zip(compiles, _build.SOURCES):
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert {"-O3", "-std=c++17", "-c"} <= set(cmd)

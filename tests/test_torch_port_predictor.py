@@ -177,8 +177,13 @@ def test_get_predictor_reads_the_predict_config(models):
     pred = get_predictor(model, "out", cfg)
     assert isinstance(pred, StandardPredictor) and pred.tta == "mirror"
     assert pred.out_channels == 2 and pred.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item 21"):
-        get_predictor(model, "out", {**cfg, "predictor": {"quantize": "int8"}})
+    # int8 PTQ is ported (test_torch_port_quant_models.py): the keys reach
+    # the predictor; an unknown scheme raises
+    q = get_predictor(model, "out", {**cfg, "predictor": {
+        "quantize": "int8", "calib_batches": 3}})
+    assert q.quantize == "int8" and q.calib_batches == 3
+    with pytest.raises(ValueError, match="expected 'int8'"):
+        get_predictor(model, "out", {**cfg, "predictor": {"quantize": "int4"}})
     with pytest.raises(NotImplementedError, match="item 20"):
         get_predictor(model, "out", {**cfg, "predictor": {
             "name": "LazyPredictor"}})
