@@ -2,10 +2,10 @@
 inference, 3D 'gcr' training, 2D classic-UNet training, UNet-3+ training
 and serving, the config-driven 3D pipeline (YAML configs, HDF5 volumes),
 the rest of the 3D family (bf16, device_cache, ResidualUNetSE3D,
-BatchNorm, UNet2D / ResidualUNet2D, remat) and int8 post-training
-quantization.
+BatchNorm, UNet2D / ResidualUNet2D, remat), int8 post-training
+quantization, exported artifacts and SAM-Med2D promptable serving.
 
-    python3 chip_smoke.py [--phase 18]
+    python3 chip_smoke.py [--phase 18|19|20]
 
 Needs one CUDA card, nvcc and the checkout this file sits in; imports nothing
 of JAX (nor PyYAML or h5py).  It exits non-zero, without printing a result,
@@ -264,7 +264,40 @@ wall time.
    PyTorch has no one-call int8 conv on CUDA), the bound (ops at the 1979
    TOP/s int8 peak or bytes at 3.35 TB/s) and its share; summed per
    configuration.
-19. Prints the card's name and power limit, the kernels' JSON line (launches
+19. Export (``phase_export``; ``--phase 19`` runs it alone): (a) phase 2's
+   bundle through ``export_bundle(resolution=(256, 256), device="cuda")``
+   with the symbolic batch, ``torch.export.save``d and loaded again with
+   ``load_exported`` in this process; the graph must call kernel 1's
+   custom op (``tpuseg::fused_double2d_y``); at batches 1, 2, 4 and 8 the
+   artifact's probabilities must equal the live ``register_unet2d``
+   forward's to the bit, with 18 kernel-1 launches per batch inside the
+   artifact; then ``register_exported`` beside ``register_unet2d`` behind
+   one server, 8 clients x 4 PNGs to each: 18 launches per served batch,
+   masks equal to ``register_unet2d``'s for the same PNGs; export and load
+   seconds, the artifact's bytes, p50 / p99 (server latency of the
+   replies) and a device batch of 8 (dispatch + fetch, median of 5) beside
+   ``register_unet2d``'s.  (b) phase 3's UNet3D and phase 4's
+   ResidualUNet3D as ``UNet3DForMedicalSegmentation`` bundles from seeded
+   generators, exported at their padded predictor patch (112x234x234,
+   64x128x128), one batch of 4 through each artifact against the eager
+   forward (within 1e-3 / 2e-3 x max(1, |y|), TF32 off; same bits
+   printed), launches per batch as phases 3 and 4 assert them (14 / 14 / 0
+   and 9 / 18 / 9 of kernels 2 / 3a / 3b).
+20. SAM-Med2D (``phase_sam``; ``--phase 20`` runs it alone): ``SAMMed2D``
+   at the JAX package's defaults (img 256, embed 384, depth 6, heads 6,
+   prompt 256) from a seeded generator, ``save_sam``, ``register_sam`` on
+   the card; 8 clients x 4 requests over phase 2's scans, mixing point
+   prompts (1-8 points, some background), boxes, and points with a box, in
+   each image's own pixels; every device batch the engine formed must
+   equal the eager forward of a second ``load_sam`` at the same batch (the
+   uint8 masks, to the bit), every reply its request's batch-1 forward on
+   >= 99.9% of pixels, and the 400 replies of a request with no prompt and
+   one with 9 points.  The low-res logits and IoU predictions of the
+   largest boxed batch, card vs CPU (fp32, TF32 off), single and
+   multimask, within 1e-4 x max(1, max |CPU|).  The parameter count, the
+   encoder's forward at batch 1 and 8 (best of 5 blocks of 3, CUDA events),
+   a served batch of 8 (dispatch + fetch, median of 5) and p50 / p99.
+21. Prints the card's name and power limit, the kernels' JSON line (launches
    from the main-path runs, each run's counts zeroed just before it, and
    for the 3D kernels their launches on each path of phases 13-17 under
    ``launches_by_path``; ms, plain, library and bound ms summed over the
@@ -273,8 +306,10 @@ wall time.
    shapes; device ms where phases 6-7 measured it, else null; kernel 1
    also its launches by path, serving and training, and under ``train``
    its numbers at the training batch; ``int8_conv`` with its launches by
-   path over (b)-(e) and its times over (b)'s shapes), and last ``{"ok":
-   true, "device": {...}}``.
+   path over (b)-(e) and its times over (b)'s shapes; kernels 1, 2, 3a and
+   3b with their launches inside phase 19's artifacts under
+   ``export_2d`` / ``export_3d``), and last ``{"ok": true, "device":
+   {...}}``.
 """
 
 from __future__ import annotations
@@ -638,6 +673,52 @@ def filtered_png(arr, ftype: int) -> bytes:
             + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
+SCAN_SIZES = [(256, 256), (200, 310), (384, 384), (97, 130)]
+
+
+def unet2d_bundle(seed: int, workdir: str) -> str:
+    """Phase 2's model: the base-64 bf16 classic UNet from a seeded
+    generator, saved with ``save_pretrained``; returns the bundle's path."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.models import (
+        UNetConfig,
+        UNetModel,
+    )
+
+    config = UNetConfig(in_channels=1, out_channels=1, unet_type="UNet",
+                        base_features=64, compute_dtype="bfloat16")
+    bundle = os.path.join(workdir, "unet2d_base64_bf16")
+    UNetModel(config, device="cpu",
+              generator=torch.Generator().manual_seed(seed)
+              ).save_pretrained(bundle)
+    return bundle
+
+
+def scan_pngs(seed: int, workdir: str, count: int = 16):
+    """Phase 2's synthetic scans: a bright disc on noise at the sizes of
+    ``SCAN_SIZES`` in turn, every third one RGB, written as PNGs; returns
+    (paths, arrays)."""
+    import numpy as np
+
+    from mdeical_image_segmentation_tpu_torch.utils import png
+
+    rng = np.random.default_rng(seed)
+    images, arrays = [], []
+    for i in range(count):
+        h, w = SCAN_SIZES[i % len(SCAN_SIZES)]
+        yy, xx = np.mgrid[:h, :w]
+        blob = (((yy - h / 2) ** 2 + (xx - w / 3) ** 2) < (min(h, w) / 3) ** 2)
+        noise = rng.integers(0, 60, (h, w))
+        grey = (blob * 150 + noise).astype(np.uint8)
+        arr = grey if i % 3 else np.stack([grey, grey // 2, 255 - grey], -1)
+        path = os.path.join(workdir, f"scan_{i:02d}.png")
+        png.write(path, arr)
+        images.append(path)
+        arrays.append(arr)
+    return images, arrays
+
+
 def phase_serve(seed: int, workdir: str):
     """Serve the base-64 bf16 UNet at 256²; returns the kernel launch count
     of the served traffic."""
@@ -645,10 +726,7 @@ def phase_serve(seed: int, workdir: str):
     import torch
 
     from mdeical_image_segmentation_tpu_torch.data.png2d import nearest_resize
-    from mdeical_image_segmentation_tpu_torch.models import (
-        UNetConfig,
-        UNetModel,
-    )
+    from mdeical_image_segmentation_tpu_torch.models import UNetModel
     from mdeical_image_segmentation_tpu_torch.ops.fused_conv import (
         fused_double2d,
     )
@@ -659,12 +737,7 @@ def phase_serve(seed: int, workdir: str):
     from mdeical_image_segmentation_tpu_torch.utils import png
 
     res, max_batch, clients = 256, 8, 8
-    config = UNetConfig(in_channels=1, out_channels=1, unet_type="UNet",
-                        base_features=64, compute_dtype="bfloat16")
-    bundle = os.path.join(workdir, "unet2d_base64_bf16")
-    UNetModel(config, device="cpu",
-              generator=torch.Generator().manual_seed(seed)
-              ).save_pretrained(bundle)
+    bundle = unet2d_bundle(seed, workdir)
 
     t0 = time.time()
     registry = ModelRegistry()
@@ -673,20 +746,8 @@ def phase_serve(seed: int, workdir: str):
     log(f"[phase 2] registered (load + warm-up of batches 1..{max_batch}) "
         f"in {time.time() - t0:.2f} s")
 
-    rng = np.random.default_rng(seed)
-    sizes = [(256, 256), (200, 310), (384, 384), (97, 130)]
-    images, arrays = [], []
-    for i in range(16):
-        h, w = sizes[i % len(sizes)]
-        yy, xx = np.mgrid[:h, :w]
-        blob = (((yy - h / 2) ** 2 + (xx - w / 3) ** 2) < (min(h, w) / 3) ** 2)
-        noise = rng.integers(0, 60, (h, w))
-        grey = (blob * 150 + noise).astype(np.uint8)
-        arr = grey if i % 3 else np.stack([grey, grey // 2, 255 - grey], -1)
-        path = os.path.join(workdir, f"scan_{i:02d}.png")
-        png.write(path, arr)
-        images.append(path)
-        arrays.append(arr)
+    images, arrays = scan_pngs(seed, workdir)
+    sizes = SCAN_SIZES
     # the first 4 again (RGB 256², grey 200x310, grey 384², RGB 97x130),
     # each with every row under Average (3) and under Paeth (4): real
     # clients' PNGs, decoded by the C unfilter
@@ -4928,6 +4989,440 @@ def phase_int8(seed: int, workdir: str):
     }
 
 
+# ---------------------------------------------------------------------------
+# 19. exported artifacts on the card; 20. SAM-Med2D promptable serving
+# ---------------------------------------------------------------------------
+
+EXPORT_BATCHES = (1, 2, 4, 8)   # the device batches the engine forms
+SAM_CPU_TOL = 1e-4    # card vs CPU (fp32, TF32 off), x max(1, max |CPU|)
+SAM_REQUESTS = 4      # per client
+
+
+def _post_all(port: int, payloads, clients: int):
+    """POST ``payloads`` from ``clients`` threads (client k sends k,
+    k + clients, ...); returns (replies, wall s)."""
+    replies = [None] * len(payloads)
+
+    def client(k):
+        for i in range(k, len(payloads), clients):
+            replies[i] = _post(port, payloads[i])
+
+    t0 = time.time()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client did not finish within 600 s")
+    for i, (status, body) in enumerate(replies):
+        if status != 200 or body.get("status") != 200:
+            raise AssertionError(f"request {i}: {status} {body}")
+    return replies, time.time() - t0
+
+
+def _latency_pcts(replies):
+    """(p50, p99) of the replies' server-side latency_ms."""
+    import numpy as np
+
+    lat = [body["latency_ms"] for _, body in replies]
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+
+def _reply_mask(body, res: int):
+    import numpy as np
+
+    mask = np.asarray(body["response"], np.uint8)
+    if mask.shape != (res, res) or mask.max() > 1:
+        raise AssertionError(f"bad mask {mask.shape}")
+    return mask
+
+
+def _export_2d(seed: int, workdir: str):
+    """(a) Phase 2's bundle exported with a symbolic batch on the card,
+    saved, loaded; the artifact against the live register_unet2d forward
+    at batches 1, 2, 4, 8, then served beside it over HTTP."""
+    import numpy as np
+
+    from mdeical_image_segmentation_tpu_torch.data.png2d import nearest_resize
+    from mdeical_image_segmentation_tpu_torch.export import (
+        export_bundle,
+        load_exported,
+    )
+    from mdeical_image_segmentation_tpu_torch.ops.fused_conv import (
+        fused_double2d,
+    )
+    from mdeical_image_segmentation_tpu_torch.serve import (
+        ModelRegistry,
+        SegmentationServer,
+    )
+    from mdeical_image_segmentation_tpu_torch.utils import png
+
+    res, max_batch, clients = 256, 8, 8
+    bundle = unet2d_bundle(seed, workdir)
+    t0 = time.time()
+    art = export_bundle(bundle, os.path.join(workdir, "unet2d_pt2"),
+                        resolution=(res, res), device="cuda")
+    export_s = time.time() - t0
+    t0 = time.time()
+    loaded = load_exported(art, device="cuda")
+    load_s = time.time() - t0
+    meta = loaded.meta
+    graph_ops = sorted({str(n.target) for n in loaded.program.graph.nodes
+                        if str(n.target).startswith("tpuseg.")})
+    log(f"[phase 19] exported {meta['unet_type']} {meta['input_shape']} in "
+        f"{export_s:.2f} s, loaded in {load_s:.2f} s; model.pt2 "
+        f"{meta['artifact_bytes']} bytes; custom ops in the graph "
+        f"{graph_ops}")
+    if graph_ops != ["tpuseg.fused_double2d_y.default"]:
+        raise AssertionError(f"the exported graph calls {graph_ops}, want "
+                             "kernel 1's op")
+
+    registry = ModelRegistry()
+    registry.register_unet2d("unet", bundle, resolution=res, device="cuda",
+                             max_batch=max_batch)
+    live = registry.get("unet")
+    images, _ = scan_pngs(seed, workdir)
+    x8 = np.stack([nearest_resize(png.read(p, "L")[..., None], (res, res))
+                   for p in images[:max_batch]])
+    launches = {}
+    for b in EXPORT_BATCHES:
+        xf = x8[:b].astype(np.float32) / 255.0
+        fused_double2d.launches = 0
+        got = loaded(xf)
+        launches[b] = fused_double2d.launches
+        want = live.probs_forward(xf)
+        err = float(np.abs(got - want).max())
+        log(f"  batch {b}: artifact vs live register_unet2d forward: same "
+            f"bits {np.array_equal(got, want)} (max |diff| {err:.3e}); "
+            f"{launches[b]} kernel-1 launches; p in [{got.min():.4f}, "
+            f"{got.max():.4f}]")
+        if not np.array_equal(got, want):
+            raise AssertionError(f"batch {b}: the artifact's probabilities "
+                                 "differ from the live forward's")
+        if launches[b] != 18:
+            raise AssertionError(f"batch {b}: {launches[b]} kernel-1 "
+                                 "launches, want 18")
+
+    registry.register_exported("aot", art, device="cuda",
+                               max_batch=max_batch)
+    srv = SegmentationServer(registry,
+                             output_dir=os.path.join(workdir, "masks19"),
+                             max_batch=max_batch, max_wait_ms=5.0)
+    port = srv.start(host="127.0.0.1", port=0).server_address[1]
+    n_req = clients * 4
+    try:
+        occ0 = srv.engine.occupancy().get("aot", {"batches": 0})["batches"]
+        fused_double2d.launches = 0
+        aot, aot_wall = _post_all(port, [
+            {"image_path": images[i % len(images)], "model": "aot",
+             "return": "mask"} for i in range(n_req)], clients)
+        served_launches = fused_double2d.launches
+        batches = srv.engine.occupancy()["aot"]["batches"] - occ0
+        ref, ref_wall = _post_all(port, [
+            {"image_path": images[i % len(images)], "model": "unet",
+             "return": "mask"} for i in range(n_req)], clients)
+    finally:
+        srv.stop()
+    if batches <= 0 or served_launches != 18 * batches:
+        raise AssertionError(f"{served_launches} kernel-1 launches for "
+                             f"{batches} served artifact batches (want 18 "
+                             "per batch)")
+    for i, ((_, a), (_, r)) in enumerate(zip(aot, ref)):
+        if not np.array_equal(_reply_mask(a, res), _reply_mask(r, res)):
+            raise AssertionError(f"request {i}: the artifact's mask differs "
+                                 "from register_unet2d's")
+    aot_ms = _median_ms(lambda: loaded.fetch(loaded.dispatch(
+        x8.astype(np.float32) / 255.0)), repeats=5)
+    aot_batch_ms = _median_ms(lambda: registry.get("aot").fetch(
+        registry.get("aot").dispatch(x8)), repeats=5)
+    live_batch_ms = _median_ms(lambda: live.fetch(live.dispatch(x8)),
+                               repeats=5)
+    out = {
+        "export_s": export_s, "load_s": load_s,
+        "artifact_bytes": meta["artifact_bytes"],
+        "launches_per_batch": launches, "served_batches": batches,
+        "served_launches": served_launches,
+        "p50_p99_ms": _latency_pcts(aot),
+        "unet2d_p50_p99_ms": _latency_pcts(ref),
+        "wall_s": aot_wall, "unet2d_wall_s": ref_wall,
+        "batch8_ms": aot_batch_ms, "unet2d_batch8_ms": live_batch_ms,
+        "artifact_probs_batch8_ms": aot_ms,
+    }
+    log(f"[phase 19] {n_req} requests from {clients} clients through "
+        f"register_exported in {aot_wall:.3f} s ({batches} batches, "
+        f"{served_launches} kernel-1 launches), masks equal to "
+        f"register_unet2d's for the same PNGs; p50 / p99 "
+        f"{out['p50_p99_ms'][0]:.2f} / {out['p50_p99_ms'][1]:.2f} ms "
+        f"(register_unet2d {out['unet2d_p50_p99_ms'][0]:.2f} / "
+        f"{out['unet2d_p50_p99_ms'][1]:.2f}); a served batch of 8 "
+        f"{aot_batch_ms:.3f} ms (register_unet2d {live_batch_ms:.3f} ms; "
+        f"the artifact alone, probabilities out, {aot_ms:.3f} ms)")
+    return out
+
+
+def _export_3d(seed: int, workdir: str):
+    """(b) Phase 3's UNet3D and phase 4's ResidualUNet3D exported at their
+    padded predictor patch; one batch of the predictor's size through the
+    artifact against the eager forward, launches counted."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.export import (
+        export_bundle,
+        load_exported,
+    )
+    from mdeical_image_segmentation_tpu_torch.models import (
+        UNet3DConfig,
+        UNet3DForMedicalSegmentation,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = read_yaml_subset(PREDICT_YML)
+    batch = cfg["loaders"]["batch_size"]
+    blocks = 2 * RESIDUAL_MODEL["num_levels"] - 1
+    out = {}
+    for k, (name, model_cfg, slices, tol, want) in enumerate((
+            ("UNet3D", cfg["model"], cfg["loaders"]["test"]["slice_builder"],
+             UNET3D_MAP_TOL, {"gcr_conv3d": 14, "gn_stats": 14,
+                              "gn_affine": 0}),
+            ("ResidualUNet3D", RESIDUAL_MODEL, RESIDUAL_SLICES,
+             RESIDUAL_MAP_TOL, {"gcr_conv3d": blocks,
+                                "gn_stats": 2 * blocks,
+                                "gn_affine": blocks}))):
+        patch = [p + 2 * h for p, h in zip(slices["patch_shape"],
+                                           slices["halo_shape"])]
+        config = UNet3DConfig.from_dict({**model_cfg,
+                                         "unet_type": model_cfg["name"]})
+        bundle = os.path.join(workdir, f"{name}_bundle")
+        UNet3DForMedicalSegmentation(
+            config, device="cpu",
+            generator=torch.Generator().manual_seed(seed + k)
+        ).save_pretrained(bundle)
+        t0 = time.time()
+        art = export_bundle(bundle, os.path.join(workdir, f"{name}_pt2"),
+                            patch_shape=patch, device="cuda")
+        export_s = time.time() - t0
+        loaded = load_exported(art, device="cuda")
+        x = np.stack([seeded_volume(patch, seed + k + i)[..., None]
+                      for i in range(batch)])
+        _zero_counts()
+        got = loaded.dispatch(x)
+        torch.cuda.synchronize()
+        n = _counts()
+        eager = UNet3DForMedicalSegmentation.from_pretrained(bundle,
+                                                             device="cuda")
+        with torch.inference_mode():
+            ref = eager(torch.from_numpy(x).cuda()).logits
+        err = float((got - ref).abs().max())
+        scale = max(1.0, float(ref.abs().max()))
+        same = bool(torch.equal(got, ref))
+        log(f"  {name} {loaded.meta['input_shape']}: exported in "
+            f"{export_s:.2f} s, {loaded.meta['artifact_bytes']} bytes; batch "
+            f"{batch}: artifact vs eager same bits {same}, max |diff| "
+            f"{err:.3e} (limit {tol} x {scale:.3f}); launches {n}")
+        if err > tol * scale or not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: the artifact's output differs from "
+                                 f"the eager forward by {err:.3e}")
+        if any(n[kk] != v for kk, v in want.items()):
+            raise AssertionError(f"{name}: launches {n} per batch, want {want}")
+        out[name] = {"export_s": export_s, "err": err, "same_bits": same,
+                     "launches": n,
+                     "artifact_bytes": loaded.meta["artifact_bytes"]}
+        del loaded, eager, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_export(seed: int, workdir: str):
+    """19. The export path on the card (``export.py``, kernels 1, 2, 3a
+    and 3b as ``tpuseg::`` custom ops)."""
+    out = {"2d": _export_2d(seed, workdir)}
+    out["3d"] = _export_3d(seed, workdir)
+    return out
+
+
+def _sam_payloads(seed: int, images, arrays, n: int):
+    """``n`` promptable requests over the scans: point prompts (1-8 points,
+    some background), box prompts, and points with a box, in turn, in each
+    image's own pixels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    payloads = []
+    for i in range(n):
+        j = i % len(images)
+        h, w = arrays[j].shape[:2]
+        p = {"image_path": images[j], "model": "sam", "return": "mask"}
+        if i % 3 != 1:
+            k = int(rng.integers(1, 9))
+            p["points"] = [[float(rng.uniform(0, w)), float(rng.uniform(0, h))]
+                           for _ in range(k)]
+            p["point_labels"] = [1] + [int(v) for v in
+                                       rng.integers(0, 2, k - 1)]
+        if i % 3 != 0:
+            x0, y0 = rng.uniform(0, w / 2), rng.uniform(0, h / 2)
+            p["box"] = [[float(x0), float(y0)],
+                        [float(rng.uniform(x0 + 8, w)),
+                         float(rng.uniform(y0 + 8, h))]]
+        payloads.append(p)
+    return payloads
+
+
+def phase_sam(seed: int, workdir: str):
+    """20. SAM-Med2D at the JAX package's defaults, served on the card."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.models.sam import (
+        SAMMed2D,
+        load_sam,
+        save_sam,
+    )
+    from mdeical_image_segmentation_tpu_torch.ops.image import (
+        resize_bilinear,
+    )
+    from mdeical_image_segmentation_tpu_torch.serve import (
+        ModelRegistry,
+        SegmentationServer,
+    )
+
+    max_batch, clients = 8, 8
+    model = SAMMed2D(device="cpu",
+                     generator=torch.Generator().manual_seed(seed))
+    n_params = sum(p.numel() for p in model.parameters())
+    bundle = os.path.join(workdir, "sam_med2d")
+    save_sam(bundle, model)
+    log(f"[phase 20] SAMMed2D {model.config()}: {n_params} parameters "
+        f"({4 * n_params / 1e6:.1f} MB fp32)")
+    t0 = time.time()
+    registry = ModelRegistry()
+    registry.register_sam("sam", bundle, device="cuda", max_batch=max_batch)
+    register_s = time.time() - t0
+    entry = registry.get("sam")
+    res = entry.resolution
+    recorded = []
+    dispatch = entry.dispatch
+
+    def recording(*xs):
+        handle = dispatch(*xs)
+        recorded.append((xs, handle))
+        return handle
+
+    entry.dispatch = recording
+    images, arrays = scan_pngs(seed, workdir)
+    payloads = _sam_payloads(seed, images, arrays, clients * SAM_REQUESTS)
+    srv = SegmentationServer(registry,
+                             output_dir=os.path.join(workdir, "masks20"),
+                             max_batch=max_batch, max_wait_ms=5.0)
+    port = srv.start(host="127.0.0.1", port=0).server_address[1]
+    try:
+        replies, wall = _post_all(port, payloads, clients)
+        for bad, want in ((
+                {"image_path": images[0], "model": "sam"},
+                "needs points and/or box"),
+                ({"image_path": images[0], "model": "sam",
+                  "points": [[1, 1]] * 9}, "too many points")):
+            status, body = _post(port, bad)
+            if status != 400 or want not in body["response"]:
+                raise AssertionError(f"{bad}: {status} {body}")
+    finally:
+        srv.stop()
+    entry.dispatch = dispatch
+    masks = [_reply_mask(body, res) for _, body in replies]
+
+    eager = load_sam(bundle, device="cuda")
+
+    def eager_masks(img_u8, pts, lbl, box=None):
+        dev = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+               for a in (img_u8, pts, lbl) + (() if box is None else (box,))]
+        with torch.inference_mode():
+            low, _ = eager(dev[0].float() / 255.0, *dev[1:])
+            up = resize_bilinear(low.permute(0, 2, 3, 1), (res, res))
+            return (torch.sigmoid(up[..., 0]) > 0.5).to(torch.uint8
+                                                        ).cpu().numpy()
+
+    sizes = []
+    for xs, handle in recorded:
+        sizes.append(len(xs[0]))
+        if not np.array_equal(entry.fetch(handle), eager_masks(*xs)):
+            raise AssertionError(f"a served batch of {len(xs[0])} "
+                                 f"({len(xs)} inputs) differs from the eager "
+                                 "forward at the same batch")
+    agree = []
+    for p, m in zip(payloads, masks):
+        img, orig_hw = srv._build_input(p["image_path"], entry)
+        pts, lbl, box = srv._build_prompts(p, entry, orig_hw)
+        one = eager_masks(img[None], pts[None], lbl[None],
+                          None if box is None else box[None])[0]
+        agree.append(float(np.mean(one == m)))
+    log(f"[phase 20] {len(payloads)} requests from {clients} clients in "
+        f"{wall:.3f} s, {len(recorded)} device batches of sizes "
+        f"{sorted(sizes)}; every served batch equals the eager forward at "
+        f"the same batch; per request vs its own batch-1 forward: agreement "
+        f"min {min(agree):.6f}; mask fg shares "
+        f"{[round(float(m.mean()), 3) for m in masks[:6]]}...")
+    if min(agree) < MASK_AGREEMENT:
+        raise AssertionError("a served mask disagrees with its batch-1 "
+                             "forward")
+
+    # card vs CPU on the same weights, fp32 with TF32 off
+    xs = max((x for x, _ in recorded if len(x) == 4),
+             key=lambda x: len(x[0]))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = load_sam(bundle, device="cpu")
+    errs = {}
+    try:
+        for multi in (False, True):
+            args = [torch.from_numpy(np.ascontiguousarray(a)) for a in xs]
+            args[0] = args[0].float() / 255.0
+            with torch.inference_mode():
+                c_low, c_iou = cpu(*args, multimask_output=multi)
+                g_low, g_iou = eager(*(a.cuda() for a in args),
+                                     multimask_output=multi)
+            for tag, g, c in (("logits", g_low, c_low), ("iou", g_iou, c_iou)):
+                e = float((g.cpu() - c).abs().max())
+                scale = max(1.0, float(c.abs().max()))
+                errs[f"{tag}{'_multi' if multi else ''}"] = e
+                if e > SAM_CPU_TOL * scale:
+                    raise AssertionError(f"SAM {tag} (multimask {multi}): "
+                                         f"card vs CPU {e:.3e} > "
+                                         f"{SAM_CPU_TOL} x {scale:.3f}")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    log(f"  card vs CPU, batch {len(xs[0])} with a box, fp32 TF32 off: max "
+        f"|diff| {errs} (limit {SAM_CPU_TOL} x max(1, max |CPU|))")
+
+    enc_ms = {}
+    for b in (1, 8):
+        x = torch.rand((b, res, res, 1), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(seed))
+        with torch.inference_mode():
+            enc_ms[b] = _best_ms(lambda: eager.image_encoder(x))
+    batch8 = next((x for x, _ in recorded if len(x[0]) == 8), None)
+    if batch8 is None:
+        batch8 = tuple(np.concatenate([a] * (8 // len(a)))
+                       for a in recorded[0][0])
+    batch_ms = _median_ms(lambda: entry.fetch(entry.dispatch(*batch8)),
+                          repeats=5)
+    p50, p99 = _latency_pcts(replies)
+    log(f"[phase 20] registered in {register_s:.2f} s; encoder forward "
+        f"(best of {INT8_BLOCKS} blocks of {INT8_BLOCK_FORWARDS}, CUDA events)"
+        f" {enc_ms[1]:.3f} ms at batch 1, {enc_ms[8]:.3f} ms at batch 8; a "
+        f"served batch of 8 ({len(batch8)} inputs) {batch_ms:.3f} ms; p50 / "
+        f"p99 {p50:.2f} / {p99:.2f} ms")
+    return {"params": n_params, "register_s": register_s,
+            "encoder_ms": enc_ms, "batch8_ms": batch_ms,
+            "p50_p99_ms": (p50, p99), "wall_s": wall,
+            "batches": sorted(sizes), "cpu_errs": errs,
+            "min_agreement": min(agree)}
+
+
 def _counts_from(rec):
     """The launches of a run's steps, summed."""
     return {k: sum(r["launches"][k] for r in rec) for k in KERNELS_3D}
@@ -4964,7 +5459,8 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phase", type=int, choices=(18,), default=None,
+    parser.add_argument("--phase", type=int, choices=(18, 19, 20),
+                        default=None,
                         help="run the kernel build and this phase alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -4995,6 +5491,29 @@ def main(argv=None) -> int:
         log(f"int8 (phase 18): {json.dumps({k: v for k, v in int8.items() if k not in ('sums', 'counts')})}")
         print(smi)
         print(json.dumps({"kernels": [_int8_kernel_row(int8)]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
+    if args.phase in (19, 20):
+        from mdeical_image_segmentation_tpu_torch.ops import _build
+
+        _build.load()
+        build_dir = os.path.join(ROOT, "build")
+        os.makedirs(build_dir, exist_ok=True)
+        workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{args.phase}_",
+                                   dir=build_dir)
+        try:
+            t_phase = time.time()
+            result = (phase_export if args.phase == 19 else phase_sam)(
+                SEED, workdir)
+            log(f"[phase {args.phase}] ok; wall {time.time() - t_phase:.1f} s")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"phase {args.phase} ({smi}): {json.dumps(result)}")
+        print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
@@ -5105,6 +5624,16 @@ def main(argv=None) -> int:
             "the int8 conv against its plain version at every shape")
         int8 = phase_int8(SEED, workdir)
         log(f"[phase 18] int8 ok; wall {time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 19] export: phase 2's UNet with a symbolic batch, "
+            "served through register_exported; phase 3's UNet3D and phase "
+            "4's ResidualUNet3D at their padded patch")
+        exported = phase_export(SEED, workdir)
+        log(f"[phase 19] export ok; wall {time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 20] SAM-Med2D at the JAX defaults through register_sam")
+        sam = phase_sam(SEED, workdir)
+        log(f"[phase 20] SAM ok; wall {time.time() - t_phase:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if train2d["launches"] == 0:
@@ -5121,6 +5650,8 @@ def main(argv=None) -> int:
         "predict_3d_bf16": bf16["predict"]["launches"],
         "device_cache": dcache["launches"],
         "remat": family["launches"]["remat"],
+        "export_3d": summed(*(r["launches"] for r in
+                              exported["3d"].values())),
         "se3d": family["launches"]["ResidualUNetSE3D"],
         "unet2d_3dfamily": summed(family["launches"]["UNet2D"],
                                   family["launches"]["ResidualUNet2D"]),
@@ -5167,15 +5698,21 @@ def main(argv=None) -> int:
         + f"; remat on/off loss gaps {u3p['remat_gaps']}; card vs CPU "
         f"{u3p['cpu_gaps']}; served p50 {u3p['serve_unet3plus_p50_ms']:.1f}"
         f" / {u3p['serve_cgm_p50_ms']:.1f} ms (UNet_3Plus / CGM); {smi}")
+    export_2d = (sum(exported["2d"]["launches_per_batch"].values())
+                 + exported["2d"]["served_launches"])
+    log(f"export (phase 19, {smi}): {json.dumps(exported)}")
+    log(f"SAM (phase 20, {smi}): {json.dumps(sam)}")
     kernels = [{
         "name": "double_conv2d",
         "route": "cuda",
         "source": "mdeical_image_segmentation_tpu_torch/csrc/double_conv2d.cu",
         "replaces": "mdeical_image_segmentation_tpu/ops/fused_conv.py:420",
-        # served batches (phase 2) and Trainer.train() (phase 11)
-        "launches": launches + train2d["launches"],
+        # served batches (phase 2), Trainer.train() (phase 11) and the
+        # exported artifact (phase 19)
+        "launches": launches + train2d["launches"] + export_2d,
         "launches_by_path": {"serve_2d": launches,
-                             "train_2d": train2d["launches"]},
+                             "train_2d": train2d["launches"],
+                             "export_2d": export_2d},
         "max_abs_err": max(max_err, dc_train["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,

@@ -38,7 +38,13 @@ Covered so far:
 - the rest of the 3D family: bf16 compute, remat of the Encoders and
   Decoders (``ops.remat``), ``ResidualUNetSE3D`` (``models.se3d``), the
   BatchNorm orders, ``UNet2D`` and ``ResidualUNet2D``, and device-resident
-  train volumes (``data.device_cache``, ``loaders.device_cache: true``).
+  train volumes (``data.device_cache``, ``loaders.device_cache: true``);
+- int8 post-training quantization (``ops.quant``, ``csrc/int8_conv.cu``);
+- exported artifacts (``export``, ``cli.export``: ``torch.export`` programs
+  that reach kernels 1, 2, 3a and 3b as ``tpuseg::`` custom ops, served by
+  ``ModelRegistry.register_exported``), the 3D bundle wrapper
+  (``models.wrappers3d``) and SAM-Med2D promptable serving
+  (``models.sam``, ``ModelRegistry.register_sam``).
 
 Public functions keep the JAX layout: channels-last activations and
 (*k, I, O) conv weights.
@@ -54,6 +60,7 @@ _SUBMODULES = (
     "cli",
     "configs",
     "data",
+    "export",
     "infer",
     "losses",
     "metrics",

@@ -6,6 +6,9 @@
 
 Each ``--unet2d`` adds a 2D bundle saved by either package's
 ``UNetModel.save_pretrained``; the first becomes the default.
+``--exported name=...,path=...[,threshold=0.5]`` adds an artifact of
+``cli.export`` (traced for the same ``--device``); ``--sam name=...,
+path=...`` a promptable bundle of ``models.sam.save_sam``.
 ``quantize=int8`` serves it through the W8A8 conv path, calibrated on its
 first ``calib_batches`` (default 1) request batches.  ``--demo``
 starts with a small UNet initialized from a fixed seed (for smoke-testing
@@ -43,22 +46,20 @@ def main(argv=None):
         help="name=<model name>,path=<save_pretrained dir>[,resolution=512]"
              "[,quantize=int8][,calib_batches=1][,tta=1]"
     )
-    parser.add_argument("--exported", action="append", default=[],
-                        help="not ported yet (ROADMAP.md queue 1, item 23)")
-    parser.add_argument("--sam", action="append", default=[],
-                        help="not ported yet (ROADMAP.md queue 1, item 24)")
+    parser.add_argument(
+        "--exported", action="append", default=[],
+        help="name=<model name>,path=<cli.export artifact dir>"
+             "[,threshold=0.5] — serve an exported artifact (no model code)"
+    )
+    parser.add_argument(
+        "--sam", action="append", default=[],
+        help="name=<model name>,path=<save_sam dir> (promptable segmentation)"
+    )
     parser.add_argument("--demo", action="store_true",
                         help="register an untrained demo model")
     parser.add_argument("--device", default="cuda",
                         help="torch device to serve on (default: cuda)")
     args = parser.parse_args(argv)
-
-    if args.exported:
-        raise SystemExit("--exported: serving exported artifacts is not "
-                         "ported yet (ROADMAP.md queue 1, item 23)")
-    if args.sam:
-        raise SystemExit("--sam: SAM-Med2D serving is not ported yet "
-                         "(ROADMAP.md queue 1, item 24)")
 
     import torch
 
@@ -79,6 +80,17 @@ def main(argv=None):
             tta=_parse_bool("tta", kv.get("tta", "0")),
             device=device, max_batch=args.max_batch,
         )
+    for spec in args.exported:
+        kv = dict(item.split("=", 1) for item in spec.split(","))
+        registry.register_exported(
+            kv["name"], kv["path"],
+            threshold=float(kv.get("threshold", 0.5)),
+            device=device, max_batch=args.max_batch,
+        )
+    for spec in args.sam:
+        kv = dict(item.split("=", 1) for item in spec.split(","))
+        registry.register_sam(kv["name"], kv["path"], device=device,
+                              max_batch=args.max_batch)
 
     if args.demo or not registry.names():
         import tempfile

@@ -1,5 +1,6 @@
 """Models of the port (the JAX package's ``models``: the classic UNet, the
-UNet-3+ family and the 3D UNet family with its 2D members)."""
+UNet-3+ family, the 3D UNet family with its 2D members and its bundle
+wrapper, and SAM-Med2D)."""
 
 from .blocks3d import (
     DoubleConv,
@@ -34,6 +35,8 @@ from .unet3d import (
     get_model,
 )
 from .wrappers import UNET_TYPES, SegOutput, UNetConfig, UNetModel
+from .wrappers3d import UNet3DConfig, UNet3DForMedicalSegmentation
+from .sam import ImageEncoderViT, MaskDecoder, PromptEncoder, SAMMed2D, sam_loss
 
 __all__ = [
     "AbstractUNet",
@@ -69,4 +72,11 @@ __all__ = [
     "UpSample",
     "crop_and_concat",
     "get_model",
+    "UNet3DConfig",
+    "UNet3DForMedicalSegmentation",
+    "ImageEncoderViT",
+    "MaskDecoder",
+    "PromptEncoder",
+    "SAMMed2D",
+    "sam_loss",
 ]

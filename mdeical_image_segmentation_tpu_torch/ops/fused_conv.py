@@ -19,6 +19,15 @@ Dispatch is by the device of ``x`` alone: a CUDA tensor launches the kernel
 fallback and no switch.  ``fused_double2d.launches`` counts kernel launches:
 two per call on the card (conv1, conv2).
 
+Both forwards are ``torch.library`` custom ops (``tpuseg::fused_double2d``,
+``tpuseg::fused_double2d_y``, ``tpuseg::fused_conv3d``): a CPU
+implementation that is the plain version, a CUDA one that is the kernel's
+launch (its checks, its counters), and a fake one that gives shapes and
+dtypes alone, so ``torch.export`` traces them without storage and an
+exported program calls the kernel by name (``export.py``).  The wrappers
+call the ops; only a CPU call that autograd records takes the plain
+composition directly, which autograd then differentiates.
+
 ``double_conv2d`` is the counterpart of the JAX package's custom-VJP
 ``double_conv2d`` (``_dc_fwd`` / ``_dc_bwd``), a ``torch.autograd.Function``:
 the forward is ``fused_double2d`` with z kept; the backward takes the ReLU
@@ -64,6 +73,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build, norm
+from .norm import _device_type, _tracked
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -119,16 +129,31 @@ def fused_double2d(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The classic-UNet DoubleConvolution forward.  x (N, H, W, Ci), w1
     (3, 3, Ci, C1), b1 (C1,), w2 (3, 3, C1, Co), b2 (Co,), one dtype
-    (float32 or bfloat16); returns y (N, H, W, Co) and z (N, H, W, C1)."""
-    if x.device.type == "cpu":
+    (float32 or bfloat16); returns y (N, H, W, Co) and z (N, H, W, C1).
+    Runs the custom op ``tpuseg::fused_double2d`` (``tpuseg::
+    fused_double2d_y`` without z), so ``torch.export`` records it."""
+    if _device_type(x, "fused_double2d") == "cpu" and _tracked(
+            x, w1, b1, w2, b2):
+        # autograd differentiates the plain composition
         return fused_double2d_reference(x, w1, b1, w2, b2, with_z=with_z)
-    if not x.is_cuda:
-        raise ValueError(f"fused_double2d runs on cuda or cpu, not {x.device}")
+    if _tracked(x, w1, b1, w2, b2):
+        _check(x, w1, b1, w2, b2)  # raises: the kernel has no backward
+    if with_z:
+        y, z = _double2d_op(x, w1, b1, w2, b2)
+        return y, z
+    return _double2d_y_op(x, w1, b1, w2, b2), None
+
+
+fused_double2d.launches = 0
+
+
+def _launch_double2d(x, w1, b1, w2, b2, with_z: bool):
+    """Kernel 1 on the card: two launches of the conv core (conv1 writes z,
+    conv2 reads it); without z, z is scratch that is dropped."""
     _check(x, w1, b1, w2, b2)
     n, h, w, ci = x.shape
     c1, co = w1.shape[-1], w2.shape[-1]
     y = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
-    # conv1's output: returned, or scratch that conv2 reads and we drop
     z = torch.empty((n, h, w, c1), dtype=x.dtype, device=x.device)
     dev = x.get_device()
     rc = _build.kernel("tpuseg_double_conv2d_forward")(
@@ -138,10 +163,45 @@ def fused_double2d(
     )
     _build.check(rc, "double_conv2d launch")
     fused_double2d.launches += 2
-    return y, (z if with_z else None)
+    return (y, z) if with_z else y
 
 
-fused_double2d.launches = 0
+@torch.library.custom_op("tpuseg::fused_double2d", mutates_args=(),
+                         device_types="cpu")
+def _double2d_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return fused_double2d_reference(x, w1, b1, w2, b2, with_z=True)
+
+
+@torch.library.custom_op("tpuseg::fused_double2d_y", mutates_args=(),
+                         device_types="cpu")
+def _double2d_y_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    return fused_double2d_reference(x, w1, b1, w2, b2, with_z=False)[0]
+
+
+@_double2d_op.register_kernel("cuda")
+def _(x, w1, b1, w2, b2):
+    return _launch_double2d(x, w1, b1, w2, b2, True)
+
+
+@_double2d_y_op.register_kernel("cuda")
+def _(x, w1, b1, w2, b2):
+    return _launch_double2d(x, w1, b1, w2, b2, False)
+
+
+@_double2d_op.register_fake
+def _(x, w1, b1, w2, b2):
+    n, h, w, _ = x.shape
+    return (x.new_empty((n, h, w, w2.shape[-1])),
+            x.new_empty((n, h, w, w1.shape[-1])))
+
+
+@_double2d_y_op.register_fake
+def _(x, w1, b1, w2, b2):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, h, w, w2.shape[-1]))
 
 
 def _conv2d_backward(gm: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
@@ -262,12 +322,32 @@ def fused_conv3d(
 ) -> torch.Tensor:
     """``relu?(conv3d(relu?(a·x + b)))``: x (N, D, H, W, Ci) float32 or
     bfloat16, kernel (kd, 3, 3, Ci, Co) in x's dtype, pre_scale/pre_shift
-    (N, Ci) fp32; returns y (N, D, H, W, Co) in x's dtype."""
-    if x.device.type == "cpu":
+    (N, Ci) fp32; returns y (N, D, H, W, Co) in x's dtype.  Runs the
+    custom op ``tpuseg::fused_conv3d``."""
+    if _device_type(x, "fused_conv3d") == "cpu" and _tracked(
+            x, kernel, pre_scale, pre_shift):
         return fused_conv3d_reference(x, kernel, pre_scale, pre_shift,
                                       pre_relu=pre_relu, post_relu=post_relu)
-    if not x.is_cuda:
-        raise ValueError(f"fused_conv3d runs on cuda or cpu, not {x.device}")
+    if _tracked(x, kernel, pre_scale, pre_shift):
+        _check3d(x, kernel, pre_scale, pre_shift)  # raises: no backward
+    return _conv3d_op(x, kernel, pre_scale, pre_shift, pre_relu, post_relu)
+
+
+fused_conv3d.launches = 0
+fused_conv3d.launches_by_dtype = collections.Counter()
+
+
+@torch.library.custom_op("tpuseg::fused_conv3d", mutates_args=(),
+                         device_types="cpu")
+def _conv3d_op(x: torch.Tensor, kernel: torch.Tensor,
+               pre_scale: torch.Tensor, pre_shift: torch.Tensor,
+               pre_relu: bool, post_relu: bool) -> torch.Tensor:
+    return fused_conv3d_reference(x, kernel, pre_scale, pre_shift,
+                                  pre_relu=pre_relu, post_relu=post_relu)
+
+
+@_conv3d_op.register_kernel("cuda")
+def _(x, kernel, pre_scale, pre_shift, pre_relu, post_relu):
     _check3d(x, kernel, pre_scale, pre_shift)
     n, d, h, w, ci = x.shape
     kd, co = kernel.shape[0], kernel.shape[-1]
@@ -285,8 +365,9 @@ def fused_conv3d(
     return y
 
 
-fused_conv3d.launches = 0
-fused_conv3d.launches_by_dtype = collections.Counter()
+@_conv3d_op.register_fake
+def _(x, kernel, pre_scale, pre_shift, pre_relu, post_relu):
+    return x.new_empty((*x.shape[:-1], kernel.shape[-1]))
 
 
 def _conv3d_backward(gy: torch.Tensor, x_aff: torch.Tensor,
@@ -308,14 +389,21 @@ def _conv3d_backward(gy: torch.Tensor, x_aff: torch.Tensor,
     return dxa, dw
 
 
+def _gcr_forward(x, gn_scale, gn_bias, kernel, num_groups, eps):
+    """(y, mean_c, inv_c): the statistics kernel, the (N, C) coefficients,
+    the fused conv with the ReLU."""
+    mean_c, inv_c = norm.group_norm_stats(x, num_groups, eps)
+    a, b = norm.gn_affine_coeffs(mean_c, inv_c, gn_scale, gn_bias)
+    return fused_conv3d(x, kernel, a, b, post_relu=True), mean_c, inv_c
+
+
 class _GcrFusedConvFn(torch.autograd.Function):
     """relu(conv3d(group_norm(x))) with the JAX package's custom VJP."""
 
     @staticmethod
     def forward(ctx, x, gn_scale, gn_bias, kernel, num_groups, eps):
-        mean_c, inv_c = norm.group_norm_stats(x, num_groups, eps)
-        a, b = norm.gn_affine_coeffs(mean_c, inv_c, gn_scale, gn_bias)
-        y = fused_conv3d(x, kernel, a, b, post_relu=True)
+        y, mean_c, inv_c = _gcr_forward(x, gn_scale, gn_bias, kernel,
+                                        num_groups, eps)
         ctx.save_for_backward(x, mean_c, inv_c, gn_scale, gn_bias, kernel, y)
         ctx.num_groups = num_groups
         return y
@@ -346,6 +434,10 @@ def gcr_fused_conv(x: torch.Tensor, gn_scale: torch.Tensor,
     """``relu(conv3d(group_norm(x)))``, the SingleConv('gcr') block, on a
     contiguous x: the GroupNorm statistics kernel, the (N, C) coefficient
     algebra, then :func:`fused_conv3d` (the normalized tensor is never
-    stored).  Differentiable in x, the GroupNorm parameters and the kernel."""
-    return _GcrFusedConvFn.apply(x, gn_scale, gn_bias, kernel, num_groups,
-                                 eps)
+    stored).  Differentiable in x, the GroupNorm parameters and the kernel;
+    a call that autograd need not record (an inference forward, an
+    export) runs the forward alone, the same calls in the same order."""
+    if _tracked(x, gn_scale, gn_bias, kernel):
+        return _GcrFusedConvFn.apply(x, gn_scale, gn_bias, kernel,
+                                     num_groups, eps)
+    return _gcr_forward(x, gn_scale, gn_bias, kernel, num_groups, eps)[0]

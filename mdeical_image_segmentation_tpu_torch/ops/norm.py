@@ -22,7 +22,12 @@ that runs those kernels forward and backward.
 
 The four wrappers dispatch by the device of x alone: a CUDA tensor launches
 the kernel in ``csrc/group_norm.cu`` (or raises), a CPU tensor runs the plain
-PyTorch version.  Each keeps a ``.launches`` count, split by x's dtype in
+PyTorch version.  The two forward ones run as ``torch.library`` custom ops
+(``tpuseg::gn_channel_sums``, ``tpuseg::gn_affine``: the plain version on
+the CPU, the launch on CUDA, shapes alone under a fake tensor), so
+``torch.export`` records them and an exported program launches the kernels
+(``export.py``); a CPU call that autograd records takes the plain version
+directly.  Each keeps a ``.launches`` count, split by x's dtype in
 ``.launches_by_dtype``.  Called directly on a
 tensor that autograd would have to differentiate, a CUDA wrapper raises: the
 gradient runs through ``group_norm`` (``GroupNorm``) or
@@ -33,6 +38,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -127,13 +133,42 @@ def gn_channel_sums_reference(x: torch.Tensor
     return torch.stack(s1), torch.stack(s2)
 
 
+def _tracked(*ts: torch.Tensor) -> bool:
+    """Whether autograd would have to differentiate a call on ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _device_type(x: torch.Tensor, name: str) -> str:
+    """x's device type, which a wrapper dispatches on: cuda or cpu."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    return x.device.type
+
+
 def gn_channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(sample, channel) fp32 Σx and Σx² of a channels-last x
-    (N, *spatial, C), float32 or bfloat16."""
-    if x.device.type == "cpu":
+    (N, *spatial, C), float32 or bfloat16.  Runs the custom op
+    ``tpuseg::gn_channel_sums``."""
+    if _device_type(x, "gn_channel_sums") == "cpu" and _tracked(x):
         return gn_channel_sums_reference(x)
-    if not x.is_cuda:
-        raise ValueError(f"gn_channel_sums runs on cuda or cpu, not {x.device}")
+    if _tracked(x):
+        _check_cuda("gn_channel_sums", x)  # raises: no backward
+    s1, s2 = _channel_sums_op(x)
+    return s1, s2
+
+
+gn_channel_sums.launches = 0
+gn_channel_sums.launches_by_dtype = collections.Counter()
+
+
+@torch.library.custom_op("tpuseg::gn_channel_sums", mutates_args=(),
+                         device_types="cpu")
+def _channel_sums_op(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return gn_channel_sums_reference(x)
+
+
+@_channel_sums_op.register_kernel("cuda")
+def _(x):
     _check_cuda("gn_channel_sums", x)
     n, c = x.shape[0], x.shape[-1]
     rows = x.numel() // (n * c)
@@ -150,8 +185,11 @@ def gn_channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return s1, s2
 
 
-gn_channel_sums.launches = 0
-gn_channel_sums.launches_by_dtype = collections.Counter()
+@_channel_sums_op.register_fake
+def _(x):
+    shape = (x.shape[0], x.shape[-1])
+    return (x.new_empty(shape, dtype=torch.float32),
+            x.new_empty(shape, dtype=torch.float32))
 
 
 def gn_affine_reference(x: torch.Tensor, a: torch.Tensor,
@@ -164,11 +202,28 @@ def gn_affine_reference(x: torch.Tensor, a: torch.Tensor,
 
 def gn_affine(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor
               ) -> torch.Tensor:
-    """y = x·a + b with (N, C) fp32 coefficients, y in x's dtype."""
-    if x.device.type == "cpu":
+    """y = x·a + b with (N, C) fp32 coefficients, y in x's dtype.  Runs the
+    custom op ``tpuseg::gn_affine``."""
+    if _device_type(x, "gn_affine") == "cpu" and _tracked(x, a, b):
         return gn_affine_reference(x, a, b)
-    if not x.is_cuda:
-        raise ValueError(f"gn_affine runs on cuda or cpu, not {x.device}")
+    if _tracked(x, a, b):
+        _check_cuda("gn_affine", x, a, b)  # raises: no backward
+    return _affine_op(x, a, b)
+
+
+gn_affine.launches = 0
+gn_affine.launches_by_dtype = collections.Counter()
+
+
+@torch.library.custom_op("tpuseg::gn_affine", mutates_args=(),
+                         device_types="cpu")
+def _affine_op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+               ) -> torch.Tensor:
+    return gn_affine_reference(x, a, b)
+
+
+@_affine_op.register_kernel("cuda")
+def _(x, a, b):
     _check_cuda("gn_affine", x, a, b)
     n, c = x.shape[0], x.shape[-1]
     y = torch.empty_like(x)
@@ -184,8 +239,9 @@ def gn_affine(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     return y
 
 
-gn_affine.launches = 0
-gn_affine.launches_by_dtype = collections.Counter()
+@_affine_op.register_fake
+def _(x, a, b):
+    return torch.empty_like(x)
 
 
 def gn_bwd_reduce_reference(x: torch.Tensor, g: torch.Tensor,
@@ -320,7 +376,8 @@ def group_norm_stats(x: torch.Tensor, num_groups: int, eps: float
         raise ValueError(f"channels {c} not divisible by num_groups "
                          f"{num_groups}")
     s1, s2 = gn_channel_sums(x)
-    return group_stats(s1, s2, num_groups, x.numel() // (x.shape[0] * c), eps)
+    # the spatial size from the static dims (a traced batch stays symbolic)
+    return group_stats(s1, s2, num_groups, math.prod(x.shape[1:-1]), eps)
 
 
 def group_norm_backward(x: torch.Tensor, g: torch.Tensor,
@@ -343,16 +400,24 @@ def group_norm_backward(x: torch.Tensor, g: torch.Tensor,
     return gn_bwd_dx(x, g, a, cc, dd), dscale, dbias
 
 
+def _group_norm_forward(x, scale, bias, num_groups, eps):
+    """(y, mean_c, inv_c): the statistics kernel, the (N, C) coefficients,
+    the affine kernel."""
+    mean_c, inv_c = group_norm_stats(x, num_groups, eps)
+    a, b = gn_affine_coeffs(mean_c, inv_c, scale, bias)
+    return gn_affine(x, a, b), mean_c, inv_c
+
+
 class _GroupNormFn(torch.autograd.Function):
     """GroupNorm with the JAX package's custom VJP (Pallas residual)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups, eps):
-        mean_c, inv_c = group_norm_stats(x, num_groups, eps)
-        a, b = gn_affine_coeffs(mean_c, inv_c, scale, bias)
+        y, mean_c, inv_c = _group_norm_forward(x, scale, bias, num_groups,
+                                               eps)
         ctx.save_for_backward(x, mean_c, inv_c, scale)
         ctx.num_groups = num_groups
-        return gn_affine(x, a, b)
+        return y
 
     @staticmethod
     def backward(ctx, g):
@@ -367,8 +432,12 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                num_groups: int, eps: float) -> torch.Tensor:
     """GroupNorm over contiguous channel groups of the trailing axis of a
     contiguous x; the output has x's dtype, statistics and elementwise math
-    are fp32.  Differentiable in x, scale and bias."""
-    return _GroupNormFn.apply(x, scale, bias, num_groups, eps)
+    are fp32.  Differentiable in x, scale and bias; a call that autograd
+    need not record runs the forward alone, the same calls in the same
+    order."""
+    if _tracked(x, scale, bias):
+        return _GroupNormFn.apply(x, scale, bias, num_groups, eps)
+    return _group_norm_forward(x, scale, bias, num_groups, eps)[0]
 
 
 class GroupNorm(nn.Module):

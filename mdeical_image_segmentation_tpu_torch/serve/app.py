@@ -2,14 +2,18 @@
 package's ``serve/app.py``).
 
 - ``ModelRegistry``: named models, each with a forward specialized to its
-  input resolution and device;
+  input resolution and device: 2D bundles, 3D checkpoints, exported
+  artifacts (``export.py``) and promptable SAM-Med2D bundles;
 - ``BatchingInferenceEngine``: a background worker per model that coalesces
   concurrent requests into one device batch (up to ``max_batch``, waiting at
   most ``max_wait_ms``), pads it to a power of two, and keeps one batch in
   flight while it collects the next;
 - ``SegmentationServer``: a stdlib ThreadingHTTPServer exposing
     POST /            {"image_path", "model"?,
-                       "return"?: "path"|"mask"|"png"}
+                       "return"?: "path"|"mask"|"png",
+                       promptable models: "points"?: [[x, y], ...],
+                       "point_labels"?: [1|0, ...], "box"?: [[x1, y1],
+                       [x2, y2]], in the original image's pixels}
                       → {"response": <mask path, nested list, or base64 PNG
                          of the raw label mask>, "status", "time"}
     GET  /models      registered model names
@@ -37,6 +41,7 @@ import torch
 
 from ..data.png2d import nearest_resize
 from ..logging_utils import get_logger
+from ..models.wrappers import _checked_device
 from ..ops import quant
 from ..utils import png
 
@@ -48,9 +53,13 @@ class ModelEntry:
     name: str
     # forward(uint8 images (N,H,W,C) in [0,255]) -> uint8 label masks
     # (N,H,W): the /255 and the threshold/argmax run on the device.
+    # Promptable models (kind="promptable") take (images, points, labels
+    # [, boxes]).
     forward: Callable[..., np.ndarray]
     in_channels: int
     resolution: int
+    kind: str = "dense"
+    max_points: int = 8
     # Optional split of forward for the pipelined engine: ``dispatch``
     # enqueues the device work and returns a handle WITHOUT waiting for it,
     # ``fetch(handle)`` waits and returns the host result.  When both are
@@ -72,10 +81,30 @@ class ModelEntry:
     quant_scales: Optional[Dict[str, torch.Tensor]] = None
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet "
-        f"(ROADMAP.md queue 1, {item})")
+def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def _handle(out: torch.Tensor, device: torch.device):
+    """A dispatch handle: the result and, on CUDA, an event recorded after
+    the work that produces it."""
+    event = None
+    if device.type == "cuda":
+        event = torch.cuda.Event()
+        event.record()
+    return out, event
+
+
+def _fetch(handle) -> np.ndarray:
+    out, event = handle
+    if event is not None:
+        event.synchronize()
+    return out.cpu().numpy()
+
+
+def _ready(handle) -> bool:
+    event = handle[1]
+    return event is None or bool(event.query())
 
 
 class ModelRegistry:
@@ -123,10 +152,7 @@ class ModelRegistry:
 
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize={quantize!r}: expected 'int8'")
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {device} requested but CUDA is not "
-                               "available")
+        device = _checked_device(device)
         model = UNetModel.from_pretrained(path, device=device)
         if quantize is None:
             # the serving copy: weights cast once to the compute dtype
@@ -200,36 +226,20 @@ class ModelRegistry:
             def mask_head(p):
                 return (p[..., 0] > thr).to(torch.uint8)
 
-        def to_device(x: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
         def dispatch(x: np.ndarray):
             # enqueue only: uint8 in, /255 and threshold/argmax on device,
             # an event recorded after the forward marks completion
             with torch.inference_mode():
-                mask = mask_head(probs(to_device(x).float() / 255.0))
-            event = None
-            if device.type == "cuda":
-                event = torch.cuda.Event()
-                event.record()
-            return mask, event
-
-        def fetch(handle) -> np.ndarray:
-            mask, event = handle
-            if event is not None:
-                event.synchronize()
-            return mask.cpu().numpy()
-
-        def ready(handle) -> bool:
-            event = handle[1]
-            return event is None or bool(event.query())
+                x = _to_device(x, device).float() / 255.0
+                return _handle(mask_head(probs(x)), device)
 
         def np_forward(x):
-            return fetch(dispatch(x))
+            return _fetch(dispatch(x))
 
         def np_probs(x):
             with torch.inference_mode():
-                return float_probs(to_device(x).float()).cpu().numpy()
+                x = _to_device(x, device).float()
+                return float_probs(x).cpu().numpy()
 
         if device.type == "cuda":
             _build.load()
@@ -241,7 +251,7 @@ class ModelRegistry:
                 np_forward(zeros)
             else:
                 with torch.inference_mode():
-                    warm(to_device(zeros).float() / 255.0)
+                    warm(_to_device(zeros, device).float() / 255.0)
             b *= 2
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -253,17 +263,58 @@ class ModelRegistry:
                 in_channels=in_channels,
                 resolution=resolution,
                 dispatch=dispatch,
-                fetch=fetch,
+                fetch=_fetch,
                 n_classes=max(int(out_channels), 2),
                 probs_forward=np_probs,
-                ready=ready,
+                ready=_ready,
                 quant_scales=quant_scales,
             ),
             default=default,
         )
 
-    def register_exported(self, name: str, path: str, **kwargs):
-        _not_ported("serving an exported artifact", "item 23 (export)")
+    def register_exported(self, name: str, path: str, *,
+                          threshold: float = 0.5, default: bool = False,
+                          device: Union[str, torch.device] = "cuda",
+                          max_batch: int = 8):
+        """Serve an artifact of ``export.export_bundle`` on ``device`` (the
+        one it was traced on): no model code or checkpoint plumbing, the
+        program holds its parameters.  2D artifacts only (3D volumes go
+        through the predictor), emitting probabilities (``output:
+        probs``: the engine thresholds them), with the symbolic batch (the
+        engine's batches vary) and a square input (the HTTP resize
+        contract).  Warms every power-of-two batch up to ``max_batch``
+        before it registers, as ``register_unet2d`` does."""
+        from ..export import load_exported
+
+        device = _checked_device(device)
+        model = load_exported(path, device=device)
+        meta = model.meta
+        if meta.get("kind") != "2d":
+            raise ValueError(
+                f"{path}: kind={meta.get('kind')!r} — only 2D artifacts "
+                "serve over HTTP (use the sliding-window predictor for 3D)"
+            )
+        if meta.get("output") != "probs":
+            raise ValueError(
+                f"{path}: output={meta.get('output')!r} — serving needs a "
+                "probability-emitting artifact (export without --logits)"
+            )
+        if meta["input_shape"][0] != "b":
+            raise ValueError(
+                f"{path}: batch pinned to {meta['input_shape'][0]} — the "
+                "engine coalesces variable batches; export with the "
+                "default symbolic batch"
+            )
+        h, w = meta["input_shape"][1], meta["input_shape"][2]
+        if h != w:
+            raise ValueError(
+                f"{path}: non-square input {h}x{w} — the HTTP resize "
+                "contract is square resolutions"
+            )
+        self._register_probs(name, model.module, model.in_channels,
+                             model.out_channels, resolution=int(h),
+                             threshold=threshold, device=device,
+                             max_batch=max_batch, default=default)
 
     def register_unet3d(self, name: str, path: str,
                         model_config: Dict[str, Any], *,
@@ -284,10 +335,7 @@ class ModelRegistry:
         from ..train import load_checkpoint
         from ..utils.param_bridge import flax_to_state_dict
 
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {device} requested but CUDA is not "
-                               "available")
+        device = _checked_device(device)
         model = get_model(model_config, device=device)
         model.load_state_dict(flax_to_state_dict(
             load_checkpoint(path)["model_state_dict"]))
@@ -308,8 +356,70 @@ class ModelRegistry:
                              threshold=threshold, device=device,
                              max_batch=max_batch, default=default)
 
-    def register_sam(self, name: str, path: str, **kwargs):
-        _not_ported("SAM-Med2D serving", "item 24 (SAM-Med2D)")
+    def register_sam(self, name: str, path: str, *, threshold: float = 0.5,
+                     max_points: int = 8, default: bool = False,
+                     device: Union[str, torch.device] = "cuda",
+                     max_batch: int = 8):
+        """Serve a promptable bundle of ``models.sam.save_sam`` (either
+        package's) on ``device``.  A request batch is (uint8 images, points
+        (N, max_points, 2), labels (N, max_points) [, boxes (N, 2, 2)]);
+        on the device: /255, the forward's primary low-res mask, a
+        bilinear upsample to ``img_size`` (``ops/image.py``), sigmoid and
+        threshold.  Batches with and without a box are separate programs
+        and queue apart.  Warms both for every power-of-two batch up to
+        ``max_batch`` before it registers."""
+        from ..models.sam import load_sam
+        from ..ops.image import resize_bilinear
+
+        device = _checked_device(device)
+        model = load_sam(path, device=device).requires_grad_(False)
+        res = model.img_size
+        thr = float(threshold)
+
+        def probs(img, pts, lbl, box=None):
+            masks, _ = model(img, pts, lbl, box)
+            up = resize_bilinear(masks.permute(0, 2, 3, 1), (res, res))
+            return torch.sigmoid(up[..., 0])
+
+        def dispatch(*xs: np.ndarray):
+            with torch.inference_mode():
+                img, *prompts = (_to_device(a, device) for a in xs)
+                p = probs(img.float() / 255.0, *prompts)
+                return _handle((p > thr).to(torch.uint8), device)
+
+        def np_forward(*xs):
+            return _fetch(dispatch(*xs))
+
+        def np_probs(img, *prompts):
+            """float images in [0, 1] and prompts → (N, res, res)
+            probabilities."""
+            with torch.inference_mode():
+                return probs(*(_to_device(a, device) for a in
+                               (np.asarray(img, np.float32), *prompts))
+                             ).cpu().numpy()
+
+        if device.type == "cuda":
+            from ..ops import _build
+
+            _build.load()
+        b = 1
+        while b <= max_batch:
+            img = np.zeros((b, res, res, model.in_channels), np.uint8)
+            pts = np.zeros((b, max_points, 2), np.float32)
+            lbl = np.ones((b, max_points), np.int32)
+            np_forward(img, pts, lbl)
+            np_forward(img, pts, lbl, np.zeros((b, 2, 2), np.float32))
+            b *= 2
+
+        self.register(
+            ModelEntry(
+                name=name, forward=np_forward, in_channels=model.in_channels,
+                resolution=res, kind="promptable", max_points=max_points,
+                dispatch=dispatch, fetch=_fetch, ready=_ready, n_classes=2,
+                probs_forward=np_probs,
+            ),
+            default=default,
+        )
 
     def get(self, name: Optional[str]) -> ModelEntry:
         if name is None:
@@ -553,23 +663,66 @@ class SegmentationServer:
 
     # -- request handling ----------------------------------------------------
 
-    def _build_input(self, image_path: str, entry: ModelEntry) -> np.ndarray:
+    def _build_input(self, image_path: str, entry: ModelEntry):
         """Decode + nearest-resize to the model's resolution, as uint8 (the
-        /255 runs on the device)."""
+        /255 runs on the device).  Returns the image and the original
+        (height, width), which prompt coordinates are rescaled from."""
         mode = "L" if entry.in_channels == 1 else "RGB"
         img = png.read(image_path, mode)
         if img.ndim == 2:
             img = img[..., None]
-        return nearest_resize(img, (entry.resolution, entry.resolution))
+        orig_hw = img.shape[:2]
+        return (nearest_resize(img, (entry.resolution, entry.resolution)),
+                orig_hw)
+
+    def _build_prompts(self, payload: Dict[str, Any], entry: ModelEntry,
+                       orig_hw=None):
+        """Fixed-width prompt arrays from the request JSON: ``points``
+        [[x, y], ...] (+ optional ``point_labels``, default all-foreground),
+        padded to entry.max_points with the -1 pad label; optional ``box``
+        [[x1, y1], [x2, y2]].
+
+        Coordinates are in the ORIGINAL image's pixel space and are
+        rescaled here into the model-resolution frame the image was resized
+        to."""
+        points = payload.get("points") or []
+        labels = payload.get("point_labels") or [1] * len(points)
+        if len(points) != len(labels):
+            raise KeyError("'points and point_labels length mismatch'")
+        if len(points) > entry.max_points:
+            raise KeyError(f"'too many points (max {entry.max_points})'")
+        if not points and "box" not in payload:
+            raise KeyError("'promptable model needs points and/or box'")
+        pts = np.zeros((entry.max_points, 2), np.float32)
+        lbl = -np.ones((entry.max_points,), np.int32)
+        for i, (p, l) in enumerate(zip(points, labels)):
+            pts[i] = p
+            lbl[i] = l
+        box = payload.get("box")
+        if box is not None:
+            box = np.asarray(box, np.float32).reshape(2, 2)
+        if orig_hw is not None and orig_hw != (entry.resolution,) * 2:
+            sx = entry.resolution / orig_hw[1]  # x scales with width
+            sy = entry.resolution / orig_hw[0]
+            scale = np.asarray([sx, sy], np.float32)
+            pts = pts * scale
+            if box is not None:
+                box = box * scale
+        return pts, lbl, box
 
     def handle_predict(self, payload: Dict[str, Any]) -> Dict[str, Any]:
         start = time.time()
         try:
             image_path = payload["image_path"]
             entry = self.registry.get(payload.get("model"))
-            image = self._build_input(image_path, entry)
+            image, orig_hw = self._build_input(image_path, entry)
+            inputs = (image,)
+            if entry.kind == "promptable":
+                pts, lbl, box = self._build_prompts(payload, entry, orig_hw)
+                inputs = (image, pts, lbl) + (() if box is None else (box,))
             # the device already thresholded / argmax'd
-            mask = np.asarray(self.engine.infer(entry.name, image), np.uint8)
+            mask = np.asarray(self.engine.infer(entry.name, *inputs),
+                              np.uint8)
 
             ret_mode = payload.get("return")
             if ret_mode == "mask":

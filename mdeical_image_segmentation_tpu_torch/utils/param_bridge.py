@@ -23,6 +23,9 @@ over 2D and 3D kernels:
   (torch ``(out, in)``), and ``<path>/Dense_k/bias`` ↔ its bias (the
   squeeze-excitation gates);
 
+- SAM-Med2D's tree (``sam_flax_to_state_dict`` / ``sam_state_dict_to_flax``,
+  below: flax names kept as module names, the leaves converted);
+
 - the int8 PTQ ``quant`` collection's ``<path>/Conv_0/x_absmax`` ↔ the
   scales dict's ``<path>`` (``quant_to_torch`` / ``quant_to_flax``; the
   scales stay outside the ``state_dict``, see ``ops/quant.py``);
@@ -201,3 +204,59 @@ def quant_to_flax(scales: Mapping[str, Any]) -> Dict[str, Any]:
         _node(tree, (*key.split("."), "Conv_0"))[_ABSMAX] = np.asarray(
             _to_numpy(value), dtype=np.float32)
     return {"quant": tree}
+
+
+# -- SAM-Med2D (models/sam.py) ------------------------------------------------
+#
+# The port's SAM modules keep the flax module names as attribute names, so a
+# state_dict key is the flax path joined with dots and only the leaves
+# change: ``kernel`` ↔ ``weight`` (a Dense ``(in, out)`` ↔ ``(out, in)``; a
+# Conv HWIO ↔ OIHW; a ``ConvTranspose_k`` HWIO ↔ IOHW with its taps
+# flipped), LayerNorm ``scale`` ↔ ``weight``, ``bias`` ↔ ``bias``, and the
+# raw parameters (``pos_embed``, ``pe_gaussian``, ``point_embeddings``,
+# ``no_mask_embed``, ``iou_token``, ``mask_tokens``) as they are.
+_SAM_TRANSPOSED = "ConvTranspose_"
+
+
+def _sam_kernel_to_torch(path, a: np.ndarray) -> np.ndarray:
+    if a.ndim == 2:  # Dense
+        return a.T
+    return _kernel_to_torch(a, path[-2].startswith(_SAM_TRANSPOSED))
+
+
+def sam_flax_to_state_dict(variables: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """A SAM ``{"params": tree}`` (or the bare tree) → the port's
+    ``SAMMed2D`` ``state_dict``; exact."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(variables.get("params", variables)):
+        a = np.asarray(value)
+        leaf = path[-1]
+        if leaf == "kernel":
+            a, leaf = _sam_kernel_to_torch(path, a), "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        sd[".".join((*path[:-1], leaf))] = torch.from_numpy(
+            np.array(a, order="C"))  # a copy
+    return sd
+
+
+def sam_state_dict_to_flax(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's ``SAMMed2D`` ``state_dict`` → ``{"params": tree}`` of
+    float32 numpy arrays; exact.  A 1-D ``weight`` is a LayerNorm's scale;
+    a 2-D one a Dense kernel; a 4-D one a conv's (transposed under a
+    ``ConvTranspose_k``)."""
+    params: Dict[str, Any] = {}
+    for key, value in sd.items():
+        *mods, name = key.split(".")
+        a = _to_numpy(value)
+        if name == "weight":
+            if a.ndim == 1:
+                name = "scale"
+            elif a.ndim == 2:
+                a, name = a.T, "kernel"
+            else:
+                a = _kernel_to_flax(a, mods[-1].startswith(_SAM_TRANSPOSED))
+                name = "kernel"
+        _node(params, mods)[name] = np.ascontiguousarray(a)
+    return {"params": params}

@@ -32,15 +32,16 @@ def _port_modules():
 
 def test_every_module_imports_without_jax_flax_msgpack_pil():
     modules = _port_modules()
-    # 66 with the rest of the 3D family; the newer modules are named so a
+    # 71 with export and SAM-Med2D; the newer modules are named so a
     # rename cannot drop them from the walk unseen
-    assert len(modules) >= 66
+    assert len(modules) >= 71
     for name in ("ops.initializers", "ops.batchnorm", "ops.msssim",
                  "ops.remat", "ops.image", "models.unet2d",
                  "utils.yaml_io", "utils.hdf5", "configs.config",
                  "transforms.volume", "transforms.skimage_compat",
                  "data.hdf5", "cli.train3d", "cli.predict3d",
-                 "models.se3d", "data.device_cache", "ops.quant"):
+                 "models.se3d", "data.device_cache", "ops.quant",
+                 "export", "cli.export", "models.sam", "models.wrappers3d"):
         assert f"{port.__name__}.{name}" in modules, name
     code = (
         "import importlib, sys\n"

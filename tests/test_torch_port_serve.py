@@ -265,18 +265,21 @@ def test_unported_entry_points_raise(bundles):
     # scheme raises before any file is read
     with pytest.raises(ValueError, match="expected 'int8'"):
         reg.register_unet2d("q", bundles[1], device="cpu", quantize="int4")
+    # exported artifacts and SAM-Med2D are ported
+    # (test_torch_port_export.py, test_torch_port_sam.py); a missing path
+    # raises before anything registers
     for fn in (reg.register_exported, reg.register_sam):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn("x", "y")
+        with pytest.raises(FileNotFoundError):
+            fn("x", "y", device="cpu")
     # 3D serving is ported for every model of the family
     # (test_torch_port_predictor.py, test_torch_port_batchnorm3d.py); a
     # name outside it raises before any file is read
     with pytest.raises(KeyError, match="unknown model"):
         reg.register_unet3d("x", "y", {"name": "VNet"}, device="cpu")
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        serve_cli.main(["--exported", "name=a,path=b"])
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        serve_cli.main(["--sam", "name=a,path=b"])
+    for flag in ("--exported", "--sam"):
+        with pytest.raises(FileNotFoundError):
+            serve_cli.main([flag, "name=a,path=b", "--device", "cpu"])
+    assert reg.names() == []
 
 
 def test_cli_refuses_cuda_without_a_card(monkeypatch):
