@@ -5,7 +5,7 @@ the rest of the 3D family (bf16, device_cache, ResidualUNetSE3D,
 BatchNorm, UNet2D / ResidualUNet2D, remat), int8 post-training
 quantization, exported artifacts and SAM-Med2D promptable serving.
 
-    python3 chip_smoke.py [--phase 18|19|20]
+    python3 chip_smoke.py [--phase 18|19|20|21]
 
 Needs one CUDA card, nvcc and the checkout this file sits in; imports nothing
 of JAX (nor PyYAML or h5py).  It exits non-zero, without printing a result,
@@ -207,7 +207,8 @@ wall time.
    (its seeded weights): the map within 3e-2 x max(1, |map|) of the plain
    bf16 path and 1e-1 of the fp32 map, one overlap-add.  Kernel 2 in bf16
    at (a)'s 13 fused shapes against its plain version (2e-2), timed in
-   turns with it and cuDNN's bf16 conv3d; the bound at the bf16 peak.
+   turns with it and cuDNN's bf16 conv3d, and its device time by
+   ``torch.profiler``; the bound at the bf16 peak.
 16. ``device_cache`` (``phase_device_cache``): bench.py's
    ``unet3d_e2e_train_device_cache`` configuration (a 128x256x256
    ``RandomState(0).rand`` volume, label > 0.6, gzip HDF5 written by the
@@ -297,10 +298,36 @@ wall time.
    multimask, within 1e-4 x max(1, max |CPU|).  The parameter count, the
    encoder's forward at batch 1 and 8 (best of 5 blocks of 3, CUDA events),
    a served batch of 8 (dispatch + fetch, median of 5) and p50 / p99.
-21. Prints the card's name and power limit, the kernels' JSON line (launches
+21. The rest of the config-driven 3D pipeline (``phase_pipeline_rest``;
+   ``--phase 21`` runs the kernel build, phases 13, 14 and this one): (a)
+   ``cli/predict3d.py`` on ``configs/unet3d_predict.yml`` with phase 13's
+   checkpoint and phase 14's volume, overriding only ``loaders.dataset:
+   LazyHDF5Dataset`` and ``predictor.name: LazyPredictor``, three times:
+   the first run appends ``raw_padded_16x32x32`` to the volume, the second
+   reads it, the third saves ``segmentation`` alone (equal to the argmax of
+   the map); each map within ``LAZY_MAP_TOL`` of phase 14's, 14 launches of
+   kernels 2 and 3a a batch and no overlap-add (the patches are summed on
+   the host); the wall time beside phase 14's, the 27-slice normalization
+   and the HDF5 seconds, and ``hd95`` / ``dc`` of the map cut at its median
+   against the volume's labels with their host ms.  (b) 16 seeded 8-bit
+   grey PNGs at 256² in DSB's ``images/`` layout through
+   ``cli/predict3d.py`` with ``DSB2018Dataset`` and ``DSB2018Predictor``
+   and phase 17's UNet2D (f_maps 64, 'gcr', fp32; in 2D the GroupNorm
+   module runs kernels 3a and 3b, 14 each a batch, and cuDNN the convs):
+   every image's ``predictions`` within phase 3's limit of the plain path,
+   its ``segmentation`` equal to ``label(p > 0.5)``; images/s.  (c)
+   ``cli/train3d.py`` on ``configs/unet3d_train.yml`` and phase 13's
+   volumes for 3 steps and one validation with ``optimizer: NAdam`` and
+   ``eval_metric: BoundaryAdaptedRandError``: finite losses, phase 13's
+   launches a step, every score equal to the CPU metric on the fetched
+   output; then each of the nine steppable new optimizers, 3 updates of
+   phase 9's UNet3D parameters with seeded gradients on the card against
+   the CPU (within ``OPT_TOL`` of each tensor's max |p|; step ms by CUDA
+   events), and LBFGS's ``TypeError`` at step 1.
+22. Prints the card's name and power limit, the kernels' JSON line (launches
    from the main-path runs, each run's counts zeroed just before it, and
-   for the 3D kernels their launches on each path of phases 13-17 under
-   ``launches_by_path``; ms, plain, library and bound ms summed over the
+   for the 3D kernels their launches on each path of phases 13-17 and 21
+   under ``launches_by_path``; ms, plain, library and bound ms summed over the
    model shapes: the 9 UNet DoubleConvs at N=2 in bf16, the 3D kernels'
    fp32 model shapes, and a ``gcr_conv3d_bf16`` row at phase 15's bf16
    shapes; device ms where phases 6-7 measured it, else null; kernel 1
@@ -3172,16 +3199,19 @@ def _foreground_label(raw):
 
 class _io_timer:
     """Within this block, every HDF5 dataset read and dataset write of the
-    port's codec is timed (host clock) and its bytes counted."""
+    port's codec is timed (host clock) and its bytes counted: a dataset made
+    from data, and each region written into a chunked one."""
 
     def __enter__(self):
         from mdeical_image_segmentation_tpu_torch.utils import hdf5
 
         self.reads = self.read_bytes = self.read_s = 0.0
         self.write_bytes = self.write_s = 0.0
-        self.saved = (hdf5.Dataset.__getitem__, hdf5.File.create_dataset)
-        get, create = self.saved
+        self.saved = (hdf5.Dataset.__getitem__, hdf5.File.create_dataset,
+                      hdf5.Dataset.__setitem__)
+        get, create, put = self.saved
         timer = self
+        inside = threading.local()  # a create's own region write is its
 
         def timed_get(ds, index):
             t0 = time.perf_counter()
@@ -3193,19 +3223,33 @@ class _io_timer:
 
         def timed_create(f, name, data=None, **kw):
             t0 = time.perf_counter()
-            out = create(f, name, data, **kw)
+            inside.on = True
+            try:
+                out = create(f, name, data, **kw)
+            finally:
+                inside.on = False
             timer.write_s += time.perf_counter() - t0
-            timer.write_bytes += data.nbytes
+            timer.write_bytes += 0 if data is None else data.nbytes
             return out
+
+        def timed_put(ds, index, value):
+            if getattr(inside, "on", False):
+                return put(ds, index, value)
+            t0 = time.perf_counter()
+            put(ds, index, value)
+            timer.write_s += time.perf_counter() - t0
+            timer.write_bytes += getattr(value, "nbytes", 0)
 
         hdf5.Dataset.__getitem__ = timed_get
         hdf5.File.create_dataset = timed_create
+        hdf5.Dataset.__setitem__ = timed_put
         return self
 
     def __exit__(self, *exc):
         from mdeical_image_segmentation_tpu_torch.utils import hdf5
 
-        hdf5.Dataset.__getitem__, hdf5.File.create_dataset = self.saved
+        (hdf5.Dataset.__getitem__, hdf5.File.create_dataset,
+         hdf5.Dataset.__setitem__) = self.saved
 
 
 class _TimedLoader:
@@ -3399,7 +3443,8 @@ def phase_config_train(seed: int, workdir: str, in_memory_step_ms: float):
     return {"launches": launches, "step_ms": step, "wait_ms": wait,
             "waits_s": sum(waits) / 1e3, "wall_s": wall, "best": best,
             "expected_ms": expected, "read_s": io.read_s,
-            "read_mib": io.read_bytes / 2**20}
+            "read_mib": io.read_bytes / 2**20, "train_h5": train_h5,
+            "val_h5": val_h5}
 
 
 def standardized_patch_batches(raw, slices, batch_size):
@@ -3522,7 +3567,7 @@ def phase_config_predict(seed: int, workdir: str, checkpoint: str):
     del pred, plain, made, model
     torch.cuda.empty_cache()
     return {"launches": launches, "wall_s": wall, "write_s": io.write_s,
-            "err": err}
+            "err": err, "volume": path, "file": want_file}
 
 
 # ---------------------------------------------------------------------------
@@ -3700,7 +3745,7 @@ def phase_bf16_forward_convs(seed: int, shapes):
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     rec = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-           "bound_ms": 0.0, "op_ms": 0.0, "byte_ms": 0.0}
+           "bound_ms": 0.0, "op_ms": 0.0, "byte_ms": 0.0, "device_ms": 0.0}
     flop_sum = 0.0
     for shape, co in shapes:
         ci = shape[-1]
@@ -3717,9 +3762,14 @@ def phase_bf16_forward_convs(seed: int, shapes):
             lambda: fused_conv.fused_conv3d(x, k, a, b),
             lambda: fused_conv.fused_conv3d_reference(x, k, a, b),
             lambda: F.conv3d(xc, kc, padding=1))
+        # the conv core (conv_halo_kernel / conv_gather_kernel) is the one
+        # kernel a call launches
+        d_ms = _device_ms(lambda: fused_conv.fused_conv3d(x, k, a, b),
+                          tries=8, name="conv_")
         flop, nbytes = _gcr_flop_bytes(shape, co, 3, 2)
         rec["err"] = max(rec["err"], err)
         rec["ms"] += k_ms
+        rec["device_ms"] += d_ms
         rec["plain_ms"] += p_ms
         rec["library_ms"] += l_ms
         rec["bound_ms"] += _bound_ms(flop, nbytes, PEAK_BF16)[0]
@@ -3727,12 +3777,13 @@ def phase_bf16_forward_convs(seed: int, shapes):
         rec["byte_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
         flop_sum += flop
         log(f"  bf16 fwd {str(shape):26s} -> {co:4d}: err {err:.2e}; kernel "
-            f"{k_ms:8.3f} ms {_rate(flop, k_ms, torch.bfloat16)}; plain "
-            f"{p_ms:8.3f} ms; cuDNN {l_ms:8.3f} ms")
+            f"{k_ms:8.3f} ms {_rate(flop, k_ms, torch.bfloat16)}, device "
+            f"{d_ms:8.3f} ms; plain {p_ms:8.3f} ms; cuDNN {l_ms:8.3f} ms")
         del x, k, xc, kc
         torch.cuda.empty_cache()
     log(f"[phase 15] kernel 2 in bf16 at the {len(shapes)} fused shapes of "
-        f"the bf16 training step: kernel {rec['ms']:.3f} ms, plain "
+        f"the bf16 training step: kernel {rec['ms']:.3f} ms (device "
+        f"{_ms(rec['device_ms'])}), plain "
         f"{rec['plain_ms']:.3f} ms, cuDNN conv3d {rec['library_ms']:.3f} ms; "
         f"bound {rec['bound_ms']:.3f} ms (share "
         f"{_share(rec['bound_ms'], rec['ms'])}); kernel "
@@ -5423,6 +5474,450 @@ def phase_sam(seed: int, workdir: str):
             "min_agreement": min(agree)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the rest of the config-driven 3D pipeline: LazyPredictor over
+# LazyHDF5Dataset, DSB2018 2D prediction, the optimizers written after
+# optax's rules and the instance and surface metrics
+# ---------------------------------------------------------------------------
+
+# the Lazy map against phase 14's Standard map, x max(1, |map|): both sum
+# the same fp32 patches (patch = stride: one patch a voxel), only the
+# order of the sums and the host division differ
+LAZY_MAP_TOL = 1e-5
+DSB_IMAGES = 16
+DSB_SIZE = (256, 256)
+# phase 17's UNet2D; 'gcr' in 2D runs the GroupNorm module (kernels 3a and
+# 3b) and a cuDNN conv, not the fused kernel 2
+DSB_MODEL = {"name": "UNet2D", "in_channels": 1, "out_channels": 1,
+             "f_maps": 64, "num_levels": 4, "layer_order": "gcr",
+             "final_sigmoid": True}
+DSB_BATCH = 4
+OPT_STEPS = 3
+OPT_TOL = 1e-6  # card vs CPU parameters after OPT_STEPS, x each tensor's max
+NEW_OPTIMIZERS = {"Adadelta": {}, "Adagrad": {}, "SparseAdam": {},
+                  "Adamax": {}, "ASGD": {}, "NAdam": {}, "RAdam": {},
+                  "RMSprop": {}, "Rprop": {"momentum": 0.9}}
+
+
+def _lazy_predict(seed: int, workdir: str, checkpoint: str, standard: dict):
+    """cli/predict3d.py on configs/unet3d_predict.yml with LazyHDF5Dataset
+    and LazyPredictor on phase 14's volume and checkpoint: the first run
+    appends the padded memo to the volume, the second reads it, the third
+    saves the segmentation alone."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.cli import predict3d
+    from mdeical_image_segmentation_tpu_torch.infer import (
+        predictor as predictor_lib,
+    )
+    from mdeical_image_segmentation_tpu_torch.metrics import dc, hd95
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5
+
+    cfg = read_yaml_subset(PREDICT_YML)
+    halo = cfg["loaders"]["test"]["slice_builder"]["halo_shape"]
+    memo = "raw_padded_" + "x".join(str(h) for h in halo)
+    with hdf5.File(standard["file"]) as f:
+        want = f["predictions"][:]
+    scale = max(1.0, float(np.abs(want).max()))
+    out, total = {}, {k: 0 for k in KERNELS_3D}
+    get, save = (predictor_lib.get_predictor,
+                 predictor_lib.LazyPredictor._save_results)
+    for run, seg in (("memo written", False), ("memo read", False),
+                     ("segmentation", True)):
+        out_dir = os.path.join(workdir, f"lazy_{len(out)}")
+        argv = ["--config", PREDICT_YML, "--model_path", checkpoint,
+                "--output_dir", out_dir,
+                "--loaders.test.file_paths", repr([standard["volume"]]),
+                "--loaders.dataset", "LazyHDF5Dataset",
+                "--predictor.name", "LazyPredictor",
+                "--predictor.save_segmentation", str(seg).lower()]
+        rec, save_s = [], []
+
+        def instrumented(model, output_dir, config, **kw):
+            p = get(model, output_dir, config, **kw)
+            _timed_batches(p, rec)
+            return p
+
+        def timed_save(self, *args):
+            t0 = time.perf_counter()
+            save(self, *args)
+            save_s.append(time.perf_counter() - t0)
+
+        predictor_lib.get_predictor = instrumented
+        predictor_lib.LazyPredictor._save_results = timed_save
+        try:
+            with _io_timer() as io:
+                torch.cuda.synchronize()
+                _zero_counts()
+                t0 = time.perf_counter()
+                (written,) = predict3d.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = _counts()
+        finally:
+            predictor_lib.get_predictor = get
+            predictor_lib.LazyPredictor._save_results = save
+        for i, (ms, n) in enumerate(rec):
+            if n["gcr_conv3d"] != 14 or n["gn_stats"] != 14:
+                raise AssertionError(f"lazy {run}, batch {i}: {n}, want 14 "
+                                     "gcr_conv3d and 14 gn_stats launches")
+        if len(rec) != 2 or launches["overlap_add"] != 0:
+            raise AssertionError(f"lazy {run}: {launches} over {len(rec)} "
+                                 "batches: want 2 batches, no overlap_add "
+                                 "(the patches are summed on the host)")
+        for k in KERNELS_3D:
+            total[k] += launches[k]
+        with hdf5.File(standard["volume"]) as f:
+            if memo not in f:
+                raise AssertionError(f"lazy {run}: {standard['volume']} "
+                                     f"holds no {memo}")
+        with hdf5.File(written) as f:
+            keys = sorted(f.keys())
+            got = f[keys[0]][:]
+        entry = {"wall_s": wall, "save_s": save_s[0],
+                 "write_s": io.write_s, "read_s": io.read_s,
+                 "write_mib": io.write_bytes / 2**20,
+                 "read_mib": io.read_bytes / 2**20, "launches": launches,
+                 "batch_ms": [ms for ms, _ in rec]}
+        if seg:
+            ref = np.argmax(out["memo read"]["map"], axis=0).astype(np.uint16)
+            if keys != ["segmentation"] or not np.array_equal(got, ref):
+                raise AssertionError(f"lazy segmentation: the file holds "
+                                     f"{keys}, want ['segmentation'] equal "
+                                     "to the argmax of the map")
+        else:
+            if keys != ["predictions"] or got.shape != want.shape:
+                raise AssertionError(f"lazy {run}: {keys} {got.shape}, want "
+                                     f"['predictions'] {want.shape}")
+            err = float(np.abs(got - want).max())
+            if not np.isfinite(got).all() or err > LAZY_MAP_TOL * scale:
+                raise AssertionError(f"lazy {run}: the map differs from "
+                                     f"phase 14's by {err:.3e} (limit "
+                                     f"{LAZY_MAP_TOL} x {scale:.3f})")
+            entry.update(err=err, map=got)
+        out[run] = entry
+        log(f"[phase 21] (a) lazy predict3d, {run}: {wall:.2f} s (phase 14's"
+            f" StandardPredictor {standard['wall_s']:.2f} s); batches "
+            + ", ".join(f"{ms:.1f}" for ms in entry["batch_ms"])
+            + f" ms; the slice normalization and the streamed write "
+            f"{save_s[0]:.2f} s; HDF5 writes {io.write_s:.2f} s "
+            f"({io.write_bytes / 2**20:.1f} MiB"
+            + (", the memo's included" if run == "memo written" else "")
+            + f"), reads {io.read_s:.2f} s ({io.read_bytes / 2**20:.1f} MiB); "
+            f"{written} holds {keys}"
+            + (f"; map vs phase 14 max |diff| {entry['err']:.3e}"
+               if "err" in entry else "; segmentation = argmax of the map")
+            + f"; launches {launches}")
+    # the thresholded map against the volume's labels: phase 13's rule
+    # (the smoothed raw above its 25th percentile); the 11-step weights are
+    # near chance, so the map is cut at its median
+    raw = seeded_volume(VOLUME_3D, seed)
+    label = _foreground_label(raw).astype(bool)
+    m = out["memo read"]["map"][0]
+    mask = m > np.median(m)
+    t0 = time.perf_counter()
+    hd = hd95(mask, label)
+    hd_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    dice = dc(mask, label)
+    dc_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[phase 21] (a) the memo-read map cut at its median against the "
+        f"volume's labels: hd95 {hd:.3f} voxels ({hd_ms:.0f} ms on the "
+        f"host), dc {dice:.4f} ({dc_ms:.0f} ms)")
+    for entry in out.values():
+        entry.pop("map", None)
+    return {"runs": out, "launches": total, "hd95": hd, "hd95_ms": hd_ms,
+            "dc": dice, "dc_ms": dc_ms,
+            "standard_wall_s": standard["wall_s"]}
+
+
+def _dsb_predict(seed: int, workdir: str):
+    """16 seeded 8-bit grey PNGs at 256² in DSB's images/ layout through
+    cli/predict3d.py with DSB2018Dataset and DSB2018Predictor and phase
+    17's UNet2D; each image's file against the plain path."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from mdeical_image_segmentation_tpu_torch.cli import predict3d
+    from mdeical_image_segmentation_tpu_torch.data.loaders import (
+        get_test_loaders,
+    )
+    from mdeical_image_segmentation_tpu_torch.infer import (
+        predictor as predictor_lib,
+    )
+    from mdeical_image_segmentation_tpu_torch.transforms.skimage_compat import (
+        label as cc_label,
+    )
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5, png, yaml_io
+
+    root = os.path.join(workdir, "dsb")
+    os.makedirs(os.path.join(root, "images"))
+    rng = np.random.default_rng(seed + 21)
+    for i in range(DSB_IMAGES):
+        v = ndimage.gaussian_filter(rng.random(DSB_SIZE), 4.0)
+        v = (v - v.min()) / (v.max() - v.min()) * 255
+        png.write(os.path.join(root, "images", f"scan{i:02d}.png"),
+                  v.astype(np.uint8))
+    ckpt = _initial_checkpoint(DSB_MODEL, seed, workdir, "dsb_unet2d")
+    pred_cfg = read_yaml_subset(PREDICT_YML)
+    cfg = {"model": DSB_MODEL, "model_path": ckpt,
+           "output_dir": os.path.join(workdir, "dsb_out"),
+           "predictor": {"name": "DSB2018Predictor"},
+           "loaders": {"dataset": "DSB2018Dataset", "batch_size": DSB_BATCH,
+                       "test": {"file_paths": [root], "transformer":
+                                pred_cfg["loaders"]["test"]["transformer"]}}}
+    os.makedirs(cfg["output_dir"])  # the predictor writes into it
+    cfg_path = os.path.join(workdir, "dsb_predict.yml")
+    with open(cfg_path, "w") as f:
+        f.write(yaml_io.dumps(cfg))
+    made, walls = [], []
+    get, call = (predictor_lib.get_predictor,
+                 predictor_lib.DSB2018Predictor.__call__)
+
+    def instrumented(model, output_dir, config, **kw):
+        p = get(model, output_dir, config, **kw)
+        made.append(p)
+        return p
+
+    def timed_call(self, loader):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        files = call(self, loader)
+        walls.append(time.perf_counter() - t0)
+        return files
+
+    predictor_lib.get_predictor = instrumented
+    predictor_lib.DSB2018Predictor.__call__ = timed_call
+    try:
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        (files,) = predict3d.main(["--config", cfg_path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        predictor_lib.get_predictor = get
+        predictor_lib.DSB2018Predictor.__call__ = call
+    levels = DSB_MODEL["num_levels"]
+    per_batch = 2 * (2 * levels - 1)  # GroupNorm modules of a forward
+    batches = -(-DSB_IMAGES // DSB_BATCH)
+    want = {"gcr_conv3d": 0, "gn_stats": per_batch * batches,
+            "gn_affine": per_batch * batches, "gn_bwd_reduce": 0,
+            "gn_bwd_dx": 0, "overlap_add": 0}
+    if launches != want or len(files) != DSB_IMAGES:
+        raise AssertionError(f"dsb: {launches} for {len(files)} files, want "
+                             f"{want} for {DSB_IMAGES}")
+    with plain_path():
+        plain = get(made[0].model, os.path.join(workdir, "dsb_plain"),
+                    {"model": DSB_MODEL, "predictor": cfg["predictor"]})
+        os.makedirs(plain.output_dir)
+        (loader,) = get_test_loaders(cfg)
+        plain_files = plain(loader)
+    worst = 0.0
+    for f_kernel, f_plain in zip(sorted(files), sorted(plain_files)):
+        with hdf5.File(f_kernel) as f, hdf5.File(f_plain) as g:
+            p, q = f["predictions"][:], g["predictions"][:]
+            seg = f["segmentation"][:]
+        err = float(np.abs(p - q).max())
+        worst = max(worst, err)
+        if p.shape != DSB_SIZE or err > UNET3D_MAP_TOL * max(
+                1.0, float(np.abs(q).max())):
+            raise AssertionError(f"dsb {f_kernel}: {p.shape}, kernel vs "
+                                 f"plain {err:.3e}")
+        if seg.dtype != np.uint16 or not np.array_equal(
+                seg, cc_label(p > 0.5).astype(np.uint16)):
+            raise AssertionError(f"dsb {f_kernel}: the segmentation is not "
+                                 "label(p > 0.5) of its map")
+    log(f"[phase 21] (b) DSB2018: {DSB_IMAGES} images of {DSB_SIZE} through "
+        f"predict3d in {wall:.2f} s, the predictor's call {walls[0]:.2f} s "
+        f"({DSB_IMAGES / walls[0]:.1f} images/s, forwards and the 8 "
+        f"writer threads); kernel vs plain max |diff| {worst:.3e} (limit "
+        f"{UNET3D_MAP_TOL}); segmentations = label(p > 0.5); launches "
+        f"{launches}")
+    return {"launches": launches, "wall_s": wall, "call_s": walls[0],
+            "images_per_s": DSB_IMAGES / walls[0], "err": worst}
+
+
+def _train_new_optimizers(seed: int, workdir: str, cfg_train: dict):
+    """cli/train3d.py on configs/unet3d_train.yml and phase 13's volumes,
+    3 steps and one validation with NAdam and BoundaryAdaptedRandError;
+    then each of the nine steppable new optimizers, 3 updates of phase 9's
+    UNet3D parameters on the card against the CPU; LBFGS raises."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.cli import train3d
+    from mdeical_image_segmentation_tpu_torch.metrics import (
+        get_evaluation_metric,
+    )
+    from mdeical_image_segmentation_tpu_torch.models import get_model
+    from mdeical_image_segmentation_tpu_torch.train import trainer3d
+    from mdeical_image_segmentation_tpu_torch.train.optimizers import (
+        create_optimizer,
+    )
+
+    cfg = read_yaml_subset(TRAIN_YML)
+    run_dir = os.path.join(workdir, "train_nadam")
+    metric_cfg = {"name": "BoundaryAdaptedRandError"}
+    argv = ["--config", TRAIN_YML,
+            "--loaders.train.file_paths", repr([cfg_train["train_h5"]]),
+            "--loaders.val.file_paths", repr([cfg_train["val_h5"]]),
+            "--trainer.checkpoint_dir", run_dir,
+            "--trainer.max_num_iterations", "2",
+            "--trainer.validate_after_iters", "3",
+            "--trainer.log_after_iters", "3",
+            "--optimizer.name", "NAdam",
+            "--eval_metric.name", metric_cfg["name"]]
+    rec, scored, made = [], [], []
+    create = trainer3d.create_trainer
+
+    def instrumented(config):
+        t = create(config)
+        _instrument(t, rec)
+        metric = t.eval_criterion
+
+        def recording(output, target):
+            score = metric(output, target)
+            scored.append((output.detach().float().cpu().numpy(),
+                           target.detach().cpu().numpy(), score))
+            return score
+
+        t.eval_criterion = recording
+        made.append(t)
+        return t
+
+    trainer3d.create_trainer = instrumented
+    threads = set(threading.enumerate())
+    try:
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        trainer = train3d.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        trainer3d.create_trainer = create
+    for t in set(threading.enumerate()) - threads:
+        if t.name.endswith("(producer)"):
+            t.join(timeout=120)
+    trainer.loaders["train"].close()
+    trainer.loaders["val"].close()
+    if type(trainer.optimizer).__name__ != "NAdam":
+        raise AssertionError(f"train3d built a {type(trainer.optimizer)}")
+    convs = 2 * (2 * cfg["model"]["num_levels"] - 1)
+    want = {"gcr_conv3d": convs, "gn_stats": convs, "gn_affine": convs,
+            "gn_bwd_reduce": convs, "gn_bwd_dx": convs - 1, "overlap_add": 0}
+    losses = [r["loss"] for r in rec]
+    if (len(rec) != 3 or any(r["launches"] != want for r in rec)
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"train3d NAdam: {len(rec)} steps, losses "
+                             f"{losses}, launches "
+                             f"{[r['launches'] for r in rec]}, want 3 "
+                             f"finite steps of {want}")
+    cpu_metric = get_evaluation_metric({"eval_metric": metric_cfg})
+    if not scored:
+        raise AssertionError("train3d NAdam: no evaluation was scored")
+    for output, target, score in scored:
+        again = cpu_metric(output, target)
+        if again != score:
+            raise AssertionError(f"BoundaryAdaptedRandError on the card's "
+                                 f"fetched output {score} != {again} on "
+                                 "the CPU")
+    log(f"[phase 21] (c) train3d with NAdam and BoundaryAdaptedRandError: "
+        f"{len(rec)} steps in {wall:.2f} s, step ms "
+        + ", ".join(f"{r['ms']:.1f}" for r in rec)
+        + f", losses {', '.join(f'{x:.6f}' for x in losses)}; "
+        f"{len(scored)} scores ({', '.join(f'{x[2]:.6f}' for x in scored)})"
+        f" equal to the CPU metric on the fetched output; launches "
+        f"{launches}")
+    del trainer, made
+
+    # phase 9's UNet3D parameters, seeded gradients
+    model = get_model(cfg["model"],
+                      generator=torch.Generator().manual_seed(seed))
+    params = [p.detach().clone() for p in model.parameters()]
+    del model
+    gen = torch.Generator().manual_seed(seed + 21)
+    grads = [[torch.randn(p.shape, generator=gen) * 1e-2 for p in params]
+             for _ in range(OPT_STEPS)]
+    base = {"learning_rate": cfg["optimizer"]["learning_rate"],
+            "weight_decay": cfg["optimizer"]["weight_decay"]}
+    results = {}
+    for name, knobs in NEW_OPTIMIZERS.items():
+        sides = {}
+        for device in ("cpu", DEVICE):
+            ps = [torch.nn.Parameter(p.to(device, copy=True)) for p in params]
+            opt = create_optimizer({"name": name, **base, **knobs}, ps)
+            ms = []
+            for step in range(OPT_STEPS):
+                for p, g in zip(ps, grads[step]):
+                    p.grad = g.to(device)
+                if device == DEVICE:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    opt.step()
+                    end.record()
+                    torch.cuda.synchronize()
+                    ms.append(start.elapsed_time(end))
+                else:
+                    opt.step()
+            sides[device] = ([p.detach().cpu() for p in ps], ms)
+        worst = 0.0
+        for got, ref, p0 in zip(sides[DEVICE][0], sides["cpu"][0], params):
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            worst = max(worst, err / max(scale, 1e-30))
+            if err > OPT_TOL * scale:
+                raise AssertionError(f"{name}: card vs CPU {err:.3e} on a "
+                                     f"tensor of max |p| {scale:.3e}")
+        moved = max(float((r - p0).abs().max())
+                    for r, p0 in zip(sides["cpu"][0], params))
+        results[name] = {"ms": sides[DEVICE][1], "rel_err": worst,
+                         "moved": moved}
+    lbfgs_ps = [torch.nn.Parameter(p.to(DEVICE, copy=True)) for p in params]
+    lbfgs = create_optimizer({"name": "LBFGS", **base}, lbfgs_ps)
+    for p, g in zip(lbfgs_ps, grads[0]):
+        p.grad = g.to(DEVICE)
+    try:
+        lbfgs.step()
+    except TypeError as e:
+        if "'value', 'grad', and 'value_fn'" not in str(e):
+            raise
+    else:
+        raise AssertionError("LBFGS stepped without value, grad, value_fn")
+    n_params = sum(p.numel() for p in params)
+    log(f"[phase 21] (c) {len(NEW_OPTIMIZERS)} optimizers, {OPT_STEPS} "
+        f"updates of phase 9's {n_params} parameters, card vs CPU (limit "
+        f"{OPT_TOL} of each tensor's max |p|): "
+        + "; ".join(f"{k} {statistics.median(v['ms'][1:]):.2f} ms a step "
+                    f"(median of steps 2-3; step 1 {v['ms'][0]:.2f}), rel "
+                    f"err {v['rel_err']:.2e}"
+                    for k, v in results.items())
+        + "; LBFGS raises TypeError at step 1")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_s": wall, "losses": losses,
+            "scores": [x[2] for x in scored],
+            "step_ms": [r["ms"] for r in rec], "optimizers": results}
+
+
+def phase_pipeline_rest(seed: int, workdir: str, cfg_train: dict,
+                        standard: dict):
+    """Phase 21: (a) LazyPredictor, (b) DSB2018, (c) training with the new
+    optimizers and an instance metric."""
+    lazy = _lazy_predict(seed, workdir, cfg_train["best"], standard)
+    dsb = _dsb_predict(seed, workdir)
+    train = _train_new_optimizers(seed, workdir, cfg_train)
+    return {"lazy": lazy, "dsb": dsb, "train": train,
+            "launches": {"lazy_predict3d": lazy["launches"],
+                         "dsb_predict": dsb["launches"],
+                         "train3d_optimizers": train["launches"]}}
+
+
 def _counts_from(rec):
     """The launches of a run's steps, summed."""
     return {k: sum(r["launches"][k] for r in rec) for k in KERNELS_3D}
@@ -5459,9 +5954,10 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phase", type=int, choices=(18, 19, 20),
+    parser.add_argument("--phase", type=int, choices=(18, 19, 20, 21),
                         default=None,
-                        help="run the kernel build and this phase alone")
+                        help="run the kernel build and this phase alone "
+                        "(21: with phases 13 and 14, which it reads)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5491,6 +5987,35 @@ def main(argv=None) -> int:
         log(f"int8 (phase 18): {json.dumps({k: v for k, v in int8.items() if k not in ('sums', 'counts')})}")
         print(smi)
         print(json.dumps({"kernels": [_int8_kernel_row(int8)]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
+    if args.phase == 21:
+        from mdeical_image_segmentation_tpu_torch.ops import _build
+
+        _build.load()
+        # TF32 off, as phase 1 leaves it for the whole script
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build_dir = os.path.join(ROOT, "build")
+        os.makedirs(build_dir, exist_ok=True)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_21_", dir=build_dir)
+        try:
+            t_phase = time.time()
+            cfg_train = phase_config_train(SEED, workdir, float("nan"))
+            cfg_predict = phase_config_predict(SEED, workdir,
+                                               cfg_train["best"])
+            log(f"[phases 13-14] ok; wall {time.time() - t_phase:.1f} s")
+            t_phase = time.time()
+            rest = phase_pipeline_rest(SEED, workdir, cfg_train, cfg_predict)
+            log(f"[phase 21] ok; wall {time.time() - t_phase:.1f} s")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"phase 21 ({smi}): {json.dumps(rest)}")
+        print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
@@ -5634,6 +6159,12 @@ def main(argv=None) -> int:
         log("[phase 20] SAM-Med2D at the JAX defaults through register_sam")
         sam = phase_sam(SEED, workdir)
         log(f"[phase 20] SAM ok; wall {time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 21] LazyPredictor over LazyHDF5Dataset, DSB2018 "
+            "prediction, train3d with NAdam and an instance metric, the new "
+            "optimizers card vs CPU")
+        rest = phase_pipeline_rest(SEED, workdir, cfg_train, cfg_predict)
+        log(f"[phase 21] ok; wall {time.time() - t_phase:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if train2d["launches"] == 0:
@@ -5656,6 +6187,7 @@ def main(argv=None) -> int:
         "unet2d_3dfamily": summed(family["launches"]["UNet2D"],
                                   family["launches"]["ResidualUNet2D"]),
         **int8["counts"],
+        **rest["launches"],
     }
     runs = (unet3d_launches, res_launches, serve3d_launches, train_launches,
             res_train_launches, cfg_train["launches"],
@@ -5702,6 +6234,7 @@ def main(argv=None) -> int:
                  + exported["2d"]["served_launches"])
     log(f"export (phase 19, {smi}): {json.dumps(exported)}")
     log(f"SAM (phase 20, {smi}): {json.dumps(sam)}")
+    log(f"pipeline rest (phase 21, {smi}): {json.dumps(rest)}")
     kernels = [{
         "name": "double_conv2d",
         "route": "cuda",
@@ -5769,7 +6302,9 @@ def main(argv=None) -> int:
                      else "bytes"),
         # cuDNN's bf16 conv3d alone, on the same inputs, without the affine
         "library_ms": k2["library_ms"],
-        "device_ms": None,
+        # torch.profiler's device time over the same shapes
+        "device_ms": (None if math.isnan(k2["device_ms"])
+                      else k2["device_ms"]),
     })
     log("bf16 3D (phase 15): " + "; ".join(
         f"{k} {v['step_ms']:.1f} ms a step, {v['patches_per_s']:.2f} "

@@ -2,8 +2,8 @@
 
 The JAX package beside this one is the reference; this package keeps its
 module paths and names, so each part has an obvious counterpart there.  It
-imports ``torch`` and numpy, never jax, flax, optax, msgpack, PIL, h5py,
-yaml, sklearn or matplotlib.
+imports ``torch``, numpy and scipy, never jax, flax, optax, msgpack, PIL,
+h5py, yaml, sklearn, matplotlib, imageio or skimage.
 
 Covered so far:
 
@@ -34,7 +34,14 @@ Covered so far:
   → ``data.hdf5`` → ``transforms.volume``; ``cli.predict3d`` →
   ``data.loaders.get_test_loaders`` → ``StandardPredictor.__call__``), on
   the port's own YAML reader and writer (``utils.yaml_io``) and HDF5 codec
-  (``utils.hdf5``);
+  (``utils.hdf5``, which also appends to files in place and writes chunked
+  datasets region by region), with the disk-backed ``LazyHDF5Dataset`` and
+  ``infer.predictor.LazyPredictor`` for volumes larger than RAM, the
+  DSB2018 2D images (``data.dsb``, ``DSB2018Predictor``), the instance,
+  segmentation and surface metrics (``metrics.metrics3d``,
+  ``metrics.seg_compat``, ``metrics.seg_metrics``, ``metrics.surface``)
+  and all of the JAX package's optimizers with optax's update rules
+  (``train.optimizers``);
 - the rest of the 3D family: bf16 compute, remat of the Encoders and
   Decoders (``ops.remat``), ``ResidualUNetSE3D`` (``models.se3d``), the
   BatchNorm orders, ``UNet2D`` and ``ResidualUNet2D``, and device-resident

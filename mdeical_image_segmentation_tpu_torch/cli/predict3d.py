@@ -9,8 +9,14 @@ Config keys: ``model_path`` (a training checkpoint of either package; top
 level, or ``model.model_path``), ``model``, ``loaders.test`` (files, the
 slice builder with patch == stride and a halo, the transformer),
 ``predictor`` and ``output_dir``.  The model runs on the card unless
-``device: cpu``.  Each test file gets ``<name>_predictions.h5`` with the
-dataset ``predictions``.
+``device: cpu``.  ``loaders.dataset`` and ``predictor.name`` pick the
+dataset and the predictor: ``StandardHDF5Dataset`` / ``StandardPredictor``
+(the default), ``LazyHDF5Dataset`` / ``LazyPredictor`` for volumes larger
+than RAM, ``DSB2018Dataset`` / ``DSB2018Predictor`` for a directory of 2D
+PNG images (``file_paths: [<root with images/>]``).  Each test file (each
+image, for DSB2018) gets ``<name>_predictions.h5`` with the dataset
+``predictions`` (DSB2018 adds ``segmentation``; LazyPredictor with
+``save_segmentation`` keeps ``segmentation`` alone).
 """
 
 import sys

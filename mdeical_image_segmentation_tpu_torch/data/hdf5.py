@@ -11,8 +11,12 @@ the whole raw volume are computed when ``global_normalization`` is set.
 its traceback logged.  Samples come out channels-last ((Z, Y, X, C) numpy)
 through the pipelines' terminal ``ToTensor``.
 
-``LazyHDF5Dataset`` (in-place appends to the file) and ``DSB2018Dataset``
-(an image reader) are registered names that raise until they are ported.
+``StandardHDF5Dataset`` reads each whole array into memory on first
+access; ``LazyHDF5Dataset`` reads per patch, for volumes larger than RAM,
+and memoizes the halo-padded raw volume in the input file itself as
+``raw_padded_<h>x<h>x<h>`` (gzip, appended in place through the codec's
+``"r+"`` mode), which a later run with the same halo reads per patch.
+``DSB2018Dataset`` (PNG images) lives in ``data/dsb.py``.
 """
 
 from __future__ import annotations
@@ -31,10 +35,6 @@ from .volume_utils import (
 )
 
 logger = get_logger("HDF5Dataset")
-
-LAZY_ITEM = ("ROADMAP.md queue 1, item 20 (LazyHDF5Dataset and "
-             "LazyPredictor: in-place HDF5 appends)")
-DSB_ITEM = "ROADMAP.md queue 1, item 20 (DSB2018Dataset: an image reader)"
 
 
 class ConfigDataset:
@@ -253,22 +253,44 @@ class StandardHDF5Dataset(AbstractHDF5Dataset):
 
 
 class LazyHDF5Dataset(AbstractHDF5Dataset):
-    """Registered name; raises until the codec appends in place."""
+    """Reopens the file per access and reads only the patch; the padded raw
+    volume is memoized in the input file (mode ``"r+"``)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"LazyHDF5Dataset: {LAZY_ITEM}")
+    def __init__(self, file_path, phase, slice_builder_config,
+                 transformer_config, raw_internal_path="raw",
+                 label_internal_path="label", weight_internal_path=None,
+                 global_normalization=False):
+        super().__init__(
+            file_path=file_path, phase=phase,
+            slice_builder_config=slice_builder_config,
+            transformer_config=transformer_config,
+            raw_internal_path=raw_internal_path,
+            label_internal_path=label_internal_path,
+            weight_internal_path=weight_internal_path,
+            global_normalization=global_normalization)
+        logger.info("lazy H5 access: per-patch reads, padded raw memoized "
+                    "in-file")
 
-    @classmethod
-    def create_datasets(cls, dataset_config, phase):
-        raise NotImplementedError(f"LazyHDF5Dataset: {LAZY_ITEM}")
+    def _read(self, internal_path, idx):
+        with hdf5.File(self.file_path, "r") as f:
+            return f[internal_path][idx]
 
+    def get_raw_patch(self, idx):
+        return self._read(self.raw_internal_path, idx)
 
-class DSB2018Dataset(ConfigDataset):
-    """Registered name; raises until the port has an image reader."""
+    def get_label_patch(self, idx):
+        return self._read(self.label_internal_path, idx)
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"DSB2018Dataset: {DSB_ITEM}")
+    def get_weight_patch(self, idx):
+        return self._read(self.weight_internal_path, idx)
 
-    @classmethod
-    def create_datasets(cls, dataset_config, phase):
-        raise NotImplementedError(f"DSB2018Dataset: {DSB_ITEM}")
+    def get_raw_padded_patch(self, idx):
+        # the key names the halo: a memo of another halo is another dataset
+        key = "raw_padded_" + "x".join(str(h) for h in self.halo_shape)
+        with hdf5.File(self.file_path, "r+") as f:
+            if key in f:
+                return f[key][idx]
+            raw_padded = mirror_pad(f[self.raw_internal_path][:],
+                                    self.halo_shape)
+            f.create_dataset(key, data=raw_padded, compression="gzip")
+            return raw_padded[idx]

@@ -174,7 +174,8 @@ class VolumeLoader:
 
 
 def _register_builtin_datasets():
-    from .hdf5 import DSB2018Dataset, LazyHDF5Dataset, StandardHDF5Dataset
+    from .dsb import DSB2018Dataset
+    from .hdf5 import LazyHDF5Dataset, StandardHDF5Dataset
 
     for cls in (StandardHDF5Dataset, LazyHDF5Dataset, DSB2018Dataset):
         if cls.__name__ not in DATASETS:

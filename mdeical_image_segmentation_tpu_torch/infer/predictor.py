@@ -1,5 +1,5 @@
 """Sliding-window prediction with overlap-averaged recomposition (the JAX
-package's ``infer/predictor.py``; the StandardPredictor's on-device chain).
+package's ``infer/predictor.py``).
 
 Each batch of halo-padded patches goes through the model on the device,
 padded at the tail to one fixed batch size; the halo is stripped, the
@@ -15,8 +15,22 @@ dataset (``data/loaders.get_test_loaders``) and writes the averaged map
 (or, with ``save_segmentation``, its argmax as uint16) gzip-compressed to
 ``<output_dir>/<name>_predictions.h5`` through the port's HDF5 codec
 (``utils/hdf5.py``); with ``accumulate_on_device=False`` the patches are
-summed on the host with uint8 counts, as the JAX package does.  Not ported
-yet: the Lazy and DSB predictors (ROADMAP.md queue 1, item 20).
+summed on the host with uint8 counts, as the JAX package does.
+
+``LazyPredictor`` is for volumes larger than RAM: as in the JAX package
+its patches come back to the host (no overlap-add kernel) and are summed
+into maps that live on disk (``np.memmap`` scratch files beside the output,
+removed when the call ends), then normalized in the 27 slices of
+``SliceBuilder._build_slices`` with patch = stride = shape // 3 (more where
+an axis is not a multiple of 3: the tail slices overlap) and streamed into
+a chunked gzip dataset of the output in slabs one chunk deep; with
+``save_segmentation`` the file holds only ``segmentation`` (uint16 argmax).
+
+``DSB2018Predictor`` predicts 2D images (``data/dsb.py``): one forward per
+batch with the final activation, then each image's
+``<name>_predictions.h5`` (``predictions``, and ``segmentation``: the
+connected components of ``p > pmaps_thershold`` as uint16) written by a
+pool of 8 threads (``dsb_save_batch``).
 
 ``quantize="int8"`` runs the W8A8 path (``ops/quant.py``), as the JAX
 package does: the first ``calib_batches`` batches run the float forward
@@ -28,26 +42,28 @@ batch is padded before either.  The scales live on the predictor
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
+import tempfile
 import threading
 import time
+from concurrent import futures
 from pathlib import Path
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..data.slice_builder import SliceBuilder
 from ..logging_utils import get_logger
 from ..ops import quant
 from ..ops.overlap import overlap_add_into
 from ..ops.tta import flip_ensemble, mirror_combos
+from ..transforms.skimage_compat import label as cc_label
 from ..utils import hdf5
 
 logger = get_logger("UNetPredictor")
-
-PREDICT_ITEM = ("ROADMAP.md queue 1, item 20 (LazyPredictor and "
-                "DSB2018Predictor)")
 
 
 def _get_output_file(dataset, suffix: str = "_predictions",
@@ -69,9 +85,8 @@ def _unpad_channels_last(batch: torch.Tensor, halo) -> torch.Tensor:
     return batch[sl]
 
 
-class StandardPredictor:
-    """In-memory overlap-averaging predictor on ``device`` (default: the
-    model's)."""
+class _AbstractPredictor:
+    """The model's patch forward on ``device`` (default: the model's)."""
 
     def __init__(self, model: torch.nn.Module, output_dir: Optional[str],
                  out_channels: int, output_dataset: str = "predictions",
@@ -80,8 +95,7 @@ class StandardPredictor:
                  apply_activation: bool = False,
                  quantize: Optional[str] = None,
                  calib_batches: int = 1,
-                 tta: Optional[str] = None,
-                 accumulate_on_device: bool = True, device=None, **kwargs):
+                 tta: Optional[str] = None, device=None, **kwargs):
         if kwargs:
             raise ValueError(
                 f"unknown predictor config keys: {sorted(kwargs)}")
@@ -103,7 +117,6 @@ class StandardPredictor:
         self.quant_scales: Dict[str, torch.Tensor] = {}
         self._calib_seen = 0
         self.tta = tta
-        self.accumulate_on_device = accumulate_on_device
         self.device = torch.device(
             device if device is not None
             else next(model.parameters()).device)
@@ -163,6 +176,14 @@ class StandardPredictor:
         dropped."""
         out, n = self._predict_batch_device(input)
         return out.cpu().numpy()[:n]
+
+
+class StandardPredictor(_AbstractPredictor):
+    """In-memory overlap-averaging predictor."""
+
+    def __init__(self, *args, accumulate_on_device: bool = True, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.accumulate_on_device = accumulate_on_device
 
     def _prefetch_batches(self, test_loader: Iterable, depth: int = 2):
         """Iterate ``(input, indices)`` with the host assembly of the next
@@ -230,12 +251,14 @@ class StandardPredictor:
         output_file = _get_output_file(dataset, output_dir=self.output_dir)
         os.makedirs(os.path.dirname(str(output_file)) or ".", exist_ok=True)
         patch_halo = dataset.halo_shape
-        if self.accumulate_on_device:
-            prediction_map, normalization_mask = self._device_accumulate(
-                test_loader, volume_shape, patch_halo)
-        else:
-            prediction_map, normalization_mask = (
-                self._allocate_prediction_maps((n_ch,) + volume_shape))
+        if self.accumulate_on_device and type(self) is StandardPredictor:
+            maps = self._device_accumulate(test_loader, volume_shape,
+                                           patch_halo)
+            self._finish(start, output_file, *maps)
+            return output_file
+        with self._prediction_maps((n_ch,) + volume_shape,
+                                   output_file) as maps:
+            prediction_map, normalization_mask = maps
             for input, indices in test_loader:
                 prediction = _unpad_channels_last(
                     self._predict_batch(np.asarray(input)), patch_halo)
@@ -247,6 +270,11 @@ class StandardPredictor:
                     index = (slice(0, n_ch),) + tuple(index)
                     prediction_map[index] += pred
                     normalization_mask[index] += 1
+            self._finish(start, output_file, *maps)
+        return output_file
+
+    def _finish(self, start: float, output_file: Path, prediction_map,
+                normalization_mask) -> None:
         logger.info(f"Finished inference in "
                     f"{time.perf_counter() - start:.2f} seconds")
         what = ("segmentation" if self.save_segmentation
@@ -255,11 +283,12 @@ class StandardPredictor:
         with hdf5.File(output_file, "w") as h5_output_file:
             self._save_results(prediction_map, normalization_mask,
                                h5_output_file)
-        return output_file
 
-    def _allocate_prediction_maps(self, output_shape):
-        return (np.zeros(output_shape, dtype="float32"),
-                np.zeros(output_shape, dtype="uint8"))
+    @contextlib.contextmanager
+    def _prediction_maps(self, output_shape, output_file: Path):
+        """The float32 sum and uint8 count maps the host loop adds into."""
+        yield (np.zeros(output_shape, dtype="float32"),
+               np.zeros(output_shape, dtype="uint8"))
 
     def _save_results(self, prediction_map, normalization_mask,
                       output_file) -> None:
@@ -270,7 +299,123 @@ class StandardPredictor:
                                    compression="gzip")
 
 
-PREDICTORS: Dict[str, Any] = {"StandardPredictor": StandardPredictor}
+class LazyPredictor(StandardPredictor):
+    """Maps on disk, normalized in 27 slices and streamed into the output,
+    for volumes larger than RAM."""
+
+    @contextlib.contextmanager
+    def _prediction_maps(self, output_shape, output_file: Path):
+        """Zero-filled ``np.memmap`` files in a scratch directory beside
+        the output, removed when the call ends."""
+        with tempfile.TemporaryDirectory(
+                dir=os.path.dirname(str(output_file)) or ".",
+                prefix=f".{output_file.stem}.maps.") as scratch:
+            yield (np.memmap(os.path.join(scratch, "sum"), dtype="float32",
+                             mode="w+", shape=output_shape),
+                   np.memmap(os.path.join(scratch, "count"), dtype="uint8",
+                             mode="w+", shape=output_shape))
+
+    def _save_results(self, prediction_map, normalization_mask,
+                      output_file) -> None:
+        z, y, x = prediction_map.shape[1:]
+        patch_shape = (z // 3, y // 3, x // 3)
+        # the slices of the last row overlap the ones before when an axis
+        # is not a multiple of 3; a count set to 1 makes the second pass
+        # over a voxel divide by 1
+        for index in SliceBuilder._build_slices(
+                prediction_map, patch_shape=patch_shape,
+                stride_shape=patch_shape):
+            logger.info(f"Normalizing slice: {index}")
+            prediction_map[index] /= normalization_mask[index]
+            normalization_mask[index] = 1
+        if self.save_segmentation:
+            out = output_file.create_dataset(
+                "segmentation", shape=(z, y, x), dtype="uint16", chunks=True,
+                compression="gzip")
+        else:
+            out = output_file.create_dataset(
+                self.output_dataset, shape=prediction_map.shape,
+                dtype="float32", chunks=True, compression="gzip")
+        # streamed in slabs one chunk deep, so that each chunk is encoded
+        # once and one slab is in memory at a time
+        depth = out.chunks[-3]
+        for z0 in range(0, z, depth):
+            slab = prediction_map[:, z0:z0 + depth]
+            out[..., z0:z0 + depth, :, :] = (
+                np.argmax(slab, axis=0).astype("uint16")
+                if self.save_segmentation else slab)
+
+
+def dsb_save_batch(output_dir: Optional[str], path, pred,
+                   save_segmentation: bool = True,
+                   pmaps_thershold: float = 0.5) -> list:
+    """Write each image's prediction (and the connected components of its
+    ``p > pmaps_thershold`` as uint16) to ``<name>_predictions.h5``;
+    returns the files written."""
+    written = []
+    for single_pred, single_path in zip(pred, path):
+        logger.info(f"Processing {single_path}")
+        single_pred = np.squeeze(np.asarray(single_pred))
+        out_file = os.path.splitext(single_path)[0] + "_predictions.h5"
+        if output_dir is not None:
+            out_file = os.path.join(output_dir, os.path.split(out_file)[1])
+        with hdf5.File(out_file, "w") as f:
+            f.create_dataset("predictions", data=single_pred,
+                             compression="gzip")
+            if save_segmentation:
+                f.create_dataset(
+                    "segmentation", compression="gzip",
+                    data=cc_label(single_pred > pmaps_thershold).astype(
+                        "uint16"))
+        written.append(out_file)
+    return written
+
+
+class DSB2018Predictor(_AbstractPredictor):
+    """Per-image 2D predictions, written by a pool of 8 threads."""
+
+    def __init__(self, model, output_dir, out_channels=1,
+                 save_segmentation=True, pmaps_thershold=0.5, **kwargs):
+        super().__init__(model, output_dir, out_channels, **kwargs)
+        # this predictor runs its own forward: these options would be
+        # ignored silently
+        if self.tta is not None:
+            raise ValueError("tta is not supported by DSB2018Predictor")
+        if self.quantize is not None:
+            raise ValueError("quantize is not supported by "
+                             "DSB2018Predictor")
+        self.pmaps_threshold = pmaps_thershold
+        self.save_segmentation = save_segmentation
+
+    def __call__(self, test_loader) -> list:
+        """Predict every batch of (images, paths); returns the files
+        written."""
+        act = self.model.final_activation()
+        pending = []
+        with futures.ThreadPoolExecutor(max_workers=8) as executor:
+            for img, path in test_loader:
+                x = torch.as_tensor(np.asarray(img)).to(self.device)
+                if x.ndim == 5 and x.shape[1] == 1:
+                    # DSB pipelines give (N, Z=1, H, W, C); 2D models take
+                    # NHWC
+                    x = x.squeeze(1)
+                with torch.inference_mode():
+                    out = self.model(x)
+                    if act is not None:
+                        out = act(out)
+                pending.append(executor.submit(
+                    dsb_save_batch, self.output_dir, path, out.cpu().numpy(),
+                    self.save_segmentation, self.pmaps_threshold))
+            logger.info("Waiting for all predictions to be saved to disk...")
+        # a worker's exception surfaces here
+        return [f for p in pending for f in p.result()]
+
+
+PREDICTORS: Dict[str, Any] = {
+    "StandardPredictor": StandardPredictor,
+    "LazyPredictor": LazyPredictor,
+    "DSB2018Predictor": DSB2018Predictor,
+}
 
 
 def get_predictor(model: torch.nn.Module, output_dir: Optional[str],
@@ -279,7 +424,8 @@ def get_predictor(model: torch.nn.Module, output_dir: Optional[str],
     predictor_config = dict(config.get("predictor", {}))
     cls_name = predictor_config.pop("name", "StandardPredictor")
     if cls_name not in PREDICTORS:
-        raise NotImplementedError(f"predictor {cls_name!r}: {PREDICT_ITEM}")
+        raise KeyError(f"unknown predictor {cls_name!r}: one of "
+                       f"{sorted(PREDICTORS)}")
     out_channels = config["model"].get("out_channels")
     return PREDICTORS[cls_name](model, output_dir, out_channels,
                                 device=device, **predictor_config)

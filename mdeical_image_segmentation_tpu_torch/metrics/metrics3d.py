@@ -3,10 +3,14 @@
 
 Dense inputs are channels-last (N, D, H, W, C) tensors or numpy arrays and
 integer targets (N, D, H, W).  ``DiceCoefficient`` stays on the tensor's
-device; ``MeanIoU``, ``PSNR`` and ``MSE`` pull to host numpy, as in the JAX
-package.  The instance metrics (the AdaptedRand and AveragePrecision
-families) are registered names that raise until their connected-component
-and matching helpers are ported.
+device; ``MeanIoU``, ``PSNR``, ``MSE`` and the instance metrics pull to
+host numpy, as in the JAX package.  The instance metrics turn the network
+output into candidate segmentations (thresholds, inversions, connected
+components of ``transforms/skimage_compat.label``) and score each against
+the target: the AdaptedRand family keeps each sample's lowest error
+(``metrics/seg_compat.py``), the AveragePrecision family its best DSB
+average precision or accuracy (``metrics/seg_metrics.py``), and both
+average over the batch.
 """
 
 from __future__ import annotations
@@ -17,12 +21,20 @@ import numpy as np
 import torch
 
 from ..configs.registry import Registry
+from ..logging_utils import get_logger
 from ..losses.losses3d import compute_per_channel_dice
+from ..transforms.skimage_compat import label as cc_label
 from ..utils.onehot import expand_as_one_hot
+from .seg_compat import (
+    adapted_rand_error,
+    mean_squared_error,
+    peak_signal_noise_ratio,
+)
+from .seg_metrics import Accuracy, AveragePrecision
+
+logger = get_logger("EvalMetric")
 
 EVAL_METRICS = Registry("eval_metric")
-INSTANCE_METRICS_ITEM = ("ROADMAP.md queue 1, item 17 (transforms/"
-                         "skimage_compat, metrics/seg_compat and seg_metrics)")
 
 
 def convert_to_numpy(*inputs):
@@ -103,28 +115,223 @@ class MeanIoU:
         return float(np.sum(prediction & target) / max(union, 1e-8))
 
 
-def _data_range(image_true: np.ndarray) -> float:
-    if np.issubdtype(image_true.dtype, np.integer):
-        info = np.iinfo(image_true.dtype)
-        return float(info.max) - float(info.min)
-    # float images: the (-1, 1) range, or (0, 1) when non-negative
-    return 2.0 if image_true.min() < 0 else 1.0
+@EVAL_METRICS.register("AdaptedRandError")
+class AdaptedRandError:
+    """SNEMI3D Adapted Rand error over a batch: the output's candidate
+    segmentations each scored against the target, the lowest error of a
+    sample kept, averaged over the batch."""
+
+    def __init__(self, use_last_target: bool = False, ignore_index=None,
+                 **kwargs):
+        self.use_last_target = use_last_target
+        self.ignore_index = ignore_index
+
+    def __call__(self, input, target) -> float:
+        input, target = convert_to_numpy(input, target)
+        # the target channel asked for, (N, D, H, W)
+        target = target[..., -1] if self.use_last_target else target[..., 0]
+        target = target.astype(np.int32)
+        if self.ignore_index is not None:
+            target[target == self.ignore_index] = 0
+
+        per_batch_arand = []
+        for _input, _target in zip(input, target):
+            if np.all(_target == _target.flat[0]):
+                logger.info("Skipping ARandError computation: only 1 label "
+                            "present in the ground truth")
+                per_batch_arand.append(0.0)
+                continue
+            segm = self.input_to_segm(_input)  # (C, D, H, W)
+            if segm.ndim != 4:
+                raise ValueError(f"candidate segmentations {segm.shape}: "
+                                 "want (C, D, H, W)")
+            per_channel_arand = [adapted_rand_error(_target, channel_segm)[0]
+                                 for channel_segm in segm]
+            per_batch_arand.append(np.min(per_channel_arand))
+
+        mean_arand = float(np.mean(per_batch_arand))
+        logger.info(f"ARand: {mean_arand}")
+        return mean_arand
+
+    def input_to_segm(self, input):
+        """(D, H, W, C) output → (C, D, H, W) candidate segmentations."""
+        return np.moveaxis(input, -1, 0)
 
 
-def mean_squared_error(image0, image1) -> float:
-    image0 = np.asarray(image0, dtype=np.float64)
-    image1 = np.asarray(image1, dtype=np.float64)
-    return float(np.mean((image0 - image1) ** 2))
+def _components(mask: np.ndarray) -> np.ndarray:
+    return cc_label(mask.astype(np.uint8), background=0, connectivity=1)
 
 
-def peak_signal_noise_ratio(image_true, image_test, *,
-                            data_range=None) -> float:
-    if data_range is None:
-        data_range = _data_range(image_true)
-    err = mean_squared_error(image_true, image_test)
-    if err == 0:
-        return float("inf")
-    return float(10 * np.log10((data_range ** 2) / err))
+def _thresholds(thresholds, default):
+    if thresholds is None:
+        return default
+    if not isinstance(thresholds, list):
+        raise ValueError(f"thresholds {thresholds!r}: a list")
+    return thresholds
+
+
+@EVAL_METRICS.register("BoundaryAdaptedRandError")
+class BoundaryAdaptedRandError(AdaptedRandError):
+    """Boundary maps thresholded, inverted and split into connected
+    components: the candidate segmentations."""
+
+    def __init__(self, thresholds=None, use_last_target=True,
+                 ignore_index=None, input_channel=None, invert_pmaps=True,
+                 **kwargs):
+        super().__init__(use_last_target=use_last_target,
+                         ignore_index=ignore_index, **kwargs)
+        self.thresholds = _thresholds(thresholds, [0.3, 0.4, 0.5, 0.6])
+        self.input_channel = input_channel
+        self.invert_pmaps = invert_pmaps
+
+    def input_to_segm(self, input):
+        input = np.moveaxis(input, -1, 0)  # (C, D, H, W)
+        if self.input_channel is not None:
+            input = np.expand_dims(input[self.input_channel], axis=0)
+        segs = []
+        for predictions in input:
+            for th in self.thresholds:
+                predictions_th = predictions > th
+                if self.invert_pmaps:
+                    predictions_th = np.logical_not(predictions_th)
+                segs.append(_components(predictions_th))
+        return np.stack(segs)
+
+
+@EVAL_METRICS.register("GenericAdaptedRandError")
+class GenericAdaptedRandError(AdaptedRandError):
+    """The chosen channels (some inverted) thresholded and split into
+    connected components."""
+
+    def __init__(self, input_channels, thresholds=None, use_last_target=True,
+                 ignore_index=None, invert_channels=None, **kwargs):
+        super().__init__(use_last_target=use_last_target,
+                         ignore_index=ignore_index, **kwargs)
+        if not isinstance(input_channels, (list, tuple)):
+            raise ValueError(f"input_channels {input_channels!r}: a list")
+        self.input_channels = input_channels
+        self.thresholds = _thresholds(thresholds, [0.3, 0.4, 0.5, 0.6])
+        self.invert_channels = invert_channels or []
+
+    def input_to_segm(self, input):
+        input = np.moveaxis(input, -1, 0)
+        results = []
+        for i in self.input_channels:
+            c = input[i]
+            if i in self.invert_channels:
+                c = 1 - c
+            results.append(c)
+        return np.stack([_components(predictions > th)
+                         for predictions in results
+                         for th in self.thresholds])
+
+
+@EVAL_METRICS.register("GenericAveragePrecision")
+class GenericAveragePrecision:
+    """Average precision (or accuracy) of instance matches: the best over a
+    sample's candidate segmentations, averaged over the batch."""
+
+    def __init__(self, min_instance_size=None, use_last_target=False,
+                 metric="ap", **kwargs):
+        if metric not in ("ap", "acc"):
+            raise ValueError(f"metric {metric!r}: 'ap' or 'acc'")
+        self.min_instance_size = min_instance_size
+        self.use_last_target = use_last_target
+        self.metric = AveragePrecision() if metric == "ap" else Accuracy(0.5)
+
+    def __call__(self, input, target) -> float:
+        multi_head = isinstance(input, tuple)
+        if multi_head:
+            input1, input2 = convert_to_numpy(*input)
+        else:
+            (input1,) = convert_to_numpy(input)
+            input2 = input1
+        (target,) = convert_to_numpy(target)
+        if target.ndim == 5:
+            target = (target[..., -1] if self.use_last_target
+                      else target[..., 0])
+
+        batch_aps = []
+        for i_batch, (inp1, inp2, tar) in enumerate(zip(input1, input2,
+                                                        target)):
+            segs = self.input_to_seg((inp1, inp2) if multi_head else inp1,
+                                     tar)
+            if segs.ndim != 4:
+                raise ValueError(f"candidate segmentations {segs.shape}: "
+                                 "want (C, D, H, W)")
+            tar = self._filter_instances(self.target_to_seg(tar))
+            segs_aps = [self.metric(self._filter_instances(seg), tar)
+                        for seg in segs]
+            logger.info(f"Batch: {i_batch}. Max Average Precision for "
+                        f"channel: {np.argmax(segs_aps)}")
+            batch_aps.append(np.max(segs_aps))
+        return float(np.mean(batch_aps))
+
+    def _filter_instances(self, input):
+        if self.min_instance_size is not None:
+            # a copy: ``input`` may be a view of the caller's labels
+            input = np.array(input)
+            labels, counts = np.unique(input, return_counts=True)
+            for lab, count in zip(labels, counts):
+                if count < self.min_instance_size:
+                    input[input == lab] = 0
+        return input
+
+    def input_to_seg(self, input, target=None):
+        raise NotImplementedError(f"{type(self).__name__} makes no "
+                                  "candidate segmentations; use a subclass")
+
+    def target_to_seg(self, target):
+        return target
+
+
+@EVAL_METRICS.register("BlobsAveragePrecision")
+class BlobsAveragePrecision(GenericAveragePrecision):
+    """Candidates from a foreground map channel above each threshold."""
+
+    def __init__(self, thresholds=None, metric="ap", min_instance_size=None,
+                 input_channel=0, **kwargs):
+        super().__init__(min_instance_size=min_instance_size,
+                         use_last_target=True, metric=metric)
+        self.thresholds = _thresholds(thresholds, [0.4, 0.5, 0.6, 0.7, 0.8])
+        self.input_channel = input_channel
+
+    def input_to_seg(self, input, target=None):
+        input = np.moveaxis(input, -1, 0)[self.input_channel]
+        return np.stack([_components(input > th) for th in self.thresholds])
+
+
+@EVAL_METRICS.register("BlobsBoundaryAveragePrecision")
+class BlobsBoundaryAveragePrecision(GenericAveragePrecision):
+    """Candidates from (P_mask − P_boundary) above each threshold."""
+
+    def __init__(self, thresholds=None, metric="ap", min_instance_size=None,
+                 **kwargs):
+        super().__init__(min_instance_size=min_instance_size,
+                         use_last_target=True, metric=metric)
+        self.thresholds = _thresholds(thresholds, [0.3, 0.4, 0.5, 0.6, 0.7])
+
+    def input_to_seg(self, input, target=None):
+        input = np.moveaxis(input, -1, 0)
+        input = input[0] - input[1]
+        return np.stack([_components(input > th) for th in self.thresholds])
+
+
+@EVAL_METRICS.register("BoundaryAveragePrecision")
+class BoundaryAveragePrecision(GenericAveragePrecision):
+    """Candidates from a boundary map channel at or below each threshold."""
+
+    def __init__(self, thresholds=None, min_instance_size=None,
+                 input_channel=0, **kwargs):
+        super().__init__(min_instance_size=min_instance_size,
+                         use_last_target=True)
+        self.thresholds = _thresholds(thresholds, [0.3, 0.4, 0.5, 0.6])
+        self.input_channel = input_channel
+
+    def input_to_seg(self, input, target=None):
+        input = np.moveaxis(input, -1, 0)[self.input_channel]
+        return np.stack([_components(np.logical_not(input > th))
+                         for th in self.thresholds])
 
 
 @EVAL_METRICS.register("PSNR")
@@ -145,20 +352,6 @@ class MSE:
     def __call__(self, input, target) -> float:
         input, target = convert_to_numpy(input, target)
         return mean_squared_error(input, target)
-
-
-def _not_ported(name: str):
-    def build(**kwargs):
-        raise NotImplementedError(f"eval metric {name!r} is not ported yet "
-                                  f"({INSTANCE_METRICS_ITEM})")
-    return build
-
-
-for _name in ("AdaptedRandError", "BoundaryAdaptedRandError",
-              "GenericAdaptedRandError", "GenericAveragePrecision",
-              "BlobsAveragePrecision", "BlobsBoundaryAveragePrecision",
-              "BoundaryAveragePrecision"):
-    EVAL_METRICS.register(_name)(_not_ported(_name))
 
 
 def get_evaluation_metric(config: Dict[str, Any]):

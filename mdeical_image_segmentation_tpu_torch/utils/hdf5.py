@@ -4,12 +4,16 @@ The machine with the card has no h5py, and the volumetric pipeline reads
 its volumes from HDF5 files and writes its predictions into one.  This
 module covers the part of h5py's API that pipeline uses:
 
-- ``File(path, "r" | "w")`` as a context manager; for reading
-  ``f["a/b"]``, ``key in f`` and ``keys()``;
+- ``File(path, "r" | "r+" | "w")`` as a context manager; ``f["a/b"]``,
+  ``key in f`` and ``keys()`` in every mode;
 - ``Dataset.shape``, ``.dtype``, ``.ndim``, ``.chunks``, ``.compression``,
   ``ds[:]`` and ``ds[index]`` with ints and slices, reading only the chunks
   the index touches;
-- ``File.create_dataset(name, data=..., compression="gzip")``.
+- ``File.create_dataset(name, data=..., compression="gzip")`` in ``"w"``
+  and ``"r+"``, making the groups on the path; and
+  ``create_dataset(name, shape=..., dtype=..., chunks=True | (...),
+  compression="gzip")``, a chunked dataset filled region by region with
+  ``ds[index] = array`` (unit steps) without the whole array in memory.
 
 What it reads is the file h5py writes by default: superblock version 0,
 version-1 object headers, symbol-table groups (a version-1 B-tree of
@@ -20,9 +24,19 @@ IEEE floats of 4 and 8 bytes.  Anything else (a ``libver="latest"`` file,
 another filter, a compound or string type, a soft link) raises and names
 what it found.
 
-What it writes: superblock version 0 and symbol-table groups; each dataset
-contiguous, or, with ``compression="gzip"``, chunked (h5py's chunk guess)
-through deflate at level 4, h5py's default.
+What it writes: each dataset contiguous, or chunked (h5py's chunk guess
+unless given) through deflate at level 4, h5py's default.  Everything new
+goes to the end of the file.  A group that gains members (``"r+"`` appends
+to a file h5py or the port wrote; ``"w"`` starts from an empty root group)
+gets, when the file closes, its names appended to a copy of its local heap
+at the end of the file and its symbol-table nodes written anew there, under
+a B-tree whose root node is rewritten where it stands; the heap header
+stays where it stands too, with its data address patched.  So the B-tree
+and heap addresses that the group's object header, its parent's entry and
+the superblock cache stay true, and only the superblock's end-of-file
+address is patched.  Replaced structures are left as unreferenced space, as
+the library leaves them.  A chunked dataset's chunk B-tree is written when
+the file closes, and its address patched into its layout message.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ import numpy as np
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 UNDEF = 0xFFFFFFFFFFFFFFFF
+HEAP_FREE_NULL = 1  # the end of a local heap's free list
 
 # object header message types
 MSG_DATASPACE, MSG_LINK_INFO, MSG_DATATYPE = 0x1, 0x2, 0x3
@@ -47,23 +62,27 @@ MSG_CONTINUATION, MSG_SYMBOL_TABLE = 0x10, 0x11
 FILTER_DEFLATE, FILTER_SHUFFLE = 1, 2
 GROUP_LEAF_K, GROUP_NODE_K, CHUNK_K = 4, 16, 32  # the library's defaults
 GZIP_LEVEL = 4
+SUPERBLOCK_EOF = 40  # the end-of-file address in a version-0 superblock
 
 
 class HDF5Error(ValueError):
     """A file this codec does not read, or a malformed one."""
 
 
-# ---------------------------------------------------------------------------
-# reading
-# ---------------------------------------------------------------------------
+class _Store:
+    """An open file: little-endian fields at absolute addresses, and for a
+    writable file, writes in place and appends at the end of the file."""
 
-
-class _Reader:
-    """Little-endian fields at absolute addresses of an open file."""
-
-    def __init__(self, path: str):
+    def __init__(self, path: str, mode: str):
         self.path = path
-        self.fd = os.open(path, os.O_RDONLY)
+        self.writable = mode != "r"
+        flags = os.O_RDWR if self.writable else os.O_RDONLY
+        if mode == "w":
+            flags |= os.O_CREAT | os.O_TRUNC
+        self.fd = os.open(path, flags, 0o666)
+        self.eof = os.fstat(self.fd).st_size
+        self.leaf_k, self.node_k = GROUP_LEAF_K, GROUP_NODE_K
+        self.dirty: List[object] = []  # groups and datasets to flush
 
     def close(self) -> None:
         if self.fd is not None:
@@ -76,6 +95,27 @@ class _Reader:
             raise HDF5Error(f"{self.path}: {n} bytes at {addr} run past the "
                             "end of the file")
         return data
+
+    def write(self, addr: int, data) -> None:
+        view = memoryview(data).cast("B")
+        while len(view):
+            n = os.pwrite(self.fd, view, addr)
+            view, addr = view[n:], addr + n
+
+    def append(self, data) -> int:
+        addr = self.eof
+        self.write(addr, data)
+        self.eof += memoryview(data).nbytes
+        return addr
+
+    def mark(self, obj) -> None:
+        if not any(o is obj for o in self.dirty):
+            self.dirty.append(obj)
+
+
+# ---------------------------------------------------------------------------
+# reading
+# ---------------------------------------------------------------------------
 
 
 def _parse_datatype(b: bytes) -> np.dtype:
@@ -154,8 +194,8 @@ def _parse_fill(b: bytes) -> Optional[bytes]:
 class _ObjectHeader:
     """The messages of a version-1 object header, continuations followed."""
 
-    def __init__(self, reader: _Reader, addr: int):
-        head = reader.read(addr, 16)
+    def __init__(self, store: _Store, addr: int):
+        head = store.read(addr, 16)
         version, _, n_msgs, _, size = struct.unpack_from("<BBHII", head)
         if version != 1:
             raise HDF5Error(f"object header version {version} at {addr} not "
@@ -164,7 +204,7 @@ class _ObjectHeader:
         blocks = [(addr + 16, size)]
         while blocks and len(self.messages) < n_msgs:
             start, length = blocks.pop(0)
-            block = reader.read(start, length)
+            block = store.read(start, length)
             pos = 0
             while pos + 8 <= length and len(self.messages) < n_msgs:
                 mtype, msize, mflags = struct.unpack_from("<HHB", block, pos)
@@ -188,10 +228,11 @@ class _ObjectHeader:
 
 
 class Dataset:
-    """An HDF5 dataset of a file open for reading."""
+    """An HDF5 dataset; one made in a writable file with ``shape=`` (or
+    from ``data=`` with gzip) also takes ``ds[index] = array``."""
 
-    def __init__(self, reader: _Reader, header: _ObjectHeader, name: str):
-        self._reader, self.name = reader, name
+    def __init__(self, store: _Store, header: _ObjectHeader, name: str):
+        self._store, self.name = store, name
         if MSG_EXTERNAL in header.types():
             raise HDF5Error(f"{name}: external storage not supported")
         self.shape = _parse_dataspace(header.find(MSG_DATASPACE))
@@ -209,6 +250,9 @@ class Dataset:
                             "supported")
         self._layout_class = layout[1]
         self.chunks: Optional[Tuple[int, ...]] = None
+        # where a dataset made since the file was opened keeps its chunk
+        # B-tree's address (patched when the file closes); None: read only
+        self._btree_field: Optional[int] = None
         if self._layout_class == 0:  # compact
             size = struct.unpack_from("<H", layout, 2)[0]
             self._compact = layout[4:4 + size]
@@ -252,6 +296,57 @@ class Dataset:
         box, post = _normalize_index(index, self.shape)
         return self._read_box(box)[post]
 
+    def __setitem__(self, index, value) -> None:
+        """Write ``value`` (broadcast to the selection) into the chunks the
+        index touches: each is encoded again and appended, one chunk in
+        memory at a time."""
+        if self._btree_field is None:
+            raise HDF5Error(f"{self.name}: only chunked datasets made since "
+                            "the writable file was opened are written")
+        box, post = _normalize_index(index, self.shape)
+        if any(isinstance(p, slice) and p.step not in (None, 1)
+               for p in post):
+            raise IndexError("writes take unit steps")
+        sel = tuple(b - a for (a, b), p in zip(box, post)
+                    if isinstance(p, slice))
+        value = np.broadcast_to(np.asarray(value, dtype=self.dtype), sel)
+        value = value.reshape(tuple(b - a for a, b in box))
+        if value.size == 0:
+            return
+        index = self._chunk_index()
+        ranges = [range(a // c, (b - 1) // c + 1)
+                  for (a, b), c in zip(box, self.chunks)]
+        for pos in itertools.product(*ranges):
+            offset = tuple(p * c for p, c in zip(pos, self.chunks))
+            src, dst, covered = [], [], True
+            for (a, b), o, c, n in zip(box, offset, self.chunks, self.shape):
+                lo, hi = max(a, o), min(b, o + c)
+                src.append(slice(lo - o, hi - o))
+                dst.append(slice(lo - a, hi - a))
+                covered &= lo == o and hi == min(o + c, n)
+            entry = index.get(offset)
+            if covered or entry is None:
+                block = np.full(self.chunks, self._fill, self.dtype)
+            else:
+                block = self._decode_chunk(*entry).copy()
+            block[tuple(src)] = value[tuple(dst)]
+            raw = block.tobytes()
+            if self.compression:
+                raw = zlib.compress(raw, self.compression_opts)
+            index[offset] = (self._store.append(raw), len(raw), 0)
+        self._store.mark(self)
+
+    def _flush(self) -> None:
+        """Write the chunk B-tree and patch its address into the layout
+        message."""
+        index = self._chunk_index()
+        if index:
+            entries = [(off, size, addr)
+                       for off, (addr, size, _) in sorted(index.items())]
+            self._addr = _chunk_btree(self._store, entries, self.chunks)
+            self._store.write(self._btree_field,
+                              struct.pack("<Q", self._addr))
+
     # -- storage -------------------------------------------------------------
 
     def _read_box(self, box: Sequence[Tuple[int, int]]) -> np.ndarray:
@@ -264,7 +359,7 @@ class Dataset:
         if self._layout_class == 1:
             if self._addr == UNDEF:
                 return np.full(shape, self._fill, self.dtype)
-            mm = np.memmap(self._reader.path, dtype=self.dtype, mode="r",
+            mm = np.memmap(self._store.path, dtype=self.dtype, mode="r",
                            offset=self._addr, shape=self.shape)
             out = np.array(mm[sel])
             del mm
@@ -278,7 +373,7 @@ class Dataset:
             index: Dict[Tuple[int, ...], Tuple[int, int, int]] = {}
             if self._addr != UNDEF:
                 rank = len(self.shape) + 1
-                for key, child in _btree_entries(self._reader, self._addr, 1,
+                for key, child in _btree_entries(self._store, self._addr, 1,
                                                  rank):
                     size, mask = struct.unpack_from("<II", key)
                     offset = struct.unpack_from(f"<{rank}Q", key, 8)[:-1]
@@ -287,7 +382,7 @@ class Dataset:
         return self._index
 
     def _decode_chunk(self, addr: int, size: int, mask: int) -> np.ndarray:
-        data = self._reader.read(addr, size)
+        data = self._store.read(addr, size)
         for i in reversed(range(len(self._filters))):
             if mask & (1 << i):
                 continue  # this filter was skipped for this chunk
@@ -370,19 +465,19 @@ def _normalize_index(index, shape):
     return box, tuple(post)
 
 
-def _btree_entries(reader: _Reader, addr: int, node_type: int,
+def _btree_entries(store: _Store, addr: int, node_type: int,
                    rank: int = 0) -> Iterator[Tuple[bytes, int]]:
     """(left key, child address) of every leaf entry of a version-1 B-tree,
     any depth."""
     key_size = 8 if node_type == 0 else 8 + 8 * rank
-    head = reader.read(addr, 24)
+    head = store.read(addr, 24)
     if head[:4] != b"TREE":
         raise HDF5Error(f"no B-tree node at {addr}")
     ntype, level, used = head[4], head[5], struct.unpack_from("<H", head, 6)[0]
     if ntype != node_type:
         raise HDF5Error(f"B-tree node of type {ntype} at {addr}, want "
                         f"{node_type}")
-    body = reader.read(addr + 24, used * (key_size + 8) + key_size)
+    body = store.read(addr + 24, used * (key_size + 8) + key_size)
     for i in range(used):
         pos = i * (key_size + 8)
         key = body[pos:pos + key_size]
@@ -390,25 +485,37 @@ def _btree_entries(reader: _Reader, addr: int, node_type: int,
         if level == 0:
             yield key, child
         else:
-            yield from _btree_entries(reader, child, node_type, rank)
+            yield from _btree_entries(store, child, node_type, rank)
 
 
 class Group:
-    """A symbol-table group of a file open for reading."""
+    """A symbol-table group.  Its members are ``_entries``: name → (heap
+    offset of the name, the 32 bytes of its symbol-table entry after the
+    name: object header address, cache type, scratch pad)."""
 
-    def __init__(self, reader: _Reader, header: _ObjectHeader, name: str):
-        self._reader, self.name = reader, name
+    def __init__(self, store: _Store, name: str, btree: int, heap: int,
+                 new: bool = False):
+        self._store, self.name = store, name
+        self._btree, self._heap = btree, heap
+        self._children: Dict[str, object] = {}
+        if new:  # offset 0 holds the empty name
+            self._heap_data, self._entries = bytearray(8), {}
+        else:
+            self._heap_data, self._entries = _read_symbol_table(
+                store, btree, heap, name)
+
+    @classmethod
+    def _from_header(cls, store: _Store, header: _ObjectHeader, name: str):
         stab = header.find(MSG_SYMBOL_TABLE)
         if stab is None:
             kind = ("link messages (a libver='latest' group)"
                     if header.types() & {MSG_LINK, MSG_LINK_INFO}
                     else "no symbol table")
             raise HDF5Error(f"group {name}: {kind} not supported")
-        btree, heap = struct.unpack_from("<QQ", stab)
-        self._links = _read_symbol_table(reader, btree, heap, name)
+        return cls(store, name, *struct.unpack_from("<QQ", stab))
 
     def keys(self) -> List[str]:
-        return list(self._links)
+        return list(self._entries)
 
     def __contains__(self, path: str) -> bool:
         try:
@@ -421,94 +528,169 @@ class Group:
         node = self
         parts = [p for p in path.split("/") if p]
         for part in parts:
-            if not isinstance(node, Group) or part not in node._links:
+            if not isinstance(node, Group) or part not in node._entries:
                 raise KeyError(f"no object {path!r} in {self.name!r}")
             node = node._open(part)
         return node
 
     def _open(self, name: str):
-        full = f"{self.name.rstrip('/')}/{name}"
-        header = _ObjectHeader(self._reader, self._links[name])
-        types = header.types()
-        if MSG_SYMBOL_TABLE in types or MSG_LINK_INFO in types:
-            return Group(self._reader, header, full)
-        if MSG_LAYOUT in types:
-            return Dataset(self._reader, header, full)
-        raise HDF5Error(f"{full}: object with messages {sorted(types)} is "
-                        "neither a group nor a dataset")
+        if name not in self._children:
+            full = f"{self.name.rstrip('/')}/{name}"
+            addr = struct.unpack_from("<Q", self._entries[name][1])[0]
+            header = _ObjectHeader(self._store, addr)
+            types = header.types()
+            if MSG_SYMBOL_TABLE in types or MSG_LINK_INFO in types:
+                child = Group._from_header(self._store, header, full)
+            elif MSG_LAYOUT in types:
+                child = Dataset(self._store, header, full)
+            else:
+                raise HDF5Error(f"{full}: object with messages "
+                                f"{sorted(types)} is neither a group nor a "
+                                "dataset")
+            self._children[name] = child
+        return self._children[name]
+
+    # -- writing -------------------------------------------------------------
+
+    def _link(self, name: str, header: int, scratch: Optional[bytes] = None
+              ) -> None:
+        """Add ``name`` → the object header at ``header``; ``scratch`` is a
+        subgroup's cached (B-tree, heap) addresses."""
+        offset = len(self._heap_data)
+        raw = name.encode("utf-8") + b"\0"
+        self._heap_data += raw + b"\0" * (-len(raw) % 8)
+        tail = struct.pack("<QI4x", header, 0 if scratch is None else 1)
+        self._entries[name] = (offset, tail + (scratch or b"\0" * 16))
+        self._store.mark(self)
+
+    def _flush(self) -> None:
+        """The heap's data and the symbol-table nodes at the end of the
+        file, the B-tree's root node and the heap header in place."""
+        store = self._store
+        head = store.read(self._heap, 32)
+        # a heap read from the file keeps its free list (its blocks lie in
+        # the data copied); a new group's has none
+        free = (struct.unpack_from("<Q", head, 16)[0] if head[:4] == b"HEAP"
+                else HEAP_FREE_NULL)
+        data_addr = store.append(bytes(self._heap_data))
+        store.write(self._heap, b"HEAP" + struct.pack(
+            "<B3xQQQ", 0, len(self._heap_data), free, data_addr))
+        per_node = 2 * store.leaf_k
+        names = sorted(self._entries, key=lambda s: s.encode("utf-8"))
+        children = []  # (left key, right key, address) of each node
+        left = 0
+        for i in range(0, len(names), per_node):
+            chunk = names[i:i + per_node]
+            body = b"".join(struct.pack("<Q", self._entries[n][0])
+                            + self._entries[n][1] for n in chunk)
+            raw = b"SNOD" + struct.pack("<BxH", 1, len(chunk)) + body
+            raw += b"\0" * (8 + per_node * 40 - len(raw))
+            right = self._entries[chunk[-1]][0]
+            children.append((left, right, store.append(raw)))
+            left = right
+        _group_btree(store, self._btree, children)
 
 
-def _read_symbol_table(reader: _Reader, btree: int, heap: int,
-                       name: str) -> Dict[str, int]:
-    head = reader.read(heap, 32)
+def _read_symbol_table(store: _Store, btree: int, heap: int, name: str):
+    head = store.read(heap, 32)
     if head[:4] != b"HEAP":
         raise HDF5Error(f"group {name}: no local heap at {heap}")
     heap_size, _, heap_data = struct.unpack_from("<QQQ", head, 8)
-    names = reader.read(heap_data, heap_size)
-    links: Dict[str, int] = {}
-    for _, snod in _btree_entries(reader, btree, 0):
-        node = reader.read(snod, 8)
+    names = store.read(heap_data, heap_size)
+    entries: Dict[str, Tuple[int, bytes]] = {}
+    for _, snod in _btree_entries(store, btree, 0):
+        node = store.read(snod, 8)
         if node[:4] != b"SNOD":
             raise HDF5Error(f"group {name}: no symbol table node at {snod}")
         count = struct.unpack_from("<H", node, 6)[0]
-        entries = reader.read(snod + 8, 40 * count)
+        raw = store.read(snod + 8, 40 * count)
         for i in range(count):
-            name_off, obj, cache = struct.unpack_from("<QQI", entries, 40 * i)
+            name_off, _, cache = struct.unpack_from("<QQI", raw, 40 * i)
             if cache == 2:
                 raise HDF5Error(f"group {name}: soft links not supported")
             end = names.index(b"\0", name_off)
-            links[names[name_off:end].decode("utf-8")] = obj
-    return links
+            entries[names[name_off:end].decode("utf-8")] = (
+                name_off, raw[40 * i + 8:40 * i + 40])
+    data = bytearray(names)
+    data += b"\0" * (-len(data) % 8)
+    return data, entries
 
 
 class File(Group):
-    """An HDF5 file: ``"r"`` to read, ``"w"`` to create (truncating)."""
+    """An HDF5 file: ``"r"`` to read, ``"r+"`` to read and add datasets,
+    ``"w"`` to create (truncating)."""
 
     def __init__(self, path, mode: str = "r"):
+        if mode not in ("r", "r+", "w"):
+            raise ValueError(f"mode {mode!r}: 'r', 'r+' or 'w'")
         self.path, self.mode = os.fspath(path), mode
-        self._reader: Optional[_Reader] = None
-        self._writer: Optional[_Writer] = None
-        if mode == "r":
-            self._open_read()
-        elif mode == "w":
-            self._writer = _Writer(self.path)
-            self.name = "/"
-        else:
-            raise ValueError(f"mode {mode!r}: 'r' or 'w' (in-place appends "
-                             "are not supported)")
-
-    def _open_read(self) -> None:
-        reader = _Reader(self.path)
+        store = _Store(self.path, mode)
         try:
-            sb = reader.read(0, 96)
-            if sb[:8] != SIGNATURE:
-                raise HDF5Error(f"{self.path}: not an HDF5 file (no "
-                                "signature at offset 0)")
-            if sb[8] != 0:
-                raise HDF5Error(f"{self.path}: superblock version {sb[8]} not "
-                                "supported (version 0 is; libver='latest' "
-                                "files are not)")
-            if sb[13] != 8 or sb[14] != 8:
-                raise HDF5Error(f"{self.path}: offsets of {sb[13]} and "
-                                f"lengths of {sb[14]} bytes not supported")
-            base = struct.unpack_from("<Q", sb, 24)[0]
-            if base != 0:
-                raise HDF5Error(f"{self.path}: base address {base} not "
-                                "supported")
-            root = struct.unpack_from("<Q", sb, 56 + 8)[0]
-            super().__init__(reader, _ObjectHeader(reader, root), "/")
+            if mode == "w":
+                header, btree, heap = _new_group(store, reserve=96)
+                super().__init__(store, "/", btree, heap, new=True)
+                store.mark(self)
+                self._write_superblock(header)
+            else:
+                header = self._read_superblock(store)
+                super().__init__(store, "/", *self._root_tables(store,
+                                                                header))
         except BaseException:
-            reader.close()
+            store.close()
             raise
-        self._reader = reader
+
+    def _read_superblock(self, store: _Store) -> int:
+        sb = store.read(0, 96)
+        if sb[:8] != SIGNATURE:
+            raise HDF5Error(f"{self.path}: not an HDF5 file (no signature "
+                            "at offset 0)")
+        if sb[8] != 0:
+            raise HDF5Error(f"{self.path}: superblock version {sb[8]} not "
+                            "supported (version 0 is; libver='latest' files "
+                            "are not)")
+        if sb[13] != 8 or sb[14] != 8:
+            raise HDF5Error(f"{self.path}: offsets of {sb[13]} and lengths "
+                            f"of {sb[14]} bytes not supported")
+        base, _, eof = struct.unpack_from("<QQQ", sb, 24)
+        if base != 0:
+            raise HDF5Error(f"{self.path}: base address {base} not "
+                            "supported")
+        store.leaf_k, store.node_k = struct.unpack_from("<HH", sb, 16)
+        store.eof = max(store.eof, eof)
+        return struct.unpack_from("<Q", sb, 56 + 8)[0]
+
+    def _root_tables(self, store: _Store, header: int) -> Tuple[int, int]:
+        stab = _ObjectHeader(store, header).find(MSG_SYMBOL_TABLE)
+        if stab is None:
+            raise HDF5Error(f"{self.path}: the root group has no symbol "
+                            "table (a libver='latest' file?)")
+        return struct.unpack_from("<QQ", stab)
+
+    def _write_superblock(self, root: int) -> None:
+        sb = SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+        sb += struct.pack("<HHI", GROUP_LEAF_K, GROUP_NODE_K, 0)
+        sb += struct.pack("<QQQQ", 0, UNDEF, self._store.eof, UNDEF)
+        sb += struct.pack("<QQI4xQQ", 0, root, 1, self._btree, self._heap)
+        self._store.write(0, sb)
 
     def close(self) -> None:
-        if self._writer is not None:
-            self._writer.close()
-            self._writer = None
-        if self._reader is not None:
-            self._reader.close()
-            self._reader = None
+        """Write what was added since the file was opened (chunk B-trees,
+        groups, the end-of-file address) and close the file."""
+        store = self._store
+        if store.fd is None:
+            return
+        try:
+            for obj in store.dirty:
+                if isinstance(obj, Dataset):
+                    obj._flush()
+            for obj in store.dirty:
+                if isinstance(obj, Group):
+                    obj._flush()
+            if store.dirty:
+                store.write(SUPERBLOCK_EOF, struct.pack("<Q", store.eof))
+            store.dirty = []
+        finally:
+            store.close()
 
     def __enter__(self):
         return self
@@ -516,28 +698,104 @@ class File(Group):
     def __exit__(self, *exc):
         self.close()
 
-    def __getitem__(self, path: str):
-        if self._writer is not None:
-            raise ValueError("a file open for writing is not read back")
-        return super().__getitem__(path)
-
-    def __contains__(self, path: str) -> bool:
-        if self._writer is not None:
-            raise ValueError("a file open for writing is not read back")
-        return super().__contains__(path)
-
-    def create_dataset(self, name: str, data=None, *,
-                       compression: Optional[str] = None):
-        """Write ``data`` (an array) under ``name``, making the groups on
-        its path: contiguous, or with ``compression="gzip"`` chunked (h5py's
-        chunk guess) through deflate at level 4, h5py's default."""
-        if self._writer is None:
+    def create_dataset(self, name: str, data=None, *, shape=None, dtype=None,
+                       chunks=None, compression: Optional[str] = None
+                       ) -> Dataset:
+        """A new dataset under ``name``, making the groups on its path.
+        From ``data``: contiguous, or with ``compression="gzip"`` chunked
+        (h5py's chunk guess) through deflate at level 4.  From ``shape``
+        and ``dtype``: chunked (``chunks=True`` or None: h5py's guess, or a
+        tuple), gzip or not, every chunk the fill value (0) until
+        ``ds[index] = array`` writes it."""
+        if not self._store.writable:
             raise ValueError(f"{self.path} is not open for writing")
-        if data is None:
-            raise ValueError("create_dataset needs data")
         if compression not in (None, "gzip"):
             raise ValueError(f"compression={compression!r}: only 'gzip'")
-        self._writer.dataset(name, np.asarray(data), compression == "gzip")
+        if data is not None:
+            data = np.asarray(data)
+            if shape is not None and tuple(shape) != data.shape:
+                raise ValueError(f"shape {shape} and data {data.shape}")
+            if dtype is not None:
+                data = data.astype(dtype, copy=False)
+            shape, dtype = data.shape, data.dtype
+        elif shape is None or dtype is None:
+            raise ValueError("create_dataset needs data, or a shape and a "
+                             "dtype")
+        elif compression is None and chunks is None:
+            raise ValueError("a dataset made from a shape is chunked: give "
+                             "chunks= or compression='gzip'")
+        shape, dtype = tuple(int(n) for n in shape), np.dtype(dtype)
+        _datatype_message(dtype)  # raises for a type the codec cannot write
+        contiguous = compression is None and chunks is None
+        if not contiguous:
+            if not shape:
+                raise ValueError("a scalar dataset cannot be chunked")
+            if chunks in (None, True):
+                chunks = guess_chunk(shape, dtype.itemsize)
+            chunks = tuple(int(c) for c in chunks)
+            if len(chunks) != len(shape) or min(chunks) < 1:
+                raise ValueError(f"chunks {chunks} for shape {shape}")
+        group, leaf = self._parent(name)
+        messages = _shape_messages(shape, dtype)
+        if contiguous:
+            raw = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+            addr = self._store.append(raw) if raw.size else UNDEF
+            # allocation late, fill written if set, the default fill value
+            messages += [
+                _message(MSG_FILL, struct.pack("<BBBBI", 2, 2, 2, 1, 0), 1),
+                _message(MSG_LAYOUT, struct.pack("<BBQQ", 3, 1, addr,
+                                                 raw.nbytes))]
+            return self._add(group, leaf, messages)[0]
+        layout = struct.pack("<BBBQ", 3, 2, len(shape) + 1, UNDEF)
+        layout += struct.pack(f"<{len(shape) + 1}I", *chunks, dtype.itemsize)
+        # allocation incremental, fill written if set, default fill
+        messages += [
+            _message(MSG_FILL, struct.pack("<BBBBI", 2, 3, 2, 1, 0), 1),
+            _message(MSG_LAYOUT, layout)]
+        if compression:
+            deflate = b"deflate\0"
+            pipe = struct.pack("<BB6x", 1, 1) + struct.pack(
+                "<HHHH", FILTER_DEFLATE, len(deflate), 1, 1) + deflate
+            pipe += struct.pack("<II", GZIP_LEVEL, 0)  # one value, padded
+            messages.append(_message(MSG_FILTERS, pipe))
+        ds, header = self._add(group, leaf, messages)
+        # the layout message's data follows the 16-byte prefix and the
+        # messages before it, each with an 8-byte message header
+        ds._btree_field = header + 16 + sum(map(len, messages[:3])) + 8 + 3
+        ds._index = {}
+        if data is not None:
+            ds[...] = data
+        return ds
+
+    def _parent(self, name: str) -> Tuple[Group, str]:
+        """The group ``name`` goes into (groups on the path made as
+        needed) and its last part, checked to be new."""
+        parts = [p for p in name.split("/") if p]
+        if not parts:
+            raise ValueError(f"dataset name {name!r}")
+        group: Group = self
+        for part in parts[:-1]:
+            if part not in group._entries:
+                header, btree, heap = _new_group(self._store)
+                group._link(part, header, struct.pack("<QQ", btree, heap))
+                group._children[part] = Group(
+                    self._store, f"{group.name.rstrip('/')}/{part}", btree,
+                    heap, new=True)
+                self._store.mark(group._children[part])
+            group = group._open(part)
+            if not isinstance(group, Group):
+                raise ValueError(f"{name}: {part} is a dataset")
+        if parts[-1] in group._entries:
+            raise ValueError(f"{name} already exists")
+        return group, parts[-1]
+
+    def _add(self, group: Group, leaf: str, messages: List[bytes]
+             ) -> Tuple[Dataset, int]:
+        """The object header at the end of the file, linked in ``group``;
+        the open dataset and its header's address."""
+        header = self._store.append(_object_header(messages))
+        group._link(leaf, header)
+        return group._open(leaf), header
 
 
 # ---------------------------------------------------------------------------
@@ -600,183 +858,97 @@ def _message(mtype: int, data: bytes, flags: int = 0) -> bytes:
     return struct.pack("<HHB3x", mtype, len(data), flags) + data
 
 
+def _shape_messages(shape: Sequence[int], dtype: np.dtype) -> List[bytes]:
+    space = struct.pack("<BBB5x", 1, len(shape), 0) + b"".join(
+        struct.pack("<Q", n) for n in shape)
+    return [_message(MSG_DATASPACE, space),
+            _message(MSG_DATATYPE, _datatype_message(dtype), 1)]
+
+
 def _object_header(messages: Sequence[bytes]) -> bytes:
     body = b"".join(messages)
     return struct.pack("<BBHII4x", 1, 0, len(messages), 1, len(body)) + body
 
 
-class _Node:
-    """A group being written: its children by name (datasets as header
-    addresses, groups as nodes)."""
+def _new_group(store: _Store, reserve: int = 0) -> Tuple[int, int, int]:
+    """Room for an empty group's heap header and B-tree root node (filled
+    when the file closes) and its object header; ``reserve`` zero bytes go
+    first (a new file's superblock).  Returns (header, B-tree, heap)."""
+    if reserve:
+        store.append(b"\0" * reserve)
+    heap = store.append(b"\0" * 32)
+    btree = store.append(b"\0" * _group_node_size(store))
+    header = store.append(_object_header(
+        [_message(MSG_SYMBOL_TABLE, struct.pack("<QQ", btree, heap))]))
+    return header, btree, heap
 
-    def __init__(self):
-        self.children: Dict[str, object] = {}
+
+def _group_node_size(store: _Store) -> int:
+    k2 = 2 * store.node_k
+    return 24 + k2 * 8 + (k2 + 1) * 8
 
 
-class _Writer:
-    """Appends datasets as they come; groups and the superblock on close."""
-
-    def __init__(self, path: str):
-        self.path = path
-        self.f = open(path, "wb")
-        self.f.write(b"\0" * 96)  # the superblock, written last
-        self.root = _Node()
-
-    def tell(self) -> int:
-        return self.f.tell()
-
-    def append(self, data: bytes) -> int:
-        addr = self.f.tell()
-        self.f.write(data)
-        return addr
-
-    def dataset(self, name: str, data: np.ndarray, gzip: bool) -> None:
-        parts = [p for p in name.split("/") if p]
-        if not parts:
-            raise ValueError(f"dataset name {name!r}")
-        node = self.root
-        for part in parts[:-1]:
-            node = node.children.setdefault(part, _Node())
-            if not isinstance(node, _Node):
-                raise ValueError(f"{name}: {part} is a dataset")
-        if parts[-1] in node.children:
-            raise ValueError(f"{name} already exists")
-        space = struct.pack("<BBB5x", 1, data.ndim, 0) + b"".join(
-            struct.pack("<Q", n) for n in data.shape)
-        messages = [_message(MSG_DATASPACE, space),
-                    _message(MSG_DATATYPE, _datatype_message(data.dtype), 1)]
-        if not gzip:
-            raw = np.ascontiguousarray(data).tobytes()
-            addr = self.append(raw) if raw else UNDEF
-            # allocation late, fill written if set, the default fill value
-            messages += [
-                _message(MSG_FILL, struct.pack("<BBBBI", 2, 2, 2, 1, 0), 1),
-                _message(MSG_LAYOUT, struct.pack("<BBQQ", 3, 1, addr,
-                                                 len(raw)))]
+def _group_btree(store: _Store, root: int,
+                 children: List[Tuple[int, int, int]]) -> None:
+    """A group's B-tree over its symbol-table nodes ``children`` ((left
+    key, right key, address); keys are heap offsets of names), 2K children
+    a node, the root node written at ``root``, the others appended."""
+    per_node, level = 2 * store.node_k, 0
+    size = _group_node_size(store)
+    while True:
+        groups = [children[i:i + per_node]
+                  for i in range(0, len(children), per_node)] or [[]]
+        if len(groups) == 1:
+            addrs = [root]
         else:
-            if data.ndim == 0:
-                raise ValueError("a scalar dataset cannot be compressed")
-            chunks = guess_chunk(data.shape, data.dtype.itemsize)
-            btree = self._write_chunks(data, chunks) if data.size else UNDEF
-            layout = struct.pack("<BBBQ", 3, 2, data.ndim + 1, btree)
-            layout += struct.pack(f"<{data.ndim + 1}I", *chunks,
-                                  data.dtype.itemsize)
-            name_ = b"deflate\0"
-            pipe = struct.pack("<BB6x", 1, 1) + struct.pack(
-                "<HHHH", FILTER_DEFLATE, len(name_), 1, 1) + name_
-            pipe += struct.pack("<II", GZIP_LEVEL, 0)  # one value, padded
-            # allocation incremental, fill written if set, default fill
-            messages += [
-                _message(MSG_FILL, struct.pack("<BBBBI", 2, 3, 2, 1, 0), 1),
-                _message(MSG_LAYOUT, layout), _message(MSG_FILTERS, pipe)]
-        node.children[parts[-1]] = self.append(_object_header(messages))
+            addrs = [store.append(b"\0" * size) for _ in groups]
+        parents = []
+        for i, (group, addr) in enumerate(zip(groups, addrs)):
+            sibling = [addrs[i - 1] if i else UNDEF,
+                       addrs[i + 1] if i + 1 < len(addrs) else UNDEF]
+            body = struct.pack("<Q", group[0][0] if group else 0)
+            for _, right, child in group:
+                body += struct.pack("<QQ", child, right)
+            raw = b"TREE" + struct.pack("<BBHQQ", 0, level, len(group),
+                                        *sibling) + body
+            store.write(addr, raw + b"\0" * (size - len(raw)))
+            if group:
+                parents.append((group[0][0], group[-1][1], addr))
+        if len(groups) == 1:
+            return
+        children, level = parents, level + 1
 
-    def _write_chunks(self, data, chunks) -> int:
-        """Each chunk deflated, then the B-tree over them; the root node's
-        address."""
-        counts = [-(-n // c) for n, c in zip(data.shape, chunks)]
-        entries = []  # (offset, size, address)
-        for pos in itertools.product(*[range(n) for n in counts]):
-            offset = tuple(p * c for p, c in zip(pos, chunks))
-            block = np.zeros(chunks, data.dtype)  # edge chunks: fill value
-            sel = tuple(slice(o, min(o + c, n))
-                        for o, c, n in zip(offset, chunks, data.shape))
-            block[tuple(slice(0, s.stop - s.start) for s in sel)] = data[sel]
-            raw = zlib.compress(block.tobytes(), GZIP_LEVEL)
-            entries.append((offset, len(raw), self.append(raw)))
-        return self._chunk_btree(entries, chunks, data.ndim)
 
-    def _chunk_btree(self, entries, chunks, ndim) -> int:
-        """Version-1 B-tree nodes of type 1 (2K = 64 entries each), built
-        bottom-up; each key is (size, mask, offset..., 0) and the last key
-        of a node is the chunk after its last child."""
-        def key(size, offset):
-            return struct.pack("<II", size, 0) + struct.pack(
-                f"<{ndim + 1}Q", *offset, 0)
+def _chunk_btree(store: _Store, entries, chunks) -> int:
+    """Version-1 B-tree nodes of type 1 (2K = 64 entries each) over the
+    chunks ``entries`` ((offset, size, address), in offset order), built
+    bottom-up; each key is (size, mask, offset..., 0) and the last key of a
+    node is the chunk after its last child.  Returns the root's address."""
+    ndim = len(chunks)
 
-        end = tuple(o + c for o, c in zip(entries[-1][0], chunks))
-        level, nodes = 0, entries
-        key_size = 8 + 8 * (ndim + 1)
-        node_size = 24 + 2 * CHUNK_K * 8 + (2 * CHUNK_K + 1) * key_size
-        while True:
-            groups = [nodes[i:i + 2 * CHUNK_K]
-                      for i in range(0, len(nodes), 2 * CHUNK_K)]
-            parents = []
-            for g_i, group in enumerate(groups):
-                right = (groups[g_i + 1][0][0] if g_i + 1 < len(groups)
-                         else end)
-                body = b"".join(key(size, off) + struct.pack("<Q", addr)
-                                for off, size, addr in group)
-                body += key(0, right)
-                head = b"TREE" + struct.pack("<BBHQQ", 1, level, len(group),
-                                             UNDEF, UNDEF)
-                raw = head + body
-                raw += b"\0" * (node_size - len(raw))
-                parents.append((group[0][0], 0, self.append(raw)))
-            if len(parents) == 1:
-                return parents[0][2]
-            nodes, level = parents, level + 1
+    def key(size, offset):
+        return struct.pack("<II", size, 0) + struct.pack(
+            f"<{ndim + 1}Q", *offset, 0)
 
-    def _write_group(self, node: _Node) -> Tuple[int, int, int]:
-        """Children first, then the local heap, symbol-table nodes, B-tree
-        and object header; returns (header, B-tree, heap) addresses."""
-        links = {}
-        for name, child in node.children.items():
-            links[name] = (self._write_group(child) if isinstance(child, _Node)
-                           else (child, None, None))
-        names = sorted(links, key=lambda s: s.encode("utf-8"))
-        heap_data = bytearray(b"\0" * 8)  # offset 0: the empty name
-        offsets = {}
-        for name in names:
-            offsets[name] = len(heap_data)
-            raw = name.encode("utf-8") + b"\0"
-            heap_data += raw + b"\0" * (-len(raw) % 8)
-        heap_data += b"\0" * 16  # room for a free block
-        free = len(heap_data) - 16
-        heap_data[free:free + 16] = struct.pack("<QQ", 1, 16)
-        heap_data_addr = self.append(bytes(heap_data))
-        heap = self.append(b"HEAP" + struct.pack(
-            "<B3xQQQ", 0, len(heap_data), free, heap_data_addr))
-        per_node = 2 * GROUP_LEAF_K
-        snods = []
-        for i in range(0, max(len(names), 1), per_node):
-            chunk = names[i:i + per_node]
-            body = b""
-            for name in chunk:
-                addr, bt, hp = links[name]
-                if bt is None:
-                    body += struct.pack("<QQI4x16x", offsets[name], addr, 0)
-                else:
-                    body += struct.pack("<QQI4xQQ", offsets[name], addr, 1,
-                                        bt, hp)
-            raw = b"SNOD" + struct.pack("<BxH", 1, len(chunk)) + body
-            raw += b"\0" * (8 + per_node * 40 - len(raw))
-            snods.append((chunk, self.append(raw)))
-        if len(snods) > 2 * GROUP_NODE_K:
-            raise HDF5Error(f"a group of {len(names)} members is more than "
-                            "one B-tree node holds")
-        body = struct.pack("<Q", 0)  # the first key: the empty name
-        for chunk, addr in snods:
-            last = offsets[chunk[-1]] if chunk else 0
-            body += struct.pack("<QQ", addr, last)
-        raw = b"TREE" + struct.pack("<BBHQQ", 0, 0, len(snods), UNDEF, UNDEF)
-        raw += body
-        raw += b"\0" * (24 + 2 * GROUP_NODE_K * 8 + (2 * GROUP_NODE_K + 1) * 8
-                        - len(raw))
-        btree = self.append(raw)
-        header = self.append(_object_header(
-            [_message(MSG_SYMBOL_TABLE, struct.pack("<QQ", btree, heap))]))
-        return header, btree, heap
-
-    def close(self) -> None:
-        try:
-            header, btree, heap = self._write_group(self.root)
-            eof = self.tell()
-            sb = SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0])
-            sb += struct.pack("<HHI", GROUP_LEAF_K, GROUP_NODE_K, 0)
-            sb += struct.pack("<QQQQ", 0, UNDEF, eof, UNDEF)
-            sb += struct.pack("<QQI4xQQ", 0, header, 1, btree, heap)
-            self.f.seek(0)
-            self.f.write(sb)
-        finally:
-            self.f.close()
+    end = tuple(o + c for o, c in zip(entries[-1][0], chunks))
+    level, nodes = 0, entries
+    key_size = 8 + 8 * (ndim + 1)
+    node_size = 24 + 2 * CHUNK_K * 8 + (2 * CHUNK_K + 1) * key_size
+    while True:
+        groups = [nodes[i:i + 2 * CHUNK_K]
+                  for i in range(0, len(nodes), 2 * CHUNK_K)]
+        parents = []
+        for g_i, group in enumerate(groups):
+            right = (groups[g_i + 1][0][0] if g_i + 1 < len(groups)
+                     else end)
+            body = b"".join(key(size, off) + struct.pack("<Q", addr)
+                            for off, size, addr in group)
+            body += key(0, right)
+            head = b"TREE" + struct.pack("<BBHQQ", 1, level, len(group),
+                                         UNDEF, UNDEF)
+            raw = head + body
+            raw += b"\0" * (node_size - len(raw))
+            parents.append((group[0][0], 0, store.append(raw)))
+        if len(parents) == 1:
+            return parents[0][2]
+        nodes, level = parents, level + 1

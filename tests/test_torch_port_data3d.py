@@ -7,8 +7,8 @@ normalization, halo padding), and ``get_train_loaders`` /
 ``configs/unet3d_predict.yml``'s pipelines — the same batches, bit for bit,
 with both ``GLOBAL_RANDOM_STATE``s reset to ``RandomState(47)``.  Also the
 port's own contracts: ``device_cache: true`` on the yml's pipeline falls
-back to the host loader, ``LazyHDF5Dataset`` and ``DSB2018Dataset`` raise
-naming their items, the train/val leakage guard,
+back to the host loader, ``LazyHDF5Dataset`` and ``DSB2018Dataset``
+through the loaders, the train/val leakage guard,
 unreadable files skipped.  The in-memory batches ``chip_smoke.py`` holds
 the prediction file against equal the test loader's."""
 
@@ -240,6 +240,14 @@ def test_test_loaders_match_jax_and_the_in_memory_batches(tmp_path):
 
 
 def test_unported_options_and_names_raise(tmp_path):
+    """``device_cache`` on the yml's pipeline falls back to the host loader;
+    ``LazyHDF5Dataset``'s train, val and test loaders give the JAX
+    package's batches (the port's test loader writes the padded memo, the
+    JAX one reads it); ``DSB2018Dataset`` builds from a directory of PNGs;
+    an unknown name and a missing section raise."""
+    from mdeical_image_segmentation_tpu_torch.data.dsb import DSB2018Dataset
+    from mdeical_image_segmentation_tpu_torch.utils import png
+
     cfg = _train_config(tmp_path, n_train=1)
     # device_cache is ported (test_torch_port_device_cache.py): the yml's
     # pipeline (RandomRotate, ElasticDeformation) has no device form, so
@@ -248,14 +256,40 @@ def test_unported_options_and_names_raise(tmp_path):
     assert isinstance(loaders.get_train_loaders(cfg, device="cpu")["train"],
                       loaders.VolumeLoader)
     cfg["loaders"]["device_cache"] = False
-    for name, item in (("LazyHDF5Dataset", "item 20"),
-                       ("DSB2018Dataset", "item 20")):
-        cfg["loaders"]["dataset"] = name
-        with pytest.raises(NotImplementedError, match=item):
-            loaders.get_train_loaders(cfg)
-        with pytest.raises(NotImplementedError, match=item):
-            list(loaders.get_test_loaders({"loaders": {
-                "dataset": name, "test": {"file_paths": []}}}))
+    cfg["loaders"]["dataset"] = "LazyHDF5Dataset"
+    _reset_global_states()
+    ours = loaders.get_train_loaders(cfg)
+    theirs = jax_loaders.get_train_loaders(cfg)
+    assert isinstance(ours["train"].dataset.datasets[0],
+                      port_hdf5.LazyHDF5Dataset)
+    _assert_batches_equal(ours["train"], theirs["train"])
+    _assert_batches_equal(ours["val"], theirs["val"])
+    test_cfg, _ = _test_config(tmp_path)
+    test_cfg["loaders"]["dataset"] = "LazyHDF5Dataset"
+    (ours,) = loaders.get_test_loaders(test_cfg)
+    (theirs,) = jax_loaders.get_test_loaders(test_cfg)
+    _assert_batches_equal(ours, theirs)
+    with h5py.File(str(tmp_path / "test.h5"), "r") as f:
+        assert sorted(f.keys()) == ["raw", "raw_padded_1x4x8"]
+
+    root = tmp_path / "dsb"
+    for sub in ("images", "masks"):
+        (root / sub).mkdir(parents=True)
+    rng = np.random.default_rng(4)
+    for i in range(3):
+        png.write(str(root / "images" / f"i{i}.png"),
+                  rng.integers(0, 256, (32, 48), dtype=np.uint8))
+        png.write(str(root / "masks" / f"i{i}.png"),
+                  (rng.random((32, 48)) > 0.5).astype(np.uint8))
+    dsb = {"loaders": {"dataset": "DSB2018Dataset", "batch_size": 2,
+                       "test": {"file_paths": [str(root)], "transformer": {
+                           "raw": [{"name": "Standardize"},
+                                   {"name": "ToTensor",
+                                    "expand_dims": True}]}}}}
+    (ours,) = loaders.get_test_loaders(dsb)
+    (theirs,) = jax_loaders.get_test_loaders(dsb)
+    assert isinstance(ours.dataset, DSB2018Dataset) and len(ours) == 2
+    _assert_batches_equal(ours, theirs)
     with pytest.raises(KeyError, match="unknown dataset"):
         loaders.get_train_loaders({"loaders": {**cfg["loaders"],
                                                "dataset": "Nope"}})

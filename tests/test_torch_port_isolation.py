@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of
 ``mdeical_image_segmentation_tpu_torch`` pulls in none of jax, flax, optax,
-msgpack, PIL, h5py, yaml, sklearn or matplotlib (the machine with the card
-has none of them),
+msgpack, PIL, h5py, yaml, sklearn, matplotlib, imageio or skimage (the
+machine with the card has none of them),
 and its kernels are built for Hopper (sm_90a) by nvcc at first use, never at
 import."""
 
@@ -20,7 +20,7 @@ from mdeical_image_segmentation_tpu_torch.ops import _build, fused_conv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "optax", "msgpack", "PIL", "h5py", "yaml",
-             "sklearn", "matplotlib")
+             "sklearn", "matplotlib", "imageio", "skimage")
 
 
 def _port_modules():
@@ -32,16 +32,19 @@ def _port_modules():
 
 def test_every_module_imports_without_jax_flax_msgpack_pil():
     modules = _port_modules()
-    # 71 with export and SAM-Med2D; the newer modules are named so a
-    # rename cannot drop them from the walk unseen
-    assert len(modules) >= 71
+    # 75 with the DSB2018 dataset and the segmentation and surface
+    # metrics; the newer modules are named so a rename cannot drop them
+    # from the walk unseen
+    assert len(modules) >= 75
     for name in ("ops.initializers", "ops.batchnorm", "ops.msssim",
                  "ops.remat", "ops.image", "models.unet2d",
                  "utils.yaml_io", "utils.hdf5", "configs.config",
                  "transforms.volume", "transforms.skimage_compat",
                  "data.hdf5", "cli.train3d", "cli.predict3d",
                  "models.se3d", "data.device_cache", "ops.quant",
-                 "export", "cli.export", "models.sam", "models.wrappers3d"):
+                 "export", "cli.export", "models.sam", "models.wrappers3d",
+                 "data.dsb", "metrics.seg_compat", "metrics.seg_metrics",
+                 "metrics.surface", "infer.predictor", "train.optimizers"):
         assert f"{port.__name__}.{name}" in modules, name
     code = (
         "import importlib, sys\n"
@@ -62,9 +65,10 @@ def test_every_module_imports_without_jax_flax_msgpack_pil():
 
 
 def test_3d_clis_run_without_h5py_and_yaml(tmp_path):
-    """In a process where importing h5py or yaml fails (as on the card's
-    machine), both CLIs' modules import, read the yml configs and an HDF5
-    file the port writes."""
+    """In a process where importing h5py, yaml, imageio or skimage fails
+    (as on the card's machine), both CLIs' modules import, read the yml
+    configs and an HDF5 file the port writes and appends to, and the DSB
+    reader, the surface metrics and the Lazy and DSB predictors import."""
     code = (
         "import builtins, sys\n"
         "real = builtins.__import__\n"
@@ -89,8 +93,16 @@ def test_3d_clis_run_without_h5py_and_yaml(tmp_path):
         "with hdf5.File(p, 'w') as f:\n"
         "    f.create_dataset('raw', data=np.ones((4, 8, 8), 'f4'), "
         "compression='gzip')\n"
+        "with hdf5.File(p, 'r+') as f:\n"
+        "    f.create_dataset('raw_padded_1x1x1', data=np.ones((6, 10, 10), "
+        "'f4'), compression='gzip')\n"
         "with hdf5.File(p) as f:\n"
         "    assert f['raw'][:].sum() == 256\n"
+        "    assert f['raw_padded_1x1x1'][:].sum() == 600\n"
+        "from mdeical_image_segmentation_tpu_torch.data import dsb\n"
+        "from mdeical_image_segmentation_tpu_torch.metrics import hd95\n"
+        "from mdeical_image_segmentation_tpu_torch.infer import "
+        "DSB2018Predictor, LazyPredictor\n"
         f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

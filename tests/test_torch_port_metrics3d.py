@@ -3,12 +3,14 @@ metrics.metrics3d``) against the JAX package's, on the same numpy inputs
 from a fixed seed, built through ``get_evaluation_metric``.
 
 Tolerance: DiceCoefficient within rtol = atol = 1e-6 (fp32 sums in other
-orders); MeanIoU, PSNR and MSE are the same host numpy in both packages and
-must be equal."""
+orders); MeanIoU, PSNR, MSE and the instance metrics (AdaptedRand and
+AveragePrecision families, connected components on the host) are the same
+host numpy in both packages and must agree within 1e-12."""
 
 import numpy as np
 import pytest
 import torch
+from scipy import ndimage
 
 from mdeical_image_segmentation_tpu.metrics import metrics3d as jax_metrics
 from mdeical_image_segmentation_tpu_torch.metrics import metrics3d
@@ -78,14 +80,55 @@ def test_psnr_of_integer_images_uses_their_dtype_range():
     assert port(torch.from_numpy(b), torch.from_numpy(a)) == want(b, a)
 
 
-@pytest.mark.parametrize("name", [
-    "AdaptedRandError", "BoundaryAdaptedRandError", "GenericAdaptedRandError",
-    "GenericAveragePrecision", "BlobsAveragePrecision",
-    "BlobsBoundaryAveragePrecision", "BoundaryAveragePrecision"])
+def _instance_batch(seed):
+    """Channels-last (2, 6, 12, 10, 2) smooth probability maps, their
+    (2, 6, 12, 10, 1) connected-component labels as the target, and the
+    labels of each channel as float candidate segmentations."""
+    rng = np.random.default_rng(seed)
+    field = ndimage.gaussian_filter(rng.random((2, 6, 12, 10, 2)),
+                                    sigma=(0, 1, 1.5, 1.5, 0))
+    lo, hi = field.min(), field.max()
+    probs = ((field - lo) / (hi - lo)).astype(np.float32)
+    target = np.stack([ndimage.label(p[..., 0] > 0.55)[0] for p in probs])
+    segs = np.stack([np.stack([ndimage.label(p[..., c] > 0.5)[0]
+                               for c in range(2)], -1) for p in probs])
+    return probs, target[..., None], segs.astype(np.float32)
+
+
+INSTANCE = {
+    "AdaptedRandError": {},
+    "BoundaryAdaptedRandError": {"thresholds": [0.3, 0.45, 0.6]},
+    "GenericAdaptedRandError": {"input_channels": [0, 1],
+                                "invert_channels": [1]},
+    "GenericAveragePrecision": {},
+    "BlobsAveragePrecision": {"min_instance_size": 3, "metric": "acc"},
+    "BlobsBoundaryAveragePrecision": {"thresholds": [0.0, 0.1, 0.2]},
+    "BoundaryAveragePrecision": {"thresholds": [0.3, 0.38]},
+}
+
+
+@pytest.mark.parametrize("name", list(INSTANCE))
 def test_instance_metrics_raise_naming_their_item(name):
-    assert name in metrics3d.EVAL_METRICS
-    with pytest.raises(NotImplementedError, match="item 17"):
-        metrics3d.get_evaluation_metric({"eval_metric": {"name": name}})
+    """Each instance metric against the JAX package's on the same
+    channels-last batch, tensors or arrays (AdaptedRandError scores label
+    maps, BoundaryAveragePrecision boundary maps, the others probability
+    maps); GenericAveragePrecision has no candidate segmentations of its
+    own and raises in both."""
+    probs, target, segs = _instance_batch(3)
+    x = {"AdaptedRandError": segs,
+         "BoundaryAveragePrecision": 1 - probs}.get(name, probs)
+    want, port = _both({"name": name, **INSTANCE[name]})
+    if name == "GenericAveragePrecision":
+        for metric in (want, port):
+            with pytest.raises(NotImplementedError):
+                metric(x, target)
+        return
+    expected = want(x, target)
+    assert 0 < expected <= 1
+    got = port(torch.from_numpy(x), torch.from_numpy(target))
+    assert isinstance(got, float)
+    assert got == pytest.approx(expected, rel=1e-12, abs=1e-12)
+    assert port(x, target) == pytest.approx(expected, rel=1e-12, abs=1e-12)
 
 
 def test_unknown_metric_and_missing_section_raise():

@@ -46,6 +46,16 @@ def _problem(seed):
      "weight_decay": 1e-2},
     {"name": "SGD", "learning_rate": 1e-2, "momentum": 0.9, "nesterov": True},
     {"name": "NotAnOptimizer", "learning_rate": 1e-2},  # Adam, as in JAX
+    # 6 steps take RAdam past its threshold (ro_t >= 5 from step 6)
+    {"name": "RAdam", "learning_rate": 1e-2},
+    {"name": "NAdam", "learning_rate": 1e-2, "betas": [0.8, 0.99]},
+    {"name": "Adamax", "learning_rate": 1e-2},
+    {"name": "Adagrad", "learning_rate": 1e-1},
+    {"name": "Adadelta", "learning_rate": 1.0, "rho": 0.8},
+    {"name": "RMSprop", "learning_rate": 1e-2},
+    {"name": "Rprop", "learning_rate": 1e-2, "momentum": 0.9},
+    {"name": "SparseAdam", "learning_rate": 1e-2, "weight_decay": 1e-1},
+    {"name": "ASGD", "learning_rate": 1e-2},
 ], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_trajectory_matches_optax(cfg):
     p0, a, b = _problem(len(str(cfg)))
@@ -84,12 +94,58 @@ def test_learning_rate_is_set_per_step():
     assert optimizers.get_learning_rate(opt) == 0.5
 
 
-@pytest.mark.parametrize("name", optimizers.NOT_PORTED)
+# each of the ten names with weight decay and its own knobs
+TEN = {
+    "Adadelta": {"rho": 0.85},
+    "Adagrad": {},
+    "SparseAdam": {"betas": [0.85, 0.995]},
+    "Adamax": {"betas": [0.85, 0.995]},
+    "ASGD": {},
+    "LBFGS": {"history_size": 7},
+    "NAdam": {"betas": [0.85, 0.995]},
+    "RAdam": {"betas": [0.85, 0.995]},
+    "RMSprop": {"alpha": 0.95},
+    "Rprop": {"momentum": 0.5},
+}
+
+
+@pytest.mark.parametrize("name", list(TEN))
 def test_unported_optimizers_raise_naming_item_8(name):
-    assert len(optimizers.NOT_PORTED) == 10
-    with pytest.raises(NotImplementedError, match="item 8"):
-        optimizers.create_optimizer({"name": name},
-                                    [torch.nn.Parameter(torch.ones(1))])
+    """Each of the ten names the JAX package builds, 3 steps with weight
+    decay (coupled L2 where the JAX package chains it; SparseAdam takes
+    none there) against its optax chain, within 1e-6 relative; LBFGS
+    raises optax's TypeError at step 1 in both."""
+    cfg = {"name": name, "learning_rate": 3e-2, "weight_decay": 5e-2,
+           **TEN[name]}
+    p0, a, b = _problem(7)
+    tx = jax_opt.create_optimizer(cfg)
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    state = tx.init(jp)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+          for k, v in p0.items()}
+    opt = optimizers.create_optimizer(cfg, list(tp.values()))
+    assert opt.defaults["lr"] == 3e-2
+    for step in range(3):
+        grads = {k: a[k] * jp[k] + b[k] for k in jp}
+        for k, t in tp.items():
+            t.grad = torch.from_numpy(a[k]) * t.detach() + torch.from_numpy(
+                b[k])
+        if name == "LBFGS":
+            assert opt.defaults["history_size"] == 7
+            with pytest.raises(TypeError, match="'value', 'grad', and "
+                               "'value_fn'"):
+                tx.update(grads, state, jp)
+            with pytest.raises(TypeError, match="'value', 'grad', and "
+                               "'value_fn'"):
+                opt.step()
+            return
+        updates, state = tx.update(grads, state, jp)
+        jp = optax.apply_updates(jp, updates)
+        opt.step()
+        for k in jp:
+            np.testing.assert_allclose(tp[k].detach().numpy(),
+                                       np.asarray(jp[k]), rtol=1e-6,
+                                       atol=1e-6, err_msg=f"{k} step {step}")
 
 
 def _metric(i):

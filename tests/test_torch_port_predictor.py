@@ -32,6 +32,8 @@ from mdeical_image_segmentation_tpu.train import save_checkpoint as jax_save
 from mdeical_image_segmentation_tpu_torch.data import slice_builder, volume_utils
 from mdeical_image_segmentation_tpu_torch.data.loaders import get_test_loaders
 from mdeical_image_segmentation_tpu_torch.infer import (
+    DSB2018Predictor,
+    LazyPredictor,
     StandardPredictor,
     get_predictor,
 )
@@ -184,12 +186,23 @@ def test_get_predictor_reads_the_predict_config(models):
     assert q.quantize == "int8" and q.calib_batches == 3
     with pytest.raises(ValueError, match="expected 'int8'"):
         get_predictor(model, "out", {**cfg, "predictor": {"quantize": "int4"}})
-    with pytest.raises(NotImplementedError, match="item 20"):
-        get_predictor(model, "out", {**cfg, "predictor": {
-            "name": "LazyPredictor"}})
-    with pytest.raises(NotImplementedError, match="item 20"):
-        list(get_test_loaders({"loaders": {"dataset": "LazyHDF5Dataset",
-                                           "test": {"file_paths": []}}}))
+    # the Lazy and DSB2018 predictors and datasets are ported
+    # (test_torch_port_lazy_predictor.py, test_torch_port_dsb.py)
+    lazy = get_predictor(model, "out", {**cfg, "predictor": {
+        "name": "LazyPredictor", "save_segmentation": True}})
+    assert isinstance(lazy, LazyPredictor) and lazy.save_segmentation
+    dsb = get_predictor(model, "out", {**cfg, "predictor": {
+        "name": "DSB2018Predictor", "pmaps_thershold": 0.3}})
+    assert isinstance(dsb, DSB2018Predictor) and dsb.pmaps_threshold == 0.3
+    for bad in ({"tta": "mirror"}, {"quantize": "int8"}):
+        with pytest.raises(ValueError, match="not supported by "
+                           "DSB2018Predictor"):
+            get_predictor(model, "out", {**cfg, "predictor": {
+                "name": "DSB2018Predictor", **bad}})
+    with pytest.raises(KeyError, match="unknown predictor"):
+        get_predictor(model, "out", {**cfg, "predictor": {"name": "Nope"}})
+    assert list(get_test_loaders({"loaders": {
+        "dataset": "LazyHDF5Dataset", "test": {"file_paths": []}}})) == []
     with pytest.raises(ValueError, match="unknown predictor config keys"):
         get_predictor(model, "out", {**cfg, "predictor": {"typo": 1}})
 

@@ -87,8 +87,7 @@ def _logged(run_dir, tag):
     return rows
 
 
-def _jax_trainer(run_dir, **kw):
-    cfg = CFG
+def _jax_trainer(run_dir, cfg=CFG, **kw):
     lr = cfg["optimizer"]["learning_rate"]
     return jax_trainer.UNetTrainer(
         model=jax_get_model(cfg["model"]),
@@ -103,8 +102,7 @@ def _jax_trainer(run_dir, **kw):
         **{**TRAINER, **kw})
 
 
-def _port_trainer(run_dir, **kw):
-    cfg = CFG
+def _port_trainer(run_dir, cfg=CFG, **kw):
     model = get_model(cfg["model"],
                       generator=torch.Generator().manual_seed(0))
     lr = cfg["optimizer"]["learning_rate"]
@@ -121,20 +119,25 @@ def _port_trainer(run_dir, **kw):
         **{**TRAINER, **kw})
 
 
+def _init_checkpoint(root):
+    """A JAX-initialized checkpoint both trainers start from."""
+    jm = jax_get_model(CFG["model"])
+    x = jnp.asarray(_batches(1, 1)[0][0][:1])
+    params = jm.init(jax.random.PRNGKey(0), x, True)["params"]
+    opt_state = jax_opt.create_optimizer(CFG["optimizer"]).init(params)
+    return jax_ckpt.save_checkpoint(
+        {"num_epochs": 0, "num_iterations": 0,
+         "model_state_dict": {"params": params, "batch_stats": {}},
+         "best_eval_score": 0.0, "optimizer_state_dict": opt_state},
+        False, str(root / "init"))
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """One JAX and one port fit() from the same JAX-initialized checkpoint:
     4 steps, validation and checkpoints at iterations 2 and 4."""
     root = tmp_path_factory.mktemp("trainer3d")
-    jm = jax_get_model(CFG["model"])
-    x = jnp.asarray(_batches(1, 1)[0][0][:1])
-    params = jm.init(jax.random.PRNGKey(0), x, True)["params"]
-    opt_state = jax_opt.create_optimizer(CFG["optimizer"]).init(params)
-    init = jax_ckpt.save_checkpoint(
-        {"num_epochs": 0, "num_iterations": 0,
-         "model_state_dict": {"params": params, "batch_stats": {}},
-         "best_eval_score": 0.0, "optimizer_state_dict": opt_state},
-        False, str(root / "init"))
+    init = _init_checkpoint(root)
     jax_dir, port_dir = str(root / "jax"), str(root / "port")
     jt = _jax_trainer(jax_dir, pre_trained=init)
     jt.fit()
@@ -314,3 +317,40 @@ def test_unported_options_raise():
     with pytest.raises(KeyError):
         trainer3d.create_trainer({**CFG, "device": "cpu", "loaders": {
             "device_cache": True}})
+
+
+@pytest.mark.parametrize("optimizer", ["NAdam", "LBFGS"])
+def test_optax_optimizers_and_instance_metrics_train_as_in_jax(tmp_path,
+                                                               optimizer):
+    """A fit() with one of the optimizers written after optax's rules and an
+    instance metric as eval_metric (scored on the host): the logged losses
+    within LOSS_TOL and the validation scores equal to JAX's; LBFGS raises
+    optax's TypeError from both trainers' first step."""
+    cfg = {**CFG, "optimizer": {"name": optimizer, "learning_rate": 2e-3,
+                                "weight_decay": 1e-5},
+           "eval_metric": {"name": "BoundaryAdaptedRandError",
+                           "thresholds": [0.3, 0.5]}}
+    # the JAX trainer restores an Adam-shaped optimizer state with
+    # pre_trained, which LBFGS's is not: it starts from its own weights
+    kw = dict(max_num_iterations=2)
+    if optimizer != "LBFGS":
+        kw["pre_trained"] = _init_checkpoint(tmp_path)
+    jt = _jax_trainer(str(tmp_path / "jax"), cfg, **kw)
+    pt = _port_trainer(str(tmp_path / "port"), cfg, **kw)
+    if optimizer == "LBFGS":
+        for t in (jt, pt):
+            with pytest.raises(TypeError, match="'value', 'grad', and "
+                               "'value_fn'"):
+                t.fit()
+        return
+    jt.fit()
+    pt.fit()
+    for tag in ("train_loss_avg", "val_loss_avg"):
+        want = _logged(str(tmp_path / "jax"), tag)
+        got = _logged(str(tmp_path / "port"), tag)
+        assert sorted(got) == sorted(want) and want, tag
+        for step in want:
+            assert got[step] == pytest.approx(want[step], rel=LOSS_TOL)
+    want = _logged(str(tmp_path / "jax"), "val_eval_score_avg")
+    got = _logged(str(tmp_path / "port"), "val_eval_score_avg")
+    assert want and got == pytest.approx(want, rel=1e-12)
