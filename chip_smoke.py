@@ -234,10 +234,10 @@ wall time.
    (``bench_int8_infer``: UNet3D f_maps 32, 'gcr', bf16, batch 2 at
    64x128x128, ``RandomState(0).rand``, calibrated on that batch): the
    float forward (kernel 2) and the int8 forward, each the best of 5
-   CUDA-event blocks of 3 forwards, in turns; 14 ``int8_conv`` launches a
-   forward and the output equal (within 1e-3 of max |y|; measured equal)
-   to the same forward with ``int8_conv_reference`` in place of the
-   kernel. (c) ``cli/predict3d.py`` on a copy of
+   CUDA-event blocks of 3 forwards, in turns; 14 ``int8_conv`` and 14
+   ``int8_quantize`` launches a forward and the output equal (within
+   1e-3 of max |y|; measured equal) to the same forward with
+   ``int8_conv_reference`` in place of the kernel. (c) ``cli/predict3d.py`` on a copy of
    ``configs/unet3d_predict.yml`` with ``quantize: int8`` uncommented,
    beside the yml as it is, phase 3's seeded weights and volume as gzip
    HDF5: batch 0 calibrates (no int8 launch), batch 1 runs 14
@@ -256,15 +256,19 @@ wall time.
    the served int8 masks equal to the plain int8 forward's on >= 99.9% of
    pixels and to the float masks on >= 98% (with random weights the masks
    at 0.5 are empty, so the agreement split at the float probabilities'
-   median is printed beside). (a) the kernel against
-   ``int8_conv_reference`` at every int8 conv shape (b)-(e) gave it, plus
-   ``INT8_RAGGED``: the int32 sums and the outputs equal to the bit (the
-   plain version at N = 1 where x holds over 2^28 elements); the kernel's
-   event window and ``torch.profiler`` device time, the plain version's
-   ms, cuDNN's float conv at the same shape (labelled as the float conv:
-   PyTorch has no one-call int8 conv on CUDA), the bound (ops at the 1979
-   TOP/s int8 peak or bytes at 3.35 TB/s) and its share; summed per
-   configuration.
+   median is printed beside). Every leg asserts one ``int8_quantize``
+   launch per ``int8_conv`` launch. (a) both launches of ``int8_conv``
+   against their plain versions at every int8 conv shape (b)-(e) gave it,
+   plus ``INT8_RAGGED`` and ``INT8_EDGE`` (the halo loop's tile edges):
+   ``int8_quantize``'s int8 values equal to ``_act_quant``'s, the int32
+   sums and the outputs equal to ``int8_conv_reference``'s, to the bit
+   (the plain version at N = 1 where x holds over 2^28 elements); the
+   call's event window and ``torch.profiler`` device time (the quantize
+   pass and the conv timed by kernel name and summed), the quantize pass
+   apart, the plain version's ms, cuDNN's float conv at the same shape
+   (labelled as the float conv: PyTorch has no one-call int8 conv on
+   CUDA), the bound (ops at the 1979 TOP/s int8 peak or bytes at 3.35
+   TB/s) and its share; summed per configuration.
 19. Export (``phase_export``; ``--phase 19`` runs it alone): (a) phase 2's
    bundle through ``export_bundle(resolution=(256, 256), device="cuda")``
    with the symbolic batch, ``torch.export.save``d and loaded again with
@@ -496,15 +500,18 @@ def _log_ptxas(build_log: str) -> None:
             if m:
                 name = (f"{m[1]}<{'fp32' if m[2] == 'f' else 'bf16'}, tile "
                         f"{m[3]}/{m[4]}/{m[5]}, affine {m[6]}>")
-            m = re.search(r"(int8_\w+?_kernel)I(f|13__nv_bfloat16)"
-                          r"(f|13__nv_bfloat16|S1_|i)(?:Lb([01])|\w*?HTileI"
-                          r"Li(\d+)ELi(\d+)E)", name)
+            m = re.search(r"int8_conv_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                          name)
             if m:
-                types = {"f": "fp32", "13__nv_bfloat16": "bf16", "i": "s32"}
-                out = types.get(m[3], types[m[2]])  # S1_: as the input
-                name = (f"{m[1]}<in {types[m[2]]}, out {out}, "
-                        + (f"vec {m[4]}>" if m[4] is not None
-                           else f"tile {m[5]}/{m[6]}>"))
+                name = (f"int8_conv_wgmma_kernel<BN {m[1]}, warpgroups "
+                        f"{m[2]}, m64 tiles {m[3]}>")
+            m = re.search(r"int8_conv_gather_kernelILb([01])ELi(\d+)E", name)
+            if m:
+                name = f"int8_conv_gather_kernel<vec {m[1]}, BN {m[2]}>"
+            m = re.search(r"int8_quantize_kernelI(f|13__nv_bfloat16)E", name)
+            if m:
+                name = ("int8_quantize_kernel<"
+                        f"{'fp32' if m[1] == 'f' else 'bf16'}>")
         elif "registers" in line or "spill" in line:
             log(f"  ptxas {name[:72]}: {line.split(':', 1)[-1].strip()}")
 
@@ -1432,17 +1439,18 @@ def device_times(prof):
     return by_name
 
 
-def _device_ms(fn, launches: int = 1, repeats: int = 5,
-               tries: int = 3, name: str = "") -> float:
-    """Device time of one call of ``fn``, which launches ``launches``
-    kernels of one kind (whose name holds ``name``, where ``fn`` launches
-    smaller ones too): the mean self device time of those kernel events
-    ``torch.profiler`` recorded over ``repeats`` calls after a warm-up,
-    times ``launches``.  Host work between launches is not in it; the event
-    window of ``_time_turns`` holds both.  The tracer drops an event now
-    and then, so the mean is over the events it kept; a profiled pass that
-    kept none is run again, and after ``tries`` such passes the time is
-    NaN: not measured."""
+def _device_ms_by(fn, names, launches: int = 1, repeats: int = 5,
+                  tries: int = 3) -> dict:
+    """Device time of one call of ``fn`` by kernel kind: for each of
+    ``names`` (a substring of the names of one kind of kernel that ``fn``
+    launches ``launches`` times a call), the mean self device time of the
+    kernel events of that kind ``torch.profiler`` recorded over
+    ``repeats`` calls after a warm-up, times ``launches``.  Host work
+    between launches is not in it; the event window of ``_time_turns``
+    holds both.  The tracer drops an event now and then, so each mean is
+    over the events it kept; a profiled pass that kept none of some kind is
+    run again, and after ``tries`` such passes every time is NaN: not
+    measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1454,17 +1462,29 @@ def _device_ms(fn, launches: int = 1, repeats: int = 5,
             for _ in range(repeats):
                 fn()
             torch.cuda.synchronize()
-        total = count = 0.0
+        sums = {n: [0.0, 0] for n in names}
         for evt in prof.key_averages():
             dev = getattr(evt, "self_device_time_total", None)
             if dev is None:
                 dev = getattr(evt, "self_cuda_time_total", 0.0)
-            if dev and evt.device_type.name == "CUDA" and name in evt.key:
-                total += dev / 1e3
-                count += evt.count
-        if count:
-            return total / count * launches
-    return math.nan
+            if not dev or evt.device_type.name != "CUDA":
+                continue
+            for n in names:
+                if n in evt.key:
+                    sums[n][0] += dev / 1e3
+                    sums[n][1] += evt.count
+                    break
+        if all(count for _, count in sums.values()):
+            return {n: total / count * launches
+                    for n, (total, count) in sums.items()}
+    return {n: math.nan for n in names}
+
+
+def _device_ms(fn, launches: int = 1, repeats: int = 5,
+               tries: int = 3, name: str = "") -> float:
+    """``_device_ms_by`` of the one kind of kernel whose name holds
+    ``name`` (any kernel of ``fn`` by default)."""
+    return _device_ms_by(fn, (name,), launches, repeats, tries)[name]
 
 
 def _ms(v: float) -> str:
@@ -4301,6 +4321,31 @@ INT8_RAGGED = (
     ("ragged", (2, 6, 6, 6, 32), "float32", (16, 32, 3, 3, 3),
      ((0, 0), (0, 0), (0, 0)), "float32", True),
 )
+# (a) the halo loop's edges: H and W not multiples of the tile, Co below
+# the channel tile and not a multiple of 8, D = 1 with KD = 3, Ci = 16 mod
+# 32, a ragged second channel tile (128 and 256 channels); the gather
+# loop's 8-channel tile, by 16-byte copies and by bytes
+INT8_EDGE = (
+    ("edge", (2, 1, 13, 21, 48), "bfloat16", (20, 48, 3, 3, 3),
+     ((1, 1), (1, 1), (1, 1)), "bfloat16", True),
+    ("edge", (4, 6, 37, 45, 48), "float32", (20, 48, 3, 3, 3),
+     ((1, 1), (1, 1), (1, 1)), "float32", True),
+    ("edge", (1, 4, 9, 40, 16), "bfloat16", (7, 16, 3, 3, 3),
+     ((1, 1), (1, 1), (1, 1)), "float32", False),
+    ("edge", (3, 37, 45, 80), "float32", (132, 80, 3, 3),
+     ((1, 1), (1, 1)), "float32", True),
+    ("edge", (4, 6, 40, 40, 48), "float32", (100, 48, 3, 3, 3),
+     ((1, 1), (1, 1), (1, 1)), "bfloat16", True),
+    ("edge", (2, 9, 32, 64, 32), "float32", (300, 32, 3, 3, 3),
+     ((1, 1), (1, 1), (1, 1)), "float32", True),
+    ("edge", (2, 6, 10, 14, 32), "float32", (3, 32, 1, 1, 1),
+     ((0, 0), (0, 0), (0, 0)), "bfloat16", True),
+    ("edge", (2, 6, 10, 14, 24), "bfloat16", (5, 24, 1, 1, 1),
+     ((0, 0), (0, 0), (0, 0)), "float32", True),
+)
+# the two kernels of an int8_conv call, by name: the quantize pass, then
+# the conv (int8_conv_wgmma_kernel or int8_conv_gather_kernel)
+INT8_KINDS = ("tpuseg_int8::int8_quantize", "tpuseg_int8::int8_conv_")
 # (b) int8 forward vs the plain int8 forward, of max |y|: the same GroupNorm
 # kernels feed both, so the convs see the same inputs and give the same
 # integers
@@ -4310,7 +4355,8 @@ INT8_OUT_TOL = 1e-3
 def _int8_counts():
     from mdeical_image_segmentation_tpu_torch.ops import quant
 
-    return {**_counts(), "int8_conv": quant.int8_conv.launches}
+    return {**_counts(), "int8_conv": quant.int8_conv.launches,
+            "int8_quantize": quant.int8_quantize.launches}
 
 
 def _zero_int8_counts():
@@ -4318,6 +4364,7 @@ def _zero_int8_counts():
 
     _zero_counts()
     quant.int8_conv.launches = 0
+    quant.int8_quantize.launches = 0
 
 
 class plain_int8:
@@ -4431,10 +4478,11 @@ def _int8_bench_row(seed: int, shapes: set):
     if gap_plain > INT8_OUT_TOL:
         raise AssertionError(f"(b) int8 forward differs from the plain int8 "
                              f"forward by {gap_plain:.3e} of max |y|")
-    if launches["int8_conv"] != 14 or launches["gcr_conv3d"] != 0:
-        raise AssertionError(f"(b) {launches}: want 14 int8_conv launches "
-                             "(13 'gcr' convs and the final conv) and no "
-                             "kernel 2")
+    if (launches["int8_conv"] != 14 or launches["int8_quantize"] != 14
+            or launches["gcr_conv3d"] != 0):
+        raise AssertionError(f"(b) {launches}: want 14 int8_conv and 14 "
+                             "int8_quantize launches (13 'gcr' convs and "
+                             "the final conv) and no kernel 2")
     del model
     torch.cuda.empty_cache()
     return {"float_ms": float_ms, "int8_ms": int8_ms,
@@ -4548,11 +4596,12 @@ def _int8_predict_cli(seed: int, workdir: str, shapes: set):
         raise AssertionError(f"(c) batch modes {modes}: want calib, int8")
     for mode, _, n in q_run["rec"]:
         want = {"calib": 0, "int8": 14}[mode]
-        if (n["int8_conv"] != want or n["gcr_conv3d"] != 0
-                or n["gn_stats"] != 14 or n["gn_affine"] != 14):
+        if (n["int8_conv"] != want or n["int8_quantize"] != want
+                or n["gcr_conv3d"] != 0 or n["gn_stats"] != 14
+                or n["gn_affine"] != 14):
             raise AssertionError(f"(c) {mode} batch {n}: want {want} "
-                                 "int8_conv, 14 gn_stats and 14 gn_affine "
-                                 "launches, no kernel 2")
+                                 "int8_conv and int8_quantize, 14 gn_stats "
+                                 "and 14 gn_affine launches, no kernel 2")
     if q_run["launches"]["overlap_add"] != 2:
         raise AssertionError(f"(c) {q_run['launches']}: want one overlap-add "
                              "per batch")
@@ -4688,7 +4737,11 @@ def _int8_fidelity(workdir: str, shapes: set):
         for loader in get_test_loaders(config):
             predictor(loader)
         torch.cuda.synchronize()
-        launches[tag] = _int8_counts()["int8_conv"]
+        counts = _int8_counts()
+        launches[tag] = counts["int8_conv"]
+        if counts["int8_quantize"] != counts["int8_conv"]:
+            raise AssertionError(f"(d) {tag}: {counts}: want one "
+                                 "int8_quantize launch per int8_conv")
         for h in handles:
             h.remove()
         with hdf5.File(f"{out_dir}/test_predictions.h5") as f:
@@ -4772,7 +4825,8 @@ def _int8_serving(seed: int, workdir: str, shapes: set):
     _zero_int8_counts()
     q_entry.forward(x[:max_batch])
     torch.cuda.synchronize()
-    if quant.int8_conv.launches != 0 or not q_entry.quant_scales:
+    if (quant.int8_conv.launches != 0 or quant.int8_quantize.launches != 0
+            or not q_entry.quant_scales):
         raise AssertionError("(e) the calibration batch launched int8 convs "
                              "or recorded no scales")
     model = UNetModel.from_pretrained(bundle, device=DEVICE)
@@ -4806,6 +4860,10 @@ def _int8_serving(seed: int, workdir: str, shapes: set):
                 raise AssertionError("(e) a client did not finish in 600 s")
             batches = srv.engine.occupancy()[name]["batches"] - occ0
             launches = quant.int8_conv.launches
+            if quant.int8_quantize.launches != launches:
+                raise AssertionError(
+                    f"(e) {name}: {quant.int8_quantize.launches} "
+                    f"int8_quantize launches for {launches} int8_conv")
             masks = []
             for i, (status, body) in enumerate(replies):
                 if status != 200 or body.get("status") != 200:
@@ -4896,8 +4954,11 @@ def _int8_case(shape_key, gen):
 
 
 def _int8_kernel_checks(seed: int, shapes: set):
-    """(a) the kernel against ``int8_conv_reference`` at every recorded
-    shape: the int32 sums and the outputs equal to the bit; times."""
+    """(a) both launches of ``int8_conv`` against their plain versions at
+    every recorded shape, the ragged and the edge ones: ``int8_quantize``'s
+    int8 values equal to ``_act_quant``'s, the int32 sums and the outputs
+    equal to ``int8_conv_reference``'s, to the bit; times, the quantize
+    pass counted in the conv's (and apart)."""
     import torch
     import torch.nn.functional as F
 
@@ -4907,25 +4968,34 @@ def _int8_kernel_checks(seed: int, shapes: set):
     sums = {}
     worst = 0.0
     log(f"{'config':9s} {'x (N, *spatial, Ci)':28s} {'in':5s} {'k':9s} "
-        f"{'Co':>5s} {'window ms':>10s} {'device ms':>10s} {'plain ms':>10s} "
-        f"{'cuDNN ms':>10s} {'bound ms':>9s} {'share':>6s}")
-    for key in sorted(shapes) + list(INT8_RAGGED):
+        f"{'Co':>5s} {'window ms':>10s} {'device ms':>10s} {'quant ms':>9s} "
+        f"{'quant dev':>10s} {'plain ms':>10s} {'cuDNN ms':>10s} "
+        f"{'bound ms':>9s} {'share':>6s}")
+    for key in sorted(shapes) + list(INT8_RAGGED) + list(INT8_EDGE):
         tag, xs, xdt, ws, pads, odt, _ = key
         x, qw, s, bias, pads, out_dtype = _int8_case(key, gen)
         kw = dict(pads=pads, bias=bias, out_dtype=out_dtype)
         n_check = xs[0] if x.numel() <= INT8_PLAIN_MAX_NUMEL else 1
         xc = x[:n_check].contiguous()
+        x_q = quant.int8_quantize(xc, s)
+        if not torch.equal(x_q, quant._act_quant(xc, s)):
+            raise AssertionError(f"(a) {key}: int8_quantize differs from "
+                                 "_act_quant")
+        del x_q
         acc = quant.int8_conv(xc, qw, s, pads=pads, accumulators=True)
         y = quant.int8_conv(xc, qw, s, **kw)
         # the plain version once, timed: its sums, then its epilogue
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         acc_ref = quant.int8_conv_reference(xc, qw, s, pads=pads,
                                             accumulators=True)
         y_ref = quant.int8_rescale(acc_ref, s * qw.w_scale, bias, out_dtype)
         ev[1].record()
+        ev[2].record()
+        quant._act_quant(xc, s)
+        ev[3].record()
         torch.cuda.synchronize()
-        p_ms = ev[0].elapsed_time(ev[1])
+        p_ms, qp_ms = ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])
         if not torch.equal(acc, acc_ref):
             raise AssertionError(f"(a) {key}: int32 sums differ, max "
                                  f"{(acc - acc_ref).abs().max().item()}")
@@ -4942,12 +5012,16 @@ def _int8_kernel_checks(seed: int, shapes: set):
         def kernel():
             return quant.int8_conv(x, qw, s, **kw)
 
+        def quantize():
+            return quant.int8_quantize(x, s)
+
         def cudnn():
             return conv(xf, wf, padding=lo)
 
-        k_ms, c_ms = _time_turns(kernel, cudnn, budget_s=0.3)
-        d_ms = _device_ms(kernel, repeats=3, tries=8,
-                          name="tpuseg_int8::int8_")
+        k_ms, q_ms, c_ms = _time_turns(kernel, quantize, cudnn, budget_s=0.3)
+        dev = _device_ms_by(kernel, INT8_KINDS, repeats=3, tries=8)
+        d_ms = sum(dev.values())
+        qd_ms = dev[INT8_KINDS[0]]
         out_pos = xs[0] * math.prod(
             n + 2 * p[0] - k + 1 for n, p, k in zip(xs[1:-1], pads, ws[2:]))
         taps_ci = ws[1] * math.prod(ws[2:])
@@ -4956,38 +5030,50 @@ def _int8_kernel_checks(seed: int, shapes: set):
                   + out_pos * ws[0] * torch.empty((), dtype=out_dtype)
                   .element_size())
         bound, by = _bound_ms(ops, nbytes, PEAK_INT8)
+        # the quantize pass: x read, x_q written, a division an element
+        q_bound = _bound_ms(x.numel(), x.numel() * (x.element_size() + 1),
+                            PEAK_FP32)[0]
         log(f"{tag:9s} {str(xs):28s} {xdt[:5]:5s} {str(tuple(ws[2:])):9s} "
-            f"{ws[0]:5d} {k_ms:10.3f} {_ms(d_ms):>10s} {p_ms:10.3f} "
-            f"{c_ms:10.3f} {bound:9.4f} {_share(bound, k_ms):>6s}"
+            f"{ws[0]:5d} {k_ms:10.3f} {_ms(d_ms):>10s} {q_ms:9.3f} "
+            f"{_ms(qd_ms):>10s} {p_ms:10.3f} {c_ms:10.3f} {bound:9.4f} "
+            f"{_share(bound, k_ms):>6s}"
             + (f"  (plain at N={n_check})" if n_check != xs[0] else ""))
         t = sums.setdefault(tag, {"n": 0, "window": 0.0, "device": 0.0,
                                   "plain": 0.0, "cudnn": 0.0, "bound": 0.0,
                                   "op": 0.0, "byte": 0.0, "plain_at_n1": 0,
-                                  "n_dev": 0, "bound_dev": 0.0})
+                                  "n_dev": 0, "bound_dev": 0.0,
+                                  "quant_window": 0.0, "quant_device": 0.0,
+                                  "quant_plain": 0.0, "quant_bound": 0.0})
         t["n"] += 1
         t["plain_at_n1"] += n_check != xs[0]
         for k, v in (("window", k_ms), ("plain", p_ms),
                      ("cudnn", c_ms), ("bound", bound),
                      ("op", ops / PEAK_INT8 * 1e3),
-                     ("byte", nbytes / HBM_BYTES_PER_S * 1e3)):
+                     ("byte", nbytes / HBM_BYTES_PER_S * 1e3),
+                     ("quant_window", q_ms), ("quant_plain", qp_ms),
+                     ("quant_bound", q_bound)):
             t[k] += v
-        if not math.isnan(d_ms):  # the tracer kept this kernel's events
+        if not math.isnan(d_ms):  # the tracer kept both kernels' events
             t["n_dev"] += 1
             t["device"] += d_ms
+            t["quant_device"] += qd_ms
             t["bound_dev"] += bound
         del x, xc, wf, xf
         torch.cuda.empty_cache()
     for tag, t in sums.items():
         if t["n_dev"] < t["n"]:  # a sum over fewer shapes is no total
-            t["device"] = math.nan
+            t["device"] = t["quant_device"] = math.nan
         log(f"[phase 18] (a) int8_conv over the {t['n']} {tag} shapes: "
             f"event window {t['window']:.4f} ms, device {_ms(t['device'])}"
             f" (traced at {t['n_dev']}; there {t['bound_dev']:.4f} ms of "
             f"bound), plain {t['plain']:.4f} ms ({t['plain_at_n1']} at N=1), "
             f"cuDNN float conv {t['cudnn']:.4f} ms; bound {t['bound']:.4f} "
             f"ms (share: window {_share(t['bound'], t['window'])}, device "
-            f"{_share(t['bound'], t['device'])}); every int32 sum and output "
-            "equal to the plain version's")
+            f"{_share(t['bound'], t['device'])}); of it int8_quantize: "
+            f"window {t['quant_window']:.4f} ms, device "
+            f"{_ms(t['quant_device'])}, plain {t['quant_plain']:.4f} ms, "
+            f"bound {t['quant_bound']:.4f} ms; every int8 value, int32 sum "
+            "and output equal to the plain version's")
     return sums, worst
 
 
@@ -5012,8 +5098,9 @@ def phase_int8(seed: int, workdir: str):
     log(f"[phase 18] (e) wall {time.time() - t0:.1f} s")
     t0 = time.time()
     sums, worst = _int8_kernel_checks(seed, shapes)
-    log(f"[phase 18] (a) {len(shapes)} model shapes and {len(INT8_RAGGED)} "
-        f"ragged ones; wall {time.time() - t0:.1f} s")
+    log(f"[phase 18] (a) {len(shapes)} model shapes, {len(INT8_RAGGED)} "
+        f"ragged and {len(INT8_EDGE)} edge ones; wall "
+        f"{time.time() - t0:.1f} s")
     b = sums["bench"]
     return {
         "launches": (bench["launches"] + predict["launches"]
@@ -5027,6 +5114,13 @@ def phase_int8(seed: int, workdir: str):
         "bound_by": "operations" if b["op"] >= b["byte"] else "bytes",
         "device_ms": None if math.isnan(b["device"]) else b["device"],
         "cudnn_float_conv_ms": b["cudnn"],
+        # the quantize pass alone (its time is inside the numbers above);
+        # one launch per int8_conv call, asserted on every path
+        "quantize": {
+            "ms": b["quant_window"], "plain_ms": b["quant_plain"],
+            "bound_ms": b["quant_bound"],
+            "device_ms": (None if math.isnan(b["quant_device"])
+                          else b["quant_device"])},
         # the 3D kernels' launches on the int8 paths (3a, 3b, 4)
         "counts": {"bench_int8_forward": bench.pop("counts"),
                    "predict3d_int8": predict.pop("counts")},
@@ -5923,15 +6017,19 @@ def _counts_from(rec):
     return {k: sum(r["launches"][k] for r in rec) for k in KERNELS_3D}
 
 
-def _int8_kernel_row(int8: dict) -> dict:
-    """The kernels-line entry of ``int8_conv`` (no TPU kernel: the JAX
-    package leaves its int8 conv to XLA); its times at bench.py's int8 row
-    shapes (b), cuDNN's float conv there beside, no one-call library int8
-    conv on CUDA."""
-    return {
+def _int8_kernel_rows(int8: dict) -> list:
+    """The kernels-line entries of ``int8_conv`` (the whole call, its
+    quantize pass included) and ``int8_quantize`` (the pass alone); no TPU
+    kernel behind either: the JAX package leaves its int8 conv and
+    activation quantization to XLA.  Times at bench.py's int8 row shapes
+    (b), cuDNN's float conv beside the conv; no one-call library int8 conv
+    or int8 quantization of this rounding on CUDA."""
+    src = "mdeical_image_segmentation_tpu_torch/csrc/int8_conv.cu"
+    q = int8["quantize"]
+    return [{
         "name": "int8_conv",
         "route": "cuda",
-        "source": "mdeical_image_segmentation_tpu_torch/csrc/int8_conv.cu",
+        "source": src,
         # no TPU kernel: the JAX package's int8 conv is XLA's
         "replaces": "mdeical_image_segmentation_tpu/ops/quant.py:123",
         "tpu_kernel": False,
@@ -5945,7 +6043,24 @@ def _int8_kernel_row(int8: dict) -> dict:
         "library_ms": None,
         "device_ms": int8["device_ms"],
         "cudnn_float_conv_ms": int8["cudnn_float_conv_ms"],
-    }
+    }, {
+        "name": "int8_quantize",
+        "route": "cuda",
+        "source": src,
+        # no TPU kernel: XLA's _act_quant
+        "replaces": "mdeical_image_segmentation_tpu/ops/quant.py:103",
+        "tpu_kernel": False,
+        # one a conv call, asserted equal to int8_conv's on every path
+        "launches": int8["launches"],
+        "launches_by_path": int8["launches_by_path"],
+        "max_abs_err": 0.0,  # equal to _act_quant at every shape of (a)
+        "ms": q["ms"],
+        "plain_ms": q["plain_ms"],
+        "bound_ms": q["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "device_ms": q["device_ms"],
+    }]
 
 
 def main(argv=None) -> int:
@@ -5986,7 +6101,7 @@ def main(argv=None) -> int:
             shutil.rmtree(workdir, ignore_errors=True)
         log(f"int8 (phase 18): {json.dumps({k: v for k, v in int8.items() if k not in ('sums', 'counts')})}")
         print(smi)
-        print(json.dumps({"kernels": [_int8_kernel_row(int8)]}))
+        print(json.dumps({"kernels": _int8_kernel_rows(int8)}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
@@ -6328,7 +6443,7 @@ def main(argv=None) -> int:
     log(f"int8 (phase 18): {json.dumps({k: v for k, v in int8.items() if k not in ('sums', 'counts')})}")
     if int8["launches"] == 0:
         raise AssertionError("int8_conv was never launched on the main path")
-    kernels.append(_int8_kernel_row(int8))
+    kernels.extend(_int8_kernel_rows(int8))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -136,10 +136,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         # patch strides sb, sz, sy, sx, sc, D, H, W, z0, y0, x0, bz, by, bx,
         # dtype, device, stream
         "tpuseg_overlap_add": [p] * 5 + [i] * 5 + [q] * 5 + [i] * 11 + [p],
-        # x, w (Co, Kp) int8, x_scale, x_scale * w_scale, bias or null, y,
-        # N, D, H, W, Ci, Co, KD, KH, KW, PD, PH, PW, Kp, in dtype, out
-        # dtype, device, stream
-        "tpuseg_int8_conv_forward": [p] * 6 + [i] * 16 + [p],
+        # x, x_q, x_scale, numel, in dtype, device, stream
+        "tpuseg_int8_quantize": [p] * 3 + [q, i, i, p],
+        # x_q, w (Co, Kp) int8, taps (T, Co, Cip) int8 or null, x_scale,
+        # w_scale, bias or null, y, N, D, H, W, Ci, Co, KD, KH, KW, PD, PH,
+        # PW, Kp, Cip, out dtype, device, stream
+        "tpuseg_int8_conv_forward": [p] * 7 + [i] * 16 + [p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

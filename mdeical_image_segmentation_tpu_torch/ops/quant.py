@@ -25,15 +25,17 @@ The mode (``off`` | ``calib`` | ``int8``) and the scales ride a
     with quant_mode("int8", scales, model):
         y = model(x)
 
-``int8_conv`` is the quantized conv: on a CUDA tensor the hand-written
-tensor-core kernel in ``csrc/int8_conv.cu`` (activation quantization in its
-prologue, the float32 rescale and bias in its epilogue), on a CPU tensor its
-plain version ``int8_conv_reference`` (an exact integer conv as a float64
+``int8_conv`` is the quantized conv: on a CUDA tensor two hand-written
+kernels in ``csrc/int8_conv.cu``, ``int8_quantize`` (x to int8, once per
+call) and the tensor-core conv of the int8 values (the float32 rescale and
+bias in its epilogue); on a CPU tensor its plain version
+``int8_conv_reference`` (``_act_quant``, an exact integer conv as a float64
 conv of the int8 values, then the same epilogue in separate float32 ops).
 The two agree to the bit.  The JAX package leaves this conv to XLA; there is
 no TPU kernel behind it.  On a CUDA tensor a shape the kernel does not take
 (a stride, an asymmetric padding) raises ``NotImplementedError``.
-``int8_conv.launches`` counts kernel launches.
+``int8_conv.launches`` and ``int8_quantize.launches`` count kernel launches,
+one each per conv call.
 """
 
 from __future__ import annotations
@@ -173,22 +175,36 @@ def _weight_quant(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 class QuantizedWeight(NamedTuple):
     w_q: torch.Tensor      # (O, I, *k) int8
     w_scale: torch.Tensor  # (O,) float32
-    # the kernel's layout: (O, Kp) int8, row k = tap * I + i with the taps
-    # in (kd, kh, kw) order, zero-padded to Kp = K rounded up to 16
+    # the gather loop's layout: (O, Kp) int8, row k = tap * I + i with the
+    # taps in (kd, kh, kw) order, zero-padded to Kp = K rounded up to 16
     packed: Optional[torch.Tensor]
+    # the halo loop's layout: (taps, O, I rounded up to 32) int8, the taps
+    # in (kd, kh, kw) order, zero pad channels
+    taps: Optional[torch.Tensor] = None
 
 
 def quantize_weight(weight: torch.Tensor) -> QuantizedWeight:
-    """``_weight_quant`` of ``weight``, plus the kernel's packed layout when
-    the weight lies on a CUDA device."""
+    """``_weight_quant`` of ``weight``, plus the kernels' packed layouts
+    when the weight lies on a CUDA device."""
     w_q, w_scale = _weight_quant(weight)
-    return QuantizedWeight(w_q, w_scale, pack(w_q) if w_q.is_cuda else None)
+    if not w_q.is_cuda:
+        return QuantizedWeight(w_q, w_scale, None)
+    return QuantizedWeight(w_q, w_scale, pack(w_q), pack_taps(w_q))
 
 
 def pack(w_q: torch.Tensor) -> torch.Tensor:
-    """(O, I, *k) int8 → the kernel's (O, Kp) layout (``QuantizedWeight``)."""
+    """(O, I, *k) int8 → the gather loop's (O, Kp) layout
+    (``QuantizedWeight``)."""
     k = w_q.movedim(1, -1).reshape(w_q.shape[0], -1)
     return F.pad(k, (0, -k.shape[1] % 16)).contiguous()
+
+
+def pack_taps(w_q: torch.Tensor) -> torch.Tensor:
+    """(O, I, *k) int8 → the halo loop's (taps, O, I rounded up to 32)
+    layout: one TMA box per tap and 32-channel chunk, no guard."""
+    o, i = w_q.shape[:2]
+    t = w_q.reshape(o, i, -1).permute(2, 0, 1)
+    return F.pad(t, (0, -i % 32)).contiguous()
 
 
 def _pad_list(pads: Sequence[Tuple[int, int]]):
@@ -266,6 +282,37 @@ def _check_kernel_shape(x, qw, pads, strides, out_dtype) -> None:
         raise NotImplementedError(f"{what}: its int32 sums could overflow")
 
 
+def int8_quantize(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
+    """x (float32 or bfloat16) → ``clamp(rint(x / x_scale), ±127)`` as
+    int8, x's shape: on a CUDA tensor the quantize pass of
+    ``csrc/int8_conv.cu`` (``x_scale``, a 0-d float32 tensor, read on the
+    card), on a CPU tensor its plain version ``_act_quant``.  The two agree
+    to the bit."""
+    if x.device.type == "cpu":
+        return _act_quant(x, x_scale)
+    if not x.is_cuda:
+        raise ValueError(f"int8_quantize runs on cuda or cpu, not {x.device}")
+    if x.dtype not in _DTYPE_CODES or not x.is_contiguous():
+        raise ValueError(f"int8_quantize: x must be contiguous float32 or "
+                         f"bfloat16, not {x.dtype}")
+    if (x_scale.device != x.device or x_scale.dtype != torch.float32
+            or x_scale.numel() != 1):
+        raise ValueError(f"int8_quantize: x_scale must be one float32 on "
+                         f"{x.device}, not {x_scale.dtype} on "
+                         f"{x_scale.device}")
+    x_q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    dev = x.get_device()
+    rc = _build.kernel("tpuseg_int8_quantize")(
+        x.data_ptr(), x_q.data_ptr(), x_scale.data_ptr(), x.numel(),
+        _DTYPE_CODES[x.dtype], dev, _build.current_stream(dev))
+    _build.check(rc, "int8_quantize launch")
+    int8_quantize.launches += 1
+    return x_q
+
+
+int8_quantize.launches = 0
+
+
 def int8_conv(x: torch.Tensor, qw: QuantizedWeight, x_scale: torch.Tensor,
               *, pads: Sequence[Tuple[int, int]],
               strides: Optional[Sequence[int]] = None,
@@ -277,7 +324,8 @@ def int8_conv(x: torch.Tensor, qw: QuantizedWeight, x_scale: torch.Tensor,
     ``qw.w_q``, then ``float(acc) * (x_scale * w_scale) + bias`` rounded to
     ``out_dtype`` (x's dtype by default).  ``accumulators=True`` returns the
     int32 sums instead.  ``x_scale`` is a 0-d float32 tensor on x's device
-    (read by the kernel there: no host wait)."""
+    (read by the kernels there: no host wait).  On the card: one
+    ``int8_quantize`` launch, then one conv launch."""
     out_dtype = torch.int32 if accumulators else (out_dtype or x.dtype)
     if x.device.type == "cpu":
         return int8_conv_reference(x, qw, x_scale, pads=pads,
@@ -294,26 +342,31 @@ def int8_conv(x: torch.Tensor, qw: QuantizedWeight, x_scale: torch.Tensor,
     ks = tuple(qw.w_q.shape[2:])
     out = [n + 2 * lo - k + 1
            for n, (lo, _), k in zip(x.shape[1:-1], pads, ks)]
-    y = torch.empty((x.shape[0], *out, co), dtype=out_dtype, device=x.device)
     # the kernel's 3D view: 2D is D = 1, KD = 1
     one = (1,) * (3 - len(ks))
     dims = one + tuple(x.shape[1:-1])
     ks = one + ks
     pad3 = (0,) * len(one) + tuple(lo for lo, _ in pads)
-    col_scale = (x_scale * qw.w_scale).contiguous()
     b = None if bias is None else bias.detach().to(torch.float32).contiguous()
-    for name, t in (("x_scale", x_scale), ("w_scale", col_scale),
-                    ("bias", b), ("packed", qw.packed)):
+    for name, t in (("x_scale", x_scale), ("w_scale", qw.w_scale),
+                    ("bias", b), ("packed", qw.packed), ("taps", qw.taps)):
         if t is not None and t.device != x.device:
             raise ValueError(f"int8_conv: {name} is on {t.device}, x on "
                              f"{x.device}")
+    if qw.w_scale.dtype != torch.float32 or not qw.w_scale.is_contiguous():
+        raise ValueError("int8_conv: w_scale must be contiguous float32")
+    x_q = int8_quantize(x, x_scale)
+    y = torch.empty((x.shape[0], *out, co), dtype=out_dtype, device=x.device)
+    taps = qw.taps
     dev = x.get_device()
     rc = _build.kernel("tpuseg_int8_conv_forward")(
-        x.data_ptr(), qw.packed.data_ptr(), x_scale.data_ptr(),
-        col_scale.data_ptr(), None if b is None else b.data_ptr(),
-        y.data_ptr(), x.shape[0], *dims, ci, co, *ks, *pad3,
-        qw.packed.shape[1], _DTYPE_CODES[x.dtype], _OUT_CODES[out_dtype],
-        dev, _build.current_stream(dev))
+        x_q.data_ptr(), qw.packed.data_ptr(),
+        None if taps is None else taps.data_ptr(), x_scale.data_ptr(),
+        qw.w_scale.data_ptr(), None if b is None else b.data_ptr(),
+        y.data_ptr(), x.shape[0], *dims,
+        ci, co, *ks, *pad3, qw.packed.shape[1],
+        0 if taps is None else taps.shape[2], _OUT_CODES[out_dtype], dev,
+        _build.current_stream(dev))
     _build.check(rc, "int8_conv launch")
     int8_conv.launches += 1
     return y

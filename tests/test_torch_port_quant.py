@@ -244,14 +244,91 @@ def test_kernel_shape_checks_raise_not_implemented():
 def test_int8_kernel_source_and_wrapper():
     src = (_build.CSRC / "int8_conv.cu").read_text()
     assert 'extern "C" int tpuseg_int8_conv_forward(' in src
-    assert '"tpuseg_int8_conv_forward"' in open(_build.__file__).read()
+    assert 'extern "C" int tpuseg_int8_quantize(' in src
+    build_src = open(_build.__file__).read()
+    assert '"tpuseg_int8_conv_forward"' in build_src
+    assert '"tpuseg_int8_quantize"' in build_src
     assert "int8_conv.cu" in _build.SOURCES
+    # the gather loop on mma.sync, the halo loop on wgmma s8 fed by TMA
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
+    for n in (32, 64, 128):
+        assert f"wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8" in src
+    for op in ("cp.async.bulk.tensor.5d", "cp.async.bulk.tensor.3d",
+               "mbarrier::complete_tx", "CU_TENSOR_MAP_SWIZZLE_32B",
+               "wgmma.fence.sync.aligned", "wgmma.commit_group.sync.aligned",
+               "wgmma.wait_group.sync.aligned",
+               "__grid_constant__ CUtensorMap"):
+        assert op in src, op
     for op in ("__fdiv_rn", "rintf", "__int2float_rn", "__fmul_rn",
                "__fadd_rn", "cudaGetLastError()", "int64_t"):
         assert op in src, op
+    # quantization runs once per call, in its own pass: the only division
+    # and the only use of quant1 are the quantize kernel's
+    assert src.count("__fdiv_rn(") == 1
+    quantize = src[src.index("// ---- the quantize pass"):
+                   src.index("// ---- shared by both conv loops")]
+    assert "quant1(" not in src.replace(quantize, "")
     assert isinstance(quant.int8_conv.launches, int)
+    assert isinstance(quant.int8_quantize.launches, int)
     assert callable(quant.int8_conv_reference)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_int8_quantize_cpu_equals_jax_act_quant_bits(dtype):
+    """``int8_quantize`` on a CPU tensor (the quantize pass's plain
+    version) equals JAX's ``_act_quant`` to the bit: ties at .5 round to
+    even, values past ±127 clip, in an NDHWC volume and a flat vector."""
+    tdt, jdt = DTYPES[dtype]
+    rng = np.random.default_rng(5)
+    scale = np.float32(2.0 ** -4)
+    ties = (np.arange(-131, 131) + 0.5) * scale        # exact halves
+    beyond = np.array([300, -300, 127.5, -127.5, 126.5, -126.5]) * scale
+    flat = np.concatenate([rng.standard_normal(430) * 4.0, ties, beyond]
+                          ).astype(np.float32)
+    vol = np.resize(flat, (2, 3, 4, 5, 16)).astype(np.float32)
+    for x in (flat, vol):
+        got = quant.int8_quantize(_to_torch(x, tdt), torch.tensor(scale))
+        want = jq._act_quant(_to_jax(x, jdt), jnp.float32(scale))
+        assert got.dtype == torch.int8 and got.shape == x.shape
+        np.testing.assert_array_equal(_np(got), _np(want))
+    assert {-127, 127} <= set(_np(got).ravel().tolist())
+    assert quant.int8_quantize.launches == 0  # the CPU path launches none
+
+
+@pytest.mark.parametrize("ci", [48, 16])
+def test_pack_taps_is_the_halo_kernels_layout(ci):
+    """``pack_taps`` puts ``w_q[co, ci, kd, kh, kw]`` at byte ((tap * Co +
+    co) * Cip + ci), tap = (kd * 3 + kh) * 3 + kw, where the halo loop's
+    TMA box (32 channels, BN rows, 9 taps from kd * 9) reads it; the pad
+    channels up to Cip = Ci rounded up to 32 are zero."""
+    rng = np.random.default_rng(ci)
+    co = 5
+    for ks in ((3, 3, 3), (3, 3)):
+        w_q = torch.from_numpy(rng.integers(-127, 128, (co, ci, *ks))
+                               .astype(np.int8))
+        taps = quant.pack_taps(w_q)
+        cip = ci + (-ci) % 32
+        ntap = int(np.prod(ks))
+        assert taps.shape == (ntap, co, cip) and taps.dtype == torch.int8
+        assert taps.is_contiguous() and cip % 32 == 0
+        flat = taps.reshape(-1)
+        k3 = (1,) * (3 - len(ks)) + ks
+        for o in range(co):
+            for i in range(ci):
+                for kd in range(k3[0]):
+                    for kh in range(3):
+                        for kw in range(3):
+                            tap = (kd * 3 + kh) * 3 + kw
+                            want = w_q[(o, i, kd, kh, kw)[:2 + len(ks)]
+                                       if len(ks) == 3 else (o, i, kh, kw)]
+                            assert flat[(tap * co + o) * cip + i] == want
+        assert not taps[:, :, ci:].any()
+
+
+def test_int8_quantize_refuses_other_devices():
+    x = torch.zeros(4, 16, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        quant.int8_quantize(x, torch.tensor(1.0, device="meta"))
 
 
 def test_scales_bridge_round_trip():
