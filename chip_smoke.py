@@ -3,9 +3,10 @@ inference, 3D 'gcr' training, 2D classic-UNet training, UNet-3+ training
 and serving, the config-driven 3D pipeline (YAML configs, HDF5 volumes),
 the rest of the 3D family (bf16, device_cache, ResidualUNetSE3D,
 BatchNorm, UNet2D / ResidualUNet2D, remat), int8 post-training
-quantization, exported artifacts and SAM-Med2D promptable serving.
+quantization, exported artifacts, SAM-Med2D promptable serving, and
+data-parallel training with its checkpoint and the profiler tooling.
 
-    python3 chip_smoke.py [--phase 18|19|20|21]
+    python3 chip_smoke.py [--phase 18|19|20|21|23]
 
 Needs one CUDA card, nvcc and the checkout this file sits in; imports nothing
 of JAX (nor PyYAML or h5py).  It exits non-zero, without printing a result,
@@ -339,8 +340,32 @@ wall time.
    its numbers at the training batch; ``int8_conv`` with its launches by
    path over (b)-(e) and its times over (b)'s shapes; kernels 1, 2, 3a and
    3b with their launches inside phase 19's artifacts under
-   ``export_2d`` / ``export_3d``), and last ``{"ok": true, "device":
-   {...}}``.
+   ``export_2d`` / ``export_3d``; the data-parallel paths of phase 23
+   under ``dp_*``), and last ``{"ok": true, "device": {...}}``.
+23. Data parallel (``phase_data_parallel``; runs after phase 21, and
+   ``--phase 23`` runs it alone), TF32 off as the CLIs pin it: (a) a world
+   of 1 over NCCL (``parallel.distributed.initialize``): phase 9's
+   UNetTrainer and phase 11's Trainer (base-64 UNet, bf16, batch 32) for 3
+   steps with ``mesh=make_mesh()`` (DDP) against the same runs without a
+   mesh, cuDNN deterministic: losses and the step-1 grad norm within phase
+   9's limits (equal to the bit predicted, and printed; deterministic
+   algorithms in torch too), phase 9's and 11's launches a step, the step
+   ms of both; (c) ``train/dist_ckpt.py``: on an
+   epoch of 2 patches in order, 2 steps, ``DistCheckpointer.save`` of
+   ``checkpoint_state()``, a trainer with ``resume=`` the directory whose
+   step equals the uninterrupted run's step 3 to the bit (loss,
+   parameters, statistics); (d) ``train/profiling.py``: ``trace`` of a DDP
+   step holds kernel 2's conv core and kernels 3a-3d (both
+   ``gn_partial_kernel`` instantiations) and the ``ProfiledSection``,
+   ``StepTimer`` (CUDA events) and ``device_memory_summary`` give finite
+   numbers; (b) two processes of this script (``--dp-worker``) on the one
+   card over gloo (NCCL refuses two ranks on one device), each with half
+   of a global batch, against this process holding all of it: phase 9's
+   UNet3D with ``DiceLoss`` (global batch 2) and UNet-3+ at 256², fp32,
+   ``segmentation_loss`` (global batch 8): the ranks' mean losses of 3
+   steps and the step-1 grad norm within phase 9's limits, the UNet-3+'s
+   running statistics after step 1 within 1e-5 (after step 3 printed), the
+   3D kernels' launches twice the one process's.
 """
 
 from __future__ import annotations
@@ -2633,7 +2658,7 @@ class UNet2DTraining:
 
     def trainer(self, name: str, compute_dtype: str = "bfloat16",
                 device: str = "cuda", remat: bool = False,
-                remat_policy=None, **kw):
+                remat_policy=None, mesh=None, **kw):
         from mdeical_image_segmentation_tpu_torch.train import (
             Trainer,
             TrainingArguments,
@@ -2646,7 +2671,8 @@ class UNet2DTraining:
             "learning_rate": self.learning_rate, "seed": self.seed,
             "logging_steps": 5, **kw})
         return Trainer(self.model(compute_dtype, device, remat, remat_policy),
-                       args, self.train_ds, self.eval_ds, device=device)
+                       args, self.train_ds, self.eval_ds, mesh=mesh,
+                       device=device)
 
 
 def _instrument_2d(trainer, rec, evals=None, stats_at=()):
@@ -3196,7 +3222,7 @@ H5_LABEL_QUANTILE = 25  # label: the smoothed raw above this percentile
 H5_STEPS = 10
 
 
-def _write_h5_volume(path, raw, label=None):
+def write_h5_volume(path, raw, label=None):
     """A volume (and its label) as users' files usually are: chunked and
     gzip-compressed (h5py's chunk guess, level 4), with the port's codec."""
     from mdeical_image_segmentation_tpu_torch.utils import hdf5
@@ -3208,7 +3234,7 @@ def _write_h5_volume(path, raw, label=None):
     return os.path.getsize(path)
 
 
-def _foreground_label(raw):
+def foreground_label(raw):
     """The smoothed raw above its 25th percentile, uint8: patches well above
     FilterSliceBuilder's 0.6 foreground threshold."""
     import numpy as np
@@ -3337,12 +3363,12 @@ def phase_config_train(seed: int, workdir: str, in_memory_step_ms: float):
 
     raw = seeded_volume(H5_TRAIN_VOLUME, seed + 4)
     val_raw = seeded_volume(H5_VAL_VOLUME, seed + 5)
-    label, val_label = _foreground_label(raw), _foreground_label(val_raw)
+    label, val_label = foreground_label(raw), foreground_label(val_raw)
     t0 = time.perf_counter()
     train_h5 = os.path.join(workdir, "train_volume.h5")
     val_h5 = os.path.join(workdir, "val_volume.h5")
-    sizes = (_write_h5_volume(train_h5, raw, label),
-             _write_h5_volume(val_h5, val_raw, val_label))
+    sizes = (write_h5_volume(train_h5, raw, label),
+             write_h5_volume(val_h5, val_raw, val_label))
     write_s = time.perf_counter() - t0
     cfg = read_yaml_subset(TRAIN_YML)
     sb = cfg["loaders"]["train"]["slice_builder"]
@@ -3511,7 +3537,7 @@ def phase_config_predict(seed: int, workdir: str, checkpoint: str):
 
     raw = seeded_volume(VOLUME_3D, seed)
     path = os.path.join(workdir, "predict_volume.h5")
-    _write_h5_volume(path, raw)
+    write_h5_volume(path, raw)
     out_dir = os.path.join(workdir, "predictions")
     argv = ["--config", PREDICT_YML, "--model_path", checkpoint,
             "--output_dir", out_dir,
@@ -3994,7 +4020,7 @@ def phase_device_cache(seed: int, workdir: str):
     files = {}
     for name, sl in (("train", slice(None)), ("val", slice(0, 64))):
         files[name] = os.path.join(workdir, f"dc_{name}.h5")
-        _write_h5_volume(files[name], raw[sl], (raw[sl] > 0.6).astype(
+        write_h5_volume(files[name], raw[sl], (raw[sl] > 0.6).astype(
             np.uint8))
 
     def phase(name):
@@ -4072,10 +4098,10 @@ def phase_device_cache(seed: int, workdir: str):
 
     # configs/unet3d_train.yml with device_cache: true runs on the host
     ycfg = read_yaml_subset(TRAIN_YML)
-    ylabel = _foreground_label(raw)
+    ylabel = foreground_label(raw)
     for name, sl in (("yml_train", slice(None)), ("yml_val", slice(0, 80))):
         files[name] = os.path.join(workdir, f"{name}.h5")
-        _write_h5_volume(files[name], raw[sl], ylabel[sl])
+        write_h5_volume(files[name], raw[sl], ylabel[sl])
     ycfg["loaders"]["device_cache"] = True
     ycfg["loaders"]["train"]["file_paths"] = [files["yml_train"]]
     ycfg["loaders"]["val"]["file_paths"] = [files["yml_val"]]
@@ -4545,7 +4571,7 @@ def _int8_predict_cli(seed: int, workdir: str, shapes: set):
         True, os.path.join(workdir, "int8_ckpt"))
     raw = seeded_volume(VOLUME_3D, seed)
     path = os.path.join(workdir, "int8_volume.h5")
-    _write_h5_volume(path, raw)
+    write_h5_volume(path, raw)
 
     get = predictor_lib.get_predictor
     runs = {}
@@ -4645,7 +4671,7 @@ def fidelity_volume(path, shape, n_blobs, seed):
         field = np.maximum(field, np.exp(-d2).astype(np.float32))
     label = (field > 0.5).astype(np.uint8)
     raw = field + rs.randn(*shape).astype(np.float32) * 0.2
-    _write_h5_volume(path, raw, label)
+    write_h5_volume(path, raw, label)
     return label
 
 
@@ -5707,7 +5733,7 @@ def _lazy_predict(seed: int, workdir: str, checkpoint: str, standard: dict):
     # (the smoothed raw above its 25th percentile); the 11-step weights are
     # near chance, so the map is cut at its median
     raw = seeded_volume(VOLUME_3D, seed)
-    label = _foreground_label(raw).astype(bool)
+    label = foreground_label(raw).astype(bool)
     m = out["memo read"]["map"][0]
     mask = m > np.median(m)
     t0 = time.perf_counter()
@@ -6012,6 +6038,413 @@ def phase_pipeline_rest(seed: int, workdir: str, cfg_train: dict,
                          "train3d_optimizers": train["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# 23. Data-parallel training, its checkpoint and the profiler tooling
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3
+DP_WORLD = 2
+DP_3D_BATCH = 2                   # (b)'s global 'gcr' batch: 1 a rank
+DP_U3P_RES, DP_U3P_BATCH = 256, 8  # (b)'s UNet-3+: 4 rows a rank
+DP_STATS_TOL = 1e-5               # running statistics, 2 ranks vs 1
+DP_TIMEOUT_S = 900
+# (d): the trace must hold kernel 2's conv core and kernels 3a-3d
+DP_TRACE_KERNELS = {
+    "kernel 2": re.compile(r"conv_(halo|gather)_kernel"),
+    "kernel 3a": re.compile(r"gn_stats_final_kernel"),
+    "kernel 3b": re.compile(r"gn_affine_kernel"),
+    "kernel 3d": re.compile(r"gn_bwd_dx_kernel"),
+}
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic algorithms, so that two runs of the same arithmetic
+    give the same bits: cuDNN's (its weight gradient is not otherwise) and
+    torch's (the UNet3D's 42 -> 85 nearest upsample is an ``index_select``,
+    whose backward adds with atomics otherwise)."""
+    import torch
+
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark,
+              torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before[:2]
+        torch.use_deterministic_algorithms(before[2], warn_only=before[3])
+
+
+def _dp_fit_3d(trainer):
+    """``trainer.fit()`` instrumented: per-step records and the launches of
+    the run (counts zeroed just before, read just after)."""
+    import torch
+
+    rec = []
+    _instrument(trainer, rec)
+    torch.cuda.synchronize()
+    _zero_counts()
+    trainer.fit()
+    torch.cuda.synchronize()
+    return rec, _counts()
+
+
+def _dp_train_2d(trainer, stats_at=()):
+    """``trainer.train()`` instrumented; the kernel-1 launches of the run."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.ops import fused_conv
+
+    rec = []
+    _instrument_2d(trainer, rec, stats_at=stats_at)
+    torch.cuda.synchronize()
+    fused_conv.fused_double2d.launches = 0
+    trainer.train()
+    torch.cuda.synchronize()
+    return rec, fused_conv.fused_double2d.launches
+
+
+def _dp_gaps(label, rec, ref, loss_tols=LOSS_TOLS, norm_tol=GRAD_NORM_TOL,
+             mean_of=None):
+    """Relative loss gaps of ``DP_STEPS`` steps and the step-1 grad-norm
+    gap of ``rec`` against ``ref`` (``mean_of``: the ranks' records, whose
+    mean loss is held), logged; raises beyond the limits.  Returns whether
+    every value was equal to the bit."""
+    losses = ([statistics.fmean(r[i]["loss"] for r in mean_of)
+               for i in range(DP_STEPS)] if mean_of
+              else [r["loss"] for r in rec[:DP_STEPS]])
+    want = [r["loss"] for r in ref[:DP_STEPS]]
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    norm = abs(rec[0]["grad_norm"] - ref[0]["grad_norm"]) / ref[0][
+        "grad_norm"]
+    bit = losses == want and rec[0]["grad_norm"] == ref[0]["grad_norm"]
+    log(f"  {label}: losses {[f'{v:.7f}' for v in losses]} against "
+        f"{[f'{v:.7f}' for v in want]}, rel gaps "
+        f"{[f'{v:.2e}' for v in rels]} (limits {loss_tols}); step-1 grad "
+        f"norm {rec[0]['grad_norm']:.7e} against {ref[0]['grad_norm']:.7e}"
+        f" (rel {norm:.2e}, limit {norm_tol}); equal to the bit: {bit}")
+    if any(r > t for r, t in zip(rels, loss_tols)) or norm > norm_tol:
+        raise AssertionError(f"{label}: losses {rels}, grad norm {norm} "
+                             "beyond the limits")
+    return bit
+
+
+def dp_gloo_runs(seed: int, workdir: str, mesh):
+    """(b)'s two trainings over ``mesh``, 3 steps each from the same
+    weights: phase 9's UNet3D with ``DiceLoss`` at a global batch of
+    ``DP_3D_BATCH``, and the UNet-3+ (BatchNorm) at ``DP_U3P_RES``² in
+    float32 with its hybrid ``segmentation_loss`` at a global batch of
+    ``DP_U3P_BATCH``.  The losses, step-1 grad norms, the UNet-3+'s running
+    statistics after steps 1 and 3 and the 3D kernels' launches."""
+    import torch
+
+    setup = UNet3DTraining(seed, os.path.join(workdir, "dp_3d"))
+    setup.batch_size = DP_3D_BATCH
+    setup.cfg = {**setup.cfg, "loss": {"name": "DiceLoss"}}
+    trainer = setup.trainer("dp_3d", max_num_iterations=DP_STEPS - 1,
+                            validate_after_iters=1000, log_after_iters=1000,
+                            mesh=mesh)
+    rec3, launches = _dp_fit_3d(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    u3p = UNet2DTraining(seed, os.path.join(workdir, "dp_u3p"),
+                         unet_type="UNet_3Plus", resolution=DP_U3P_RES,
+                         channels=3, n_train=2 * DP_U3P_BATCH, n_eval=0,
+                         batch=DP_U3P_BATCH // mesh.size)
+    trainer = u3p.trainer("dp_u3p", "float32", max_steps=DP_STEPS,
+                          eval_strategy="no", save_steps=0, augment=False,
+                          mesh=mesh)
+    rec2, _ = _dp_train_2d(trainer, stats_at=(1, DP_STEPS))
+    del trainer
+    torch.cuda.empty_cache()
+    keep = ("loss", "grad_norm", "ms", "stats")
+    return {"3d": [{k: r.get(k) for k in keep} for r in rec3],
+            "u3p": [{k: r.get(k) for k in keep} for r in rec2],
+            "launches": launches}
+
+
+def dp_worker(rank: int, world: int, port: int, out: str) -> int:
+    """One rank of (b): gloo over CUDA tensors on the one card (NCCL
+    refuses two ranks on one device); writes ``out/rank<rank>.pkl``."""
+    import pickle
+
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"localhost:{port}", world, rank, backend="gloo")
+    try:
+        res = dp_gloo_runs(SEED, os.path.join(out, f"rank{rank}"),
+                           make_mesh())
+        with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_ranks(out: str, world: int):
+    """Run (b)'s ranks as processes of this script; every one is waited
+    for, or killed past ``DP_TIMEOUT_S``."""
+    import pickle
+
+    port = _free_port()
+    os.makedirs(out, exist_ok=True)
+    logs = [os.path.join(out, f"rank{rank}.log") for rank in range(world)]
+    procs = []
+    try:
+        for rank, path in enumerate(logs):
+            with open(path, "w") as f:  # a file: a full pipe would block
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--dp-worker", str(rank), str(world), str(port), out],
+                    stdout=f, stderr=subprocess.STDOUT, cwd=ROOT))
+        deadline = time.time() + DP_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(deadline - time.time(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, path) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(path) as f:
+                text = f.read()
+            raise AssertionError(f"(b) rank {rank} failed (rc "
+                                 f"{p.returncode}):\n{text[-4000:]}")
+    res = []
+    for rank in range(world):
+        with open(os.path.join(out, f"rank{rank}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def phase_data_parallel(seed: int, workdir: str):
+    """(a) a world of 1 over NCCL: phase 9's UNetTrainer and phase 11's
+    base-64 UNet Trainer for 3 steps with ``mesh=make_mesh()`` (DDP)
+    against the same runs without a mesh; (c) ``dist_ckpt``: 2 steps, a
+    save, a resumed trainer's step 3 against the uninterrupted one; (d)
+    ``trace`` of a DDP step, ``StepTimer`` and ``device_memory_summary``;
+    (b) two ranks on the one card over gloo against one process holding
+    the whole batch.  Returns the numbers to print and the launches."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.data.loaders import (
+        VolumeLoader,
+    )
+    from mdeical_image_segmentation_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+    )
+    from mdeical_image_segmentation_tpu_torch.train import profiling
+    from mdeical_image_segmentation_tpu_torch.train.dist_ckpt import (
+        DistCheckpointer,
+    )
+
+    res = {"launches": {}}
+    convs = 14  # phase 9's UNet3D: 2 SingleConvs in each of 7 blocks
+    want3 = {"gcr_conv3d": convs, "gn_stats": convs, "gn_affine": convs,
+             "gn_bwd_reduce": convs, "gn_bwd_dx": convs - 1,
+             "overlap_add": 0}
+    setup = UNet3DTraining(seed, os.path.join(workdir, "dp_a"))
+    setup2d = UNet2DTraining(seed, os.path.join(workdir, "dp_a2d"))
+    kw3 = dict(max_num_iterations=DP_STEPS - 1, validate_after_iters=1000,
+               log_after_iters=1000)
+    kw2 = dict(max_steps=DP_STEPS, eval_strategy="no", save_steps=0,
+               augment=True)
+    log(f"[phase 23] (a) a world of 1 over NCCL: phase 9's UNetTrainer "
+        f"(fp32, TF32 off) and phase 11's Trainer (base-64 UNet, bf16, "
+        f"batch {TRAIN_BATCH_2D}), {DP_STEPS} steps with and without "
+        "mesh=make_mesh(), deterministic algorithms")
+    runs = {}
+    with _deterministic():
+        for leg in ("no mesh", "DDP"):
+            if leg == "DDP":
+                distributed.initialize(f"localhost:{_free_port()}", 1, 0)
+                mesh = make_mesh()
+            else:
+                mesh = None
+            t = setup.trainer(f"dp_a_{leg[:2]}", mesh=mesh, **kw3)
+            rec3, launches3 = _dp_fit_3d(t)
+            if leg == "DDP" and not isinstance(
+                    t._ddp, torch.nn.parallel.DistributedDataParallel):
+                raise AssertionError("the mesh trainer is not under DDP")
+            del t
+            torch.cuda.empty_cache()
+            t = setup2d.trainer(f"dp_a2d_{leg[:2]}", mesh=mesh, **kw2)
+            rec2, launches2 = _dp_train_2d(t)
+            del t
+            torch.cuda.empty_cache()
+            runs[leg] = (rec3, launches3, rec2, launches2)
+    for leg, (rec3, launches3, rec2, launches2) in runs.items():
+        for i, r in enumerate(rec3):
+            if r["launches"] != want3 or not np.isfinite(r["loss"]):
+                raise AssertionError(f"(a) {leg} 3D step {i + 1}: {r}, "
+                                     f"want launches {want3}")
+        if launches2 != 18 * len(rec2) or len(rec2) != DP_STEPS:
+            raise AssertionError(f"(a) {leg} 2D: {launches2} kernel-1 "
+                                 f"launches in {len(rec2)} steps, want 18 "
+                                 "a step")
+        ms3 = statistics.median(r["ms"] for r in rec3[1:])
+        ms2 = statistics.median(r["ms"] for r in rec2[1:])
+        log(f"  {leg}: 3D step median {ms3:.1f} ms (steps 2-3), 2D step "
+            f"median {ms2:.2f} ms; launches 3D {launches3}, kernel 1 "
+            f"{launches2}")
+        res[f"step_ms_3d {leg}"], res[f"step_ms_2d {leg}"] = ms3, ms2
+    res["bit_equal_3d"] = _dp_gaps("(a) 3D, DDP vs no mesh",
+                                   runs["DDP"][0], runs["no mesh"][0])
+    res["bit_equal_2d"] = _dp_gaps("(a) 2D, DDP vs no mesh",
+                                   runs["DDP"][2], runs["no mesh"][2])
+    res["launches"]["dp_3d_ddp"] = runs["DDP"][1]
+    res["launches"]["dp_2d_ddp"] = runs["DDP"][3]
+
+    # (c) dist_ckpt: an epoch of 2 patches in order, so that the resumed
+    # trainer's step (the next epoch's first batch) is the uninterrupted
+    # run's step 3
+    log("[phase 23] (c) dist_ckpt: 2 steps, a save, resume, step 3")
+    two = [setup.train_ds[i] for i in range(2)]
+
+    def ckpt_trainer(name, iterations, **kw):
+        loaders = {"train": VolumeLoader(two, 1),
+                   "val": VolumeLoader(setup.val_ds, 1)}
+        return _make_trainer(setup.model_cfg, setup.cfg, loaders,
+                             os.path.join(workdir, "dp_c", name),
+                             kw.pop("pre_trained", None), seed=seed,
+                             mesh=mesh, max_num_iterations=iterations,
+                             validate_after_iters=1000, log_after_iters=1000,
+                             **kw)
+
+    with _deterministic():
+        full = ckpt_trainer("full", DP_STEPS - 1,
+                            pre_trained=setup.checkpoint)
+        full_rec, _ = _dp_fit_3d(full)
+        first = ckpt_trainer("first", DP_STEPS - 2,
+                             pre_trained=setup.checkpoint)
+        _dp_fit_3d(first)
+        ckpt_dir = os.path.join(workdir, "dp_c", "dcp")
+        t0 = time.perf_counter()
+        DistCheckpointer(ckpt_dir).save(first.checkpoint_state())
+        save_s = time.perf_counter() - t0
+        del first
+        t0 = time.perf_counter()
+        resumed = ckpt_trainer("resumed", DP_STEPS - 2, resume=ckpt_dir)
+        load_s = time.perf_counter() - t0
+        resumed_rec, launches_c = _dp_fit_3d(resumed)
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        full.model.state_dict().values(),
+        resumed.model.state_dict().values()))
+    log(f"  step 3: uninterrupted loss {full_rec[2]['loss']:.9f}, resumed "
+        f"{resumed_rec[0]['loss']:.9f}; parameters and statistics after it "
+        f"equal to the bit: {same_params}; save {save_s:.2f} s, resume "
+        f"{load_s:.2f} s")
+    if (len(resumed_rec) != 1 or resumed_rec[0]["loss"] != full_rec[2]["loss"]
+            or not same_params):
+        raise AssertionError("(c) the resumed step 3 differs from the "
+                             "uninterrupted one")
+    res["launches"]["dp_resume"] = launches_c
+    res["ckpt_save_s"], res["ckpt_load_s"] = save_s, load_s
+    del full, resumed
+    torch.cuda.empty_cache()
+
+    # (d) the tooling on a DDP step
+    log("[phase 23] (d) trace, StepTimer, device_memory_summary")
+    t = setup.trainer("dp_d", mesh=mesh, **kw3)
+    batches = t._device_batches(t.loaders["train"])
+    timer = profiling.StepTimer()
+    trace_dir = os.path.join(workdir, "dp_trace")
+    for i in range(DP_STEPS + 1):
+        input, target, weight, t._split = next(batches)
+        with (profiling.trace(trace_dir) if i == DP_STEPS
+              else contextlib.nullcontext()):
+            with profiling.ProfiledSection("dp_step"):
+                t._train_step(input, target, weight)
+            timer.tick()
+            timer.synced_lap()
+    with open(os.path.join(trace_dir, f"trace_{os.getpid()}.json")) as f:
+        names = {e.get("name") or "" for e in json.load(f)["traceEvents"]}
+    found = {k: sorted(n for n in names if pat.search(n))[:1]
+             for k, pat in DP_TRACE_KERNELS.items()}
+    partial = {n for n in names if "gn_partial_kernel" in n}
+    summary, memory = timer.summary(), profiling.device_memory_summary()
+    log(f"  trace: {len(names)} event names, {found}, gn_partial_kernel "
+        f"instantiations (3a and 3c) {len(partial)}, dp_step range "
+        f"{'dp_step' in names}; StepTimer {summary}; memory {memory}")
+    if (not all(found.values()) or len(partial) < 2
+            or "dp_step" not in names):
+        raise AssertionError("(d) the trace lacks kernels 2 / 3a-3d or the "
+                             "section")
+    if not (summary and all(np.isfinite(v) for v in summary.values())
+            and memory and all(np.isfinite(v) for m in memory
+                               for k, v in m.items() if k != "device")):
+        raise AssertionError(f"(d) {summary}, {memory}")
+    res["step_timer"], res["memory"] = summary, memory
+    del t, batches
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on the one card, gloo, against one process
+    log(f"[phase 23] (b) {DP_WORLD} processes on the card over gloo "
+        f"against one process with the whole batch: phase 9's UNet3D with "
+        f"DiceLoss, global batch {DP_3D_BATCH}; UNet_3Plus at "
+        f"{DP_U3P_RES}², fp32, segmentation_loss, global batch "
+        f"{DP_U3P_BATCH}")
+    ref = dp_gloo_runs(seed, os.path.join(workdir, "dp_b1"),
+                       make_mesh())
+    t0 = time.perf_counter()
+    ranks = _dp_ranks(os.path.join(workdir, "dp_b"), DP_WORLD)
+    wall = time.perf_counter() - t0
+    _dp_gaps("(b) 3D 'gcr' + Dice, rank 0 vs one process", ranks[0]["3d"],
+             ref["3d"])
+    _dp_gaps("(b) 3D, the ranks' mean loss", ranks[0]["3d"], ref["3d"],
+             mean_of=[r["3d"] for r in ranks])
+    _dp_gaps("(b) UNet-3+ + segmentation_loss, the ranks' mean loss",
+             ranks[0]["u3p"], ref["u3p"], mean_of=[r["u3p"] for r in ranks])
+    for step in (1, DP_STEPS):
+        rels = [_stats_rel(r["u3p"][step - 1]["stats"],
+                           ref["u3p"][step - 1]["stats"]) for r in ranks]
+        log(f"  UNet-3+ running statistics after step {step}, each rank vs "
+            f"one process: {[f'{v:.2e}' for v in rels]} of max |value|"
+            + (f" (limit {DP_STATS_TOL})" if step == 1 else
+               " (after the updates; printed)"))
+        if step == 1 and max(rels) > DP_STATS_TOL:
+            raise AssertionError(f"(b) running statistics {rels}")
+    for k in KERNELS_3D:
+        if sum(r["launches"][k] for r in ranks) != (
+                DP_WORLD * ref["launches"][k]):
+            raise AssertionError(f"(b) {k}: rank launches "
+                                 f"{[r['launches'][k] for r in ranks]}, one "
+                                 f"process {ref['launches'][k]}")
+    ms = [statistics.median(s["ms"] for s in r["3d"][1:]) for r in ranks]
+    log(f"  ranks' 3D step medians {[f'{v:.1f}' for v in ms]} ms (two "
+        f"processes sharing the card, gloo through the host) against "
+        f"{statistics.median(s['ms'] for s in ref['3d'][1:]):.1f} ms in one "
+        f"process; both ranks in {wall:.1f} s")
+    res["launches"]["dp_3d_gloo"] = {
+        k: sum(r["launches"][k] for r in ranks) for k in KERNELS_3D}
+    res["gloo_step_ms_3d"] = ms
+    return res
+
+
 def _counts_from(rec):
     """The launches of a run's steps, summed."""
     return {k: sum(r["launches"][k] for r in rec) for k in KERNELS_3D}
@@ -6069,15 +6502,21 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phase", type=int, choices=(18, 19, 20, 21),
+    parser.add_argument("--phase", type=int, choices=(18, 19, 20, 21, 23),
                         default=None,
                         help="run the kernel build and this phase alone "
                         "(21: with phases 13 and 14, which it reads)")
+    # one rank of phase 23 (b), started by phase 23 itself
+    parser.add_argument("--dp-worker", nargs=4, default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     port = _import_port()
+    if args.dp_worker:
+        rank, world, dp_port, out = args.dp_worker
+        return dp_worker(int(rank), int(world), int(dp_port), out)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -6130,6 +6569,30 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         log(f"phase 21 ({smi}): {json.dumps(rest)}")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
+    if args.phase == 23:
+        from mdeical_image_segmentation_tpu_torch.ops import _build
+
+        _build.load()
+        # TF32 off: the mode the CLIs pin, as phase 1 leaves it
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build_dir = os.path.join(ROOT, "build")
+        os.makedirs(build_dir, exist_ok=True)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_23_", dir=build_dir)
+        try:
+            t_phase = time.time()
+            dp = phase_data_parallel(SEED, workdir)
+            log(f"[phase 23] ok; wall {time.time() - t_phase:.1f} s")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"data parallel (phase 23, {smi}): {json.dumps(dp)}")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
@@ -6280,6 +6743,12 @@ def main(argv=None) -> int:
             "optimizers card vs CPU")
         rest = phase_pipeline_rest(SEED, workdir, cfg_train, cfg_predict)
         log(f"[phase 21] ok; wall {time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 23] data parallel: DDP over NCCL in a world of 1, two "
+            "ranks over gloo on the card, dist_ckpt resume, the profiler "
+            "tooling")
+        dp = phase_data_parallel(SEED, workdir)
+        log(f"[phase 23] ok; wall {time.time() - t_phase:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if train2d["launches"] == 0:
@@ -6303,6 +6772,7 @@ def main(argv=None) -> int:
                                   family["launches"]["ResidualUNet2D"]),
         **int8["counts"],
         **rest["launches"],
+        **{k: v for k, v in dp["launches"].items() if k != "dp_2d_ddp"},
     }
     runs = (unet3d_launches, res_launches, serve3d_launches, train_launches,
             res_train_launches, cfg_train["launches"],
@@ -6350,17 +6820,19 @@ def main(argv=None) -> int:
     log(f"export (phase 19, {smi}): {json.dumps(exported)}")
     log(f"SAM (phase 20, {smi}): {json.dumps(sam)}")
     log(f"pipeline rest (phase 21, {smi}): {json.dumps(rest)}")
+    dp_2d = dp["launches"]["dp_2d_ddp"]
+    log(f"data parallel (phase 23, {smi}): {json.dumps(dp)}")
     kernels = [{
         "name": "double_conv2d",
         "route": "cuda",
         "source": "mdeical_image_segmentation_tpu_torch/csrc/double_conv2d.cu",
         "replaces": "mdeical_image_segmentation_tpu/ops/fused_conv.py:420",
-        # served batches (phase 2), Trainer.train() (phase 11) and the
-        # exported artifact (phase 19)
-        "launches": launches + train2d["launches"] + export_2d,
+        # served batches (phase 2), Trainer.train() (phase 11), the
+        # exported artifact (phase 19) and Trainer.train() under DDP (23)
+        "launches": launches + train2d["launches"] + export_2d + dp_2d,
         "launches_by_path": {"serve_2d": launches,
                              "train_2d": train2d["launches"],
-                             "export_2d": export_2d},
+                             "export_2d": export_2d, "dp_2d_ddp": dp_2d},
         "max_abs_err": max(max_err, dc_train["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,

@@ -6,7 +6,7 @@ off), built by ``chip_smoke.UNet3DTraining`` exactly as ``chip_smoke.py``
 phase 9 builds it, and the sliding-window predictor of phases 3 and 4.
 
     python3 chip_train_step.py [--steps 3] [--dtype bfloat16] [--predictors]
-                               [--loss-seeds 0 1 2 3]
+                               [--loss-seeds 0 1 2 3] [--tf32]
 
 Needs one CUDA card and the checkout it sits in; imports nothing of JAX.
 
@@ -41,6 +41,21 @@ vs plain, kernel vs kernel and plain vs plain (cuDNN's weight gradient is
 not deterministic) and each perturbed run vs plain, and whether every run
 saw the same input patch: the kernel's gap read against the run-to-run
 noise and against how far perturbations of its size carry the plain path.
+
+TF32 (``--tf32``): what torch's default precision does to the fp32 legs
+of ``chip_smoke.py`` phases 9 and 13.  torch lets cuDNN convolutions use
+TF32 unless told otherwise (``torch.backends.cudnn.allow_tf32`` is True,
+``torch.backends.cuda.matmul.allow_tf32`` False).  Each leg trains 3
+steps with TF32 off, again with TF32 off (the run-to-run noise: cuDNN's
+weight gradient is not deterministic), and with torch's defaults, from
+the same weights on the same batches: phase 9's setup on the kernel path
+and on the plain path, and phase 13's (``configs/unet3d_train.yml``
+through ``create_trainer`` on its seeded gzip HDF5 volumes, no loader
+threads and the transforms' seeds drawn afresh, so that each run sees the
+same patches).  Prints each step's loss and the step-1 global grad norm,
+the gaps of the default run and of the second TF32-off run against the
+first, beside phase 9's limits (``chip_smoke.LOSS_TOLS``,
+``GRAD_NORM_TOL``), and the median step ms of each mode.
 """
 
 from __future__ import annotations
@@ -182,6 +197,36 @@ def _report(title: str, by_name, wall: float, steps: int,
         print(f"     {ms / steps:9.2f}  {name[:110]}")
 
 
+def _recorded_fit(trainer, steps: int):
+    """``trainer.fit()`` recording each step's loss, a fingerprint (the
+    sum) of its input patch and synchronised ms, and the global grad norm
+    after step 1."""
+    import torch
+
+    losses, inputs, ms, norm = [], [], [], []
+    step = trainer._train_step
+
+    def recorded(input, target, weight):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, output = step(input, target, weight)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        inputs.append(input.double().sum().item())
+        if not norm:
+            norm.append(torch.sqrt(sum(
+                p.grad.double().square().sum()
+                for p in trainer.model.parameters()
+                if p.grad is not None)).item())
+        return loss, output
+
+    trainer._train_step = recorded
+    trainer.fit()
+    if len(losses) < steps:
+        raise AssertionError(f"{len(losses)} steps, want {steps}")
+    return losses[:steps], inputs[:steps], ms[:steps], norm[0]
+
+
 def _losses(setup, name: str, steps: int, perturb: float = 0.0):
     """The losses of the first ``steps`` steps of ``fit()``, and a
     fingerprint (the sum) of each step's input patch.  ``perturb`` > 0
@@ -198,20 +243,8 @@ def _losses(setup, name: str, steps: int, perturb: float = 0.0):
                 sign = torch.randint(0, 2, p.shape, device=p.device,
                                      generator=gen) * 2.0 - 1.0
                 p.mul_(1.0 + perturb * sign)
-    losses, inputs = [], []
-    step = trainer._train_step
-
-    def recorded(input, target, weight):
-        loss, output = step(input, target, weight)
-        losses.append(loss.item())
-        inputs.append(input.double().sum().item())
-        return loss, output
-
-    trainer._train_step = recorded
-    trainer.fit()
-    if len(losses) < steps:
-        raise AssertionError(f"{name}: {len(losses)} steps, want {steps}")
-    return losses[:steps], inputs[:steps]
+    losses, inputs, _, _ = _recorded_fit(trainer, steps)
+    return losses, inputs
 
 
 def _loss_drift(seeds, steps: int, perturbs, work: str) -> None:
@@ -251,6 +284,95 @@ def _loss_drift(seeds, steps: int, perturbs, work: str) -> None:
         del setup
 
 
+TF32_STEPS = 3
+# (title, TF32 allowed): torch's default lets cuDNN use TF32, not cuBLAS
+TF32_MODES = (("TF32 off", False), ("TF32 off again", False),
+              ("torch default (cuDNN TF32)", True))
+
+
+def _set_tf32(on: bool) -> None:
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _config_trainer(work: str, name: str):
+    """Phase 13's trainer: ``configs/unet3d_train.yml`` through
+    ``create_trainer`` on seeded gzip HDF5 volumes, with no loader threads
+    and the transforms' seeds drawn anew from the generator's first state,
+    so that every run takes the same patches in the same order."""
+    from mdeical_image_segmentation_tpu_torch.configs import load_config
+    from mdeical_image_segmentation_tpu_torch.train import trainer3d
+    from mdeical_image_segmentation_tpu_torch.transforms import volume
+
+    paths = {}
+    for phase, shape, seed in (("train", chip_smoke.H5_TRAIN_VOLUME, 4),
+                               ("val", chip_smoke.H5_VAL_VOLUME, 5)):
+        paths[phase] = os.path.join(work, f"{phase}_volume.h5")
+        if not os.path.exists(paths[phase]):
+            raw = chip_smoke.seeded_volume(shape, chip_smoke.SEED + seed)
+            chip_smoke.write_h5_volume(paths[phase], raw,
+                                       chip_smoke.foreground_label(raw))
+    config = load_config([
+        "--config", chip_smoke.TRAIN_YML,
+        "--loaders.train.file_paths", repr([paths["train"]]),
+        "--loaders.val.file_paths", repr([paths["val"]]),
+        "--loaders.num_workers", "0",
+        "--trainer.checkpoint_dir", os.path.join(work, name),
+        "--trainer.max_num_iterations", str(TF32_STEPS - 1),
+        "--trainer.validate_after_iters", "1000",
+        "--trainer.log_after_iters", "1000"])
+    volume.GLOBAL_RANDOM_STATE.seed(47)
+    return trainer3d.create_trainer(config)
+
+
+def _tf32(work: str) -> None:
+    import statistics
+
+    import torch
+
+    setup = chip_smoke.UNet3DTraining(chip_smoke.SEED,
+                                      os.path.join(work, "tf32"))
+    legs = (("phase 9, kernel path", False),
+            ("phase 9, plain path", True), ("phase 13", None))
+    limits = chip_smoke.LOSS_TOLS
+    for leg, plain in legs:
+        runs = {}
+        for title, on in TF32_MODES:
+            _set_tf32(on)
+            name = re.sub(r"\W+", "_", f"{leg} {title}")
+            with (chip_smoke.plain_path() if plain
+                  else contextlib.nullcontext()):
+                trainer = (_config_trainer(work, name) if plain is None
+                           else setup.trainer(
+                               name, max_num_iterations=TF32_STEPS - 1,
+                               validate_after_iters=1000,
+                               log_after_iters=1000))
+                runs[title] = _recorded_fit(trainer, TF32_STEPS)
+            del trainer
+            torch.cuda.empty_cache()
+        _set_tf32(False)
+        ref = runs[TF32_MODES[0][0]]
+        print(f"== TF32, {leg}: {TF32_STEPS} steps from the same weights; "
+              f"loss gaps against the first TF32-off run, limits {limits}; "
+              f"grad norm after step 1, limit {chip_smoke.GRAD_NORM_TOL}")
+        for title, _ in TF32_MODES:
+            losses, inputs, ms, norm = runs[title]
+            gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref[0])]
+            out = [g > t for g, t in zip(gaps, limits)]
+            norm_gap = abs(norm - ref[3]) / ref[3]
+            print(f"   {title:28s} losses "
+                  + " ".join(f"{v:.7f}" for v in losses)
+                  + " gaps " + " ".join(f"{g:.2e}" for g in gaps)
+                  + f" grad norm {norm:.7e} gap {norm_gap:.2e}"
+                  + f" outside: losses {sum(out)}, norm "
+                  f"{norm_gap > chip_smoke.GRAD_NORM_TOL}; step ms median "
+                  f"{statistics.median(ms[1:]):.1f}; same inputs "
+                  f"{inputs == ref[1]}")
+    del setup
+
+
 def main() -> int:
     import torch
 
@@ -264,6 +386,9 @@ def main() -> int:
                     help="profile the UNet3D and ResidualUNet3D predictors")
     ap.add_argument("--loss-seeds", type=int, nargs="*", default=[],
                     help="seeds of phase 9's setup for the loss drift")
+    ap.add_argument("--tf32", action="store_true",
+                    help="phases 9 and 13's fp32 legs under torch's default "
+                    "TF32 against TF32 off")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_train_step: no CUDA device", file=sys.stderr)
@@ -303,6 +428,8 @@ def main() -> int:
                           f"{cold / n:.1f} ms per batch")
         if args.loss_seeds:
             _loss_drift(args.loss_seeds, LOSS_STEPS, PERTURB, work)
+        if args.tf32:
+            _tf32(work)
     return 0
 
 

@@ -16,7 +16,8 @@ than RAM, ``DSB2018Dataset`` / ``DSB2018Predictor`` for a directory of 2D
 PNG images (``file_paths: [<root with images/>]``).  Each test file (each
 image, for DSB2018) gets ``<name>_predictions.h5`` with the dataset
 ``predictions`` (DSB2018 adds ``segmentation``; LazyPredictor with
-``save_segmentation`` keeps ``segmentation`` alone).
+``save_segmentation`` keeps ``segmentation`` alone).  float32 runs in full
+float32 (TF32 off).
 """
 
 import sys
@@ -25,13 +26,16 @@ import sys
 def main(argv=None):
     from ..configs import load_config
     from ..data.loaders import get_test_loaders
+    from ..logging_utils import get_logger
     from ..infer import predictor as predictor_lib
     from ..models import get_model
     from ..train.checkpoint import load_checkpoint
     from ..train.trainer3d import config_device
     from ..utils.param_bridge import flax_to_state_dict
+    from . import pin_fp32_precision
 
     config = load_config(argv if argv is not None else sys.argv[1:])
+    pin_fp32_precision(get_logger("predict3d"))
     model_path = config.get("model_path") or config["model"].get("model_path")
     if not model_path:
         raise KeyError("prediction config needs a top-level 'model_path' (or "

@@ -11,7 +11,8 @@ Argparse → a timestamped output directory → the DRIVE or BUSI datasets (or
 ``<run>/final``.  It trains on the card unless ``--device cpu`` is given.
 The default ``--unet_type UNet_3Plus`` trains the reference's 512² config;
 ``--remat auto`` turns remat on for the UNet-3+ family at >= 384 px, with
-``--remat_policy`` (default ``save_convs``, ``ops/remat.py``).
+``--remat_policy`` (default ``save_convs``, ``ops/remat.py``).  float32
+runs in full float32 (TF32 off).
 """
 
 import argparse
@@ -80,8 +81,12 @@ def main(argv=None):
     import torch
 
     from ..data import BUSIDataset, DRIVEDataset, SyntheticSliceDataset
+    from ..logging_utils import get_logger
     from ..models import UNetConfig, UNetModel
     from ..train import BestIoUCallback, Trainer, TrainingArguments
+    from . import pin_fp32_precision
+
+    pin_fp32_precision(get_logger("train2d"))
 
     ts = time.strftime("%Y-%m-%d-%H-%M-%S")
     output_dir = os.path.join(args.output_dir, ts, args.unet_type)

@@ -8,7 +8,7 @@
 Loads the YAML config with its dotted overrides (``--a.b value`` or
 ``a.b=value``), builds the trainer (``train/trainer3d.create_trainer``: on
 the card unless ``device: cpu``), snapshots the resolved config into the
-checkpoint directory and trains.
+checkpoint directory and trains, float32 in full float32 (TF32 off).
 """
 
 import sys
@@ -16,9 +16,12 @@ import sys
 
 def main(argv=None):
     from ..configs import copy_config, load_config
+    from ..logging_utils import get_logger
     from ..train import trainer3d
+    from . import pin_fp32_precision
 
     config = load_config(argv if argv is not None else sys.argv[1:])
+    pin_fp32_precision(get_logger("train3d"))
     trainer = trainer3d.create_trainer(config)
     copy_config(config, trainer.checkpoint_dir)
     trainer.fit()

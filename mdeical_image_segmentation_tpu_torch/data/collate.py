@@ -9,8 +9,8 @@ arrays stay channels-last numpy, and the trainer copies them to the device.
 (``RandomState(seed + epoch)`` permutations), a fixed batch size with
 drop-last when shuffling, wrap padding of a short batch, and an optional
 background thread (``prefetch``) and decode pool (``num_workers``) that
-overlap batch assembly with device compute.  Multi-process sharding
-(``process_shard``) waits for the parallel modes.
+overlap batch assembly with device compute; ``process_shard`` makes a
+loader hand out one process's rows of each global batch.
 """
 
 from __future__ import annotations
@@ -59,12 +59,20 @@ class BatchLoader:
         num_workers: int = 0,
         process_shard: Optional[tuple] = None,
     ):
-        """``process_shard`` (one process's rows of each global batch)
-        raises: the port runs one process so far."""
+        """``process_shard=(index, count)`` makes this loader yield only
+        this process's rows of each *global* batch: ``batch_size`` stays
+        the global batch, the epoch permutation is the same on every
+        process, and each assembles rows ``[index·local : (index+1)·local]``
+        (``parallel.shard_batch``'s rows)."""
         if process_shard is not None:
-            raise NotImplementedError(
-                "BatchLoader(process_shard=...): multi-process loading is not "
-                "ported yet (ROADMAP.md queue 1, item 25)")
+            index, count = process_shard
+            if not 0 <= index < count:
+                raise ValueError(f"process_shard {process_shard}: the index "
+                                 "must lie in [0, count)")
+            if batch_size % count:
+                raise ValueError(f"global batch {batch_size} not divisible "
+                                 f"by {count} processes")
+        self.process_shard = process_shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -106,6 +114,10 @@ class BatchLoader:
                 pad = np.tile(order, -(-need // max(n, 1)))[:need]
                 idx = np.concatenate([idx, pad])
             batches.append(idx)
+        if self.process_shard is not None:
+            index, count = self.process_shard
+            local = self.batch_size // count
+            batches = [b[index * local:(index + 1) * local] for b in batches]
         return batches
 
     def close(self):

@@ -45,6 +45,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..logging_utils import get_logger
 from ..utils import hdf5
@@ -114,6 +115,10 @@ class DeviceCachedVolumeLoader:
                  cache_dtype: str = "float32", budget_gb: float = 4.0):
         if not datasets:
             raise DeviceCacheUnsupported("no train datasets")
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            raise DeviceCacheUnsupported(
+                "device_cache is single-process (a data-parallel run needs "
+                "per-process loader shards: the host loader has them)")
         for ds in datasets:
             if not isinstance(ds, AbstractHDF5Dataset):
                 raise DeviceCacheUnsupported(

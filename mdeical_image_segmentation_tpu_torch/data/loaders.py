@@ -5,8 +5,9 @@
 ``RandomState(seed + epoch)``, collation into stacked numpy arrays, a
 ``drop_last`` mode that wrap-pads a dataset smaller than one batch instead
 of yielding nothing, optional worker threads per batch, and a daemon
-prefetch thread that stops when its consumer abandons the iterator.  The
-trainer takes any iterable of (input, target[, weight]) batches as a loader,
+prefetch thread that stops when its consumer abandons the iterator, and a
+``process_shard`` mode that assembles one process's rows of each global
+batch (data parallelism).  The trainer takes any iterable of (input, target[, weight]) batches as a loader,
 so in-memory datasets need no files.
 
 ``get_train_loaders`` and ``get_test_loaders`` assemble them from a config's
@@ -75,7 +76,19 @@ class VolumeLoader:
                  seed: int = 0,
                  collate_fn: Callable = default_prediction_collate,
                  prefetch: int = 2, drop_last: bool = False,
-                 num_workers: int = 0):
+                 num_workers: int = 0, process_shard=None):
+        """``process_shard=(index, count)``: yield only rows
+        ``[index·local : (index+1)·local]`` of each global batch of
+        ``batch_size`` (the same permutation on every process), which
+        needs ``drop_last`` so that every batch is whole."""
+        if process_shard is not None:
+            index, count = process_shard
+            if not 0 <= index < count or batch_size % count or not drop_last:
+                raise ValueError(
+                    f"process_shard {process_shard}: needs 0 <= index < "
+                    f"count, a global batch ({batch_size}) divisible by "
+                    "count and drop_last")
+        self.process_shard = process_shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -115,6 +128,10 @@ class VolumeLoader:
             else:  # smaller than one batch: wrap-pad to a full one
                 reps = -(-self.batch_size // n)
                 batches[0] = np.tile(order, reps)[:self.batch_size]
+        if self.process_shard is not None:
+            index, count = self.process_shard
+            local = self.batch_size // count
+            batches = [b[index * local:(index + 1) * local] for b in batches]
 
         if self.num_workers > 0 and self._pool is None:
             from concurrent.futures import ThreadPoolExecutor
@@ -193,14 +210,19 @@ def _dataset_class(loaders_config: Dict[str, Any]):
 
 
 def get_train_loaders(config: Dict[str, Any], n_devices: int = 1,
-                      device=None) -> Dict[str, Any]:
+                      device=None, process_shard=None) -> Dict[str, Any]:
     """``{'train': loader, 'val': loader}`` from ``config['loaders']``: the
     batch is ``batch_size`` x ``n_devices``; the train loader shuffles and
     drops a short tail; both use ``num_workers`` threads per batch and
     prefetch 2 batches when they have workers.  ``device_cache: true`` with
     a ``device`` makes the train loader a ``DeviceCachedVolumeLoader`` on
     it (``device_cache_dtype``, ``device_cache_budget_gb``), or the host
-    loader with a warning where that loader cannot run."""
+    loader with a warning where that loader cannot run (a multi-process
+    run among them).  ``process_shard=(rank, processes)``: the train loader
+    assembles only this rank's rows of each global batch, the rows the
+    JAX package's mesh puts on its device; the val loader yields whole
+    global batches, which the trainer splits (a tail that does not divide
+    goes whole to every rank)."""
     if "loaders" not in config:
         raise KeyError("config is missing its 'loaders' section")
     loaders_config = config["loaders"]
@@ -259,7 +281,8 @@ def get_train_loaders(config: Dict[str, Any], n_devices: int = 1,
         train_loader = VolumeLoader(ConcatDataset(train_datasets),
                                     batch_size=batch_size, shuffle=True,
                                     prefetch=prefetch, drop_last=True,
-                                    num_workers=num_workers)
+                                    num_workers=num_workers,
+                                    process_shard=process_shard)
     return {
         "train": train_loader,
         "val": VolumeLoader(ConcatDataset(val_datasets),

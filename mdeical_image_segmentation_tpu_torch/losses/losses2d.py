@@ -4,6 +4,13 @@ Each loss takes ``(logits, targets)`` channels-last and applies the sigmoid
 itself; the reductions are global over the whole batch, not per sample.
 ``segmentation_loss`` is UNet-3+'s hybrid F1 + MS-SSIM + IoU; its MS-SSIM
 needs images of more than 160 px a side.
+
+Under data parallelism (the batch's rows split over the ranks by
+``parallel.rows_split``) the F1 and IoU ratios are ratios of the global
+batch's sums: each rank's sums are all-reduced, differentiably, before the
+ratio, so every rank's loss is the global one.  MS-SSIM, BCE and CE are
+means of per-image or per-element terms: with equal rows on every rank,
+DDP's average of the ranks' gradients is already the global mean's.
 """
 
 from __future__ import annotations
@@ -11,15 +18,17 @@ from __future__ import annotations
 import torch
 
 from ..ops.msssim import ms_ssim
+from ..parallel.mesh import global_sum
 
 
 def f1_loss(logits: torch.Tensor, targets: torch.Tensor,
             epsilon: float = 1e-7) -> torch.Tensor:
     """1 − soft F1 over the whole batch."""
     probs = torch.sigmoid(logits)
-    tp = (probs * targets).sum()
-    precision = tp / (probs.sum() + epsilon)
-    recall = tp / (targets.sum() + epsilon)
+    tp, sp, st = global_sum(torch.stack(
+        [(probs * targets).sum(), probs.sum(), targets.sum()]))
+    precision = tp / (sp + epsilon)
+    recall = tp / (st + epsilon)
     return 1.0 - 2.0 * precision * recall / (precision + recall + epsilon)
 
 
@@ -27,13 +36,15 @@ def iou_loss(logits: torch.Tensor, targets: torch.Tensor,
              epsilon: float = 1e-7) -> torch.Tensor:
     """1 − soft IoU over the whole batch."""
     probs = torch.sigmoid(logits)
-    intersection = (probs * targets).sum()
-    union = probs.sum() + targets.sum() - intersection
+    intersection, sp, st = global_sum(torch.stack(
+        [(probs * targets).sum(), probs.sum(), targets.sum()]))
+    union = sp + st - intersection
     return 1.0 - (intersection + epsilon) / (union + epsilon)
 
 
 def msssim_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """1 − MS-SSIM(sigmoid(logits), targets), data_range 1."""
+    """1 − MS-SSIM(sigmoid(logits), targets), data_range 1: a mean over
+    images, which needs no all-reduce under data parallelism."""
     return 1.0 - ms_ssim(torch.sigmoid(logits), targets, data_range=1.0)
 
 

@@ -11,6 +11,15 @@ the JAX package's defaults and wrapper rules: ``ignore_index`` wraps a
 non-CE loss in ``MaskingLossWrapper``; ``skip_last_target`` adds
 ``SkipLastTargetChannelWrapper``.  ``SegmentationLoss`` is the 2D hybrid
 F1 + MS-SSIM + IoU for 2D-variant models.
+
+Under data parallelism (the batch's rows split over the ranks by
+``parallel.rows_split``) the ratio losses are ratios of the global batch's
+sums, as the JAX package computes them over its sharded batch: the Dice
+family's per-channel sums and the weighted cross-entropy's numerator,
+denominator and class volumes are all-reduced, differentiably, before the
+ratio.  Per-element means (BCE, the pixel-wise CE, MSE, L1, smooth L1)
+need nothing: with equal rows on every rank, DDP's average of the ranks'
+gradients is the global mean's.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import global_sum
 from .losses2d import segmentation_loss
 
 Loss = Callable[..., torch.Tensor]
@@ -45,10 +55,11 @@ def compute_per_channel_dice(probs: torch.Tensor, target: torch.Tensor,
                          f"{tuple(target.shape)} differ in shape")
     p = flatten(probs)
     t = flatten(target).float()
-    intersect = (p * t).sum(-1)
+    intersect, pp, tt = global_sum(torch.stack(
+        [(p * t).sum(-1), (p * p).sum(-1), (t * t).sum(-1)]))
     if weight is not None:
         intersect = weight.to(p.device) * intersect
-    denominator = (p * p).sum(-1) + (t * t).sum(-1)
+    denominator = pp + tt
     return 2.0 * (intersect / torch.clamp(denominator, min=epsilon))
 
 
@@ -93,10 +104,11 @@ class GeneralizedDiceLoss:
         if p.shape[0] == 1:
             p = torch.cat([p, 1.0 - p], dim=0)
             t = torch.cat([t, 1.0 - t], dim=0)
-        w = (1.0 / torch.clamp(t.sum(-1).square(), min=self.epsilon)).detach()
-        intersect = ((p * t).sum(-1) * w).sum()
-        denominator = torch.clamp((p + t).sum(-1) * w,
-                                  min=self.epsilon).sum()
+        ts, pt, p_t = global_sum(torch.stack(
+            [t.sum(-1), (p * t).sum(-1), (p + t).sum(-1)]))
+        w = (1.0 / torch.clamp(ts.square(), min=self.epsilon)).detach()
+        intersect = (pt * w).sum()
+        denominator = torch.clamp(p_t * w, min=self.epsilon).sum()
         return 1.0 - 2.0 * intersect / denominator
 
 
@@ -155,7 +167,8 @@ class CrossEntropyLoss:
             w = self.weight.to(input.device)[safe_t] * valid
         else:
             w = valid.to(input.dtype)
-        return -(picked * w).sum() / torch.clamp(w.sum(), min=1e-12)
+        num, den = global_sum(torch.stack([(picked * w).sum(), w.sum()]))
+        return -num / torch.clamp(den, min=1e-12)
 
 
 class WeightedCrossEntropyLoss:
@@ -168,7 +181,9 @@ class WeightedCrossEntropyLoss:
     def __call__(self, input: torch.Tensor, target: torch.Tensor
                  ) -> torch.Tensor:
         probs = flatten(torch.softmax(input, dim=-1))
-        class_weights = ((1.0 - probs).sum(-1) / probs.sum(-1)).detach()
+        neg, pos = global_sum(torch.stack(
+            [(1.0 - probs).sum(-1), probs.sum(-1)]))
+        class_weights = (neg / pos).detach()
         return CrossEntropyLoss(class_weights, self.ignore_index)(input,
                                                                   target)
 

@@ -31,9 +31,7 @@ from ..ops import quant
 from ..ops.fused_conv import double_conv2d, fused_double2d
 from ..ops.image import center_crop, upsample_bilinear2d
 from ..ops.remat import run_block, run_stages
-
-PARALLEL_ITEM = "ROADMAP.md queue 1, item 25 (parallel modes)"
-
+from ..parallel import mesh as mesh_lib
 
 def _channels_first(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
@@ -188,7 +186,10 @@ class TorchBatchNorm(nn.Module):
     statistics in eval mode.  ``weight`` / ``bias`` are flax's ``scale`` /
     ``bias``; ``running_mean`` / ``running_var`` its ``batch_stats`` ``mean``
     / ``var``.  No ``num_batches_tracked``: flax has none.  ``init_type``
-    set draws the scale from N(1, 0.02²), else ones."""
+    set draws the scale from N(1, 0.02²), else ones.  In training under
+    data parallelism (``parallel.rows_split``) the batch statistics are the
+    global batch's, whether or not ``axis_name`` is set: the JAX package's
+    GSPMD program computes them so either way."""
 
     momentum = 0.9
     eps = 1e-5
@@ -196,10 +197,6 @@ class TorchBatchNorm(nn.Module):
     def __init__(self, features: int, *, init_type: Optional[str] = None,
                  axis_name: Optional[str] = None, device=None):
         super().__init__()
-        if axis_name is not None:
-            raise NotImplementedError(
-                f"bn_axis_name={axis_name!r}: batch statistics synchronised "
-                f"over a mesh axis are not ported yet ({PARALLEL_ITEM})")
         self.init_type = init_type
         self.weight = nn.Parameter(torch.empty((features,), device=device))
         self.bias = nn.Parameter(torch.empty((features,), device=device))
@@ -222,8 +219,8 @@ class TorchBatchNorm(nn.Module):
         """(y in x's dtype, the batch statistics to update with, or None in
         eval mode); leaves the running statistics alone."""
         if self.training:
-            y, mean, var = batchnorm.batch_norm_train(x, self.weight,
-                                                      self.bias, self.eps)
+            y, mean, var = batchnorm.batch_norm_train(
+                x, self.weight, self.bias, self.eps, mesh_lib.split_mesh())
             return y, (mean, var)
         return batchnorm.normalize(x, self.running_mean, self.running_var,
                                    self.weight, self.bias, self.eps), None

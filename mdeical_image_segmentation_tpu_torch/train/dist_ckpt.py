@@ -1,0 +1,176 @@
+"""Last/best checkpoints on ``torch.distributed.checkpoint`` (the JAX
+package's ``train/orbax_ckpt.py``, ``OrbaxCheckpointer``; the card's
+machine has no orbax, so the port neither writes nor reads orbax).
+
+The contract is the JAX checkpointer's: ``save(state, is_best=)`` writes
+``<dir>/last`` and duplicates it into ``<dir>/best`` when best;
+``restore(template=None, best=)`` reads one back; ``exists(best=)``.
+Each process writes its part (replicated tensors once), and a checkpoint
+appears whole or not at all: it is written into a temporary directory,
+the processes meet at a barrier, and the primary renames it into place.
+
+``state`` is a tree of dicts whose leaves are tensors, numpy arrays or
+scalars, or other picklable values (numbers, strings, None, empty dicts).
+Its paths are flattened to ``/``-joined keys, so a key may not hold a
+``/``.  ``restore`` without a template gives numpy arrays for the tensor
+leaves, as ``train/checkpoint.py``'s msgpack loader does; with one, the
+template's tensors and arrays are filled in place and returned in its
+shape.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.distributed.checkpoint as dcp
+from torch.distributed.checkpoint.default_planner import (
+    DefaultLoadPlanner,
+    DefaultSavePlanner,
+)
+
+from ..logging_utils import get_logger
+
+logger = get_logger("DistCheckpointer")
+
+LAST_DIR = "last"
+BEST_DIR = "best"
+SEP = "/"
+METADATA = ".metadata"  # what torch.distributed.checkpoint writes last
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    flat = {}
+    for k, v in tree.items():
+        k = str(k)
+        if SEP in k:
+            raise ValueError(f"checkpoint key {k!r} holds {SEP!r}")
+        if isinstance(v, dict) and v:
+            flat.update(_flatten(v, prefix + k + SEP))
+        elif isinstance(v, (np.ndarray, np.generic)):
+            flat[prefix + k] = torch.from_numpy(np.array(v))
+        else:
+            flat[prefix + k] = v
+    return flat
+
+
+def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        *parents, leaf = key.split(SEP)
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def _fill(template: Any, loaded: Any) -> Any:
+    """``template``'s tree with its leaves taken from ``loaded``: tensors
+    and arrays copied into in place, other leaves replaced."""
+    if isinstance(template, dict) and template:
+        return {k: _fill(v, loaded[str(k)]) for k, v in template.items()}
+    if isinstance(template, torch.Tensor):
+        template.copy_(loaded)
+        return template
+    if isinstance(template, np.ndarray):
+        template[...] = loaded.numpy()
+        return template
+    if isinstance(template, np.generic):
+        return type(template)(loaded.item())
+    return loaded
+
+
+def _commit(tmp: str, path: str) -> None:
+    """Swap ``tmp`` into ``path``: the old checkpoint is moved aside
+    before the rename and removed after it."""
+    old = path + ".old"
+    shutil.rmtree(old, ignore_errors=True)
+    if os.path.exists(path):
+        os.rename(path, old)
+    os.rename(tmp, path)
+    shutil.rmtree(old, ignore_errors=True)
+
+
+def _is_primary() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
+class DistCheckpointer:
+    def __init__(self, checkpoint_dir: str):
+        self.checkpoint_dir = os.path.abspath(checkpoint_dir)
+        os.makedirs(self.checkpoint_dir, exist_ok=True)
+
+    def _path(self, best: bool) -> str:
+        return os.path.join(self.checkpoint_dir,
+                            BEST_DIR if best else LAST_DIR)
+
+    def save(self, state: Dict[str, Any], *, is_best: bool = False) -> str:
+        """Write the ``last`` checkpoint; duplicate it into ``best`` when
+        best.  Every process of the group calls it."""
+        last = self._path(False)
+        tmp = last + ".tmp"
+        logger.info(f"Saving checkpoint to '{last}'")
+        if _is_primary():
+            shutil.rmtree(tmp, ignore_errors=True)
+        _barrier()
+        dcp.save(_flatten(state), checkpoint_id=tmp,
+                 planner=DefaultSavePlanner(
+                     flatten_state_dict=False, flatten_sharded_tensors=False),
+                 no_dist=not dist.is_initialized())
+        _barrier()
+        if _is_primary():
+            _commit(tmp, last)
+            if is_best:
+                best_tmp = self._path(True) + ".tmp"
+                shutil.rmtree(best_tmp, ignore_errors=True)
+                shutil.copytree(last, best_tmp)
+                _commit(best_tmp, self._path(True))
+        _barrier()
+        return last
+
+    def restore(self, template: Optional[Dict[str, Any]] = None, *,
+                best: bool = False) -> Dict[str, Any]:
+        path = self._path(best)
+        if not os.path.exists(path):
+            raise IOError(f"Checkpoint '{path}' does not exist")
+        if not os.path.exists(os.path.join(path, METADATA)):
+            raise ValueError(
+                f"'{path}' holds no torch.distributed.checkpoint metadata: "
+                "an orbax checkpoint of the JAX package? The port cannot "
+                "read orbax (there is no orbax on the card's machine); "
+                "resume from a msgpack checkpoint file, which both "
+                "packages read")
+        meta = dcp.FileSystemReader(path).read_metadata()
+        flat = {}
+        for key, m in meta.state_dict_metadata.items():
+            flat[key] = (torch.empty(tuple(m.size),
+                                     dtype=m.properties.dtype)
+                         if isinstance(m, dcp.TensorStorageMetadata)
+                         else None)
+        dcp.load(flat, checkpoint_id=path,
+                 planner=DefaultLoadPlanner(
+                     flatten_state_dict=False, flatten_sharded_tensors=False),
+                 no_dist=not dist.is_initialized())
+        loaded = _unflatten(flat)
+        if template is not None:
+            return _fill(template, loaded)
+
+        def numpy(t):
+            if isinstance(t, dict):
+                return {k: numpy(v) for k, v in t.items()}
+            return t.numpy() if isinstance(t, torch.Tensor) else t
+
+        return numpy(loaded)
+
+    def exists(self, best: bool = False) -> bool:
+        return os.path.exists(self._path(best))

@@ -1,5 +1,5 @@
 """The HF-Trainer-shaped 2D training runtime (the JAX package's
-``train/trainer2d.py``), on one device.
+``train/trainer2d.py``), on one device or data-parallel.
 
 ``TrainingArguments`` (the reference CLI's names and defaults), ``Trainer``
 with ``train()`` / ``evaluate()`` / ``save_model()``, a ``compute_metrics``
@@ -39,13 +39,26 @@ whose forward is kernel 1 on the card (the classic UNet; the UNet-3+
 family runs cuDNN convs and PyTorch ops).  Host batches reach the card from
 pinned memory on a side stream, one batch ahead; ``dataset_on_device``
 keeps the train set on the card as uint8 and samples i.i.d. batches from a
-device generator.  The JAX scale-out options (``mesh``,
-``tensor_parallel``, ``zero1``) and the profiler trace (``profile_dir``)
-raise.
+device generator.
+
+Data parallelism (``mesh``, ``parallel.make_mesh``; one process per device
+in a process group, ``parallel.distributed.initialize``): the model runs
+under DDP, each rank takes ``per_device_train_batch_size`` rows of every
+global batch (the loader's ``process_shard``), and the step is the global
+batch's as the JAX package's GSPMD step computes it: BatchNorm's
+statistics and the ratio losses' sums are all-reduced
+(``parallel.rows_split``), the augmentation draws are the global batch's,
+the clip reads the averaged gradient.  Evaluation splits each global batch
+over the ranks (a tail that does not divide goes whole to every rank) and
+all-reduces its sums.  Only the primary rank writes checkpoints, metrics
+and plots.  ``tensor_parallel`` and ``zero1`` raise (item 25b).
+``profile_dir`` traces steps ``profile_start_step`` to ``+
+profile_num_steps`` with ``torch.profiler`` (``train/profiling.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import shutil
@@ -63,17 +76,22 @@ from ..metrics.metrics2d import (
     pred_mean_sum,
     quirky_sigmoid,
 )
-from ..transforms.device2d import Augment2DConfig, augment_batch
+from ..parallel import mesh as mesh_lib
+from ..parallel.distributed import is_primary
+from ..transforms.device2d import (
+    Augment2DConfig,
+    AugmentDraws,
+    apply_augment,
+    draw_augment,
+)
+from . import profiling
 from .callbacks import TrainerCallback, TrainerControl
-from .logging_utils import MetricWriter, get_logger
+from .logging_utils import MetricWriter, NullMetricWriter, get_logger
 from .optimizers import set_learning_rate
 from .prefetch import device_batches
 from .train_state import TrainState, create_train_state
 
 logger = get_logger(__name__)
-
-PARALLEL_ITEM = "ROADMAP.md queue 1, item 25 (parallel modes)"
-TOOLING_ITEM = "ROADMAP.md queue 1, item 26 (tooling)"
 
 
 @dataclasses.dataclass
@@ -110,9 +128,9 @@ class TrainingArguments:
     plot_eval: bool = False  # output.png of sample 0 at every eval
     log_dir: Optional[str] = None
     bf16: bool = False
-    tensor_parallel: bool = False  # raises: item 25
-    zero1: bool = False            # raises: item 25
-    profile_dir: Optional[str] = None  # raises: item 26
+    tensor_parallel: bool = False  # raises: item 25b
+    zero1: bool = False            # raises: item 25b
+    profile_dir: Optional[str] = None  # torch.profiler trace of steps 10-13
     profile_start_step: int = 10
     profile_num_steps: int = 3
 
@@ -150,7 +168,8 @@ def _checked_device(device: Union[str, torch.device]) -> torch.device:
 
 
 class Trainer:
-    """Trainer for the 2D model bundle (``UNetModel``) on one device."""
+    """Trainer for the 2D model bundle (``UNetModel``) on one device or,
+    over ``mesh``, data-parallel."""
 
     def __init__(self, model, args: TrainingArguments, train_dataset=None,
                  eval_dataset=None,
@@ -158,24 +177,25 @@ class Trainer:
                  compute_metrics: Optional[Callable] = None,
                  callbacks: Optional[List[TrainerCallback]] = None,
                  mesh=None, device: Union[str, torch.device] = "cuda"):
-        for name, value in (("mesh", mesh),
-                            ("tensor_parallel", args.tensor_parallel),
+        for name, value in (("tensor_parallel", args.tensor_parallel),
                             ("zero1", args.zero1)):
             if value:
                 raise NotImplementedError(
-                    f"{name}: the port trains on one device so far "
-                    f"({PARALLEL_ITEM})")
-        if args.profile_dir:
-            raise NotImplementedError(
-                f"profile_dir: the profiler trace is not ported yet "
-                f"({TOOLING_ITEM})")
+                    f"{name}: the port trains data-parallel only so far "
+                    f"({mesh_lib.MODEL_AXIS_ITEM})")
         if any(p.dtype != torch.float32 or not p.requires_grad
                for p in model.parameters()):
             raise ValueError("the trainer updates float32 master weights "
                              "that require grad; a for_inference() copy "
                              "cannot be trained")
         self.device = _checked_device(device)
+        self.mesh = (mesh if mesh is not None
+                     else mesh_lib.make_mesh(device=self.device))
         self.model = model.to(self.device)
+        # CGM's gate conv sits behind an argmax: it gets no gradient
+        self._ddp = mesh_lib.wrap_ddp(self.model, self.device, (
+            getattr(getattr(model, "config", None), "unet_type", "")
+            == "UNet_3Plus_DeepSup_CGM"))
         self.args = args
         self.train_dataset = train_dataset
         self.eval_dataset = eval_dataset
@@ -183,13 +203,15 @@ class Trainer:
         self.compute_metrics = compute_metrics
         self.callbacks = callbacks or []
         self.control = TrainerControl()
-        self.writer = MetricWriter(
-            args.log_dir or os.path.join(args.output_dir, "logs"))
+        # only the primary rank writes logs and checkpoints
+        self.writer = (MetricWriter(args.log_dir or os.path.join(
+            args.output_dir, "logs")) if is_primary() else NullMetricWriter())
         self.state: Optional[TrainState] = None
         self._saved_checkpoints: List[str] = []
         self.best_metric: Optional[float] = None
-        self.train_batch = args.per_device_train_batch_size
-        self.eval_batch = args.per_device_eval_batch_size
+        # global batches; each rank takes its per_device rows of them
+        self.train_batch = args.per_device_train_batch_size * self.mesh.size
+        self.eval_batch = args.per_device_eval_batch_size * self.mesh.size
         self._multiclass_eval = getattr(
             getattr(model, "config", None), "out_channels", 1) > 1
         self._aug_cfg = Augment2DConfig()
@@ -243,10 +265,12 @@ class Trainer:
             self.model.parameters(), lr=schedule(0), betas=(0.9, 0.999),
             eps=1e-8, weight_decay=self.args.weight_decay)
         self.state = create_train_state(self.model, optimizer, schedule)
+        # the same stream on every rank: the global batch's draws
         self._gen = torch.Generator(device=self.device).manual_seed(
             self.args.seed + 1)
+        # dropout masks of this rank's rows: a stream of its own
         self._drop_gen = torch.Generator(device=self.device).manual_seed(
-            self.args.seed + 2)
+            self.args.seed + 2 + 1_000_003 * self.mesh.rank)
 
     # -- steps ---------------------------------------------------------------
 
@@ -273,29 +297,44 @@ class Trainer:
         st.optimizer.zero_grad(set_to_none=True)
         st.opt_step += 1
 
+    def _rank_rows(self, n: int) -> slice:
+        """This rank's ``n`` rows of a global batch."""
+        return slice(self.mesh.rank * n, (self.mesh.rank + 1) * n)
+
     def _train_step(self, images: torch.Tensor, labels: torch.Tensor
                     ) -> torch.Tensor:
-        """One micro-step (forward, backward; an update every k-th);
-        returns the detached loss."""
+        """One micro-step on this rank's rows of the global batch (forward,
+        backward; an update every k-th); returns the detached loss."""
         if self.args.augment:
-            images, labels = augment_batch(images, labels, self._aug_cfg,
-                                           self._gen)
+            rows = self._rank_rows(images.shape[0])
+            draws = draw_augment(self.train_batch, self._aug_cfg, self._gen)
+            images, labels = apply_augment(images, labels, AugmentDraws(**{
+                f.name: getattr(draws, f.name)[rows]
+                for f in dataclasses.fields(draws)}))
         self.model.train()
-        loss = self.model(images, labels, generator=self._drop_gen).loss
-        loss.backward()
         st = self.state
+        k = max(self.args.gradient_accumulation_steps, 1)
+        # the ranks' gradients are averaged at the micro-step of the update
+        sync = (st.mini_step + 1 >= k
+                or not hasattr(self._ddp, "no_sync"))
+        with (contextlib.nullcontext() if sync else self._ddp.no_sync()), \
+                mesh_lib.rows_split(self.mesh):
+            loss = self._ddp(images, labels, generator=self._drop_gen).loss
+            loss.backward()
         st.step += 1
         st.mini_step += 1
-        if st.mini_step >= max(self.args.gradient_accumulation_steps, 1):
+        if st.mini_step >= k:
             st.mini_step = 0
             self._apply_update()
         return loss.detach()
 
     def _train_step_resident(self, images_all: torch.Tensor,
                              labels_all: torch.Tensor) -> torch.Tensor:
-        """A uint8 minibatch drawn i.i.d. on the device, normalized there."""
+        """A uint8 minibatch drawn i.i.d. on the device, normalized there:
+        this rank's rows of the global batch's draw."""
         idx = torch.randint(0, images_all.shape[0], (self.train_batch,),
                             generator=self._gen, device=self.device)
+        idx = idx[self._rank_rows(self.args.per_device_train_batch_size)]
         images = images_all[idx].float() / 255.0
         labels = labels_all[idx].float()
         return self._train_step(images, labels)
@@ -333,11 +372,13 @@ class Trainer:
         return device_batches(loader, self.device, self._copy_stream)
 
     def _flush_loss_interval(self) -> Optional[float]:
-        """Read the device-side loss sum; returns the interval mean (None
-        for an empty interval) and folds it into the run totals."""
+        """Read the device-side loss sum, averaged over the ranks (a ratio
+        loss is the same on each; a per-element mean is this rank's rows');
+        returns the interval mean (None for an empty interval) and folds it
+        into the run totals."""
         if self._loss_n == 0:
             return None
-        interval_sum = float(self._loss_acc)
+        interval_sum = float(mesh_lib.rank_mean(self.mesh, self._loss_acc))
         self._total_loss += interval_sum
         self._total_n += self._loss_n
         mean = interval_sum / self._loss_n
@@ -393,7 +434,9 @@ class Trainer:
             self.train_dataset, self.train_batch, shuffle=True,
             seed=self.args.seed, collator=self.data_collator,
             num_workers=self.args.dataloader_num_workers,
-            prefetch=self.args.dataloader_prefetch)
+            prefetch=self.args.dataloader_prefetch,
+            process_shard=((self.mesh.rank, self.mesh.size)
+                           if self.mesh.size > 1 else None))
         # the JAX trainer draws one batch here to size its state, which
         # starts (and skips) epoch 0: drawn the same, the order stays its
         next(iter(loader))
@@ -406,10 +449,13 @@ class Trainer:
         self._start_step = global_step
         t_start = time.time()
 
-        logger.info(f"***** training: {total_steps} steps, batch "
-                    f"{self.train_batch} on {self.device} *****")
+        logger.info(f"***** training: {total_steps} steps, global batch "
+                    f"{self.train_batch} on {self.mesh.size} x "
+                    f"{self.device} *****")
         resident = self._maybe_residence()
         done = False
+        args = self.args
+        profiler, tracing = contextlib.ExitStack(), False
         # resident sampling has no epochs: eval_strategy='epoch' maps to an
         # epoch-equivalent step cadence
         steps_per_epoch = max(1, -(-len(self.train_dataset)
@@ -427,8 +473,19 @@ class Trainer:
                         self.evaluate()
                 break
             for batch in self._device_batches(loader):
+                if (args.profile_dir and not tracing
+                        and global_step == args.profile_start_step):
+                    profiler.enter_context(profiling.trace(args.profile_dir))
+                    tracing = True
                 loss = self._train_step(batch["images"], batch["labels"])
                 global_step += 1
+                if tracing and global_step >= (args.profile_start_step
+                                               + args.profile_num_steps):
+                    loss.item()  # the traced steps' work is done
+                    profiler.close()
+                    tracing = False
+                    logger.info(f"profiler trace written to "
+                                f"{args.profile_dir}")
                 if self._loop_bookkeeping(loss, global_step, total_steps,
                                           t_start):
                     done = True
@@ -437,6 +494,7 @@ class Trainer:
                     and self.eval_dataset is not None):
                 self.evaluate()
 
+        profiler.close()
         self._flush_loss_interval()  # the partial tail interval
         train_loss = self._total_loss / max(self._total_n, 1)
         return TrainOutput(global_step, train_loss, {"train_loss": train_loss})
@@ -501,9 +559,11 @@ class Trainer:
         cache.clear()
 
     def _eval_batches(self, dataset):
-        """(device batch trimmed to its valid rows, n_valid, host batch):
-        the wrap-padded tail rows are dropped before the forward, so the
-        batch-mean loss never sees a duplicate."""
+        """(device rows, their count, host batch, split) per global eval
+        batch: the wrap-padded tail rows are dropped before the forward, so
+        the batch-mean loss never sees a duplicate; then this rank's rows
+        when the batch divides over the ranks (``split``), else the whole
+        batch on every rank."""
         n_remaining = len(dataset)
         trimmed = []
 
@@ -514,12 +574,15 @@ class Trainer:
                 n_remaining -= n_valid
                 if n_valid < self.eval_batch:
                     batch = {k: v[:n_valid] for k, v in batch.items()}
-                trimmed.append((n_valid, batch))
-                yield batch
+                split = (self.mesh.size > 1
+                         and mesh_lib.divides(self.mesh, batch))
+                rows = mesh_lib.shard_batch(self.mesh, batch)
+                trimmed.append((len(rows["images"]), batch, split))
+                yield rows
 
         for dev in self._device_batches(host()):
-            n_valid, batch = trimmed.pop(0)
-            yield dev, n_valid, batch
+            n_rows, batch, split = trimmed.pop(0)
+            yield dev, n_rows, batch, split
 
     def _plot(self, pred0: torch.Tensor, batch, threshold: float,
               binarize: bool = False) -> None:
@@ -536,6 +599,21 @@ class Trainer:
                            save_path=os.path.join(self.args.output_dir,
                                                   "output.png"))
 
+    def _eval_sums(self, dataset, sums_of) -> torch.Tensor:
+        """One pass over ``dataset``: ``sums_of(out, dev, n, i, batch)``
+        gives each batch's [loss · rows, Σ mean prediction, IoU sum, Dice
+        sum, rows] over its ``n`` rows on this rank; the global totals.  A
+        batch split over the ranks runs under ``rows_split`` and its sums
+        are all-reduced; a tail that every rank computed whole is not."""
+        acc = {split: torch.zeros(5, device=self.device)
+               for split in (True, False)}
+        for i, (dev, n, batch, split) in enumerate(
+                self._eval_batches(dataset)):
+            with mesh_lib.rows_split(self.mesh if split else None):
+                out = self._eval_forward(dev)
+            acc[split] = acc[split] + sums_of(out, dev, n, i, batch)
+        return mesh_lib.all_sum(acc[True], self.mesh) + acc[False]
+
     def _evaluate_streaming(self, dataset) -> Dict[str, float]:
         """O(batch)-memory eval, sums kept on the device: pass 1 the loss
         and the global mean of the sigmoided predictions (the reference's
@@ -543,62 +621,63 @@ class Trainer:
         (one pass for a fixed threshold or a multi-class head)."""
         n_total = len(dataset)
         fixed_thr = self.args.eval_threshold
+        plot = self.args.plot_eval and is_primary()
         zero = torch.zeros((), device=self.device)
-        loss_sum, pred_sum, iou_sum, dice_sum = zero, zero, zero, zero
-        n_seen = 0
-        plot = self.args.plot_eval
+
+        def row(loss, pred, iou, dice, n):
+            return torch.stack([loss, pred, iou, dice, zero + n])
 
         if self._multiclass_eval:
-            for i, (dev, n_valid, batch) in enumerate(
-                    self._eval_batches(dataset)):
-                out = self._eval_forward(dev)
+            def multiclass(out, dev, n, i, batch):
                 isum, dsum = multiclass_iou_dice_sums(out.logits,
-                                                      dev["labels"], n_valid)
-                loss_sum = loss_sum + out.loss * n_valid
-                iou_sum, dice_sum = iou_sum + isum, dice_sum + dsum
-                n_seen += n_valid
+                                                      dev["labels"], n)
                 if i == 0 and plot:
                     self._plot(torch.argmax(out.logits[0], dim=-1), batch,
                                0.5, binarize=True)
-            return self._eval_result(iou_sum, dice_sum, loss_sum, n_total,
-                                     n_seen)
+                return row(out.loss * n, zero, isum, dsum, n)
+
+            return self._eval_result(self._eval_sums(dataset, multiclass),
+                                     n_total)
 
         if fixed_thr is None:
-            for dev, n_valid, _ in self._eval_batches(dataset):
-                out = self._eval_forward(dev)
-                loss_sum = loss_sum + out.loss * n_valid
-                pred_sum = pred_sum + pred_mean_sum(out.logits, n_valid)
-                n_seen += n_valid
-            thr = float(pred_sum) / max(n_seen, 1)
+            first = self._eval_sums(dataset, lambda out, dev, n, i, b: row(
+                out.loss * n, pred_mean_sum(out.logits, n), zero, zero, n))
+            thr = float(first[1]) / max(float(first[4]), 1)
         else:
             thr = fixed_thr
 
-        for i, (dev, n_valid, batch) in enumerate(
-                self._eval_batches(dataset)):
-            out = self._eval_forward(dev)
-            isum, dsum = iou_dice_sums(out.logits, dev["labels"], thr,
-                                       n_valid)
-            iou_sum, dice_sum = iou_sum + isum, dice_sum + dsum
-            if fixed_thr is not None:  # the loss rides along
-                loss_sum = loss_sum + out.loss * n_valid
-                n_seen += n_valid
+        def metric(out, dev, n, i, batch):
+            isum, dsum = iou_dice_sums(out.logits, dev["labels"], thr, n)
             if i == 0 and plot:
                 self._plot(quirky_sigmoid(out.logits[0].float()), batch, thr)
-        return self._eval_result(iou_sum, dice_sum, loss_sum, n_total, n_seen)
+            if fixed_thr is not None:  # the loss rides along
+                return row(out.loss * n, zero, isum, dsum, n)
+            return row(zero, zero, isum, dsum, 0)
+
+        sums = self._eval_sums(dataset, metric)
+        if fixed_thr is None:
+            sums = torch.stack([first[0], first[1], sums[2], sums[3],
+                                first[4]])
+        return self._eval_result(sums, n_total)
 
     @staticmethod
-    def _eval_result(iou_sum, dice_sum, loss_sum, n_total, n_seen):
+    def _eval_result(sums: torch.Tensor, n_total: int) -> Dict[str, float]:
+        loss_sum, _, iou_sum, dice_sum, n_seen = sums.tolist()
         return {
-            "eval_iou": float(iou_sum) / max(n_total, 1),
-            "eval_dice": float(dice_sum) / max(n_total, 1),
-            "eval_loss": float(loss_sum) / n_seen if n_seen else float("nan"),
+            "eval_iou": iou_sum / max(n_total, 1),
+            "eval_dice": dice_sum / max(n_total, 1),
+            "eval_loss": loss_sum / n_seen if n_seen else float("nan"),
         }
 
     def _evaluate_full_gather(self, dataset) -> Dict[str, float]:
         """For user ``compute_metrics`` hooks that need the full (logits,
-        labels) arrays on the host."""
+        labels) arrays on the host: one process only."""
+        if self.mesh.size > 1:
+            raise ValueError("a compute_metrics hook needs every logit in "
+                             "one process; under data parallelism use the "
+                             "default streaming metrics")
         all_logits, all_labels, losses = [], [], []
-        for dev, n_valid, batch in self._eval_batches(dataset):
+        for dev, n_valid, batch, _ in self._eval_batches(dataset):
             out = self._eval_forward(dev)
             all_logits.append(out.logits.float().cpu().numpy())
             all_labels.append(batch["labels"])
@@ -615,11 +694,15 @@ class Trainer:
     # -- persistence ---------------------------------------------------------
 
     def save_model(self, path: Optional[str] = None):
+        if not is_primary():
+            return  # the replicas are equal; one process writes
         path = path or self.args.output_dir
         self.model.save_pretrained(path)
         logger.info(f"model saved to {path}")
 
     def _save_checkpoint(self, step: int):
+        if not is_primary():
+            return
         path = os.path.join(self.args.output_dir, f"checkpoint-{step}")
         self.save_model(path)
         self._saved_checkpoints.append(path)

@@ -1,5 +1,5 @@
 """The 3D ``UNetTrainer`` of the port (the JAX package's
-``train/trainer3d.py``), on one device.
+``train/trainer3d.py``), on one device or data-parallel.
 
 The loop semantics are the JAX package's:
 
@@ -36,9 +36,23 @@ Loaders are any iterables of (input, target[, weight]) numpy batches,
 channels-last (N, D, H, W, C).  ``create_trainer`` builds the trainer from a
 config (``configs/config.py``) with the HDF5 loaders (``data/loaders.py``;
 ``loaders.device_cache`` keeps the train volumes on the card), on the card
-unless ``device: cpu``.  The TPU scale-out options (a
-``parallel:`` section, ``mesh``, ``tensor_parallel``, ``zero1``,
-``spatial_halo``) and orbax checkpoints raise.
+unless ``device: cpu``.
+
+Data parallelism (``mesh``; one process per device in a process group,
+``parallel.distributed.initialize``): the model runs under DDP and each
+rank trains on its rows of every global batch, from a loader that
+assembles only them (``process_shard``, as ``create_trainer`` builds it)
+or split from the global batches any other loader yields (a batch that
+does not divide goes whole to every rank).  The step is the global
+batch's: BatchNorm statistics and the ratio losses' sums are all-reduced
+(``parallel.rows_split``).  Validation splits each global batch, gathers
+the output rows and scores the whole batch on every rank, so every rank
+picks the same best checkpoint; the train score is the primary's, on the
+gathered batch.  Only the primary rank writes checkpoints and logs.  A
+``parallel:`` section with ``model_axis`` > 1, ``tensor_parallel``,
+``zero1`` or ``spatial_*`` raises (item 25b).  ``resume`` takes a msgpack
+checkpoint file of either package or a ``train/dist_ckpt.py`` directory;
+an orbax directory raises.
 """
 
 from __future__ import annotations
@@ -50,15 +64,21 @@ from typing import Any, Dict, Iterable, Optional
 import torch
 
 from ..models.blocks3d import set_dropout_generator
+from ..parallel import mesh as mesh_lib
+from ..parallel.distributed import is_primary
 from ..utils.param_bridge import flax_to_state_dict, state_dict_to_flax
 from . import checkpoint as ckpt
-from .logging_utils import MetricWriter, RunningAverage, get_logger
+from .dist_ckpt import DistCheckpointer
+from .logging_utils import (
+    MetricWriter,
+    NullMetricWriter,
+    RunningAverage,
+    get_logger,
+)
 from .optimizers import ReduceLROnPlateau, set_learning_rate
 from .prefetch import device_batches
 
 logger = get_logger("UNetTrainer")
-
-PARALLEL_ITEM = "ROADMAP.md queue 1, item 25 (parallel modes)"
 
 
 def get_number_of_learnable_parameters(model: torch.nn.Module) -> int:
@@ -84,7 +104,10 @@ def config_device(config: Dict[str, Any]) -> torch.device:
 def create_trainer(config: Dict[str, Any]) -> "UNetTrainer":
     """Model, loss, metric, loaders, optimizer, scheduler and trainer from a
     config: the model's weights drawn from a generator seeded with
-    ``config['seed']`` (default 0), on ``config_device(config)``."""
+    ``config['seed']`` (default 0), on ``config_device(config)``, trained
+    over the data axis of the process group (one process without one):
+    the loader batch is ``batch_size`` times the processes, and each
+    process's train loader assembles only its rows."""
     from ..data.loaders import get_train_loaders
     from ..losses import get_loss_criterion
     from ..metrics import get_evaluation_metric
@@ -92,11 +115,19 @@ def create_trainer(config: Dict[str, Any]) -> "UNetTrainer":
     from .logging_utils import get_tensorboard_formatter
     from .optimizers import create_lr_scheduler, create_optimizer
 
-    if config.get("parallel"):
+    par_cfg = config.get("parallel") or {}
+    unported = [k for k in sorted(par_cfg) if par_cfg[k] and (
+        k in ("tensor_parallel", "zero1") or k.startswith("spatial_")
+        or (k == "model_axis" and int(par_cfg[k]) > 1))]
+    if unported:
         raise NotImplementedError(
-            f"parallel: {sorted(config['parallel'])}: the port trains on one "
-            f"device so far ({PARALLEL_ITEM})")
+            f"parallel: {unported}: the port trains data-parallel only so "
+            f"far ({mesh_lib.MODEL_AXIS_ITEM})")
     device = config_device(config)
+    mesh = mesh_lib.make_mesh(device=device)
+    if mesh.size > 1:
+        logger.info(f"Using {mesh.size} processes for training "
+                    "(data-parallel)")
     seed = config.get("seed", 0)
     # drawn on the CPU, so the card and the CPU start from the same weights
     model = get_model(config["model"],
@@ -104,7 +135,9 @@ def create_trainer(config: Dict[str, Any]) -> "UNetTrainer":
     model = model.to(device)
     loss_criterion = get_loss_criterion(config)
     eval_criterion = get_evaluation_metric(config)
-    loaders = get_train_loaders(config, device=device)
+    loaders = get_train_loaders(
+        config, n_devices=mesh.size, device=device,
+        process_shard=(mesh.rank, mesh.size) if mesh.size > 1 else None)
     optimizer_config = config["optimizer"]
     optimizer = create_optimizer(optimizer_config, model.parameters())
     base_lr = optimizer_config.get("learning_rate", 1e-3)
@@ -120,7 +153,7 @@ def create_trainer(config: Dict[str, Any]) -> "UNetTrainer":
         lr_scheduler=lr_scheduler, loss_criterion=loss_criterion,
         eval_criterion=eval_criterion, loaders=loaders,
         tensorboard_formatter=tensorboard_formatter, resume=resume,
-        pre_trained=pre_trained, seed=seed, **trainer_config)
+        pre_trained=pre_trained, mesh=mesh, seed=seed, **trainer_config)
 
 
 class UNetTrainer:
@@ -142,19 +175,14 @@ class UNetTrainer:
                  spatial_halo: Optional[int] = None,
                  spatial_shard_axis: int = 2,
                  spatial_cross_shard_norm: bool = False, **kwargs):
-        for name, value in (("mesh", mesh),
-                            ("tensor_parallel", tensor_parallel),
+        for name, value in (("tensor_parallel", tensor_parallel),
                             ("zero1", zero1), ("spatial_halo", spatial_halo),
                             ("spatial_cross_shard_norm",
                              spatial_cross_shard_norm)):
             if value:
                 raise NotImplementedError(
-                    f"{name}: the port trains on one device so far "
-                    f"({PARALLEL_ITEM})")
-        if resume is not None and os.path.isdir(resume):
-            raise NotImplementedError(
-                f"resume from an orbax directory {resume!r}: only msgpack "
-                f"checkpoints are ported ({PARALLEL_ITEM})")
+                    f"{name}: the port trains data-parallel only so far "
+                    f"({mesh_lib.MODEL_AXIS_ITEM})")
         if tensorboard_formatter is None:
             raise ValueError("TensorboardFormatter must be provided")
         self.model = model
@@ -178,13 +206,17 @@ class UNetTrainer:
         self.current_lr = base_lr
         self.seed = seed
         self.device = next(model.parameters()).device
+        self.mesh = (mesh if mesh is not None
+                     else mesh_lib.make_mesh(device=self.device))
         self.best_eval_score = (float("-inf") if eval_score_higher_is_better
                                 else float("+inf"))
         logger.info(f"eval_score_higher_is_better: "
                     f"{eval_score_higher_is_better}")
-        self.writer = MetricWriter(os.path.join(
+        # only the primary rank writes logs and checkpoints
+        self.writer = (MetricWriter(os.path.join(
             checkpoint_dir, "logs",
             datetime.now().strftime("%Y-%m-%d_%H-%M-%S")))
+            if is_primary() else NullMetricWriter())
         self.tensorboard_formatter = tensorboard_formatter
         self.num_iterations = num_iterations
         self.num_epochs = num_epoch
@@ -192,14 +224,18 @@ class UNetTrainer:
         self._preempted = False
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        # dropout masks of this rank's rows: a stream of its own
         set_dropout_generator(model, torch.Generator(
-            device=self.device).manual_seed(seed + 1))
+            device=self.device).manual_seed(
+                seed + 1 + 1_000_003 * self.mesh.rank))
         logger.info(f"Number of learnable params "
                     f"{get_number_of_learnable_parameters(model)}")
         if resume is not None:
             self._restore(resume, with_state=True)
         elif pre_trained is not None:
             self._restore(pre_trained, with_state=False)
+        self._ddp = mesh_lib.wrap_ddp(model, self.device)
+        self._split = False  # the current train batch's rows are split
 
     def request_stop(self):
         """Ask the training loop to checkpoint and stop at the next step."""
@@ -218,12 +254,14 @@ class UNetTrainer:
     # -- state ---------------------------------------------------------------
 
     def _restore(self, path: str, with_state: bool) -> None:
-        """Load the params of a checkpoint (the JAX package's or the
-        port's); with ``with_state`` also the optimizer state, the counters
-        and the best score."""
+        """Load the params of a checkpoint (a msgpack file of the JAX
+        package or the port, or a ``DistCheckpointer`` directory, whose
+        ``last`` is read); with ``with_state`` also the optimizer state,
+        the counters and the best score."""
         logger.info(f"Loading {'checkpoint' if with_state else 'pre-trained'}"
                     f" '{path}'...")
-        saved = ckpt.load_checkpoint(path)
+        saved = (DistCheckpointer(path).restore() if os.path.isdir(path)
+                 else ckpt.load_checkpoint(path))
         self.model.load_state_dict(
             flax_to_state_dict(saved["model_state_dict"]))
         if not with_state:
@@ -237,10 +275,12 @@ class UNetTrainer:
                     f"Iteration: {self.num_iterations}. "
                     f"Best val score: {self.best_eval_score}.")
 
-    def _save_checkpoint(self, is_best: bool) -> None:
-        path = os.path.join(self.checkpoint_dir, ckpt.LAST_NAME)
-        logger.info(f"Saving checkpoint to '{path}'")
-        ckpt.save_checkpoint({
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """The tree a checkpoint holds (the JAX trainer's keys): counters,
+        ``model_state_dict`` (flax ``params`` and ``batch_stats``), the best
+        score and the optimizer state; ``DistCheckpointer(dir).save`` of it
+        is a directory ``resume`` takes."""
+        return {
             "num_epochs": self.num_epochs + 1,
             "num_iterations": self.num_iterations,
             "model_state_dict": {"batch_stats": {}, **state_dict_to_flax(
@@ -248,28 +288,55 @@ class UNetTrainer:
             "best_eval_score": self.best_eval_score,
             "optimizer_state_dict": ckpt.optimizer_state_tree(
                 self.optimizer, self.model),
-        }, is_best, checkpoint_dir=self.checkpoint_dir)
+        }
+
+    def _save_checkpoint(self, is_best: bool) -> None:
+        if not is_primary():
+            return  # the replicas are equal; one process writes
+        path = os.path.join(self.checkpoint_dir, ckpt.LAST_NAME)
+        logger.info(f"Saving checkpoint to '{path}'")
+        ckpt.save_checkpoint(self.checkpoint_state(), is_best,
+                             checkpoint_dir=self.checkpoint_dir)
 
     # -- batches -------------------------------------------------------------
 
-    def _device_batches(self, loader: Iterable):
-        """Device batches one ahead: batch k + 1's copy is issued before
-        step k is handed out.  A device-cached loader's batches are on the
-        device already."""
+    def _device_batches(self, loader: Iterable, whole_targets=False):
+        """(input, target, weight, split) on the device, one batch ahead:
+        batch k + 1's copy is issued before step k is handed out.  The
+        rows are this rank's: a loader with a ``process_shard`` assembles
+        only them, any other loader's global batches are split here
+        (``split`` False: the batch did not divide, or one process).  With
+        ``whole_targets`` the target and weight stay the global batch's.
+        A device-cached loader's batches are on the device already."""
         if getattr(loader, "is_device_cached", False):
-            return iter(loader)
-        return device_batches(
-            ((t[0], t[1], t[2] if len(t) > 2 else None) for t in loader),
-            self.device, self._copy_stream)
+            return ((i, t, w, False) for i, t, w in loader)
+        splits = []
+
+        def host():
+            sharded = getattr(loader, "process_shard", None) is not None
+            for t in loader:
+                b = (t[0], t[1], t[2] if len(t) > 2 else None)
+                split = sharded or (self.mesh.size > 1
+                                    and mesh_lib.divides(self.mesh, b))
+                if split and not sharded:
+                    rows = mesh_lib.shard_batch(self.mesh, b)
+                    b = (rows[0],) + (b[1:] if whole_targets else rows[1:])
+                splits.append(split)
+                yield b
+
+        return ((i, t, w, splits.pop(0)) for i, t, w in device_batches(
+            host(), self.device, self._copy_stream))
 
     # -- steps ---------------------------------------------------------------
 
-    def _apply_model(self, input: torch.Tensor) -> torch.Tensor:
-        """The model's forward; a 2D model sees the depth axis squeezed and
-        its output gets it back."""
+    def _apply_model(self, input: torch.Tensor, model=None) -> torch.Tensor:
+        """The forward of ``model`` (the model by default; its DDP wrapper
+        in training); a 2D model sees the depth axis squeezed and its
+        output gets it back."""
+        model = self.model if model is None else model
         if getattr(self.model, "is3d", True):
-            return self.model(input)
-        return self.model(input.squeeze(1)).unsqueeze(1)
+            return model(input)
+        return model(input.squeeze(1)).unsqueeze(1)
 
     def _loss(self, output, target, weight):
         if weight is None:
@@ -277,12 +344,15 @@ class UNetTrainer:
         return self.loss_criterion(output, target, weight)
 
     def _train_step(self, input, target, weight):
-        """One optimizer step; returns the detached loss and output."""
+        """One optimizer step on this rank's rows (``self._split``: split
+        over the ranks, or the whole batch); returns the detached loss and
+        output."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        output = self._apply_model(input)
-        loss = self._loss(output, target, weight)
-        loss.backward()
+        with mesh_lib.rows_split(self.mesh if self._split else None):
+            output = self._apply_model(input, self._ddp)
+            loss = self._loss(output, target, weight)
+            loss.backward()
         set_learning_rate(self.optimizer, self.current_lr)
         self.optimizer.step()
         return loss.detach(), output.detach()
@@ -308,20 +378,24 @@ class UNetTrainer:
         loss_acc, loss_acc_n, loss_acc_steps = None, 0, 0
 
         def flush_losses():
+            # averaged over the ranks: a ratio loss is the same on each, a
+            # per-element mean this rank's rows'
             nonlocal loss_acc, loss_acc_n, loss_acc_steps
             if loss_acc_steps:
-                train_losses.update(float(loss_acc) / loss_acc_steps,
-                                    loss_acc_n)
+                train_losses.update(
+                    float(mesh_lib.rank_mean(self.mesh, loss_acc))
+                    / loss_acc_steps, loss_acc_n)
                 loss_acc, loss_acc_n, loss_acc_steps = None, 0, 0
 
-        for input, target, weight in self._device_batches(
+        for input, target, weight, split in self._device_batches(
                 self.loaders["train"]):
             logger.info(f"Training iteration [{self.num_iterations}/"
                         f"{self.max_num_iterations}]. Epoch "
                         f"[{self.num_epochs}/{self.max_num_epochs - 1}]")
+            self._split = split
             loss, output = self._train_step(input, target, weight)
             loss_acc = loss if loss_acc is None else loss_acc + loss
-            loss_acc_n += input.shape[0]
+            loss_acc_n += input.shape[0] * (self.mesh.size if split else 1)
             loss_acc_steps += 1
 
             if self.num_iterations % self.validate_after_iters == 0:
@@ -337,7 +411,11 @@ class UNetTrainer:
 
             if self.num_iterations % self.log_after_iters == 0:
                 flush_losses()
-                if not self.skip_train_validation:
+                if split:  # the global batch, scored and drawn by rank 0
+                    input, target, output = (
+                        mesh_lib.gather_rows(self.mesh, v)
+                        for v in (input, target, output))
+                if not self.skip_train_validation and is_primary():
                     act = self.model.final_activation()
                     scored = act(output) if act is not None else output
                     train_eval_scores.update(
@@ -347,7 +425,8 @@ class UNetTrainer:
                             f"Evaluation score: {train_eval_scores.avg}")
                 self._log_stats("train", train_losses.avg,
                                 train_eval_scores.avg)
-                self._log_images(input, target, output, "train_")
+                if is_primary():
+                    self._log_images(input, target, output, "train_")
 
             if self._preempted:
                 logger.info("Preemption requested: checkpointing and "
@@ -377,13 +456,17 @@ class UNetTrainer:
         val_losses = RunningAverage()
         val_scores = RunningAverage()
         self.model.eval()
-        for i, (input, target, weight) in enumerate(
-                self._device_batches(self.loaders["val"])):
+        for i, (input, target, weight, split) in enumerate(
+                self._device_batches(self.loaders["val"],
+                                     whole_targets=True)):
             logger.info(f"Validation iteration {i}")
             output = self._apply_model(input)
+            if split:  # every rank scores the whole batch
+                input, output = (mesh_lib.gather_rows(self.mesh, v)
+                                 for v in (input, output))
             loss = self._loss(output, target, weight)
             val_losses.update(float(loss), input.shape[0])
-            if i % 100 == 0:
+            if i % 100 == 0 and is_primary():
                 self._log_images(input, target, output, "val_")
             # kept on purpose: the raw (un-activated) output is scored
             val_scores.update(float(self.eval_criterion(output, target)),

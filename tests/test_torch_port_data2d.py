@@ -392,5 +392,21 @@ def test_collator_aliases_and_unported_sharding():
                                       "mask": np.ones((4, 4, 1))}] * 2)
     assert batch["images"].shape == (2, 4, 4, 3)
     assert batch["labels"].shape == (2, 4, 4, 1)
-    with pytest.raises(NotImplementedError, match="item 25"):
-        collate.BatchLoader([], 2, process_shard=(0, 2))
+    # process sharding (item 25a): each process's rows of the JAX
+    # package's global batches, shuffled and in eval order
+    ds = [{"image": np.full((2, 2, 1), i, np.float32),
+           "mask": np.zeros((2, 2, 1), np.float32)} for i in range(7)]
+    for shuffle in (True, False):
+        for index in range(2):
+            kw = dict(shuffle=shuffle, seed=3, prefetch=0,
+                      process_shard=(index, 2))
+            got = [b["images"][:, 0, 0, 0] for b in
+                   collate.BatchLoader(ds, 4, **kw)]
+            want = [b["images"][:, 0, 0, 0] for b in
+                    jax_collate.BatchLoader(ds, 4, **kw)]
+            assert len(got) == len(want) == (1 if shuffle else 2)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+                assert len(g) == 2
+    with pytest.raises(ValueError, match="not divisible"):
+        collate.BatchLoader(ds, 3, process_shard=(0, 2))

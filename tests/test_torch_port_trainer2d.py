@@ -39,6 +39,7 @@ from mdeical_image_segmentation_tpu.train import (
 from mdeical_image_segmentation_tpu_torch.cli import train2d as cli
 from mdeical_image_segmentation_tpu_torch.data import SyntheticSliceDataset
 from mdeical_image_segmentation_tpu_torch.models import UNetConfig, UNetModel
+from mdeical_image_segmentation_tpu_torch.parallel import make_mesh
 from mdeical_image_segmentation_tpu_torch.train import (
     BestIoUCallback,
     Trainer,
@@ -346,13 +347,15 @@ def test_unported_options_and_card_default_raise(monkeypatch, tmp_path):
     model = _port_model()
     out = dict(output_dir=str(tmp_path))
     for kw in (dict(tensor_parallel=True), dict(zero1=True)):
-        with pytest.raises(NotImplementedError, match="item 25"):
+        with pytest.raises(NotImplementedError, match="item 25b"):
             Trainer(model, TrainingArguments(**out, **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 25"):
-        Trainer(model, TrainingArguments(**out), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 26"):
-        Trainer(model, TrainingArguments(**out, profile_dir=str(tmp_path)),
-                device="cpu")
+    with pytest.raises(NotImplementedError, match="item 25b"):
+        make_mesh(n_model=2, device="cpu")
+    # the data axis and the profiler trace are ported (item 25a and 26:
+    # test_torch_port_dp_train.py, test_torch_port_profiling.py)
+    t = Trainer(model, TrainingArguments(**out, profile_dir=str(tmp_path)),
+                mesh=make_mesh(device="cpu"), device="cpu")
+    assert t.mesh.size == 1 and t._ddp is t.model
     with pytest.raises(ValueError, match="eval_strategy"):
         TrainingArguments(eval_strategy="step")
     with pytest.raises(ValueError, match="float32 master weights"):

@@ -40,6 +40,7 @@ from mdeical_image_segmentation_tpu_torch.metrics import (
 )
 from mdeical_image_segmentation_tpu_torch.models import get_model
 from mdeical_image_segmentation_tpu_torch.models import blocks3d
+from mdeical_image_segmentation_tpu_torch.parallel import make_mesh
 from mdeical_image_segmentation_tpu_torch.train import (
     checkpoint as ckpt,
 )
@@ -307,11 +308,17 @@ def test_models_keep_dropout_prob_and_start_in_eval_mode():
     assert block.SingleConv1.dropout.training
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 25"):
+def test_unported_options_raise(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 25b"):
         _port_trainer("/nonexistent", zero1=True)
-    with pytest.raises(NotImplementedError, match="item 25"):
-        _port_trainer("/nonexistent", mesh=object())
+    with pytest.raises(NotImplementedError, match="item 25b"):
+        make_mesh(n_model=2, device="cpu")
+    # an orbax directory (its marker files, no torch.distributed.checkpoint
+    # metadata) cannot be read: there is no orbax on the card's machine
+    (tmp_path / "orbax" / "last").mkdir(parents=True)
+    (tmp_path / "orbax" / "last" / "_CHECKPOINT_METADATA").write_text("{}")
+    with pytest.raises(ValueError, match="cannot read orbax"):
+        _port_trainer(str(tmp_path / "run"), resume=str(tmp_path / "orbax"))
     # device_cache is ported (test_torch_port_device_cache.py); a config
     # without the train and val sections still cannot build its loaders
     with pytest.raises(KeyError):

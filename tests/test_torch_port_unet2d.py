@@ -107,12 +107,12 @@ def test_bf16_policy_casts_weights_once_and_returns_fp32():
 
 
 def test_unported_options_raise():
-    """What is left unported raises and names its ROADMAP item (sync-BN
-    over a mesh axis, item 25); an unknown ``unet_type`` raises as in JAX;
-    the UNet-3+ family and remat (slice 6) now build and run."""
-    with pytest.raises(NotImplementedError, match="item 25"):
-        UNetModel(UNetConfig(unet_type="UNet_3Plus", bn_axis_name="batch"),
-                  device="cpu")
+    """An unknown ``unet_type`` raises as in JAX; the UNet-3+ family and
+    remat (slice 6) build and run, and so does ``bn_axis_name`` (item 25a:
+    BatchNorm takes the global batch's statistics under data parallelism,
+    whether or not it is set)."""
+    assert UNetModel(UNetConfig(unet_type="UNet_3Plus", bn_axis_name="batch"),
+                     device="cpu").config.bn_axis_name == "batch"
     with pytest.raises(KeyError, match="UNet_4Plus"):
         UNetModel(UNetConfig(unet_type="UNet_4Plus"), device="cpu")
     x = torch.zeros(1, 32, 32, 1)

@@ -292,9 +292,22 @@ def test_unet_up_matches_jax(is_deconv):
 
 
 def test_bn_axis_name_points_at_its_item():
-    with pytest.raises(NotImplementedError, match="item 25"):
-        UNetModel(UNetConfig(unet_type="UNet_3Plus", bn_axis_name="data"),
-                  device="cpu")
+    """``bn_axis_name`` (item 25a) builds the same model: on one process
+    its training-mode forward and running statistics equal those of the
+    model without it, as the JAX package's GSPMD statistics are global
+    either way (the data-parallel case: test_torch_port_dp_train.py)."""
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (2, 32, 32, 3), np.float32))
+    outs = []
+    for axis in (None, "data"):
+        m = UNetModel(UNetConfig(unet_type="UNet_3Plus", in_channels=3,
+                                 bn_axis_name=axis), device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+        m.train()
+        outs.append((m(x).logits.detach(), m.module.state_dict()))
+    assert torch.equal(outs[0][0], outs[1][0])
+    for k, v in outs[0][1].items():
+        assert torch.equal(v, outs[1][1][k]), k
 
 
 # -- models -------------------------------------------------------------------
