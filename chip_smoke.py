@@ -3,10 +3,11 @@ inference, 3D 'gcr' training, 2D classic-UNet training, UNet-3+ training
 and serving, the config-driven 3D pipeline (YAML configs, HDF5 volumes),
 the rest of the 3D family (bf16, device_cache, ResidualUNetSE3D,
 BatchNorm, UNet2D / ResidualUNet2D, remat), int8 post-training
-quantization, exported artifacts, SAM-Med2D promptable serving, and
-data-parallel training with its checkpoint and the profiler tooling.
+quantization, exported artifacts, SAM-Med2D promptable serving,
+data-parallel training with its checkpoint and the profiler tooling, and
+spatially sharded training with halo exchange.
 
-    python3 chip_smoke.py [--phase 18|19|20|21|23]
+    python3 chip_smoke.py [--phase 18|19|20|21|23|24]
 
 Needs one CUDA card, nvcc and the checkout this file sits in; imports nothing
 of JAX (nor PyYAML or h5py).  It exits non-zero, without printing a result,
@@ -366,6 +367,39 @@ wall time.
    steps and the step-1 grad norm within phase 9's limits, the UNet-3+'s
    running statistics after step 1 within 1e-5 (after step 3 printed), the
    3D kernels' launches twice the one process's.
+24. Spatially sharded training (``phase_spatial``; runs after phase 23,
+   and ``--phase 24`` runs it alone), TF32 off: the UNet3D of
+   configs/unet3d_train.yml at full width on one 1x80x176x170 volume (the
+   yml's 170 rows of H do not split over 2 ranks with a halo of 16 under
+   cross-shard statistics: ``SPATIAL_VOLUME``), split on H, halo 16.
+   (a) kernels 3a and 3d with the interior window at every GroupNorm input
+   of the 2-rank slab (1x80x120x170 at the input), fp32 and bf16, against
+   their windowed plain versions within phase 6's and phase 7's limits,
+   3a the same bits on two calls; the event window and device time of the
+   windowed launch beside the whole-slab launch, the plain version,
+   ``torch.var_mean`` of the window's view (3a) and the bound, the bytes
+   of the rows each reads and writes. (b) ``spatial_sharded_apply``,
+   per-slab and cross-shard statistics, in a world of 1 over NCCL (per
+   slab: equal to the forward of the reflect-padded volume, cropped;
+   cross-shard: kernels against plain versions; both within phase 3's map
+   limit) and in two ``--spatial-worker`` ranks on the card over gloo:
+   cross-shard at a halo of 48, which covers the 4-level model's
+   receptive field (``SPATIAL_EXACT_HALO``), equal to the world of 1
+   within phase 3's limit, the mesh width's invariance; at halo 16, per
+   slab and cross-shard, the gap printed, near the slabs' edge and
+   farther. (c) 3 steps of ``make_spatial_train_step`` (cross-shard, BCE
+   with logits, the yml's Adam): at halo 48 the 2 ranks' mean losses and
+   step-1 grad norm against the world of 1 within phase 9's limits; the
+   step ms in the world of 1 at halo 16 beside the same model stepping on
+   the unpadded volume and phase 9's step;
+   ``cli/train3d.py`` with ``--parallel.spatial_halo 16
+   --parallel.spatial_cross_shard_norm true`` on the yml's loss,
+   transforms and Adam for 3 steps and a validation, in both worlds
+   (a square 80x176x176 patch: ``SPATIAL_TRAIN_VOLUME``): finite, the same
+   losses on both ranks, only rank 0 writes. (d) kernels 2 and 3a-3d
+   launch 14/14/14/14/13 times a step on every rank of every path
+   (asserted), the windowed 3a and 3d instantiations show in a profiled
+   step, and the kernels line counts the paths under ``spatial_*``.
 """
 
 from __future__ import annotations
@@ -6201,9 +6235,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _dp_ranks(out: str, world: int):
-    """Run (b)'s ranks as processes of this script; every one is waited
-    for, or killed past ``DP_TIMEOUT_S``."""
+def _dp_ranks(out: str, world: int, flag: str = "--dp-worker",
+              timeout_s: float = None):
+    """Run the ranks of phase 23 (b) (``flag`` ``--dp-worker``) or phase 24
+    (``--spatial-worker``) as processes of this script; every one is
+    waited for, or killed past ``timeout_s`` (``DP_TIMEOUT_S``)."""
     import pickle
 
     port = _free_port()
@@ -6215,9 +6251,9 @@ def _dp_ranks(out: str, world: int):
             with open(path, "w") as f:  # a file: a full pipe would block
                 procs.append(subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__),
-                     "--dp-worker", str(rank), str(world), str(port), out],
+                     flag, str(rank), str(world), str(port), out],
                     stdout=f, stderr=subprocess.STDOUT, cwd=ROOT))
-        deadline = time.time() + DP_TIMEOUT_S
+        deadline = time.time() + (timeout_s or DP_TIMEOUT_S)
         for p in procs:
             p.wait(timeout=max(deadline - time.time(), 1))
     finally:
@@ -6229,7 +6265,7 @@ def _dp_ranks(out: str, world: int):
         if p.returncode != 0:
             with open(path) as f:
                 text = f.read()
-            raise AssertionError(f"(b) rank {rank} failed (rc "
+            raise AssertionError(f"{flag} rank {rank} failed (rc "
                                  f"{p.returncode}):\n{text[-4000:]}")
     res = []
     for rank in range(world):
@@ -6445,6 +6481,596 @@ def phase_data_parallel(seed: int, workdir: str):
     return res
 
 
+# -- phase 24: spatially sharded 3D training (parallel/spatial.py) ----------
+
+# configs/unet3d_train.yml's patch is 80x170x170; split over 2 ranks on H,
+# 170 / 2 + 2 * 16 = 117 rows is not divisible by 2**(4 - 1) = 8, and the
+# cross-shard GroupNorm refuses it at the deepest level (no halo that is a
+# multiple of 8 mends it).  At H = 176 a rank's 88 rows pad to 120 = 8 * 15,
+# and a world of 1 pads to 208 = 8 * 26.
+SPATIAL_VOLUME = (80, 176, 170)
+# cli/train3d.py's leg: the yml's RandomRotate90 turns a 176x170 patch into
+# 170x176 on an odd quarter-turn, and H = 170 does not split; a square
+# 176x176 patch keeps H at 176 whatever the turn
+SPATIAL_TRAIN_VOLUME = (80, 176, 176)
+SPATIAL_HALO = 16
+# the 4-level UNet3D sees about +-50 rows (2 convs a level at scales 1-8 on
+# the way down and 4-1 on the way up, the pools' offsets), more than a halo
+# of 16: rows near a slab's edge then see other context than in a world of
+# 1, and under cross-shard statistics that reaches every row through the
+# global sums.  The mesh width's invariance holds at a halo that covers the
+# field: 48 (a multiple of 8; 88 + 96 = 184 = 8 * 23, 176 + 96 = 8 * 34)
+SPATIAL_EXACT_HALO = 48
+SPATIAL_AXIS = 2        # H of (N, D, H, W, C)
+SPATIAL_WORLD = 2
+SPATIAL_STEPS = 3
+SPATIAL_TIMEOUT_S = 600
+# the windowed instantiations of kernels 3a and 3d in a profiler trace
+SPATIAL_WINDOWED = {"3a": re.compile(r"gn_partial_kernel<float, false, true>"),
+                    "3d": re.compile(r"gn_bwd_dx_kernel<float, true>")}
+
+
+class SpatialSetup:
+    """Phase 24's inputs, the same in every process: the UNet3D of
+    configs/unet3d_train.yml (weights from a CPU generator seeded with
+    ``seed``, as ``create_trainer`` draws them), one seeded 1x80x176x170
+    volume and its label, and (``write_volumes``) a train and a validation
+    volume of ``SPATIAL_TRAIN_VOLUME`` as HDF5 files for
+    ``cli/train3d.py``."""
+
+    def __init__(self, seed: int, workdir: str):
+        self.seed, self.workdir = seed, workdir
+        os.makedirs(workdir, exist_ok=True)
+        self.cfg = read_yaml_subset(TRAIN_YML)
+        self.model_cfg = self.cfg["model"]
+        self.raw = seeded_volume(SPATIAL_VOLUME, seed + 6)
+        self.label = foreground_label(self.raw)
+        self.train_h5 = os.path.join(workdir, "spatial_train.h5")
+        self.val_h5 = os.path.join(workdir, "spatial_val.h5")
+
+    def write_volumes(self):
+        for path, seed in ((self.train_h5, self.seed + 7),
+                           (self.val_h5, self.seed + 8)):
+            raw = seeded_volume(SPATIAL_TRAIN_VOLUME, seed)
+            write_h5_volume(path, raw, foreground_label(raw))
+
+    def model(self):
+        import torch
+
+        from mdeical_image_segmentation_tpu_torch.models import get_model
+
+        return get_model(self.model_cfg, generator=torch.Generator()
+                         .manual_seed(self.seed)).to(DEVICE)
+
+    def slabs(self, group=None):
+        """This rank's slabs of the volume and of its label, (1, D, h, W,
+        1) float32 on the card."""
+        import torch
+
+        from mdeical_image_segmentation_tpu_torch.parallel import shard_slab
+
+        return tuple(shard_slab(torch.from_numpy(
+            v[None, ..., None].astype("float32")).to(DEVICE), group,
+            SPATIAL_AXIS).contiguous() for v in (self.raw, self.label))
+
+
+def _bce(out, y):
+    import torch.nn.functional as F
+
+    return F.binary_cross_entropy_with_logits(out, y)
+
+
+# the forwards of (b): (name, halo, cross_shard_norm)
+SPATIAL_FORWARDS = (("per_slab", SPATIAL_HALO, False),
+                    ("cross_shard", SPATIAL_HALO, True),
+                    ("cross_shard_exact", SPATIAL_EXACT_HALO, True))
+
+
+def spatial_forwards(setup, group=None):
+    """This rank's output slab of ``spatial_sharded_apply`` of the model in
+    eval mode, for each of ``SPATIAL_FORWARDS``."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.parallel import (
+        spatial_sharded_apply,
+    )
+
+    model = setup.model().eval()
+    x, _ = setup.slabs(group)
+    out = {}
+    with torch.no_grad():
+        for name, halo, mode in SPATIAL_FORWARDS:
+            out[name] = spatial_sharded_apply(
+                model, x, group, halo=halo, shard_axis=SPATIAL_AXIS,
+                cross_shard_norm=mode)
+    torch.cuda.synchronize()
+    return out
+
+
+def spatial_steps(setup, group=None, halo=SPATIAL_HALO, sharded=True):
+    """``SPATIAL_STEPS`` steps of ``make_spatial_train_step`` (cross-shard
+    statistics, BCE with logits, the yml's Adam) on this rank's slab with
+    ``halo``, or with ``sharded`` False the same model and optimizer
+    stepping on the whole unpadded volume: per step the loss (the ranks'
+    mean), ms, the launches and, after step 1, the global grad norm; and
+    the peak memory (GiB)."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.parallel import (
+        make_spatial_train_step,
+    )
+    from mdeical_image_segmentation_tpu_torch.train.optimizers import (
+        create_optimizer,
+    )
+
+    model = setup.model().train()
+    optimizer = create_optimizer(setup.cfg["optimizer"], model.parameters())
+    if sharded:
+        step = make_spatial_train_step(
+            model, _bce, optimizer, group, halo=halo,
+            shard_axis=SPATIAL_AXIS, cross_shard_norm=True, seed=setup.seed)
+        x, y = setup.slabs(group)
+    else:
+        x, y = setup.slabs()
+
+        def step(x, y):
+            optimizer.zero_grad(set_to_none=True)
+            loss = _bce(model(x), y)
+            loss.backward()
+            optimizer.step()
+            return loss.detach()
+    rec = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(SPATIAL_STEPS):
+        before, t0 = _counts(), time.perf_counter()
+        loss = float(step(x, y))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = _counts()
+        norm = None
+        if i == 0:
+            norm = torch.sqrt(sum(p.grad.double().square().sum()
+                                  for p in model.parameters()
+                                  if p.grad is not None)).item()
+        rec.append({"loss": loss, "ms": ms, "grad_norm": norm,
+                    "launches": {k: after[k] - before[k] for k in after}})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, optimizer, x, y
+    torch.cuda.empty_cache()
+    return rec, peak
+
+
+def spatial_train3d(setup, run_dir):
+    """``cli/train3d.py`` on configs/unet3d_train.yml with the ``parallel:``
+    keys (halo 16, H, cross-shard statistics) given as overrides, the
+    yml's loss, transforms and optimizer, each volume of
+    ``SPATIAL_TRAIN_VOLUME`` one patch: 3 steps and a validation at step
+    3.  Per-step records, the launches of the run and the files it
+    wrote."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.cli import train3d
+    from mdeical_image_segmentation_tpu_torch.train import trainer3d
+
+    patch = repr(list(SPATIAL_TRAIN_VOLUME))
+    argv = ["--config", TRAIN_YML,
+            "--loaders.train.file_paths", repr([setup.train_h5]),
+            "--loaders.val.file_paths", repr([setup.val_h5]),
+            "--loaders.train.slice_builder.patch_shape", patch,
+            "--loaders.train.slice_builder.stride_shape", patch,
+            "--loaders.val.slice_builder.patch_shape", patch,
+            "--loaders.val.slice_builder.stride_shape", patch,
+            "--trainer.checkpoint_dir", run_dir,
+            "--trainer.max_num_iterations", str(SPATIAL_STEPS - 1),
+            "--trainer.validate_after_iters", str(SPATIAL_STEPS),
+            "--trainer.log_after_iters", "1",
+            "--parallel.spatial_halo", str(SPATIAL_HALO),
+            "--parallel.spatial_shard_axis", str(SPATIAL_AXIS),
+            "--parallel.spatial_cross_shard_norm", "true"]
+    rec, made = [], []
+    create = trainer3d.create_trainer
+
+    def instrumented(config):
+        t = create(config)
+        _instrument(t, rec)
+        made.append(t)
+        return t
+
+    trainer3d.create_trainer = instrumented
+    try:
+        torch.cuda.synchronize()
+        _zero_counts()
+        train3d.main(argv)
+        torch.cuda.synchronize()
+        launches = _counts()
+    finally:
+        trainer3d.create_trainer = create
+    t = made[0]
+    info = {"spatial": (t.spatial_halo, t.spatial_shard_axis,
+                        t.spatial_cross_shard_norm),
+            "ddp": t._ddp is not t.model,
+            "process_shard": getattr(t.loaders["train"], "process_shard",
+                                     None)}
+    files = ([] if not os.path.isdir(run_dir) else
+             sorted(os.path.relpath(os.path.join(d, f), run_dir)
+                    for d, _, fs in os.walk(run_dir) for f in fs))
+    del t, made
+    torch.cuda.empty_cache()
+    keep = ("loss", "ms", "launches")
+    return {"rec": [{k: r[k] for k in keep} for r in rec],
+            "launches": launches, "files": files, "info": info}
+
+
+def spatial_gloo_runs(seed: int, out: str, rank: int):
+    """(b)-(c) on one rank of the gloo world: the forward slabs (numpy),
+    the sharded steps at the covering halo and ``cli/train3d.py``."""
+    setup = SpatialSetup(seed, out)
+    fwd = {m: v.cpu().numpy() for m, v in spatial_forwards(setup).items()}
+    steps, peak = spatial_steps(setup, halo=SPATIAL_EXACT_HALO)
+    train = spatial_train3d(setup, os.path.join(out, f"train3d_rank{rank}"))
+    return {"forward": fwd, "steps": steps, "peak": peak, "train3d": train}
+
+
+def spatial_worker(rank: int, world: int, port: int, out: str) -> int:
+    """One rank of phase 24 (b)-(c): gloo over CUDA tensors on the one card
+    (NCCL refuses two ranks on one device); writes ``out/rank<rank>.pkl``."""
+    import pickle
+
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.parallel import distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"localhost:{port}", world, rank, backend="gloo")
+    try:
+        res = spatial_gloo_runs(SEED, out, rank)
+        with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _slab_gn_shapes(setup, padded_h: int):
+    """(shape, window) of every GroupNorm input of the model on a slab
+    padded to ``padded_h`` rows, the window its interior rows under
+    cross-shard statistics (one no-grad forward of zeros)."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.ops import norm
+
+    model = setup.model().eval()
+    shapes: set = set()
+    handles = _record_shapes(model, shapes)
+    d, _, w = SPATIAL_VOLUME
+    with torch.no_grad():
+        model(torch.zeros((1, d, padded_h, w, 1), device=DEVICE))
+    for h in handles:
+        h.remove()
+    del model
+    torch.cuda.empty_cache()
+    out = []
+    with norm.cross_shard_group_stats(None, SPATIAL_AXIS, SPATIAL_HALO,
+                                      padded_h):
+        for shape in sorted(s[1] for s in shapes if s[0] == "stats"):
+            site = norm.cross_shard_site(torch.empty(shape, device="meta"))
+            out.append((shape, site.window))
+    return out
+
+
+def phase_spatial_kernels(seed: int, setup):
+    """(a) kernels 3a and 3d with the interior window at every GroupNorm
+    input of the 2-rank step's slab, fp32 and bf16, against their windowed
+    plain versions (phase 6's and phase 7's limits), 3a the same bits on
+    two calls; the event window and device time of the windowed and the
+    whole-slab launch, the plain version's, ``torch.var_mean`` of the
+    window's view for 3a, and the bound (the bytes of the rows each reads
+    and writes)."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.ops import norm
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    slab_h = SPATIAL_VOLUME[1] // SPATIAL_WORLD + 2 * SPATIAL_HALO
+    cases = _slab_gn_shapes(setup, slab_h)
+    sums: dict = {}
+    errs = {"gn_stats": 0.0, "gn_bwd_dx": 0.0}
+    log(f"[phase 24] (a) kernels 3a and 3d windowed at the "
+        f"{len(cases)} GroupNorm inputs of a 2-rank slab (1x80x{slab_h}x170 "
+        f"at the input): shape, window, max err, ms window / whole / plain "
+        f"/ library, device windowed / whole, bound")
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, window in cases:
+            n, c = shape[0], shape[-1]
+            axis, lo, hi = window
+            rows = 1
+            for a, e in enumerate(shape[1:-1], start=1):
+                rows *= (hi - lo) if a == axis else e
+            x = _rand(gen, shape, dtype, 2.0, 1.0)
+            g = _rand(gen, shape, dtype)
+            item = x.element_size()
+            sums_w = norm.gn_channel_sums(x, window)
+            _same_bits(f"gn_stats window {shape} {dtype}", sums_w,
+                       norm.gn_channel_sums(x, window))
+            got = norm.group_stats(*sums_w, c, rows, 1e-5)
+            want = norm.group_stats(*norm.gn_channel_sums_reference(
+                x, window), c, rows, 1e-5)
+            err = max(_compare(f"gn_stats window {shape} {what}", a_, b_,
+                               GN_TOL)
+                      for what, a_, b_ in zip(("mean", "inv"), got, want))
+            errs["gn_stats"] = max(errs["gn_stats"], err)
+            spatial = tuple(range(1, x.ndim - 1))
+            fn = lambda: norm.gn_channel_sums(x, window)
+            full = lambda: norm.gn_channel_sums(x)
+            k_ms, f_ms, p_ms, l_ms = _time_turns(
+                fn, full, lambda: norm.gn_channel_sums_reference(x, window),
+                lambda: torch.var_mean(x.narrow(axis, lo, hi - lo),
+                                       dim=spatial, correction=0))
+            k_dev, f_dev = _device_ms(fn, 2), _device_ms(full, 2)
+            work = _elementwise(n * rows * c, 3, n * rows * c * item
+                                + 8 * n * c)
+            bound = _bound_ms(*work)[0]
+            _add_sums(sums, ("gn_stats", dtype), window=k_ms, whole=f_ms,
+                      plain=p_ms, library=l_ms, device=k_dev,
+                      whole_device=f_dev, bound=bound)
+            log(f"  3a {str(dtype)[6:]:8s} {str(shape):24s} {window} "
+                f"{err:.2e} {k_ms:.4f} / {f_ms:.4f} / {p_ms:.4f} / "
+                f"{l_ms:.4f} ms, device {_ms(k_dev)} / {_ms(f_dev)}, bound "
+                f"{bound:.4f}")
+            a, cc, dd = (torch.randn((n, c), device=DEVICE, generator=gen)
+                         for _ in range(3))
+            err = _compare(f"gn_bwd_dx window {shape}",
+                           norm.gn_bwd_dx(x, g, a, cc, dd, window),
+                           norm.gn_bwd_dx_reference(x, g, a, cc, dd, window),
+                           BF16_TOL if dtype == torch.bfloat16
+                           else AFFINE_FP32_TOL)
+            errs["gn_bwd_dx"] = max(errs["gn_bwd_dx"], err)
+            fn = lambda: norm.gn_bwd_dx(x, g, a, cc, dd, window)
+            full = lambda: norm.gn_bwd_dx(x, g, a, cc, dd)
+            k_ms, f_ms, p_ms = _time_turns(
+                fn, full,
+                lambda: norm.gn_bwd_dx_reference(x, g, a, cc, dd, window))
+            k_dev, f_dev = _device_ms(fn), _device_ms(full)
+            # g read and dx written on every row, x read on the interior
+            work = _elementwise(x.numel(), 4, (2 * x.numel() + n * rows * c)
+                                * item + 12 * n * c)
+            bound = _bound_ms(*work)[0]
+            _add_sums(sums, ("gn_bwd_dx", dtype), window=k_ms, whole=f_ms,
+                      plain=p_ms, device=k_dev, whole_device=f_dev,
+                      bound=bound)
+            log(f"  3d {str(dtype)[6:]:8s} {str(shape):24s} {window} "
+                f"{err:.2e} {k_ms:.4f} / {f_ms:.4f} / {p_ms:.4f} ms, device "
+                f"{_ms(k_dev)} / {_ms(f_dev)}, bound {bound:.4f}")
+            del x, g
+            torch.cuda.empty_cache()
+    out = {}
+    for (kernel, dtype), t in sums.items():
+        log(f"[phase 24] {kernel} windowed over the {t['n']:.0f} slab "
+            f"shapes, {str(dtype)[6:]}: event window {t['window']:.4f} ms "
+            f"(whole slab {t['whole']:.4f}), device {_ms(t['device'])} "
+            f"(whole slab {_ms(t['whole_device'])}), plain {t['plain']:.4f}"
+            + (f", torch.var_mean {t['library']:.4f}" if "library" in t
+               else "") + f"; bound {t['bound']:.4f} ms (share: window "
+            f"{_share(t['bound'], t['window'])}, device "
+            f"{_share(t['bound'], t['device'])})")
+        out.setdefault(kernel, {})[str(dtype)[6:]] = {
+            "shapes": int(t["n"]), "max_abs_err": errs[kernel],
+            "ms": t["window"], "plain_ms": t["plain"],
+            "library_ms": t.get("library"),
+            "device_ms": None if math.isnan(t["device"]) else t["device"],
+            "whole_slab_ms": t["whole"],
+            "whole_slab_device_ms": (None if math.isnan(t["whole_device"])
+                                     else t["whole_device"]),
+            "bound_ms": t["bound"], "bound_by": "bytes"}
+    return out
+
+
+def _windowed_in_trace(fn) -> dict:
+    """{3a, 3d: whether a windowed instantiation ran} in a profiler trace
+    of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    return {k: any(p.search(n) for n in names)
+            for k, p in SPATIAL_WINDOWED.items()}
+
+
+def phase_spatial(seed: int, workdir: str, phase9_step_ms: float):
+    """(a) the windowed kernels; (b) ``spatial_sharded_apply`` of the
+    UNet3D at full width on one 1x80x176x170 volume, halo 16, per-slab and
+    cross-shard, in a world of 1 over NCCL and in two ranks over gloo on
+    the card; (c) ``make_spatial_train_step`` (cross-shard, BCE) for 3
+    steps and ``cli/train3d.py`` with the ``parallel:`` keys for 3 steps,
+    in both worlds; (d) launches a step a rank.  Returns the numbers to
+    print and the launches of each path."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.parallel import (
+        distributed,
+        halo_exchange,
+        make_spatial_train_step,
+        spatial_sharded_apply,
+    )
+
+    res = {"launches": {}}
+    setup = SpatialSetup(seed, os.path.join(workdir, "spatial"))
+    setup.write_volumes()
+    res["window"] = phase_spatial_kernels(seed, setup)
+    convs = 2 * (2 * setup.model_cfg["num_levels"] - 1)
+    want = {"gcr_conv3d": convs, "gn_stats": convs, "gn_affine": convs,
+            "gn_bwd_reduce": convs, "gn_bwd_dx": convs - 1, "overlap_add": 0}
+
+    def check_steps(label, rec):
+        for i, r in enumerate(rec):
+            if r["launches"] != want or not np.isfinite(r["loss"]):
+                raise AssertionError(f"{label} step {i + 1}: {r}, want "
+                                     f"launches {want} and a finite loss")
+
+    # (b) and (c) in a world of 1 over NCCL
+    distributed.initialize(f"localhost:{_free_port()}", 1, 0)
+    try:
+        log(f"[phase 24] (b) spatial_sharded_apply, world of 1 over NCCL: "
+            f"UNet3D of the train yml at full width, 1x{SPATIAL_VOLUME}, "
+            f"halo {SPATIAL_HALO} on H (pads to "
+            f"{SPATIAL_VOLUME[1] + 2 * SPATIAL_HALO} rows)")
+        one = spatial_forwards(setup)
+        model = setup.model().eval()
+        x, _ = setup.slabs()
+        with torch.no_grad():
+            padded = model(halo_exchange(x, SPATIAL_HALO, SPATIAL_AXIS))
+            mono = padded[:, :, SPATIAL_HALO:-SPATIAL_HALO]
+            with plain_path():
+                plain = spatial_sharded_apply(
+                    model, x, halo=SPATIAL_HALO, shard_axis=SPATIAL_AXIS,
+                    cross_shard_norm=True)
+        for label, got, ref in (
+                ("per-slab world of 1 vs the reflect-padded forward",
+                 one["per_slab"], mono),
+                ("cross-shard world of 1, kernels vs plain versions",
+                 one["cross_shard"], plain)):
+            err = (got - ref).abs().max().item()
+            scale = max(1.0, ref.abs().max().item())
+            log(f"  {label}: max |diff| {err:.3e} (limit {UNET3D_MAP_TOL} x "
+                f"{scale:.3f})")
+            if not torch.isfinite(got).all() or err > UNET3D_MAP_TOL * scale:
+                raise AssertionError(f"(b) {label}: {err:.3e}")
+        del model, x, padded, mono, plain
+        one = {m: v.cpu().numpy() for m, v in one.items()}
+        torch.cuda.empty_cache()
+
+        log(f"[phase 24] (c) make_spatial_train_step, cross-shard, BCE with "
+            f"logits, the yml's Adam, {SPATIAL_STEPS} steps, world of 1, "
+            f"halo {SPATIAL_HALO} and {SPATIAL_EXACT_HALO}; the same model "
+            "stepping on the unpadded volume")
+        steps1, peak1 = spatial_steps(setup)
+        check_steps("(c) world of 1", steps1)
+        exact1, _ = spatial_steps(setup, halo=SPATIAL_EXACT_HALO)
+        check_steps(f"(c) world of 1, halo {SPATIAL_EXACT_HALO}", exact1)
+        plain1, plain_peak = spatial_steps(setup, sharded=False)
+        ms1 = statistics.median(r["ms"] for r in steps1[1:])
+        msu = statistics.median(r["ms"] for r in plain1[1:])
+        losses = ", ".join(f"{r['loss']:.6f}" for r in steps1)
+        log(f"  spatial step median {ms1:.1f} ms (steps 2-3; peak "
+            f"{peak1:.2f} GiB), unsharded {msu:.1f} ms (peak "
+            f"{plain_peak:.2f} GiB), phase 9's step {phase9_step_ms:.1f} ms; "
+            f"losses {losses}; launches a step {steps1[0]['launches']}")
+        res.update(step_ms_w1=ms1, unsharded_step_ms=msu, peak_gib_w1=peak1,
+                   phase9_step_ms=phase9_step_ms)
+        res["launches"]["spatial_step_w1"] = {
+            k: _counts_from(steps1)[k] + _counts_from(exact1)[k]
+            for k in KERNELS_3D}
+        # the windowed instantiations ran in a step
+        model = setup.model().train()
+        opt = torch.optim.SGD(model.parameters(), lr=0.0)
+        step = make_spatial_train_step(
+            model, _bce, opt, halo=SPATIAL_HALO, shard_axis=SPATIAL_AXIS,
+            cross_shard_norm=True)
+        xs, ys = setup.slabs()
+        found = _windowed_in_trace(lambda: step(xs, ys))
+        log(f"  windowed 3a / 3d instantiations in a traced step: {found}")
+        if not all(found.values()):
+            raise AssertionError(f"(d) windowed kernels missing: {found}")
+        del model, opt, step, xs, ys
+        torch.cuda.empty_cache()
+
+        log(f"[phase 24] (c) cli/train3d.py with --parallel.spatial_halo "
+            f"{SPATIAL_HALO} (cross-shard), world of 1: {SPATIAL_STEPS} "
+            "steps, a validation")
+        train1 = spatial_train3d(setup, os.path.join(setup.workdir,
+                                                     "train3d_w1"))
+        check_steps("(c) train3d world of 1", train1["rec"])
+        losses = ", ".join(f"{r['loss']:.6f}" for r in train1["rec"])
+        log(f"  losses {losses}; launches {train1['launches']}; "
+            f"{train1['info']}")
+        res["launches"]["spatial_train3d_w1"] = train1["launches"]
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b) and (c) in two ranks over gloo on the one card
+    log(f"[phase 24] (b)-(c) {SPATIAL_WORLD} processes on the card over gloo "
+        "(halos staged through the host), each with its slab")
+    t0 = time.perf_counter()
+    ranks = _dp_ranks(setup.workdir, SPATIAL_WORLD, "--spatial-worker",
+                      SPATIAL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    res["forward_gap"] = {}
+    for name, halo, _ in SPATIAL_FORWARDS:
+        joined = np.concatenate([r["forward"][name] for r in ranks],
+                                axis=SPATIAL_AXIS)
+        gap = np.abs(joined - one[name])
+        scale = max(1.0, float(np.abs(one[name]).max()))
+        # the rows within 48 of the slabs' shared edge, and the rest
+        by_row = gap.max(axis=(0, 1, 3, 4))
+        edge = SPATIAL_VOLUME[1] // SPATIAL_WORLD
+        near = np.zeros(by_row.shape, bool)
+        near[max(0, edge - 48):edge + 48] = True
+        limit = (f"limit {UNET3D_MAP_TOL} x {scale:.3f}"
+                 if name == "cross_shard_exact" else "printed")
+        log(f"  {name}, halo {halo}: 2 ranks vs the world of 1, max |diff| "
+            f"{gap.max():.3e} ({limit}), mean {gap.mean():.3e}; within 48 "
+            f"rows of the slabs' edge {by_row[near].max():.3e}, farther "
+            f"{by_row[~near].max():.3e}")
+        if not np.isfinite(joined).all():
+            raise AssertionError(f"(b) {name}: non-finite output")
+        if name == "cross_shard_exact" and gap.max() > UNET3D_MAP_TOL * scale:
+            raise AssertionError(f"(b) {name} 2 ranks vs 1: {gap.max():.3e}")
+        res["forward_gap"][name] = {"max": float(gap.max()),
+                                    "mean": float(gap.mean())}
+    for rank, r in enumerate(ranks):
+        check_steps(f"(c) rank {rank}", r["steps"])
+        check_steps(f"(c) train3d rank {rank}", r["train3d"]["rec"])
+    _dp_gaps(f"(c) 2 ranks vs the world of 1, halo {SPATIAL_EXACT_HALO}, "
+             "the ranks' mean loss", ranks[0]["steps"], exact1)
+    if any([s["loss"] for s in r["steps"]] != [s["loss"] for s in
+                                                ranks[0]["steps"]]
+           for r in ranks):
+        raise AssertionError("(c) the ranks' mean losses differ by rank")
+    losses = [[s["loss"] for s in r["train3d"]["rec"]] for r in ranks]
+    log(f"  train3d: losses by rank {losses}; files rank 0 "
+        f"{ranks[0]['train3d']['files']}, rank 1 "
+        f"{ranks[1]['train3d']['files']}; {ranks[0]['train3d']['info']}")
+    if losses[0] != losses[1] or not np.isfinite(losses).all():
+        raise AssertionError(f"(c) train3d losses by rank {losses}")
+    if ("last_checkpoint.msgpack" not in ranks[0]["train3d"]["files"]
+            or ranks[1]["train3d"]["files"]):
+        raise AssertionError("(c) only rank 0 writes checkpoints and logs")
+    info = ranks[0]["train3d"]["info"]
+    if (info["spatial"] != (SPATIAL_HALO, SPATIAL_AXIS, True) or info["ddp"]
+            or info["process_shard"] is not None):
+        raise AssertionError(f"(c) the trainer's spatial mode: {info}")
+    ms2 = [statistics.median(s["ms"] for s in r["steps"][1:]) for r in ranks]
+    ms2_16 = [statistics.median(s["ms"] for s in r["train3d"]["rec"][1:])
+              for r in ranks]
+    ms1_48 = statistics.median(r["ms"] for r in exact1[1:])
+    peaks = ", ".join(f"{r['peak']:.2f}" for r in ranks)
+    log(f"  ranks' step medians, halo {SPATIAL_EXACT_HALO}: "
+        f"{', '.join(f'{v:.1f}' for v in ms2)} ms (world of 1 "
+        f"{ms1_48:.1f} ms); train3d at halo {SPATIAL_HALO} (steps 2-3, the "
+        f"loader inside): {', '.join(f'{v:.1f}' for v in ms2_16)} ms (two "
+        f"processes sharing the card, gloo through the host), peaks {peaks} "
+        f"GiB; both ranks in {wall:.1f} s")
+    res.update(gloo_step_ms_exact=ms2, step_ms_w1_exact=ms1_48,
+               gloo_train3d_step_ms=ms2_16)
+    res["launches"]["spatial_step_gloo"] = {
+        k: sum(_counts_from(r["steps"])[k] for r in ranks)
+        for k in KERNELS_3D}
+    res["launches"]["spatial_train3d_gloo"] = {
+        k: sum(r["train3d"]["launches"][k] for r in ranks)
+        for k in KERNELS_3D}
+    log(f"[phase 24] (d) launches a step a rank {want}, asserted on every "
+        f"step of every path; path totals {res['launches']}")
+    return res
+
+
 def _counts_from(rec):
     """The launches of a run's steps, summed."""
     return {k: sum(r["launches"][k] for r in rec) for k in KERNELS_3D}
@@ -6502,12 +7128,15 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phase", type=int, choices=(18, 19, 20, 21, 23),
-                        default=None,
+    parser.add_argument("--phase", type=int,
+                        choices=(18, 19, 20, 21, 23, 24), default=None,
                         help="run the kernel build and this phase alone "
                         "(21: with phases 13 and 14, which it reads)")
-    # one rank of phase 23 (b), started by phase 23 itself
+    # one rank of phase 23 (b) or of phase 24 (b)-(c), started by the
+    # phase itself
     parser.add_argument("--dp-worker", nargs=4, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--spatial-worker", nargs=4, default=None,
                         help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -6517,6 +7146,9 @@ def main(argv=None) -> int:
     if args.dp_worker:
         rank, world, dp_port, out = args.dp_worker
         return dp_worker(int(rank), int(world), int(dp_port), out)
+    if args.spatial_worker:
+        rank, world, sp_port, out = args.spatial_worker
+        return spatial_worker(int(rank), int(world), int(sp_port), out)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -6593,6 +7225,29 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         log(f"data parallel (phase 23, {smi}): {json.dumps(dp)}")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
+    if args.phase == 24:
+        from mdeical_image_segmentation_tpu_torch.ops import _build
+
+        _build.load()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build_dir = os.path.join(ROOT, "build")
+        os.makedirs(build_dir, exist_ok=True)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_24_", dir=build_dir)
+        try:
+            t_phase = time.time()
+            spatial = phase_spatial(SEED, workdir, float("nan"))
+            log(f"[phase 24] ok; wall {time.time() - t_phase:.1f} s")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"spatial (phase 24, {smi}): {json.dumps(spatial)}")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
@@ -6749,6 +7404,13 @@ def main(argv=None) -> int:
             "tooling")
         dp = phase_data_parallel(SEED, workdir)
         log(f"[phase 23] ok; wall {time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 24] spatially sharded training: windowed kernels 3a and "
+            "3d, spatial_sharded_apply and make_spatial_train_step in a "
+            "world of 1 over NCCL and two ranks over gloo, train3d with the "
+            "parallel: keys")
+        spatial = phase_spatial(SEED, workdir, step_ms)
+        log(f"[phase 24] ok; wall {time.time() - t_phase:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if train2d["launches"] == 0:
@@ -6773,6 +7435,7 @@ def main(argv=None) -> int:
         **int8["counts"],
         **rest["launches"],
         **{k: v for k, v in dp["launches"].items() if k != "dp_2d_ddp"},
+        **spatial["launches"],
     }
     runs = (unet3d_launches, res_launches, serve3d_launches, train_launches,
             res_train_launches, cfg_train["launches"],
@@ -6822,6 +7485,7 @@ def main(argv=None) -> int:
     log(f"pipeline rest (phase 21, {smi}): {json.dumps(rest)}")
     dp_2d = dp["launches"]["dp_2d_ddp"]
     log(f"data parallel (phase 23, {smi}): {json.dumps(dp)}")
+    log(f"spatial (phase 24, {smi}): {json.dumps(spatial)}")
     kernels = [{
         "name": "double_conv2d",
         "route": "cuda",
@@ -6864,6 +7528,9 @@ def main(argv=None) -> int:
         "device_ms": (None if k3d[k]["device_ms"] is None
                       or math.isnan(k3d[k]["device_ms"])
                       else k3d[k]["device_ms"]),
+        # 3a and 3d with the interior window at phase 24's slab shapes
+        **({"window": spatial["window"][k]} if k in spatial["window"]
+           else {}),
     } for k in KERNELS_3D]
     k2 = bf16["k2"]
     bf16_k2_launches = (bf16["by_dtype"]["gcr_conv3d"]["bfloat16"]

@@ -58,6 +58,18 @@
 // for bit.
 // All offsets into the full-size tensors are 64-bit (a decoder input of the
 // 3D UNet at batch 4 holds 4.7e9 elements).
+// Row windows (the cross-shard GroupNorm of spatial sharding,
+// ops/norm.py::cross_shard_group_stats).  x is (N, outer, extent, inner, C)
+// around one spatial axis of `extent` rows, and [lo, hi) is the slab's
+// interior along it.  tpuseg_gn_stats then sums only the interior rows, and
+// tpuseg_gn_bwd_dx writes g * A + x * C + D there and g * A on the rest.
+// The window is walked in place: the statistics walk runs over the units of
+// the interior as one flat range and maps each to its address (a 32-bit
+// divide by the window's units a run), so no copy of the interior is made
+// and no halo sums are subtracted from whole-slab sums (which would lose
+// the precision of sum x^2); the dx kernel tests each row's place along the
+// axis.  The full window (lo = 0, hi = extent) launches the instantiation
+// without a window, the same kernel and grid as before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,6 +135,32 @@ struct Vec16<__nv_bfloat16> {
 
 constexpr int UNROLL = 4;  // independent 16-byte loads in flight per thread
 
+// The units a windowed statistics walk covers: the sample's units are
+// `outer` runs of `ext` units, and units [lo, lo + win) of each run are
+// walked, as one flat range of outer * win units.  All below 2^31 (the
+// launcher refuses more).
+struct UnitWindow {
+  uint32_t win, ext, lo;
+};
+
+template <bool WIN>
+__device__ __forceinline__ int64_t unit_at(int64_t i, const UnitWindow& w) {
+  if constexpr (!WIN) {
+    return i;
+  } else {
+    const uint32_t u = (uint32_t)i;
+    const uint32_t run = u / w.win;
+    return (int64_t)run * w.ext + w.lo + (u - run * w.win);
+  }
+}
+
+// The interior rows of a windowed dx launch: row r of a sample is interior
+// when lo <= r % plane < hi (plane = extent * inner rows, lo and hi scaled
+// by inner).  Below 2^31 rows (the launcher refuses more).
+struct RowWindow {
+  uint32_t plane, lo, hi;
+};
+
 // The reductions' grid (see reduce_blocks): at most REDUCE_WAVES waves of
 // resident blocks, about REDUCE_STEPS walk steps per thread, and no fp32
 // accumulator adding more than MAX_TERMS terms in sequence.
@@ -152,12 +190,13 @@ __host__ __device__ __forceinline__ int reduce_lanes(int mode, int C, int V) {
 // slot k of the sums is channel (c0 + k) % C.
 // BWD = false: s1 += x, s2 += x * x.
 // BWD = true:  s1 += g, s2 += g * (x - mean) * inv.
-template <typename T, bool BWD, int W>
+// WIN: unit i of the walk is unit unit_at(i, w) of the sample.
+template <typename T, bool BWD, bool WIN, int W>
 __device__ __forceinline__ void partial_walk(
     const T* __restrict__ x, const T* __restrict__ g,
     const float* __restrict__ mean, const float* __restrict__ inv,
-    int64_t units, int C, int c0, int64_t t, int64_t stride, float* s1,
-    float* s2) {
+    int64_t units, int C, int c0, int64_t t, int64_t stride,
+    const UnitWindow& w, float* s1, float* s2) {
   float m[W], v[W];
   if constexpr (BWD) {
 #pragma unroll
@@ -173,8 +212,9 @@ __device__ __forceinline__ void partial_walk(
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         if (i + u * stride < units) {
-          xr[u] = __ldg(x + i + u * stride);
-          if constexpr (BWD) gr[u] = __ldg(g + i + u * stride);
+          const int64_t a = unit_at<WIN>(i + u * stride, w);
+          xr[u] = __ldg(x + a);
+          if constexpr (BWD) gr[u] = __ldg(g + a);
         }
       }
 #pragma unroll
@@ -198,8 +238,9 @@ __device__ __forceinline__ void partial_walk(
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         if (i + u * stride < units) {
-          xr[u] = __ldg(xv + i + u * stride);
-          if constexpr (BWD) gr[u] = __ldg(gv + i + u * stride);
+          const int64_t a = unit_at<WIN>(i + u * stride, w);
+          xr[u] = __ldg(xv + a);
+          if constexpr (BWD) gr[u] = __ldg(gv + a);
         }
       }
 #pragma unroll
@@ -231,12 +272,14 @@ __device__ __forceinline__ void partial_walk(
 
 // Pass 1: grid (G, N).  partial layout: [2][N][C][G] (s1 then s2); every
 // block writes all C of its partials (0 for a channel none of its threads
-// walked).
-template <typename T, bool BWD>
+// walked).  The walk covers `units` units of each sample of S rows: all of
+// them, or with WIN the window w's.
+template <typename T, bool BWD, bool WIN>
 __global__ void __launch_bounds__(NT) gn_partial_kernel(
     const T* __restrict__ x, const T* __restrict__ g,
     const float* __restrict__ mean, const float* __restrict__ inv,
-    float* __restrict__ partial, int N, int64_t S, int C, int G, int mode) {
+    float* __restrict__ partial, int N, int64_t S, int C, int G, int mode,
+    int64_t units, UnitWindow w) {
   constexpr int V = Vec16<T>::V;
   __shared__ float sh1[V * NT];  // [slot k][thread]
   __shared__ float sh2[V * NT];
@@ -244,7 +287,6 @@ __global__ void __launch_bounds__(NT) gn_partial_kernel(
   const int tid = threadIdx.x;
   const int W = mode ? V : 1;
   const int lanes = reduce_lanes(mode, C, V);
-  const int64_t units = S * C / W;
   const int64_t stride = (int64_t)gridDim.x * NT / lanes * lanes;
   const int64_t t = (int64_t)blockIdx.x * NT + tid;
   float s1[V], s2[V];
@@ -257,11 +299,11 @@ __global__ void __launch_bounds__(NT) gn_partial_kernel(
     const float* ms = BWD ? mean + (int64_t)n * C : nullptr;
     const float* vs = BWD ? inv + (int64_t)n * C : nullptr;
     if (mode)
-      partial_walk<T, BWD, V>(x + sample, gs, ms, vs, units, C, c0, t,
-                              stride, s1, s2);
+      partial_walk<T, BWD, WIN, V>(x + sample, gs, ms, vs, units, C, c0, t,
+                                   stride, w, s1, s2);
     else
-      partial_walk<T, BWD, 1>(x + sample, gs, ms, vs, units, C, c0, t,
-                              stride, s1, s2);
+      partial_walk<T, BWD, WIN, 1>(x + sample, gs, ms, vs, units, C, c0, t,
+                                   stride, w, s1, s2);
   }
 #pragma unroll
   for (int k = 0; k < V; ++k) {
@@ -455,13 +497,13 @@ int launch_affine(const void* x, const float* a, const float* b, void* y,
   return (int)cudaGetLastError();
 }
 
-// grid (G, N)
-template <typename T>
+// grid (G, N).  WIN: rows outside the window rw get g * A alone.
+template <typename T, bool WIN>
 __global__ void __launch_bounds__(NT) gn_bwd_dx_kernel(
     const T* __restrict__ x, const T* __restrict__ g,
     const float* __restrict__ A, const float* __restrict__ Cc,
     const float* __restrict__ D, T* __restrict__ dx, int64_t S, int C,
-    int G) {
+    int G, RowWindow rw) {
   const int blk = blockIdx.x;
   const int n = blockIdx.y;
   const int CL = C < NT ? C : NT;
@@ -480,6 +522,13 @@ __global__ void __launch_bounds__(NT) gn_bwd_dx_kernel(
     const float dv = D[(int64_t)n * C + c];
     for (int64_t r = r0 + lane_r; r < r1; r += RL) {
       const int64_t i = base + r * C + c;
+      if constexpr (WIN) {
+        const uint32_t p = (uint32_t)r % rw.plane;
+        if (p < rw.lo || p >= rw.hi) {
+          dx[i] = from_f<T>(__fmul_rn(to_f(g[i]), av));
+          continue;
+        }
+      }
       const float t = __fadd_rn(__fmul_rn(to_f(g[i]), av),
                                 __fmul_rn(to_f(x[i]), cv));
       dx[i] = from_f<T>(__fadd_rn(t, dv));
@@ -515,7 +564,7 @@ int reduce_blocks(int N, long long units, int lanes, int device) {
     if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device) !=
             cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &occ, gn_partial_kernel<T, BWD>, NT, 0) != cudaSuccess)
+            &occ, gn_partial_kernel<T, BWD, false>, NT, 0) != cudaSuccess)
       return -1;
     per_sm[device] = occ > 0 ? occ : 1;
     sms[device] = v;
@@ -555,23 +604,73 @@ int blocks_for(bool aligned, int N, long long S, int C, int device) {
                                reduce_lanes(mode, C, V), device);
 }
 
-// Both passes of a reduction on stream s.
+// A window of rows [lo, hi) along one spatial axis of x seen as
+// (N, outer, extent, inner, C); the full window is lo = 0, hi = extent.
+struct Window {
+  long long outer, extent, inner, lo, hi;
+  bool full() const { return lo == 0 && hi == extent; }
+  bool bad() const {
+    return outer <= 0 || extent <= 0 || inner <= 0 || lo < 0 || hi > extent ||
+           lo >= hi;
+  }
+  long long rows() const { return outer * (hi - lo) * inner; }
+};
+
+// Both passes of a reduction on stream s, over the rows of window w (all of
+// them for the full window).  A window's units must tile its runs: vectors
+// only where inner * C values fill whole 16-byte vectors.
 template <typename T, bool BWD>
 int launch_reduce(const void* x, const void* g, const float* mean,
                   const float* inv, void* partial, void* s1, void* s2, int N,
-                  long long S, int C, int G, cudaStream_t s) {
+                  const Window& w, int C, int G, cudaStream_t s) {
   constexpr int V = Vec16<T>::V;
-  const int mode = reduce_mode(aligned16(x, g), S, C, V);
-  if (!reduce_grid_ok(S * C / (mode ? V : 1), reduce_lanes(mode, C, V), G))
+  const long long S = w.outer * w.extent * w.inner;
+  const long long row_bytes = w.inner * C * (long long)sizeof(T);
+  const bool aligned = aligned16(x, g) && (w.full() || row_bytes % 16 == 0);
+  const int mode = reduce_mode(aligned, w.rows(), C, V);
+  const int W = mode ? V : 1;
+  const long long units = w.rows() * C / W;
+  if (!reduce_grid_ok(units, reduce_lanes(mode, C, V), G))
     return (int)cudaErrorInvalidValue;
   float* part = static_cast<float*>(partial);
-  gn_partial_kernel<T, BWD><<<dim3(G, N), NT, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), mean, inv, part, N,
-      S, C, G, mode);
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  if (w.full()) {
+    gn_partial_kernel<T, BWD, false><<<dim3(G, N), NT, 0, s>>>(
+        xt, gt, mean, inv, part, N, S, C, G, mode, units, UnitWindow{});
+  } else {
+    const long long run = w.inner * C / W;  // units of one row of the axis
+    if (S * C / W >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    const UnitWindow uw{(uint32_t)((w.hi - w.lo) * run),
+                        (uint32_t)(w.extent * run), (uint32_t)(w.lo * run)};
+    gn_partial_kernel<T, BWD, true><<<dim3(G, N), NT, 0, s>>>(
+        xt, gt, mean, inv, part, N, S, C, G, mode, units, uw);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   gn_stats_final_kernel<<<dim3(C, N), NT, 0, s>>>(
       part, static_cast<float*>(s1), static_cast<float*>(s2), N, C, G);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dx(const void* x, const void* g, const float* A, const float* Cc,
+              const float* D, void* dx, int N, const Window& w, int C, int G,
+              cudaStream_t s) {
+  const long long S = w.outer * w.extent * w.inner;
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  T* dxt = static_cast<T*>(dx);
+  if (w.full()) {
+    gn_bwd_dx_kernel<T, false><<<dim3(G, N), NT, 0, s>>>(
+        xt, gt, A, Cc, D, dxt, S, C, G, RowWindow{});
+  } else {
+    if (S >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    const RowWindow rw{(uint32_t)(w.extent * w.inner),
+                       (uint32_t)(w.lo * w.inner), (uint32_t)(w.hi * w.inner)};
+    gn_bwd_dx_kernel<T, true><<<dim3(G, N), NT, 0, s>>>(
+        xt, gt, A, Cc, D, dxt, S, C, G, rw);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -602,21 +701,29 @@ extern "C" int tpuseg_gn_reduce_blocks(int aligned, int bwd, int N,
 
 // dtype: 0 = float32, 1 = bfloat16.  partial is fp32 scratch of 2*N*C*G
 // floats, G from tpuseg_gn_reduce_blocks (a grid that leaves an accumulator
-// more than MAX_TERMS terms is refused).  Returns the CUDA error code of the
-// launches (0 on success); the kernels do not synchronise.
+// more than MAX_TERMS terms is refused).  x is (N, outer, extent, inner, C)
+// and the sums cover rows [lo, hi) of the extent axis (all of x for lo = 0,
+// hi = extent; G then asked for outer * (hi - lo) * inner rows, aligned only
+// where inner * C values fill whole 16-byte vectors).  Returns the CUDA
+// error code of the launches (0 on success); the kernels do not
+// synchronise.
 extern "C" int tpuseg_gn_stats(const void* x, void* partial, void* s1,
-                               void* s2, int N, long long S, int C, int G,
+                               void* s2, int N, long long outer,
+                               long long extent, long long inner,
+                               long long lo, long long hi, int C, int G,
                                int dtype, int device, void* stream) {
-  if (bad_args(N, S, C, G)) return (int)cudaErrorInvalidValue;
+  const Window w{outer, extent, inner, lo, hi};
+  if (w.bad() || bad_args(N, outer * extent * inner, C, G))
+    return (int)cudaErrorInvalidValue;
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_reduce<float, false>(x, nullptr, nullptr, nullptr, partial,
-                                       s1, s2, N, S, C, G, s);
+                                       s1, s2, N, w, C, G, s);
   if (dtype == 1)
     return launch_reduce<__nv_bfloat16, false>(x, nullptr, nullptr, nullptr,
-                                               partial, s1, s2, N, S, C, G, s);
+                                               partial, s1, s2, N, w, C, G, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -649,37 +756,36 @@ extern "C" int tpuseg_gn_bwd_reduce(const void* x, const void* g,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mean);
   const float* v = static_cast<const float*>(inv);
+  const Window w{1, S, 1, 0, S};
   if (dtype == 0)
-    return launch_reduce<float, true>(x, g, m, v, partial, c1, c2, N, S, C,
+    return launch_reduce<float, true>(x, g, m, v, partial, c1, c2, N, w, C,
                                       G, s);
   if (dtype == 1)
     return launch_reduce<__nv_bfloat16, true>(x, g, m, v, partial, c1, c2, N,
-                                              S, C, G, s);
+                                              w, C, G, s);
   return (int)cudaErrorInvalidValue;
 }
 
+// x (N, outer, extent, inner, C): C and D apply on rows [lo, hi) of the
+// extent axis, g * A alone on the rest (lo = 0, hi = extent: everywhere).
 extern "C" int tpuseg_gn_bwd_dx(const void* x, const void* g, const void* A,
                                 const void* Cc, const void* D, void* dx,
-                                int N, long long S, int C, int G, int dtype,
-                                int device, void* stream) {
-  if (bad_args(N, S, C, G)) return (int)cudaErrorInvalidValue;
+                                int N, long long outer, long long extent,
+                                long long inner, long long lo, long long hi,
+                                int C, int G, int dtype, int device,
+                                void* stream) {
+  const Window w{outer, extent, inner, lo, hi};
+  if (w.bad() || bad_args(N, outer * extent * inner, C, G))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(G, N);
   const float* af = static_cast<const float*>(A);
   const float* cf = static_cast<const float*>(Cc);
   const float* df = static_cast<const float*>(D);
   if (dtype == 0)
-    gn_bwd_dx_kernel<float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g), af, cf,
-        df, static_cast<float*>(dx), S, C, G);
-  else if (dtype == 1)
-    gn_bwd_dx_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(g), af, cf, df,
-        static_cast<__nv_bfloat16*>(dx), S, C, G);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_dx<float>(x, g, af, cf, df, dx, N, w, C, G, s);
+  if (dtype == 1)
+    return launch_dx<__nv_bfloat16>(x, g, af, cf, df, dx, N, w, C, G, s);
+  return (int)cudaErrorInvalidValue;
 }

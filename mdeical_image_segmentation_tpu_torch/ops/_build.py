@@ -121,14 +121,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         "tpuseg_double_conv2d_forward": [p] * 7 + [i] * 8 + [p],
         # aligned, bwd, N, S, C, dtype, device -> G of the two below
         "tpuseg_gn_reduce_blocks": [i, i, i, q, i, i, i],
-        # x, partial, s1, s2, N, S, C, G, dtype, device, stream
-        "tpuseg_gn_stats": [p] * 4 + [i, q, i, i, i, i, p],
+        # x, partial, s1, s2, N, outer, extent, inner, lo, hi, C, G, dtype,
+        # device, stream (rows [lo, hi) of the extent axis)
+        "tpuseg_gn_stats": [p] * 4 + [i] + [q] * 5 + [i, i, i, i, p],
         # x, a, b, y, N, S, C, dtype, device, stream (the grid from the card)
         "tpuseg_gn_affine": [p] * 4 + [i, q, i, i, i, p],
         # x, g, mean, inv, partial, c1, c2, N, S, C, G, dtype, device, stream
         "tpuseg_gn_bwd_reduce": [p] * 7 + [i, q, i, i, i, i, p],
-        # x, g, A, C, D, dx, N, S, C, G, dtype, device, stream
-        "tpuseg_gn_bwd_dx": [p] * 6 + [i, q, i, i, i, i, p],
+        # x, g, A, C, D, dx, N, outer, extent, inner, lo, hi, C, G, dtype,
+        # device, stream (C and D on rows [lo, hi) of the extent axis)
+        "tpuseg_gn_bwd_dx": [p] * 6 + [i] + [q] * 5 + [i, i, i, i, p],
         # x, w, a, b, y, N, D, H, W, Ci, Co, KD, pre_relu, post_relu, dtype,
         # device, stream
         "tpuseg_gcr_conv3d_forward": [p] * 5 + [i] * 11 + [p],

@@ -389,23 +389,32 @@ def _conv3d_backward(gy: torch.Tensor, x_aff: torch.Tensor,
     return dxa, dw
 
 
-def _gcr_forward(x, gn_scale, gn_bias, kernel, num_groups, eps):
+def _gcr_forward(x, gn_scale, gn_bias, kernel, num_groups, eps, site):
     """(y, mean_c, inv_c): the statistics kernel, the (N, C) coefficients,
-    the fused conv with the ReLU."""
-    mean_c, inv_c = norm.group_norm_stats(x, num_groups, eps)
+    the fused conv with the ReLU.  At a cross-shard ``site``
+    (``norm.cross_shard_group_stats``) the statistics are every rank's
+    interior rows' and kernel 2's prologue applies them to every row."""
+    mean_c, inv_c = norm.group_norm_stats(x, num_groups, eps, site)
     a, b = norm.gn_affine_coeffs(mean_c, inv_c, gn_scale, gn_bias)
     return fused_conv3d(x, kernel, a, b, post_relu=True), mean_c, inv_c
 
 
 class _GcrFusedConvFn(torch.autograd.Function):
-    """relu(conv3d(group_norm(x))) with the JAX package's custom VJP."""
+    """relu(conv3d(group_norm(x))) with the JAX package's custom VJP.
+
+    Under cross-shard statistics the JAX package lets its fused kernel stand
+    aside (``models/blocks3d.py``) and differentiates its jnp GroupNorm
+    through ``psum``; the port keeps kernel 2, fed the global a and b, and
+    takes the cross-shard GroupNorm backward (``norm.group_norm_backward``
+    at the site kept from the forward).  That ports what the block
+    computes, not the TPU lowering."""
 
     @staticmethod
-    def forward(ctx, x, gn_scale, gn_bias, kernel, num_groups, eps):
+    def forward(ctx, x, gn_scale, gn_bias, kernel, num_groups, eps, site):
         y, mean_c, inv_c = _gcr_forward(x, gn_scale, gn_bias, kernel,
-                                        num_groups, eps)
+                                        num_groups, eps, site)
         ctx.save_for_backward(x, mean_c, inv_c, gn_scale, gn_bias, kernel, y)
-        ctx.num_groups = num_groups
+        ctx.num_groups, ctx.site = num_groups, site
         return y
 
     @staticmethod
@@ -424,8 +433,9 @@ class _GcrFusedConvFn(torch.autograd.Function):
         dx = dscale = dbias = None
         if need_gn:
             dx, dscale, dbias = norm.group_norm_backward(
-                x, dxa, mean_c, inv_c, gn_scale, ctx.num_groups, need_x)
-        return dx, dscale, dbias, dw, None, None
+                x, dxa, mean_c, inv_c, gn_scale, ctx.num_groups, need_x,
+                ctx.site)
+        return dx, dscale, dbias, dw, None, None, None
 
 
 def gcr_fused_conv(x: torch.Tensor, gn_scale: torch.Tensor,
@@ -436,8 +446,12 @@ def gcr_fused_conv(x: torch.Tensor, gn_scale: torch.Tensor,
     algebra, then :func:`fused_conv3d` (the normalized tensor is never
     stored).  Differentiable in x, the GroupNorm parameters and the kernel;
     a call that autograd need not record (an inference forward, an
-    export) runs the forward alone, the same calls in the same order."""
+    export) runs the forward alone, the same calls in the same order.
+    Inside ``norm.cross_shard_group_stats`` the statistics span the
+    ranks."""
+    site = norm.cross_shard_site(x)
     if _tracked(x, gn_scale, gn_bias, kernel):
         return _GcrFusedConvFn.apply(x, gn_scale, gn_bias, kernel,
-                                     num_groups, eps)
-    return _gcr_forward(x, gn_scale, gn_bias, kernel, num_groups, eps)[0]
+                                     num_groups, eps, site)
+    return _gcr_forward(x, gn_scale, gn_bias, kernel, num_groups, eps,
+                        site)[0]

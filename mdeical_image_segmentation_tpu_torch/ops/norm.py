@@ -32,16 +32,35 @@ directly.  Each keeps a ``.launches`` count, split by x's dtype in
 tensor that autograd would have to differentiate, a CUDA wrapper raises: the
 gradient runs through ``group_norm`` (``GroupNorm``) or
 ``fused_conv.gcr_fused_conv``.
+
+Cross-shard statistics (the JAX package's ``cross_shard_group_stats``, for
+spatial sharding, ``parallel/spatial.py``): inside
+``cross_shard_group_stats(group, shard_axis, halo, padded_extent)`` every
+GroupNorm sums its statistics over the ranks of ``group``, each slab
+contributing only the interior rows of its shard axis, so each row of the
+volume counts once and the result does not depend on how many ranks share
+it.  The JAX package writes this mode in plain jnp; the port keeps its
+kernels on it.  Forward: kernel 3a sums the interior rows alone (its
+``window``), one all-reduce adds the (N, C) sums over the ranks, and 3b
+(or kernel 2's prologue) applies the global coefficients to every row.
+Backward: 3c sums over every row (halo outputs reach the loss through the
+next convs), one all-reduce adds Σg and Σg·x̂ over the ranks, and 3d writes
+``g·A + x·C + D`` on the interior and ``g·A`` on the halo rows, which take
+no part in the statistics.  dscale and dbias stay this rank's: the step
+averages the gradients over the ranks.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from . import _build
@@ -51,8 +70,40 @@ _NT = 256              # threads per block of the dx kernel
 _DX_ROWS = 16          # rows per thread of the dx kernel
 
 
+# rows [lo, hi) along one spatial axis of x: (axis, lo, hi)
+Window = Tuple[int, int, int]
+
+
 def _spatial_dims(x: torch.Tensor) -> Tuple[int, ...]:
     return tuple(range(1, x.ndim - 1))
+
+
+def _window_dims(x: torch.Tensor, window: Optional[Window]
+                 ) -> Tuple[int, int, int, int, int]:
+    """(outer, extent, inner, lo, hi) of x (N, ..., C) seen as
+    (N, outer, extent, inner, C) around the window's axis; without a window
+    the whole of x, (1, S, 1, 0, S)."""
+    rows = math.prod(x.shape[1:-1])
+    if window is None:
+        return 1, rows, 1, 0, rows
+    axis, lo, hi = window
+    if not 1 <= axis <= x.ndim - 2:
+        raise ValueError(f"window axis {axis} is not a spatial axis of a "
+                         f"{x.ndim}-d x")
+    extent = x.shape[axis]
+    if not 0 <= lo < hi <= extent:
+        raise ValueError(f"window [{lo}, {hi}) is not within the "
+                         f"{extent} rows of axis {axis}")
+    return (math.prod(x.shape[1:axis]), extent,
+            math.prod(x.shape[axis + 1:-1]), lo, hi)
+
+
+def _narrow(t: torch.Tensor, window: Optional[Window]) -> torch.Tensor:
+    """The window's rows of t, a view (t itself without a window)."""
+    if window is None:
+        return t
+    axis, lo, hi = window
+    return t.narrow(axis, lo, hi - lo)
 
 
 def _grid(rows: int, c: int, rows_per_thread: int) -> int:
@@ -76,15 +127,21 @@ def _reduce_blocks(dev: int, dtype: int, bwd: bool, n: int, rows: int,
     return g
 
 
-def _reduce_scratch(x: torch.Tensor, g: Optional[torch.Tensor] = None
+def _reduce_scratch(x: torch.Tensor, g: Optional[torch.Tensor] = None,
+                    window: Optional[Window] = None
                     ) -> Tuple[torch.Tensor, int]:
-    """The fp32 scratch (2, N, C, G) of one reduction launch over x (and g)
-    and its G."""
+    """The fp32 scratch (2, N, C, G) of one reduction launch over x (and g),
+    or over the window's rows of x, and its G.  A window's walk takes
+    16-byte vectors only where a row of the axis (inner · C values) fills
+    whole ones, as the launcher decides."""
     n, c = x.shape[0], x.shape[-1]
+    outer, _, inner, lo, hi = _window_dims(x, window)
     ptrs = x.data_ptr() | (0 if g is None else g.data_ptr())
+    aligned = ptrs % 16 == 0 and (
+        window is None or inner * c * x.element_size() % 16 == 0)
     blocks = _reduce_blocks(x.get_device(), _DTYPE_CODES[x.dtype],
-                            g is not None, n, x.numel() // (n * c), c,
-                            ptrs % 16 == 0)
+                            g is not None, n, outer * (hi - lo) * inner, c,
+                            aligned)
     return (torch.empty((2, n, c, blocks), dtype=torch.float32,
                         device=x.device), blocks)
 
@@ -120,13 +177,16 @@ def _check_cuda(name: str, x: torch.Tensor, *coeffs: torch.Tensor,
             "Functions), or call it under torch.no_grad/inference_mode")
 
 
-def gn_channel_sums_reference(x: torch.Tensor
+def gn_channel_sums_reference(x: torch.Tensor,
+                              window: Optional[Window] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(Σx, Σx²) over the spatial dims, per (sample, channel), fp32 (N, C).
-    One sample at a time, so the fp32 temporaries stay a sample's size."""
+    """(Σx, Σx²) over the spatial dims, per (sample, channel), fp32 (N, C);
+    with a window, over its rows alone.  One sample at a time, so the fp32
+    temporaries stay a sample's size."""
+    _window_dims(x, window)  # checks the window
     dims = tuple(d - 1 for d in _spatial_dims(x))
     s1, s2 = [], []
-    for xn in x:
+    for xn in _narrow(x, window):
         xf = xn.float()
         s1.append(xf.sum(dims))
         s2.append(xf.square().sum(dims))
@@ -145,14 +205,19 @@ def _device_type(x: torch.Tensor, name: str) -> str:
     return x.device.type
 
 
-def gn_channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def gn_channel_sums(x: torch.Tensor, window: Optional[Window] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(sample, channel) fp32 Σx and Σx² of a channels-last x
-    (N, *spatial, C), float32 or bfloat16.  Runs the custom op
-    ``tpuseg::gn_channel_sums``."""
-    if _device_type(x, "gn_channel_sums") == "cpu" and _tracked(x):
-        return gn_channel_sums_reference(x)
+    (N, *spatial, C), float32 or bfloat16; with ``window`` (axis, lo, hi)
+    over rows [lo, hi) of that spatial axis alone, read in place.  Runs the
+    custom op ``tpuseg::gn_channel_sums`` (a window launches directly)."""
+    device = _device_type(x, "gn_channel_sums")
+    if device == "cpu" and (_tracked(x) or window is not None):
+        return gn_channel_sums_reference(x, window)
     if _tracked(x):
         _check_cuda("gn_channel_sums", x)  # raises: no backward
+    if window is not None:
+        return _launch_stats(x, window)
     s1, s2 = _channel_sums_op(x)
     return s1, s2
 
@@ -167,22 +232,29 @@ def _channel_sums_op(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return gn_channel_sums_reference(x)
 
 
-@_channel_sums_op.register_kernel("cuda")
-def _(x):
+def _launch_stats(x: torch.Tensor, window: Optional[Window] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 3a on a CUDA x, over the window's rows (all of x without
+    one)."""
     _check_cuda("gn_channel_sums", x)
     n, c = x.shape[0], x.shape[-1]
-    rows = x.numel() // (n * c)
-    partial, g = _reduce_scratch(x)
+    dims = _window_dims(x, window)
+    partial, g = _reduce_scratch(x, window=window)
     s1 = torch.empty((n, c), dtype=torch.float32, device=x.device)
     s2 = torch.empty_like(s1)
     dev = x.get_device()
     rc = _build.kernel("tpuseg_gn_stats")(
         x.data_ptr(), partial.data_ptr(), s1.data_ptr(), s2.data_ptr(), n,
-        rows, c, g, _DTYPE_CODES[x.dtype], dev, _build.current_stream(dev))
+        *dims, c, g, _DTYPE_CODES[x.dtype], dev, _build.current_stream(dev))
     _build.check(rc, "gn_stats launch")
     gn_channel_sums.launches += 1
     gn_channel_sums.launches_by_dtype[x.dtype] += 1
     return s1, s2
+
+
+@_channel_sums_op.register_kernel("cuda")
+def _(x):
+    return _launch_stats(x)
 
 
 @_channel_sums_op.register_fake
@@ -290,20 +362,29 @@ gn_bwd_reduce.launches_by_dtype = collections.Counter()
 
 
 def gn_bwd_dx_reference(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
-                        c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+                        c: torch.Tensor, d: torch.Tensor,
+                        window: Optional[Window] = None) -> torch.Tensor:
     """``g·A + x·C + D`` per (sample, channel) in fp32 (each product and
-    sum rounded on its own, in that order), rounded to x's dtype."""
+    sum rounded on its own, in that order), rounded to x's dtype; with a
+    window, ``x·C + D`` is added on its rows alone and the rest is
+    ``g·A``."""
+    _window_dims(x, window)  # checks the window
     shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
     dx = g.to(torch.float32, copy=True).mul_(a.reshape(shape))
-    dx.add_(x.float() * c.reshape(shape))
-    return dx.add_(d.reshape(shape)).to(x.dtype)
+    inner = _narrow(dx, window)
+    inner.add_(_narrow(x, window).float() * c.reshape(shape))
+    inner.add_(d.reshape(shape))
+    return dx.to(x.dtype)
 
 
 def gn_bwd_dx(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
-              c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """dx = g·A + x·C + D with (N, C) fp32 coefficients, dx in x's dtype."""
+              c: torch.Tensor, d: torch.Tensor,
+              window: Optional[Window] = None) -> torch.Tensor:
+    """dx = g·A + x·C + D with (N, C) fp32 coefficients, dx in x's dtype;
+    with ``window`` (axis, lo, hi), C and D apply on rows [lo, hi) of that
+    spatial axis alone."""
     if x.device.type == "cpu":
-        return gn_bwd_dx_reference(x, g, a, c, d)
+        return gn_bwd_dx_reference(x, g, a, c, d, window)
     if not x.is_cuda:
         raise ValueError(f"gn_bwd_dx runs on cuda or cpu, not {x.device}")
     _check_cuda("gn_bwd_dx", x, a, c, d, g=g)
@@ -313,8 +394,9 @@ def gn_bwd_dx(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
     dev = x.get_device()
     rc = _build.kernel("tpuseg_gn_bwd_dx")(
         x.data_ptr(), g.data_ptr(), a.data_ptr(), c.data_ptr(), d.data_ptr(),
-        dx.data_ptr(), n, rows, ch, _grid(rows, ch, _DX_ROWS),
-        _DTYPE_CODES[x.dtype], dev, _build.current_stream(dev))
+        dx.data_ptr(), n, *_window_dims(x, window), ch,
+        _grid(rows, ch, _DX_ROWS), _DTYPE_CODES[x.dtype], dev,
+        _build.current_stream(dev))
     _build.check(rc, "gn_bwd_dx launch")
     gn_bwd_dx.launches += 1
     gn_bwd_dx.launches_by_dtype[x.dtype] += 1
@@ -367,14 +449,109 @@ def gn_bwd_coeffs(c1: torch.Tensor, c2: torch.Tensor, mean_c: torch.Tensor,
     return a, cc, dd
 
 
-def group_norm_stats(x: torch.Tensor, num_groups: int, eps: float
+# -- cross-shard statistics (spatial sharding) ------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossShard:
+    """The active cross-shard mode: GroupNorms sum their statistics over the
+    ``world`` ranks of ``group`` (None: the default group, or a world of 1
+    without one), each slab contributing the interior rows of
+    ``shard_axis``, whose halo-padded extent at the model's input is
+    ``padded_extent``."""
+
+    group: Any
+    world: int
+    shard_axis: int
+    halo: int
+    padded_extent: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Site:
+    """One GroupNorm input under the mode: the window of its interior rows
+    and the spatial positions of a sample over every rank's interior."""
+
+    mode: CrossShard
+    window: Window
+    count: int
+
+
+# Process-wide, not a context variable: a block rematerialized in the
+# backward runs on the autograd engine's thread (as parallel.rows_split).
+_CROSS_SHARD: Optional[CrossShard] = None
+
+
+@contextlib.contextmanager
+def cross_shard_group_stats(group: Any, shard_axis: int, halo: int,
+                            padded_extent: int):
+    """Within: every GroupNorm (the module and the fused 'gcr' block) sums
+    its statistics over ``group``'s ranks, interior rows of ``shard_axis``
+    only (the model's input is ``padded_extent`` rows along it, ``halo`` of
+    them on each side).  Every rank enters it for the same forward and
+    backward."""
+    global _CROSS_SHARD
+    prev = _CROSS_SHARD
+    world = dist.get_world_size(group) if dist.is_initialized() else 1
+    _CROSS_SHARD = CrossShard(group, world, shard_axis, halo, padded_extent)
+    try:
+        yield
+    finally:
+        _CROSS_SHARD = prev
+
+
+def cross_shard_site(x: torch.Tensor) -> Optional[Site]:
+    """x's ``Site`` under the active mode (None outside it), with the JAX
+    package's checks: the extent along the shard axis divides the padded
+    input's, the halo divides by the pooling factor, interior rows
+    remain."""
+    mode = _CROSS_SHARD
+    if mode is None:
+        return None
+    axis = mode.shard_axis
+    e = x.shape[axis]
+    if mode.padded_extent % e:
+        raise ValueError(
+            f"GroupNorm site extent {e} does not divide the halo-padded "
+            f"input extent {mode.padded_extent} along shard axis {axis}")
+    f = mode.padded_extent // e
+    if mode.halo % f:
+        raise ValueError(
+            f"halo {mode.halo} not divisible by the pooling factor {f} at a "
+            f"GroupNorm site — choose a halo divisible by "
+            f"2**(num_levels - 1) for cross-shard statistics")
+    lh = mode.halo // f
+    if e - 2 * lh <= 0:
+        raise ValueError(
+            f"halo {lh} leaves no interior rows at GroupNorm extent {e}")
+    other = math.prod(x.shape[a] for a in _spatial_dims(x) if a != axis)
+    return Site(mode, (axis, lh, e - lh), other * (e - 2 * lh) * mode.world)
+
+
+def _rank_sum(c1: torch.Tensor, c2: torch.Tensor, site: Site
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two (N, C) sums added over the site's ranks, in one all-reduce."""
+    if site.mode.world == 1:
+        return c1, c2
+    both = torch.stack((c1, c2))
+    dist.all_reduce(both, group=site.mode.group)
+    return both[0], both[1]
+
+
+def group_norm_stats(x: torch.Tensor, num_groups: int, eps: float,
+                     site: Optional[Site] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel fp32 (mean, rsqrt(var + eps)) of GroupNorm on x, (N, C):
-    the statistics kernel, then the (N, C) group combine."""
+    the statistics kernel, then the (N, C) group combine.  At a cross-shard
+    ``site``: the kernel on the interior rows, the sums added over the
+    ranks, the combine over every rank's interior."""
     c = x.shape[-1]
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by num_groups "
                          f"{num_groups}")
+    if site is not None:
+        s1, s2 = _rank_sum(*gn_channel_sums(x, site.window), site)
+        return group_stats(s1, s2, num_groups, site.count, eps)
     s1, s2 = gn_channel_sums(x)
     # the spatial size from the static dims (a traced batch stays symbolic)
     return group_stats(s1, s2, num_groups, math.prod(x.shape[1:-1]), eps)
@@ -382,41 +559,55 @@ def group_norm_stats(x: torch.Tensor, num_groups: int, eps: float
 
 def group_norm_backward(x: torch.Tensor, g: torch.Tensor,
                         mean_c: torch.Tensor, inv_c: torch.Tensor,
-                        scale: torch.Tensor, num_groups: int, need_dx: bool
+                        scale: torch.Tensor, num_groups: int, need_dx: bool,
+                        site: Optional[Site] = None
                         ) -> Tuple[Optional[torch.Tensor], torch.Tensor,
                                    torch.Tensor]:
     """(dx or None, dscale, dbias) of GroupNorm from its residual
     ``(x, mean_c, inv_c, scale)`` and the output gradient g: the reduction
     kernel, the (N, C) algebra, then the dx kernel (skipped when x needs no
-    gradient)."""
+    gradient).  At a cross-shard ``site``: Σg and Σg·x̂ over every row,
+    added over the ranks for dx (the statistics' cotangents come from every
+    rank's loss), whose C and D terms apply on the interior rows alone;
+    dscale and dbias from this rank's sums."""
     g = g.to(x.dtype).contiguous()
     c1, c2 = gn_bwd_reduce(x, g, mean_c, inv_c)
     dbias = c1.sum(0).to(scale.dtype)
     dscale = c2.sum(0).to(scale.dtype)
     if not need_dx:
         return None, dscale, dbias
-    m = float(x.numel() // (x.shape[0] * num_groups))
+    if site is None:
+        m = float(x.numel() // (x.shape[0] * num_groups))
+        window = None
+    else:
+        c1, c2 = _rank_sum(c1, c2, site)
+        m = float(site.count * (x.shape[-1] // num_groups))
+        window = site.window
     a, cc, dd = gn_bwd_coeffs(c1, c2, mean_c, inv_c, scale, num_groups, m)
-    return gn_bwd_dx(x, g, a, cc, dd), dscale, dbias
+    return gn_bwd_dx(x, g, a, cc, dd, window), dscale, dbias
 
 
-def _group_norm_forward(x, scale, bias, num_groups, eps):
+def _group_norm_forward(x, scale, bias, num_groups, eps, site):
     """(y, mean_c, inv_c): the statistics kernel, the (N, C) coefficients,
-    the affine kernel."""
-    mean_c, inv_c = group_norm_stats(x, num_groups, eps)
+    the affine kernel (on every row, at a cross-shard site too)."""
+    mean_c, inv_c = group_norm_stats(x, num_groups, eps, site)
     a, b = gn_affine_coeffs(mean_c, inv_c, scale, bias)
     return gn_affine(x, a, b), mean_c, inv_c
 
 
 class _GroupNormFn(torch.autograd.Function):
-    """GroupNorm with the JAX package's custom VJP (Pallas residual)."""
+    """GroupNorm with the JAX package's custom VJP (Pallas residual); with a
+    cross-shard ``site``, the statistics over every rank's interior rows
+    (the JAX package's ``_cross_shard_group_norm``, differentiated there
+    through ``psum``): the same kernels, the site's window and all-reduces.
+    The site is kept for the backward, which may run on another thread."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, num_groups, eps):
+    def forward(ctx, x, scale, bias, num_groups, eps, site):
         y, mean_c, inv_c = _group_norm_forward(x, scale, bias, num_groups,
-                                               eps)
+                                               eps, site)
         ctx.save_for_backward(x, mean_c, inv_c, scale)
-        ctx.num_groups = num_groups
+        ctx.num_groups, ctx.site = num_groups, site
         return y
 
     @staticmethod
@@ -424,8 +615,8 @@ class _GroupNormFn(torch.autograd.Function):
         x, mean_c, inv_c, scale = ctx.saved_tensors
         dx, dscale, dbias = group_norm_backward(
             x, g, mean_c, inv_c, scale, ctx.num_groups,
-            ctx.needs_input_grad[0])
-        return dx, dscale, dbias, None, None
+            ctx.needs_input_grad[0], ctx.site)
+        return dx, dscale, dbias, None, None, None
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -434,10 +625,12 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     contiguous x; the output has x's dtype, statistics and elementwise math
     are fp32.  Differentiable in x, scale and bias; a call that autograd
     need not record runs the forward alone, the same calls in the same
-    order."""
+    order.  Inside ``cross_shard_group_stats`` the statistics span the
+    ranks."""
+    site = cross_shard_site(x)
     if _tracked(x, scale, bias):
-        return _GroupNormFn.apply(x, scale, bias, num_groups, eps)
-    return _group_norm_forward(x, scale, bias, num_groups, eps)[0]
+        return _GroupNormFn.apply(x, scale, bias, num_groups, eps, site)
+    return _group_norm_forward(x, scale, bias, num_groups, eps, site)[0]
 
 
 class GroupNorm(nn.Module):

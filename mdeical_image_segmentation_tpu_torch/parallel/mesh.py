@@ -17,9 +17,10 @@ way (``ops/batchnorm.py``).  Outside it, and on a replicated tail that
 every rank holds whole, they are local: all-reducing a replicated batch
 would count it ``world`` times.  The split is process-wide state, not a
 context variable, because a rematerialized block runs again inside the
-backward, on the autograd engine's thread.  The model axis (channel
-tensor parallelism, ZeRO-1, spatial sharding) waits for ROADMAP.md queue
-1, item 25b.
+backward, on the autograd engine's thread.  Spatial sharding splits one
+volume over the same ranks (``parallel/spatial.py``); the model axis
+(channel tensor parallelism, ZeRO-1) waits for ROADMAP.md queue 1, items
+25b.2 and 25b.3.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-MODEL_AXIS_ITEM = ("ROADMAP.md queue 1, item 25b (spatial, tensor-parallel "
-                   "and ZeRO-1 modes)")
+MODEL_AXIS_ITEM = ("ROADMAP.md queue 1, item 25b (25b.2 tensor-parallel and "
+                   "25b.3 ZeRO-1 modes)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -48,11 +48,22 @@ batch's: BatchNorm statistics and the ratio losses' sums are all-reduced
 (``parallel.rows_split``).  Validation splits each global batch, gathers
 the output rows and scores the whole batch on every rank, so every rank
 picks the same best checkpoint; the train score is the primary's, on the
-gathered batch.  Only the primary rank writes checkpoints and logs.  A
-``parallel:`` section with ``model_axis`` > 1, ``tensor_parallel``,
-``zero1`` or ``spatial_*`` raises (item 25b).  ``resume`` takes a msgpack
-checkpoint file of either package or a ``train/dist_ckpt.py`` directory;
-an orbax directory raises.
+gathered batch.  Only the primary rank writes checkpoints and logs.
+
+Spatial mode (``spatial_halo``; ``parallel: {spatial_halo,
+spatial_shard_axis, spatial_cross_shard_norm}`` in a config): each batch
+is one volume split over the ranks along ``spatial_shard_axis``
+(``parallel/spatial.py``, the JAX package's ``make_spatial_train_step``):
+every rank draws the same batch (the loaders are not process-sharded),
+trains on its slab with a halo exchange, and the gradients are averaged
+over the ranks (no DDP; no ``rows_split``, so a ratio loss is the
+per-slab one, the mean of the per-slab criteria being the objective).
+The step returns no output, so no train score is taken; validation runs
+the whole forward on every rank.  3D 'gcr'/'cr' orders only, no
+per-voxel weights.  A ``parallel:`` section with ``model_axis`` > 1,
+``tensor_parallel`` or ``zero1`` raises (items 25b.2, 25b.3).
+``resume`` takes a msgpack checkpoint file of either package or a
+``train/dist_ckpt.py`` directory; an orbax directory raises.
 """
 
 from __future__ import annotations
@@ -64,8 +75,10 @@ from typing import Any, Dict, Iterable, Optional
 import torch
 
 from ..models.blocks3d import set_dropout_generator
+from ..models.layers2d import TorchBatchNorm
 from ..parallel import mesh as mesh_lib
 from ..parallel.distributed import is_primary
+from ..parallel.spatial import make_spatial_train_step, shard_slab
 from ..utils.param_bridge import flax_to_state_dict, state_dict_to_flax
 from . import checkpoint as ckpt
 from .dist_ckpt import DistCheckpointer
@@ -107,7 +120,9 @@ def create_trainer(config: Dict[str, Any]) -> "UNetTrainer":
     ``config['seed']`` (default 0), on ``config_device(config)``, trained
     over the data axis of the process group (one process without one):
     the loader batch is ``batch_size`` times the processes, and each
-    process's train loader assembles only its rows."""
+    process's train loader assembles only its rows.  With
+    ``parallel.spatial_halo`` the processes split each volume instead:
+    every one loads the whole batch of ``batch_size``."""
     from ..data.loaders import get_train_loaders
     from ..losses import get_loss_criterion
     from ..metrics import get_evaluation_metric
@@ -117,17 +132,19 @@ def create_trainer(config: Dict[str, Any]) -> "UNetTrainer":
 
     par_cfg = config.get("parallel") or {}
     unported = [k for k in sorted(par_cfg) if par_cfg[k] and (
-        k in ("tensor_parallel", "zero1") or k.startswith("spatial_")
+        k in ("tensor_parallel", "zero1")
         or (k == "model_axis" and int(par_cfg[k]) > 1))]
     if unported:
         raise NotImplementedError(
-            f"parallel: {unported}: the port trains data-parallel only so "
-            f"far ({mesh_lib.MODEL_AXIS_ITEM})")
+            f"parallel: {unported}: not ported yet "
+            f"({mesh_lib.MODEL_AXIS_ITEM})")
     device = config_device(config)
     mesh = mesh_lib.make_mesh(device=device)
+    # spatial mode: the processes split each volume, not the batch
+    spatial = bool(par_cfg.get("spatial_halo"))
     if mesh.size > 1:
-        logger.info(f"Using {mesh.size} processes for training "
-                    "(data-parallel)")
+        logger.info(f"Using {mesh.size} processes for training ("
+                    f"{'spatially sharded' if spatial else 'data-parallel'})")
     seed = config.get("seed", 0)
     # drawn on the CPU, so the card and the CPU start from the same weights
     model = get_model(config["model"],
@@ -136,8 +153,9 @@ def create_trainer(config: Dict[str, Any]) -> "UNetTrainer":
     loss_criterion = get_loss_criterion(config)
     eval_criterion = get_evaluation_metric(config)
     loaders = get_train_loaders(
-        config, n_devices=mesh.size, device=device,
-        process_shard=(mesh.rank, mesh.size) if mesh.size > 1 else None)
+        config, n_devices=1 if spatial else mesh.size, device=device,
+        process_shard=((mesh.rank, mesh.size)
+                       if mesh.size > 1 and not spatial else None))
     optimizer_config = config["optimizer"]
     optimizer = create_optimizer(optimizer_config, model.parameters())
     base_lr = optimizer_config.get("learning_rate", 1e-3)
@@ -153,7 +171,12 @@ def create_trainer(config: Dict[str, Any]) -> "UNetTrainer":
         lr_scheduler=lr_scheduler, loss_criterion=loss_criterion,
         eval_criterion=eval_criterion, loaders=loaders,
         tensorboard_formatter=tensorboard_formatter, resume=resume,
-        pre_trained=pre_trained, mesh=mesh, seed=seed, **trainer_config)
+        pre_trained=pre_trained, mesh=mesh, seed=seed,
+        spatial_halo=par_cfg.get("spatial_halo"),
+        spatial_shard_axis=int(par_cfg.get("spatial_shard_axis", 2)),
+        spatial_cross_shard_norm=bool(par_cfg.get("spatial_cross_shard_norm",
+                                                  False)),
+        **trainer_config)
 
 
 class UNetTrainer:
@@ -175,14 +198,24 @@ class UNetTrainer:
                  spatial_halo: Optional[int] = None,
                  spatial_shard_axis: int = 2,
                  spatial_cross_shard_norm: bool = False, **kwargs):
+        self.spatial_halo = int(spatial_halo) if spatial_halo else None
+        self.spatial_shard_axis = int(spatial_shard_axis)
+        self.spatial_cross_shard_norm = bool(spatial_cross_shard_norm)
         for name, value in (("tensor_parallel", tensor_parallel),
-                            ("zero1", zero1), ("spatial_halo", spatial_halo),
-                            ("spatial_cross_shard_norm",
-                             spatial_cross_shard_norm)):
+                            ("zero1", zero1)):
+            if value and self.spatial_halo:
+                raise ValueError(f"spatial_halo and {name} are mutually "
+                                 "exclusive")
             if value:
                 raise NotImplementedError(
-                    f"{name}: the port trains data-parallel only so far "
-                    f"({mesh_lib.MODEL_AXIS_ITEM})")
+                    f"{name}: not ported yet ({mesh_lib.MODEL_AXIS_ITEM})")
+        if self.spatial_halo:
+            if not getattr(model, "is3d", True):
+                raise ValueError("spatial training is 3D-only")
+            if any(isinstance(m, TorchBatchNorm) for m in model.modules()):
+                raise ValueError(
+                    "spatial training does not support BatchNorm orders "
+                    "(global batch statistics across shards); use 'gcr'/'cr'")
         if tensorboard_formatter is None:
             raise ValueError("TensorboardFormatter must be provided")
         self.model = model
@@ -234,8 +267,21 @@ class UNetTrainer:
             self._restore(resume, with_state=True)
         elif pre_trained is not None:
             self._restore(pre_trained, with_state=False)
-        self._ddp = mesh_lib.wrap_ddp(model, self.device)
         self._split = False  # the current train batch's rows are split
+        self._spatial_step = None
+        if self.spatial_halo:
+            # no DDP: the spatial step averages the gradients itself, after
+            # a backward that issues its own collectives on the group
+            self._ddp = model
+            mesh_lib.replicate(self.mesh,
+                               [p.detach() for p in model.parameters()])
+            self._spatial_step = make_spatial_train_step(
+                model, lambda out, y: self._loss(out, y, None), optimizer,
+                self.mesh.group, halo=self.spatial_halo,
+                shard_axis=self.spatial_shard_axis,
+                cross_shard_norm=self.spatial_cross_shard_norm, seed=seed)
+        else:
+            self._ddp = mesh_lib.wrap_ddp(model, self.device)
 
     def request_stop(self):
         """Ask the training loop to checkpoint and stop at the next step."""
@@ -317,6 +363,7 @@ class UNetTrainer:
             for t in loader:
                 b = (t[0], t[1], t[2] if len(t) > 2 else None)
                 split = sharded or (self.mesh.size > 1
+                                    and not self.spatial_halo
                                     and mesh_lib.divides(self.mesh, b))
                 if split and not sharded:
                     rows = mesh_lib.shard_batch(self.mesh, b)
@@ -346,8 +393,17 @@ class UNetTrainer:
     def _train_step(self, input, target, weight):
         """One optimizer step on this rank's rows (``self._split``: split
         over the ranks, or the whole batch); returns the detached loss and
-        output."""
+        output.  In spatial mode, on this rank's slab of the batch: the
+        ranks' mean loss and no output."""
         self.model.train()
+        if self._spatial_step is not None:
+            if weight is not None:
+                raise ValueError("per-voxel weights are unsupported in "
+                                 "spatial mode")
+            set_learning_rate(self.optimizer, self.current_lr)
+            group, axis = self.mesh.group, self.spatial_shard_axis
+            return self._spatial_step(shard_slab(input, group, axis),
+                                      shard_slab(target, group, axis)), None
         self.optimizer.zero_grad(set_to_none=True)
         with mesh_lib.rows_split(self.mesh if self._split else None):
             output = self._apply_model(input, self._ddp)
@@ -411,22 +467,12 @@ class UNetTrainer:
 
             if self.num_iterations % self.log_after_iters == 0:
                 flush_losses()
-                if split:  # the global batch, scored and drawn by rank 0
-                    input, target, output = (
-                        mesh_lib.gather_rows(self.mesh, v)
-                        for v in (input, target, output))
-                if not self.skip_train_validation and is_primary():
-                    act = self.model.final_activation()
-                    scored = act(output) if act is not None else output
-                    train_eval_scores.update(
-                        float(self.eval_criterion(scored, target)),
-                        input.shape[0])
-                logger.info(f"Training stats. Loss: {train_losses.avg}. "
-                            f"Evaluation score: {train_eval_scores.avg}")
-                self._log_stats("train", train_losses.avg,
-                                train_eval_scores.avg)
-                if is_primary():
-                    self._log_images(input, target, output, "train_")
+                if output is None:  # spatial mode: no output, no score
+                    logger.info(f"Training stats. Loss: {train_losses.avg}.")
+                    self._log_stats("train", train_losses.avg, None)
+                else:
+                    self._log_train(input, target, output, split,
+                                    train_losses, train_eval_scores)
 
             if self._preempted:
                 logger.info("Preemption requested: checkpointing and "
@@ -438,6 +484,24 @@ class UNetTrainer:
             self.num_iterations += 1
         flush_losses()
         return False
+
+    def _log_train(self, input, target, output, split, train_losses,
+                   train_eval_scores) -> None:
+        """The train score and images of a log step (rank 0 on the
+        gathered global batch when its rows are split)."""
+        if split:
+            input, target, output = (mesh_lib.gather_rows(self.mesh, v)
+                                     for v in (input, target, output))
+        if not self.skip_train_validation and is_primary():
+            act = self.model.final_activation()
+            scored = act(output) if act is not None else output
+            train_eval_scores.update(
+                float(self.eval_criterion(scored, target)), input.shape[0])
+        logger.info(f"Training stats. Loss: {train_losses.avg}. "
+                    f"Evaluation score: {train_eval_scores.avg}")
+        self._log_stats("train", train_losses.avg, train_eval_scores.avg)
+        if is_primary():
+            self._log_images(input, target, output, "train_")
 
     def should_stop(self) -> bool:
         if self.max_num_iterations < self.num_iterations:

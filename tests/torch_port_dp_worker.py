@@ -1,7 +1,8 @@
 """One rank of a gloo world of the port on the CPU, for the data-parallel
 tests (``test_torch_port_distributed.py``, ``test_torch_port_dp_train.py``,
-``test_torch_port_dp_train2d.py``, ``test_torch_port_dist_ckpt.py``), and
-the setups they share.
+``test_torch_port_dp_train2d.py``, ``test_torch_port_dist_ckpt.py``) and
+the spatial one (``test_torch_port_spatial.py``, its cases in
+``torch_port_spatial_cases.py``), and the setups they share.
 
     python tests/torch_port_dp_worker.py <scenario> <rank> <world> <port> <out>
 
@@ -431,6 +432,14 @@ def scenario_primitives(rank, world, out):
                 loss.backward()
             res["losses"][name, split] = (float(loss), x.grad.numpy())
     return res
+
+
+def scenario_spatial(rank, world, out):
+    """test_torch_port_spatial.py: the spatially sharded forward, input
+    gradient, steps and trainer over the world."""
+    import torch_port_spatial_cases as S
+
+    return S.port_runs(out, rank)
 
 
 def primitive_inputs():
