@@ -4,10 +4,11 @@ and serving, the config-driven 3D pipeline (YAML configs, HDF5 volumes),
 the rest of the 3D family (bf16, device_cache, ResidualUNetSE3D,
 BatchNorm, UNet2D / ResidualUNet2D, remat), int8 post-training
 quantization, exported artifacts, SAM-Med2D promptable serving,
-data-parallel training with its checkpoint and the profiler tooling, and
-spatially sharded training with halo exchange.
+data-parallel training with its checkpoint and the profiler tooling,
+spatially sharded training with halo exchange, and the model axis (channel
+tensor parallelism, ZeRO-1, sharded checkpoints).
 
-    python3 chip_smoke.py [--phase 18|19|20|21|23|24]
+    python3 chip_smoke.py [--phase 18|19|20|21|23|24|25]
 
 Needs one CUDA card, nvcc and the checkout this file sits in; imports nothing
 of JAX (nor PyYAML or h5py).  It exits non-zero, without printing a result,
@@ -400,6 +401,29 @@ wall time.
    launch 14/14/14/14/13 times a step on every rank of every path
    (asserted), the windowed 3a and 3d instantiations show in a profiled
    step, and the kernels line counts the paths under ``spatial_*``.
+25. The model axis (``phase_model_axis``; runs after phase 24, and
+   ``--phase 25`` runs it alone), TF32 off, every rank a ``--mp-worker``
+   process sharing the one card over gloo: (e) kernel 1's single-conv
+   launch (``fused_conv2d_relu``) against its plain version at the 18
+   convs of the 2D TP step (bf16, N=32, Co/2) and beside cuDNN's conv2d,
+   and kernel 2 at the UNet3D training shapes with Co/2 (fp32) beside its
+   plain version and cuDNN's conv3d, with the bounds; (a) phase 9's UNet3D
+   at full width with ``tensor_parallel`` on a model axis of 2, 3 steps,
+   against the world of 1 on the same weights and batches (phase 9's
+   limits; the step-1 grad norm the whole model's), launches
+   14/14/14/14/13 a step on each rank asserted, step ms, per-rank peak,
+   the bytes the all-gathers return and the all-reduces carry; (b) phase
+   11's base-64 bf16 UNet at 256², batch 32, the same way (phase 11's bf16
+   limits), 18 single-conv launches a step and no DoubleConv launch
+   asserted; (c) phase 9's UNet3D on a data axis of 2 (global batch 2),
+   DDP then ``zero1``, deterministic algorithms: the parameters after 3
+   steps equal to the bit, the moment bytes a rank halved; (d) four ranks
+   on a (2, 2) mesh with both on an epoch of 4 patches: 2 steps, the
+   sharded ``DistCheckpointer`` save, a resumed step 3 equal to the
+   uninterrupted one to the bit.  The kernels line gains
+   ``conv2d_relu`` (kernel 1's single-conv entry) and kernel 2's ``tp``
+   times, and counts the paths under ``tp_3d``, ``zero1_3d`` and
+   ``tp_zero1_resume``.
 """
 
 from __future__ import annotations
@@ -7071,6 +7095,600 @@ def phase_spatial(seed: int, workdir: str, phase9_step_ms: float):
     return res
 
 
+# -- phase 25: the model axis (channel tensor parallelism, ZeRO-1) ----------
+
+MP_STEPS = 3
+MP_TIMEOUT_S = 1200
+# kernel launches a step on every rank of the 3D TP path: each rank runs
+# every SingleConv's kernel 2 on its out-channel block
+MP_3D_LAUNCHES = {"gcr_conv3d": 14, "gn_stats": 14, "gn_affine": 14,
+                  "gn_bwd_reduce": 14, "gn_bwd_dx": 13, "overlap_add": 0}
+MP_2D_LAUNCHES = 18  # kernel 1's single-conv launches a step: 9 x 2 convs
+MP_GRAD_NORM_TOL_2D = 1e-2  # phase 11's bf16 limit
+
+
+class _collective_bytes:
+    """Within: the bytes the model axis's all-gathers return and its
+    all-reduces carry (``parallel/tensor.py``), counted."""
+
+    def __enter__(self):
+        from mdeical_image_segmentation_tpu_torch.parallel import tensor as tp
+
+        self.tp, self.gather, self.reduce = (tp, tp.all_gather_dim,
+                                             tp._all_reduce_model)
+        self.bytes = {"gathered": 0, "all_reduced": 0}
+
+        def gather(x, dim, group, size):
+            y = self.gather(x, dim, group, size)
+            self.bytes["gathered"] += y.numel() * y.element_size()
+            return y
+
+        def reduce(g, mesh):
+            self.bytes["all_reduced"] += g.numel() * g.element_size()
+            return self.reduce(g, mesh)
+
+        tp.all_gather_dim, tp._all_reduce_model = gather, reduce
+        return self
+
+    def __exit__(self, *exc):
+        self.tp.all_gather_dim, self.tp._all_reduce_model = (self.gather,
+                                                             self.reduce)
+
+
+def _mp_instrument_3d(trainer, rec):
+    """``_instrument`` whose step-1 grad norm is the whole model's: the
+    sharded gradients' squares summed over the model axis (a collective
+    every rank runs at the same step)."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.parallel import tensor as tp
+
+    _instrument(trainer, rec)
+    step = trainer._train_step
+
+    def whole_norm(input, target, weight):
+        out = step(input, target, weight)
+        if len(rec) == 1:
+            params = [p for p in trainer.model.parameters()
+                      if p.grad is not None]
+            rec[0]["grad_norm"] = torch.sqrt(tp.grad_norm_squared(
+                params, trainer.model).double()).item()
+            rec[0].pop("grads", None)
+        return out
+
+    trainer._train_step = whole_norm
+
+
+def _single_conv_count():
+    from mdeical_image_segmentation_tpu_torch.ops import fused_conv
+
+    return fused_conv.fused_conv2d_relu.launches
+
+
+def _mp_train_2d(trainer):
+    """3 steps of the 2D trainer: per-step ms, loss, pre-clip grad norm,
+    the single-conv and DoubleConv launches of kernel 1."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.ops import fused_conv
+
+    rec = []
+    step_fn = trainer._train_step
+
+    def step(images, labels):
+        torch.cuda.synchronize()
+        single, double = _single_conv_count(), (
+            fused_conv.fused_double2d.launches)
+        t0 = time.perf_counter()
+        loss = step_fn(images, labels)
+        torch.cuda.synchronize()
+        rec.append({"ms": (time.perf_counter() - t0) * 1e3,
+                    "loss": loss.item(),
+                    "grad_norm": trainer.last_grad_norm.item(),
+                    "single": _single_conv_count() - single,
+                    "double": fused_conv.fused_double2d.launches - double})
+        return loss
+
+    trainer._train_step = step
+    trainer.train()
+    torch.cuda.synchronize()
+    return rec
+
+
+def _peak_gib():
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _steady_ms(rec):
+    return statistics.fmean(r["ms"] for r in rec[1:])
+
+
+def mp_tp_runs(seed: int, out: str, rank: int):
+    """(a) and (b) on one rank of a model axis of 2: phase 9's UNet3D and
+    phase 11's UNet with ``tensor_parallel``, 3 steps each."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.parallel import make_mesh
+    from mdeical_image_segmentation_tpu_torch.parallel import tensor as tp
+
+    mesh = make_mesh(n_model=2)
+    setup = UNet3DTraining(seed, os.path.join(out, f"setup{rank}"))
+    trainer = setup.trainer("tp_3d", max_num_iterations=MP_STEPS - 1,
+                            validate_after_iters=1000, log_after_iters=1000,
+                            mesh=mesh, tensor_parallel=True)
+    shards = {k: tuple(p.shape) for k, p in trainer.model.named_parameters()}
+    sharded = tp.sharded_dims(trainer.model)
+    rec3 = []
+    _mp_instrument_3d(trainer, rec3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _collective_bytes() as moved3:
+        _zero_counts()
+        trainer.fit()
+        torch.cuda.synchronize()
+        launches3 = _counts()
+    peak3 = _peak_gib()
+    state_bytes = sum(p.numel() * p.element_size() * 4  # w, grad, 2 moments
+                      for p in trainer.model.parameters())
+    del trainer
+    torch.cuda.empty_cache()
+    u2d = UNet2DTraining(seed, os.path.join(out, f"u2d{rank}"), n_eval=0)
+    trainer = u2d.trainer("tp_2d", "bfloat16", mesh=mesh,
+                          tensor_parallel=True, max_steps=MP_STEPS,
+                          eval_strategy="no", save_steps=0)
+    torch.cuda.reset_peak_memory_stats()
+    with _collective_bytes() as moved2:
+        from mdeical_image_segmentation_tpu_torch.ops import fused_conv
+
+        fused_conv.fused_conv2d_relu.launches = 0
+        rec2 = _mp_train_2d(trainer)
+        single = fused_conv.fused_conv2d_relu.launches
+    peak2 = _peak_gib()
+    del trainer
+    torch.cuda.empty_cache()
+    keep = ("loss", "grad_norm", "ms", "launches")
+    return {"3d": {"rec": [{k: r.get(k) for k in keep} for r in rec3],
+                   "launches": launches3, "peak_gib": peak3,
+                   "state_bytes": state_bytes, "bytes": moved3.bytes,
+                   "sharded": len(sharded), "params": len(shards),
+                   "block_shapes": shards},
+            "2d": {"rec": rec2, "single": single, "peak_gib": peak2,
+                   "bytes": moved2.bytes}}
+
+
+def _moment_bytes(optimizer):
+    from mdeical_image_segmentation_tpu_torch.parallel.zero import (
+        Zero1Optimizer,
+    )
+
+    if isinstance(optimizer, Zero1Optimizer):
+        return optimizer.state_bytes()
+    return sum(v.numel() * v.element_size()
+               for st in optimizer.state.values() for v in st.values()
+               if hasattr(v, "numel"))
+
+
+def mp_zero1_runs(seed: int, out: str, rank: int):
+    """(c) on one rank of a data axis of 2: 3 steps of phase 9's UNet3D
+    under DDP at a global batch of 2, then with ``zero1``, deterministic
+    algorithms; whether the parameters are equal to the bit, the moment
+    bytes of each."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    setup = UNet3DTraining(seed, os.path.join(out, f"setup{rank}"))
+    setup.batch_size = DP_3D_BATCH
+    runs = {}
+    with _deterministic():
+        for name, zero1 in (("ddp", False), ("zero1", True)):
+            t = setup.trainer(name, max_num_iterations=MP_STEPS - 1,
+                              validate_after_iters=1000,
+                              log_after_iters=1000, mesh=mesh, zero1=zero1)
+            rec = []
+            _instrument(t, rec)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t.fit()
+            torch.cuda.synchronize()
+            runs[name] = {
+                "rec": [{k: r[k] for k in ("loss", "grad_norm", "ms")}
+                        for r in rec],
+                "launches": _counts(), "peak_gib": _peak_gib(),
+                "moment_bytes": _moment_bytes(t.optimizer),
+                "params": [p.detach().clone() for p in t.model.parameters()]}
+            del t
+            torch.cuda.empty_cache()
+    a, b = runs["ddp"].pop("params"), runs["zero1"].pop("params")
+    runs["equal"] = all(torch.equal(x, y) for x, y in zip(a, b))
+    runs["max_diff"] = max((x - y).abs().max().item() for x, y in zip(a, b))
+    return runs
+
+
+def _whole_state(trainer):
+    """The whole parameters (gathered over the model axis) and this rank's
+    optimizer state blocks, on the host."""
+    from mdeical_image_segmentation_tpu_torch.parallel import tensor as tp
+
+    with tp.full_parameters(trainer.model):
+        params = [p.detach().cpu().clone()
+                  for p in trainer.model.parameters()]
+    opt = trainer.optimizer
+    moments = [v.detach().cpu().clone()
+               for g in opt.param_groups for s in g["params"]
+               for _, v in sorted(opt.state.get(s, {}).items())
+               if hasattr(v, "numel")]
+    return params, moments
+
+
+def mp_tp_zero1_runs(seed: int, out: str, rank: int):
+    """(d) on one rank of a (2, 2) mesh: phase 9's UNet3D with
+    ``tensor_parallel`` and ``zero1`` on an epoch of 4 patches in order at a
+    global batch of 2, deterministic algorithms: 3 steps uninterrupted; 2
+    steps, the sharded ``DistCheckpointer`` save (every rank its blocks
+    into one directory), a trainer resumed from it that takes step 3."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.data.loaders import (
+        VolumeLoader,
+    )
+    from mdeical_image_segmentation_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_model=2)
+    setup = UNet3DTraining(seed, os.path.join(out, f"setup{rank}"))
+    four = [setup.train_ds[i] for i in range(4)]
+    shared = os.path.join(out, "shared")
+
+    def trainer(name, iterations, **kw):
+        loaders = {"train": VolumeLoader(four, DP_3D_BATCH),
+                   "val": VolumeLoader(setup.val_ds, 1)}
+        return _make_trainer(setup.model_cfg, setup.cfg, loaders,
+                             os.path.join(shared, name),
+                             kw.pop("pre_trained", None), seed=seed,
+                             mesh=mesh, max_num_iterations=iterations,
+                             validate_after_iters=1000, log_after_iters=1000,
+                             tensor_parallel=True, zero1=True, **kw)
+
+    with _deterministic():
+        full = trainer("full", MP_STEPS - 1, pre_trained=setup.checkpoint)
+        full_rec, _ = _dp_fit_3d(full)
+        full_state = _whole_state(full)
+        moment_bytes = _moment_bytes(full.optimizer)
+        del full
+        first = trainer("first", MP_STEPS - 2, pre_trained=setup.checkpoint)
+        _dp_fit_3d(first)
+        t0 = time.perf_counter()
+        first._save_checkpoint(is_best=False)
+        save_s = time.perf_counter() - t0
+        ckpt_dir = os.path.join(first.checkpoint_dir, "dist_ckpt")
+        del first
+        t0 = time.perf_counter()
+        resumed = trainer("resumed", MP_STEPS - 2, resume=ckpt_dir)
+        load_s = time.perf_counter() - t0
+        resumed_rec, launches = _dp_fit_3d(resumed)
+        resumed_state = _whole_state(resumed)
+        del resumed
+    torch.cuda.empty_cache()
+    unequal = [(("params", "moments")[part], i, tuple(x.shape))
+               for part in range(2)
+               for i, (x, y) in enumerate(zip(full_state[part],
+                                              resumed_state[part]))
+               if not torch.equal(x, y)]
+    equal = not unequal and all(
+        len(full_state[part]) == len(resumed_state[part]) > 0
+        for part in range(2))
+    files = sorted(f for f in os.listdir(os.path.join(ckpt_dir, "last")))
+    return {"full_losses": [r["loss"] for r in full_rec],
+            "resumed_losses": [r["loss"] for r in resumed_rec],
+            "equal": equal, "unequal": unequal[:4],
+            "counts": [len(p) for p in full_state + resumed_state],
+            "launches": launches, "save_s": save_s,
+            "load_s": load_s, "moment_bytes": moment_bytes, "files": files}
+
+
+MP_ROLES = {"tp": (mp_tp_runs, 2), "zero1": (mp_zero1_runs, 2),
+            "tp_zero1": (mp_tp_zero1_runs, 4)}
+
+
+def mp_worker(rank: int, world: int, port: int, out: str) -> int:
+    """One rank of phase 25: gloo over CUDA tensors on the one card (NCCL
+    refuses two ranks on one device); the role is ``out``'s last name;
+    writes ``out/rank<rank>.pkl``."""
+    import pickle
+
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.parallel import distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"localhost:{port}", world, rank, backend="gloo")
+    try:
+        fn, _ = MP_ROLES[os.path.basename(os.path.normpath(out))]
+        res = fn(SEED, out, rank)
+        with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _single_conv_shapes():
+    """(N, H, W, Ci, Co) of every single-conv launch of the 2D TP step:
+    conv1 and conv2 of the base-64 UNet's 9 DoubleConvs at 256², batch
+    32, each with half its out-channels."""
+    out = []
+    for _, (_, h, w, ci, c1, co) in DC_SHAPES:
+        out += [(TRAIN_BATCH_2D, h, w, ci, c1 // 2),
+                (TRAIN_BATCH_2D, h, w, c1, co // 2)]
+    return out
+
+
+def phase_tp_kernels(seed: int, train_shapes):
+    """(e) kernel 1's single-conv launch against its plain version (F.conv2d
+    + bias + relu) at the 18 shapes of the 2D TP step (bf16, N=32, Co/2)
+    and against cuDNN's conv2d with the bias (one call); kernel 2 at the
+    UNet3D training shapes with Co/2 (fp32, TF32 off) against its plain
+    version and cuDNN's conv3d.  Sums of the times and bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from mdeical_image_segmentation_tpu_torch.ops import fused_conv
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 25)
+    single = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+              "bound_ms": 0.0, "op_ms": 0.0, "byte_ms": 0.0}
+    for shape in _single_conv_shapes():
+        n, h, w, ci, co = shape
+        x = _rand(gen, (n, h, w, ci), torch.bfloat16)
+        wt = _rand(gen, (3, 3, ci, co), torch.bfloat16, (9 * ci) ** -0.5)
+        b = _rand(gen, (co,), torch.bfloat16, 0.1)
+        err = _compare(f"conv2d_relu {shape}",
+                       fused_conv.fused_conv2d_relu(x, wt, b),
+                       fused_conv.fused_conv2d_relu_reference(x, wt, b),
+                       BF16_TOL)
+        xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
+        k_ms, p_ms, l_ms = _time_turns(
+            lambda: fused_conv.fused_conv2d_relu(x, wt, b),
+            lambda: fused_conv.fused_conv2d_relu_reference(x, wt, b),
+            lambda: F.conv2d(xc, wc, b, padding=1))
+        flop = 2.0 * 9 * n * h * w * ci * co
+        nbytes = 2 * (n * h * w * (ci + co) + 9 * ci * co + co)
+        bound, _ = _bound_ms(flop, nbytes, PEAK_BF16)
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                       ("bound_ms", bound),
+                       ("op_ms", flop / PEAK_BF16 * 1e3),
+                       ("byte_ms", nbytes / HBM_BYTES_PER_S * 1e3)):
+            single[key] += v
+        single["err"] = max(single["err"], err)
+        log(f"  conv2d_relu {str(shape):28s} err {err:.2e}; kernel "
+            f"{k_ms:8.3f} ms {_rate(flop, k_ms, torch.bfloat16)}; plain "
+            f"{p_ms:8.3f} ms; cuDNN conv2d {l_ms:8.3f} ms; bound "
+            f"{bound:.3f} ms")
+        del x, wt, b, xc, wc
+    torch.cuda.empty_cache()
+    k2 = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+          "bound_ms": 0.0, "n": 0}
+    for shape, co, model in train_shapes["gcr"]:
+        if model != "UNet3D":
+            continue
+        co //= 2
+        ci = shape[-1]
+        x = _rand(gen, shape, torch.float32)
+        k = _rand(gen, (3, 3, 3, ci, co), torch.float32, (27 * ci) ** -0.5)
+        a = torch.rand((shape[0], ci), device=DEVICE, generator=gen) + 0.5
+        b = 0.5 * torch.randn((shape[0], ci), device=DEVICE, generator=gen)
+        err = _compare(f"gcr_conv3d tp {shape}->{co}",
+                       fused_conv.fused_conv3d(x, k, a, b),
+                       fused_conv.fused_conv3d_reference(x, k, a, b),
+                       FP32_TOL)
+        xc, kc = x.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2)
+        k_ms, p_ms, l_ms = _time_turns(
+            lambda: fused_conv.fused_conv3d(x, k, a, b),
+            lambda: fused_conv.fused_conv3d_reference(x, k, a, b),
+            lambda: F.conv3d(xc, kc, padding=1))
+        flop, nbytes = _gcr_flop_bytes(shape, co, 3, 4)
+        bound, _ = _bound_ms(flop, nbytes, PEAK_TF32)
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                       ("bound_ms", bound)):
+            k2[key] += v
+        k2["err"] = max(k2["err"], err)
+        k2["n"] += 1
+        log(f"  gcr_conv3d tp {str(shape):26s} -> {co:4d}: err {err:.2e}; "
+            f"kernel {k_ms:9.3f} ms {_rate(flop, k_ms, torch.float32)}; "
+            f"plain {p_ms:9.3f} ms; cuDNN {l_ms:9.3f} ms; bound "
+            f"{bound:.3f} ms")
+        del x, k, xc, kc
+        torch.cuda.empty_cache()
+    log(f"[phase 25] (e) kernel 1's single conv over the 18 TP shapes, bf16: "
+        f"kernel {single['ms']:.3f} ms, plain {single['plain_ms']:.3f} ms, "
+        f"cuDNN conv2d {single['library_ms']:.3f} ms, bound "
+        f"{single['bound_ms']:.3f} ms ({_share(single['bound_ms'], single['ms'])}); "
+        f"kernel 2 over the {k2['n']} UNet3D training shapes at Co/2, fp32: "
+        f"kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms, cuDNN "
+        f"{k2['library_ms']:.3f} ms, bound {k2['bound_ms']:.3f} ms "
+        f"({_share(k2['bound_ms'], k2['ms'])})")
+    return {"single": single, "k2": k2}
+
+
+def phase_model_axis(seed: int, workdir: str, train_shapes):
+    """Phase 25: (e) the kernels at the TP shapes; the world of 1 (phase
+    9's UNet3D and phase 11's UNet, 3 steps each, this process); (a)-(b)
+    two ranks on a model axis of 2 with ``tensor_parallel``; (c) two ranks
+    on a data axis of 2, DDP against ``zero1``; (d) four ranks on a (2, 2)
+    mesh, TP + ZeRO-1, the sharded checkpoint resumed.  Every rank shares
+    the one card over gloo.  Returns the numbers and the launches."""
+    import torch
+
+    res = {"launches": {}}
+    log("[phase 25] (e) kernel 1's single conv and kernel 2 at the "
+        "tensor-parallel shapes (Co/2)")
+    res["kernels"] = phase_tp_kernels(seed, train_shapes)
+
+    log("[phase 25] the world of 1: phase 9's UNet3D and phase 11's UNet, "
+        f"{MP_STEPS} steps each")
+    setup = UNet3DTraining(seed, os.path.join(workdir, "mp_ref"))
+    t = setup.trainer("ref_3d", max_num_iterations=MP_STEPS - 1,
+                      validate_after_iters=1000, log_after_iters=1000)
+    ref3 = []
+    _instrument(t, ref3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t.fit()
+    torch.cuda.synchronize()
+    ref3_peak = _peak_gib()
+    del t
+    torch.cuda.empty_cache()
+    u2d = UNet2DTraining(seed, os.path.join(workdir, "mp_ref2d"), n_eval=0)
+    t = u2d.trainer("ref_2d", "bfloat16", max_steps=MP_STEPS,
+                    eval_strategy="no", save_steps=0)
+    torch.cuda.reset_peak_memory_stats()
+    ref2 = _mp_train_2d(t)
+    ref2_peak = _peak_gib()
+    del t
+    torch.cuda.empty_cache()
+
+    log("[phase 25] (a)-(b) two ranks on a model axis of 2, "
+        "tensor_parallel, gloo on the one card")
+    t0 = time.perf_counter()
+    ranks = _dp_ranks(os.path.join(workdir, "tp"), 2, "--mp-worker",
+                      MP_TIMEOUT_S)
+    res["tp_wall_s"] = time.perf_counter() - t0
+    for rank, r in enumerate(ranks):
+        d3 = r["3d"]
+        for i, step in enumerate(d3["rec"]):
+            if step["launches"] != MP_3D_LAUNCHES:
+                raise AssertionError(f"(a) rank {rank} step {i + 1} "
+                                     f"launches {step['launches']}, want "
+                                     f"{MP_3D_LAUNCHES}")
+        for i, step in enumerate(r["2d"]["rec"]):
+            if step["single"] != MP_2D_LAUNCHES or step["double"] != 0:
+                raise AssertionError(f"(b) rank {rank} step {i + 1}: "
+                                     f"{step['single']} single-conv and "
+                                     f"{step['double']} DoubleConv launches,"
+                                     f" want {MP_2D_LAUNCHES} and 0")
+        if d3["sharded"] == 0 or d3["sharded"] >= d3["params"]:
+            raise AssertionError(f"(a) {d3['sharded']} of {d3['params']} "
+                                 "parameters sharded")
+    if ([s["loss"] for s in ranks[0]["3d"]["rec"]]
+            != [s["loss"] for s in ranks[1]["3d"]["rec"]]):
+        raise AssertionError("(a) the model ranks' losses differ")
+    _dp_gaps("(a) 3D TP, 2 ranks vs 1", ranks[0]["3d"]["rec"], ref3)
+    _dp_gaps("(b) 2D TP, 2 ranks vs 1", ranks[0]["2d"]["rec"], ref2,
+             BF16_LOSS_TOLS, MP_GRAD_NORM_TOL_2D)
+    res["tp_3d"] = {
+        "step_ms": [_steady_ms(r["3d"]["rec"]) for r in ranks],
+        "ref_step_ms": _steady_ms(ref3),
+        "peak_gib": [r["3d"]["peak_gib"] for r in ranks],
+        "ref_peak_gib": ref3_peak,
+        "state_bytes_per_rank": ranks[0]["3d"]["state_bytes"],
+        "bytes_per_rank_3_steps": ranks[0]["3d"]["bytes"],
+        "losses": [s["loss"] for s in ranks[0]["3d"]["rec"]],
+        "ref_losses": [s["loss"] for s in ref3[:MP_STEPS]]}
+    res["tp_2d"] = {
+        "step_ms": [_steady_ms(r["2d"]["rec"]) for r in ranks],
+        "ref_step_ms": _steady_ms(ref2),
+        "peak_gib": [r["2d"]["peak_gib"] for r in ranks],
+        "ref_peak_gib": ref2_peak,
+        "bytes_per_rank_3_steps": ranks[0]["2d"]["bytes"],
+        "losses": [s["loss"] for s in ranks[0]["2d"]["rec"]],
+        "ref_losses": [s["loss"] for s in ref2]}
+    res["launches"]["tp_3d"] = {k: sum(r["3d"]["launches"][k] for r in ranks)
+                                for k in KERNELS_3D}
+    res["single_conv_launches"] = sum(r["2d"]["single"] for r in ranks)
+    log(f"  (a) step {res['tp_3d']['step_ms']} ms a rank against "
+        f"{res['tp_3d']['ref_step_ms']:.1f} ms alone; peak "
+        f"{res['tp_3d']['peak_gib']} GiB a rank against "
+        f"{ref3_peak:.2f} GiB; moved a rank in 3 steps "
+        f"{res['tp_3d']['bytes_per_rank_3_steps']}")
+    log(f"  (b) step {res['tp_2d']['step_ms']} ms a rank against "
+        f"{res['tp_2d']['ref_step_ms']:.1f} ms alone; peak "
+        f"{res['tp_2d']['peak_gib']} GiB a rank against "
+        f"{ref2_peak:.2f} GiB; moved a rank in 3 steps "
+        f"{res['tp_2d']['bytes_per_rank_3_steps']}")
+
+    log("[phase 25] (c) two ranks on a data axis of 2: DDP against zero1, "
+        "deterministic algorithms")
+    ranks = _dp_ranks(os.path.join(workdir, "zero1"), 2, "--mp-worker",
+                      MP_TIMEOUT_S)
+    for rank, r in enumerate(ranks):
+        log(f"  rank {rank}: parameters equal to the bit {r['equal']} (max "
+            f"diff {r['max_diff']:.3e}); moment bytes DDP "
+            f"{r['ddp']['moment_bytes']}, zero1 {r['zero1']['moment_bytes']};"
+            f" step ms DDP {_steady_ms(r['ddp']['rec']):.1f}, zero1 "
+            f"{_steady_ms(r['zero1']['rec']):.1f}; peak GiB "
+            f"{r['ddp']['peak_gib']:.2f} / {r['zero1']['peak_gib']:.2f}")
+        if not r["equal"]:
+            raise AssertionError("(c) zero1's parameters differ from DDP's")
+        if r["zero1"]["moment_bytes"] * 1.9 > r["ddp"]["moment_bytes"]:
+            raise AssertionError("(c) zero1 did not halve the moments")
+    res["zero1_3d"] = {
+        "moment_bytes": [r["zero1"]["moment_bytes"] for r in ranks],
+        "ddp_moment_bytes": [r["ddp"]["moment_bytes"] for r in ranks],
+        "step_ms": [_steady_ms(r["zero1"]["rec"]) for r in ranks],
+        "ddp_step_ms": [_steady_ms(r["ddp"]["rec"]) for r in ranks],
+        "peak_gib": [r["zero1"]["peak_gib"] for r in ranks],
+        "ddp_peak_gib": [r["ddp"]["peak_gib"] for r in ranks]}
+    res["launches"]["zero1_3d"] = {k: sum(r["zero1"]["launches"][k]
+                                          for r in ranks)
+                                   for k in KERNELS_3D}
+
+    log("[phase 25] (d) four ranks on a (2, 2) mesh: TP + ZeRO-1, the "
+        "sharded checkpoint resumed")
+    ranks = _dp_ranks(os.path.join(workdir, "tp_zero1"), 4, "--mp-worker",
+                      MP_TIMEOUT_S)
+    for rank, r in enumerate(ranks):
+        log(f"  rank {rank}: losses {r['full_losses']} uninterrupted, "
+            f"resumed step 3 {r['resumed_losses']}; state equal to the bit "
+            f"{r['equal']} (unequal {r['unequal']}, tensors {r['counts']}); save {r['save_s']:.2f} s, resume "
+            f"{r['load_s']:.2f} s; moment bytes {r['moment_bytes']}; "
+            f"files {r['files']}")
+        if (not r["equal"] or r["resumed_losses"] != r["full_losses"][2:]):
+            raise AssertionError("(d) the resumed step 3 differs from the "
+                                 "uninterrupted one")
+    res["tp_zero1_3d"] = {"moment_bytes": [r["moment_bytes"] for r in ranks],
+                          "save_s": ranks[0]["save_s"],
+                          "load_s": ranks[0]["load_s"]}
+    res["launches"]["tp_zero1_resume"] = {
+        k: sum(r["launches"][k] for r in ranks) for k in KERNELS_3D}
+    return res
+
+
+def _single_conv_row(mp: dict) -> dict:
+    """The kernels-line entry of kernel 1's single-conv launch (one of its
+    two convs alone, as the 2D TP step runs it): launches on phase 25's
+    TP path, times over the 18 TP shapes (bf16, N=32, Co/2)."""
+    single = mp["kernels"]["single"]
+    return {
+        "name": "conv2d_relu",
+        "route": "cuda",
+        "source": "mdeical_image_segmentation_tpu_torch/csrc/double_conv2d.cu",
+        "replaces": "mdeical_image_segmentation_tpu/ops/fused_conv.py:420",
+        "launches": mp["single_conv_launches"],
+        "launches_by_path": {"tp_2d": mp["single_conv_launches"]},
+        "max_abs_err": single["err"],
+        "ms": single["ms"],
+        "plain_ms": single["plain_ms"],
+        "bound_ms": single["bound_ms"],
+        "bound_by": ("operations" if single["op_ms"] >= single["byte_ms"]
+                     else "bytes"),
+        # cuDNN's conv2d with the bias, one call (no relu)
+        "library_ms": single["library_ms"],
+        "device_ms": None,
+    }
+
+
+def _tp_k2(mp: dict) -> dict:
+    k2 = mp["kernels"]["k2"]
+    return {k: k2[k] for k in ("err", "ms", "plain_ms", "library_ms",
+                               "bound_ms", "n")}
+
+
 def _counts_from(rec):
     """The launches of a run's steps, summed."""
     return {k: sum(r["launches"][k] for r in rec) for k in KERNELS_3D}
@@ -7129,7 +7747,7 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phase", type=int,
-                        choices=(18, 19, 20, 21, 23, 24), default=None,
+                        choices=(18, 19, 20, 21, 23, 24, 25), default=None,
                         help="run the kernel build and this phase alone "
                         "(21: with phases 13 and 14, which it reads)")
     # one rank of phase 23 (b) or of phase 24 (b)-(c), started by the
@@ -7137,6 +7755,9 @@ def main(argv=None) -> int:
     parser.add_argument("--dp-worker", nargs=4, default=None,
                         help=argparse.SUPPRESS)
     parser.add_argument("--spatial-worker", nargs=4, default=None,
+                        help=argparse.SUPPRESS)
+    # one rank of phase 25 (a)-(d), started by the phase itself
+    parser.add_argument("--mp-worker", nargs=4, default=None,
                         help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -7149,6 +7770,9 @@ def main(argv=None) -> int:
     if args.spatial_worker:
         rank, world, sp_port, out = args.spatial_worker
         return spatial_worker(int(rank), int(world), int(sp_port), out)
+    if args.mp_worker:
+        rank, world, mp_port, out = args.mp_worker
+        return mp_worker(int(rank), int(world), int(mp_port), out)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -7249,6 +7873,30 @@ def main(argv=None) -> int:
             shutil.rmtree(workdir, ignore_errors=True)
         log(f"spatial (phase 24, {smi}): {json.dumps(spatial)}")
         print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
+    if args.phase == 25:
+        from mdeical_image_segmentation_tpu_torch.ops import _build
+
+        _build.load()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build_dir = os.path.join(ROOT, "build")
+        os.makedirs(build_dir, exist_ok=True)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_25_", dir=build_dir)
+        try:
+            t_phase = time.time()
+            mp = phase_model_axis(SEED, workdir, _training_shapes(SEED))
+            log(f"[phase 25] ok; wall {time.time() - t_phase:.1f} s")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"model axis (phase 25, {smi}): {json.dumps(mp)}")
+        print(smi)
+        print(json.dumps({"kernels": [_single_conv_row(mp)]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
@@ -7411,6 +8059,13 @@ def main(argv=None) -> int:
             "parallel: keys")
         spatial = phase_spatial(SEED, workdir, step_ms)
         log(f"[phase 24] ok; wall {time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 25] the model axis: kernels 1 and 2 at the tensor-"
+            "parallel shapes; TP of phase 9's UNet3D and phase 11's UNet on "
+            "two ranks; ZeRO-1 against DDP; TP + ZeRO-1 on four ranks with "
+            "a sharded checkpoint resumed")
+        mp = phase_model_axis(SEED, workdir, train_shapes)
+        log(f"[phase 25] ok; wall {time.time() - t_phase:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if train2d["launches"] == 0:
@@ -7436,6 +8091,7 @@ def main(argv=None) -> int:
         **rest["launches"],
         **{k: v for k, v in dp["launches"].items() if k != "dp_2d_ddp"},
         **spatial["launches"],
+        **mp["launches"],
     }
     runs = (unet3d_launches, res_launches, serve3d_launches, train_launches,
             res_train_launches, cfg_train["launches"],
@@ -7486,6 +8142,7 @@ def main(argv=None) -> int:
     dp_2d = dp["launches"]["dp_2d_ddp"]
     log(f"data parallel (phase 23, {smi}): {json.dumps(dp)}")
     log(f"spatial (phase 24, {smi}): {json.dumps(spatial)}")
+    log(f"model axis (phase 25, {smi}): {json.dumps(mp)}")
     kernels = [{
         "name": "double_conv2d",
         "route": "cuda",
@@ -7531,7 +8188,10 @@ def main(argv=None) -> int:
         # 3a and 3d with the interior window at phase 24's slab shapes
         **({"window": spatial["window"][k]} if k in spatial["window"]
            else {}),
+        # kernel 2 at the UNet3D training shapes with Co/2 (phase 25 (e))
+        **({"tp": _tp_k2(mp)} if k == "gcr_conv3d" else {}),
     } for k in KERNELS_3D]
+    kernels.insert(1, _single_conv_row(mp))
     k2 = bf16["k2"]
     bf16_k2_launches = (bf16["by_dtype"]["gcr_conv3d"]["bfloat16"]
                         + bf16["predict"]["by_dtype"]["gcr_conv3d"]["bfloat16"])

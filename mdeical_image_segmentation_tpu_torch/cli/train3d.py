@@ -12,7 +12,10 @@ checkpoint directory (the primary process of a multi-process run) and
 trains, float32 in full float32 (TF32 off).  A ``parallel:`` section's
 keys take overrides too, e.g. ``--parallel.spatial_halo 16
 --parallel.spatial_cross_shard_norm true`` for spatially sharded
-training over the processes of the group.
+training over the processes of the group, ``--parallel.model_axis 2
+--parallel.tensor_parallel true`` for channel tensor parallelism over a
+model axis of 2, ``--parallel.zero1 true`` for the optimizer state
+sharded over the data axis.
 """
 
 import sys

@@ -24,6 +24,11 @@
 // provides z (a scratch buffer when it does not want z back).
 //
 // Each launch's error is checked with cudaGetLastError() before the next.
+//
+// Under channel tensor parallelism the two convs run apart, on each rank's
+// out-channel blocks of (w1, b1) and (w2, b2), with the all-gather of z
+// between them: tpuseg_conv2d_bias_relu_forward is one launch of the same
+// core, y = relu(conv3x3(x, w) + b).
 
 #include "conv_tc.cuh"
 
@@ -59,6 +64,25 @@ cudaError_t double_conv(const void* x, const void* w1, const void* b1,
   return tpuseg_conv::conv_tc<T, false>(p, N, device, stream);
 }
 
+template <typename T>
+cudaError_t conv_bias_relu(const void* x, const void* w, const void* b,
+                           void* y, int N, int H, int W, int Ci, int Co,
+                           int device, cudaStream_t stream) {
+  ConvParams p{};
+  p.D = 1;
+  p.H = H;
+  p.W = W;
+  p.KD = 1;
+  p.post_relu = 1;
+  p.x = x;
+  p.w = w;
+  p.bias = b;
+  p.y = y;
+  p.Ci = Ci;
+  p.Co = Co;
+  return tpuseg_conv::conv_tc<T, false>(p, N, device, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  z (N, H, W, C1) is required: conv1's
@@ -80,6 +104,29 @@ extern "C" int tpuseg_double_conv2d_forward(
   else if (dtype == 1)
     err = double_conv<__nv_bfloat16>(x, w1, b1, w2, b2, y, z, N, H, W, Ci, C1,
                                      Co, device, s);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// y = relu(conv3x3(x, w) + b): x (N, H, W, Ci), w (3, 3, Ci, Co), b (Co,),
+// y (N, H, W, Co); dtype 0 = float32, 1 = bfloat16.  One launch; returns
+// its CUDA error code (0 on success); does not synchronise.
+extern "C" int tpuseg_conv2d_bias_relu_forward(const void* x, const void* w,
+                                               const void* b, void* y, int N,
+                                               int H, int W, int Ci, int Co,
+                                               int dtype, int device,
+                                               void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || Ci <= 0 || Co <= 0 || b == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = tpuseg_conv::use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    err = conv_bias_relu<float>(x, w, b, y, N, H, W, Ci, Co, device, s);
+  else if (dtype == 1)
+    err = conv_bias_relu<__nv_bfloat16>(x, w, b, y, N, H, W, Ci, Co, device,
+                                        s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -75,6 +75,7 @@ from ..ops.image import (
     resize_bilinear,
 )
 from ..ops.norm import GroupNorm
+from ..parallel import tensor as tp
 from .layers2d import TorchBatchNorm, TorchConv, TorchConvTranspose
 from .se3d import se_module
 
@@ -204,12 +205,20 @@ class SingleConv(nn.Module):
         # own dtype and rounded once, as the JAX package's GroupNorm does.
         # Under int8 PTQ (calib or int8) the conv goes through TorchConv, so
         # the fused kernel stands aside, as in the JAX package.
+        # Under channel tensor parallelism (parallel/tensor.py) kernel 2
+        # runs on this rank's out-channel block of the kernel: x and the
+        # whole GroupNorm scale and bias enter through copy_to_model, so
+        # the partial gradients of its backward are summed over the model
+        # axis, and the output blocks are gathered.
         if (self.fused and (self.dtype is None or x.dtype == self.dtype)
                 and quant.mode() == "off"):
             gn = self.GroupNorm_0
             kernel, _ = self.TorchConv_0.hwio(x.dtype)
-            return gcr_fused_conv(x.contiguous(), gn.weight, gn.bias, kernel,
-                                  gn.num_groups, gn.epsilon)
+            return tp.column_parallel(
+                self.TorchConv_0, lambda xc, scale, bias: gcr_fused_conv(
+                    xc.contiguous(), scale, bias, kernel, gn.num_groups,
+                    gn.epsilon),
+                x, tp.full_param(gn, "weight"), tp.full_param(gn, "bias"))
         for char in self.order:
             if char == "r":
                 x = F.relu(x)

@@ -15,6 +15,12 @@ init, or the ``init_weights`` scheme named by ``kernel_init``
 float32 statistics by the fast variance, the running variance updated with
 the biased batch variance at momentum 0.9, eps 1e-5, parameters and running
 statistics float32 under any compute dtype.
+
+Under channel tensor parallelism (``parallel/tensor.py``) a sharded conv
+holds its block of the out-channels and computes ``gather(conv(copy(x)))``
+over the model axis; a sharded BatchNorm gathers its scale and bias and
+normalizes the full tensor; ``DoubleConvolution`` runs its two convs apart
+(kernel 1's single-conv launch each) around the all-gather.
 """
 
 from __future__ import annotations
@@ -28,10 +34,11 @@ import torch.nn.functional as F
 from ..ops import batchnorm
 from ..ops import initializers as tinit
 from ..ops import quant
-from ..ops.fused_conv import double_conv2d, fused_double2d
+from ..ops.fused_conv import conv2d_relu, double_conv2d, fused_double2d
 from ..ops.image import center_crop, upsample_bilinear2d
 from ..ops.remat import run_block, run_stages
 from ..parallel import mesh as mesh_lib
+from ..parallel import tensor as tp
 
 def _channels_first(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
@@ -108,6 +115,9 @@ class TorchConv(nn.Module):
                 zip(x.shape[1:-1], self.kernel_size, self.strides)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return tp.column_parallel(self, self._forward, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         qmode = quant.mode()
         if qmode != "off" and quant.quantizable(self.kernel_size, x.shape[-1]):
             if qmode == "int8":
@@ -172,6 +182,9 @@ class TorchConvTranspose(nn.Module):
         tinit.init_conv_(self.weight, self.bias, self.kernel_init, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return tp.column_parallel(self, self._forward, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype is not None:
             x = x.to(self.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
@@ -218,12 +231,14 @@ class TorchBatchNorm(nn.Module):
     def normalize(self, x: torch.Tensor):
         """(y in x's dtype, the batch statistics to update with, or None in
         eval mode); leaves the running statistics alone."""
+        weight, bias = tp.full_param(self, "weight"), tp.full_param(
+            self, "bias")
         if self.training:
             y, mean, var = batchnorm.batch_norm_train(
-                x, self.weight, self.bias, self.eps, mesh_lib.split_mesh())
+                x, weight, bias, self.eps, mesh_lib.split_mesh())
             return y, (mean, var)
         return batchnorm.normalize(x, self.running_mean, self.running_var,
-                                   self.weight, self.bias, self.eps), None
+                                   weight, bias, self.eps), None
 
     @torch.no_grad()
     def update(self, stats) -> None:
@@ -376,6 +391,12 @@ class DoubleConvolution(nn.Module):
         w1, b1 = self.TorchConv_0.hwio(x.dtype)
         w2, b2 = self.TorchConv_1.hwio(x.dtype)
         x = x.contiguous()
+        if tp.is_sharded(self.TorchConv_0) or tp.is_sharded(self.TorchConv_1):
+            # each conv on this rank's out-channel block, z gathered between
+            z = tp.column_parallel(self.TorchConv_0, lambda xc: conv2d_relu(
+                xc.contiguous(), w1, b1), x)
+            return tp.column_parallel(self.TorchConv_1, lambda zc: conv2d_relu(
+                zc.contiguous(), w2, b2), z)
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (x, w1, b1, w2, b2)):
             return double_conv2d(x, w1, b1, w2, b2)

@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import initializers as tinit
+from ..parallel import tensor as tp
 from .layers2d import TorchConv
 
 
@@ -43,6 +44,9 @@ class Dense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return tp.column_parallel(self, self._forward, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         return torch.nn.functional.linear(
             x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))

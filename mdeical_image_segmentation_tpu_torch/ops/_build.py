@@ -119,6 +119,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     signatures = {
         # x, w1, b1, w2, b2, y, z, N, H, W, Ci, C1, Co, dtype, device, stream
         "tpuseg_double_conv2d_forward": [p] * 7 + [i] * 8 + [p],
+        # x, w, b, y, N, H, W, Ci, Co, dtype, device, stream
+        "tpuseg_conv2d_bias_relu_forward": [p] * 4 + [i] * 7 + [p],
         # aligned, bwd, N, S, C, dtype, device -> G of the two below
         "tpuseg_gn_reduce_blocks": [i, i, i, q, i, i, i],
         # x, partial, s1, s2, N, outer, extent, inner, lo, hi, C, G, dtype,

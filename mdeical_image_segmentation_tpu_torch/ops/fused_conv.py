@@ -35,6 +35,14 @@ masks from the saved y and z and the convs' input and weight gradients from
 the library convolution backward (cuDNN on the card), as the JAX package
 takes them from XLA (``jax.linear_transpose``) outside any Pallas kernel.
 
+``fused_conv2d_relu`` is one of kernel 1's two launches alone, ``y =
+relu(conv3x3(x, w) + b)`` (``tpuseg_conv2d_bias_relu_forward``, the same
+core): channel tensor parallelism (``parallel/tensor.py``) runs a
+DoubleConvolution's two convs apart, on each rank's out-channel blocks,
+with the all-gather of z between them.  ``.launches`` counts one per call;
+``conv2d_relu`` is its autograd Function (cuDNN's backward, as
+``double_conv2d``'s).
+
 ``fused_conv3d`` is the counterpart of the JAX package's
 ``ops/fused_conv.py::fused_conv3d`` (the Pallas ``_gcr_kernel`` there,
 ``csrc/gcr_conv3d.cu`` here, one launch of the same tensor-core core, fp32
@@ -257,6 +265,95 @@ def double_conv2d(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     a CUDA tensor, the plain version on a CPU tensor), differentiable in
     every input: returns y; the backward uses the saved z and y."""
     return _DoubleConv2dFn.apply(x, w1, b1, w2, b2)
+
+
+def fused_conv2d_relu_reference(x: torch.Tensor, w: torch.Tensor,
+                                b: torch.Tensor) -> torch.Tensor:
+    """``F.conv2d`` + bias + relu in x's dtype; same contract as
+    :func:`fused_conv2d_relu`."""
+    y = F.relu(F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b,
+                        padding=1))
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _check_single(x, w, b):
+    n, h, wd, ci = x.shape if x.ndim == 4 else (None,) * 4
+    co = w.shape[-1]
+    if x.ndim != 4 or tuple(w.shape) != (3, 3, ci, co) or tuple(
+            b.shape) != (co,):
+        raise ValueError(f"x (N, H, W, Ci), w (3, 3, Ci, Co), b (Co,); got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(b.shape)}")
+    for name, t in (("x", x), ("w", w), ("b", b)):
+        if t.device != x.device or t.dtype != x.dtype:
+            raise TypeError(f"{name} is {t.dtype} on {t.device}, x is "
+                            f"{x.dtype} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_conv2d_relu takes float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if x.numel() == 0:
+        raise ValueError("fused_conv2d_relu needs a non-empty x")
+    if _tracked(x, w, b):
+        raise RuntimeError(
+            "fused_conv2d_relu: the raw kernel wrapper has no backward; "
+            "train through conv2d_relu (an autograd Function), or call it "
+            "under torch.no_grad/inference_mode")
+
+
+def fused_conv2d_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                      ) -> torch.Tensor:
+    """``relu(conv3x3(x, w) + b)``, stride 1, zero padding 1: x (N, H, W,
+    Ci), w (3, 3, Ci, Co), b (Co,), one dtype (float32 or bfloat16); one
+    launch of kernel 1's conv core on a CUDA tensor, the plain version on
+    a CPU tensor."""
+    if _device_type(x, "fused_conv2d_relu") == "cpu":
+        if not _tracked(x, w, b):
+            _check_single(x, w, b)
+        return fused_conv2d_relu_reference(x, w, b)
+    _check_single(x, w, b)
+    n, h, wd, ci = x.shape
+    co = w.shape[-1]
+    y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
+    dev = x.get_device()
+    rc = _build.kernel("tpuseg_conv2d_bias_relu_forward")(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, wd,
+        ci, co, _DTYPE_CODES[x.dtype], dev, _build.current_stream(dev))
+    _build.check(rc, "conv2d_bias_relu launch")
+    fused_conv2d_relu.launches += 1
+    return y
+
+
+fused_conv2d_relu.launches = 0
+
+
+class _Conv2dReluFn(torch.autograd.Function):
+    """relu(conv(x, w) + b): the kernel forward, cuDNN's backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        y = fused_conv2d_relu(x, w, b)
+        ctx.save_for_backward(x, y, w)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, w = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        gm = torch.ops.aten.threshold_backward(g.to(y.dtype), y, 0)
+        dx, dw = _conv2d_backward(gm, x, w, need_x, need_w)
+        db = (gm.sum((0, 1, 2), dtype=torch.float32).to(gm.dtype)
+              if need_b else None)
+        return dx, None if dw is None else dw.to(w.dtype), db
+
+
+def conv2d_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                ) -> torch.Tensor:
+    """:func:`fused_conv2d_relu`, differentiable in every input."""
+    if _tracked(x, w, b):
+        return _Conv2dReluFn.apply(x, w, b)
+    return fused_conv2d_relu(x, w, b)
 
 
 def fused_conv3d_reference(

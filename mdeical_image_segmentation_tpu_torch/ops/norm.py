@@ -659,7 +659,13 @@ class GroupNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = group_norm(x.contiguous(), self.weight, self.bias,
-                       self.num_groups, self.epsilon)
+        # parallel imports this module: import late
+        from ..parallel.tensor import full_param
+
+        # sharded over a model axis (parallel/tensor.py): the whole scale
+        # and bias, the full tensor normalized on every model rank
+        y = group_norm(x.contiguous(), full_param(self, "weight"),
+                       full_param(self, "bias"), self.num_groups,
+                       self.epsilon)
         out = self.dtype or torch.promote_types(x.dtype, torch.float32)
         return y.to(out)

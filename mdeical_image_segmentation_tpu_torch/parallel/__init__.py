@@ -1,8 +1,8 @@
-"""Data-parallel and spatially sharded training of the port (the JAX
-package's ``parallel``): one process per device, global-batch statistics
-on the data axis (``mesh``), one volume split over the ranks with halo
-exchange (``spatial``).  The tensor-parallel and ZeRO-1 modules wait for
-ROADMAP.md queue 1, items 25b.2 and 25b.3."""
+"""Distributed training of the port (the JAX package's ``parallel``): one
+process per device on a (data, model) mesh, global-batch statistics on the
+data axis (``mesh``), one volume split over the ranks with halo exchange
+(``spatial``), conv out-channels sharded over the model axis (``tensor``)
+and the optimizer state over the data axis (``zero``)."""
 
 from . import distributed
 from .mesh import (
@@ -22,9 +22,17 @@ from .spatial import (
     shard_slab,
     spatial_sharded_apply,
 )
+from .tensor import (
+    copy_to_model,
+    gather_from_model,
+    shard_params_tp,
+    tp_param_specs,
+)
+from .zero import Zero1Optimizer, zero1_specs
 
-__all__ = ["DataMesh", "device_prefetch", "distributed", "divides",
-           "global_sum", "halo_exchange",
-           "local_batch_size", "make_mesh", "make_spatial_train_step",
-           "replicate", "rows_split", "shard_batch", "shard_slab",
-           "spatial_sharded_apply"]
+__all__ = ["DataMesh", "Zero1Optimizer", "copy_to_model", "device_prefetch",
+           "distributed", "divides", "gather_from_model", "global_sum",
+           "halo_exchange", "local_batch_size", "make_mesh",
+           "make_spatial_train_step", "replicate", "rows_split",
+           "shard_batch", "shard_params_tp", "shard_slab",
+           "spatial_sharded_apply", "tp_param_specs", "zero1_specs"]

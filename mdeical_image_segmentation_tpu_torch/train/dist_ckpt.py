@@ -16,6 +16,14 @@ Its paths are flattened to ``/``-joined keys, so a key may not hold a
 leaves, as ``train/checkpoint.py``'s msgpack loader does; with one, the
 template's tensors and arrays are filled in place and returned in its
 shape.
+
+Sharded state (channel tensor parallelism, ZeRO-1): a leaf that is a
+``DTensor`` (``sharded``: this rank's block with its ``Shard(dim)``
+placements on the (data, model) ``device_mesh``) is written by every rank
+as its block, once per block; a plain tensor is replicated and written
+once.  ``restore`` fills a ``DTensor`` leaf of the template with this
+rank's block, and gives a plain template leaf, or no template, the whole
+tensor, whichever layout wrote it.
 """
 
 from __future__ import annotations
@@ -32,8 +40,10 @@ from torch.distributed.checkpoint.default_planner import (
     DefaultLoadPlanner,
     DefaultSavePlanner,
 )
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..logging_utils import get_logger
+from ..parallel.mesh import DataMesh
 
 logger = get_logger("DistCheckpointer")
 
@@ -71,9 +81,12 @@ def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
 
 def _fill(template: Any, loaded: Any) -> Any:
     """``template``'s tree with its leaves taken from ``loaded``: tensors
-    and arrays copied into in place, other leaves replaced."""
+    and arrays copied into in place (a ``DTensor`` is loaded in place
+    already), other leaves replaced."""
     if isinstance(template, dict) and template:
         return {k: _fill(v, loaded[str(k)]) for k, v in template.items()}
+    if isinstance(template, DTensor):
+        return template
     if isinstance(template, torch.Tensor):
         template.copy_(loaded)
         return template
@@ -83,6 +96,31 @@ def _fill(template: Any, loaded: Any) -> Any:
     if isinstance(template, np.generic):
         return type(template)(loaded.item())
     return loaded
+
+
+def device_mesh(mesh: DataMesh):
+    """The (data, model) ``DeviceMesh`` of ``mesh``'s layout, on the CPU
+    (the blocks are written from host copies); it makes process groups, so
+    every process calls it, and a caller keeps it."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu", (mesh.size, mesh.model_size),
+                            mesh_dim_names=("data", "model"))
+
+
+def sharded(local: torch.Tensor, dmesh, data_dim: Optional[int] = None,
+            model_dim: Optional[int] = None):
+    """This rank's block ``local`` of a tensor split evenly along
+    ``data_dim`` over the data axis and ``model_dim`` over the model axis
+    (None: replicated on that axis), as a leaf of a sharded checkpoint: a
+    ``DTensor`` on a host copy, or ``local`` itself when it is replicated
+    on both axes."""
+    if data_dim is None and model_dim is None:
+        return local
+    placements = [Replicate() if d is None else Shard(d)
+                  for d in (data_dim, model_dim)]
+    return DTensor.from_local(local.detach().cpu().clone(), dmesh,
+                              placements, run_check=False)
 
 
 def _commit(tmp: str, path: str) -> None:
@@ -151,10 +189,13 @@ class DistCheckpointer:
                 "resume from a msgpack checkpoint file, which both "
                 "packages read")
         meta = dcp.FileSystemReader(path).read_metadata()
+        blocks = ({} if template is None else
+                  {k: v for k, v in _flatten(template).items()
+                   if isinstance(v, DTensor)})
         flat = {}
         for key, m in meta.state_dict_metadata.items():
-            flat[key] = (torch.empty(tuple(m.size),
-                                     dtype=m.properties.dtype)
+            flat[key] = (blocks[key] if key in blocks else
+                         torch.empty(tuple(m.size), dtype=m.properties.dtype)
                          if isinstance(m, dcp.TensorStorageMetadata)
                          else None)
         dcp.load(flat, checkpoint_id=path,

@@ -51,7 +51,18 @@ statistics and the ratio losses' sums are all-reduced
 the clip reads the averaged gradient.  Evaluation splits each global batch
 over the ranks (a tail that does not divide goes whole to every rank) and
 all-reduces its sums.  Only the primary rank writes checkpoints, metrics
-and plots.  ``tensor_parallel`` and ``zero1`` raise (item 25b).
+and plots.
+
+The model axis (``mesh=make_mesh(n_data, n_model)``): everything above
+runs over the data axis (the global batch is ``per_device_train_batch_size
+× n_data``; the ranks of one data index take the same rows and draw the
+same augmentation and dropout streams).  ``tensor_parallel`` (with a model
+axis over 1) shards the conv out-channels over the model axis
+(``parallel/tensor.py``: a DoubleConvolution runs kernel 1's two convs
+apart on each rank's block, the all-gather of z between them); the clip
+reads the replicated model's global norm; ``save_model`` gathers the whole
+weights.  ``zero1`` (with a data axis over 1) shards AdamW's state over
+the data axis (``parallel/zero.py``).
 ``profile_dir`` traces steps ``profile_start_step`` to ``+
 profile_num_steps`` with ``torch.profiler`` (``train/profiling.py``).
 """
@@ -77,7 +88,9 @@ from ..metrics.metrics2d import (
     quirky_sigmoid,
 )
 from ..parallel import mesh as mesh_lib
+from ..parallel import tensor as tp
 from ..parallel.distributed import is_primary
+from ..parallel.zero import Zero1Optimizer
 from ..transforms.device2d import (
     Augment2DConfig,
     AugmentDraws,
@@ -128,8 +141,11 @@ class TrainingArguments:
     plot_eval: bool = False  # output.png of sample 0 at every eval
     log_dir: Optional[str] = None
     bf16: bool = False
-    tensor_parallel: bool = False  # raises: item 25b
-    zero1: bool = False            # raises: item 25b
+    # shard conv out-channels (and their optimizer state) over the mesh's
+    # model axis (parallel/tensor.py); needs a mesh with n_model > 1
+    tensor_parallel: bool = False
+    # ZeRO-1 (parallel/zero.py): AdamW's state sharded over the data axis
+    zero1: bool = False
     profile_dir: Optional[str] = None  # torch.profiler trace of steps 10-13
     profile_start_step: int = 10
     profile_num_steps: int = 3
@@ -177,12 +193,6 @@ class Trainer:
                  compute_metrics: Optional[Callable] = None,
                  callbacks: Optional[List[TrainerCallback]] = None,
                  mesh=None, device: Union[str, torch.device] = "cuda"):
-        for name, value in (("tensor_parallel", args.tensor_parallel),
-                            ("zero1", args.zero1)):
-            if value:
-                raise NotImplementedError(
-                    f"{name}: the port trains data-parallel only so far "
-                    f"({mesh_lib.MODEL_AXIS_ITEM})")
         if any(p.dtype != torch.float32 or not p.requires_grad
                for p in model.parameters()):
             raise ValueError("the trainer updates float32 master weights "
@@ -192,10 +202,16 @@ class Trainer:
         self.mesh = (mesh if mesh is not None
                      else mesh_lib.make_mesh(device=self.device))
         self.model = model.to(self.device)
+        # as in JAX: each takes effect only on an axis of more than 1
+        self.tensor_parallel = bool(args.tensor_parallel
+                                    and self.mesh.model_size > 1)
+        self.zero1 = bool(args.zero1 and self.mesh.size > 1)
+        if self.tensor_parallel:
+            tp.shard_params_tp(self.model, self.mesh)
         # CGM's gate conv sits behind an argmax: it gets no gradient
         self._ddp = mesh_lib.wrap_ddp(self.model, self.device, (
             getattr(getattr(model, "config", None), "unet_type", "")
-            == "UNet_3Plus_DeepSup_CGM"))
+            == "UNet_3Plus_DeepSup_CGM"), mesh=self.mesh)
         self.args = args
         self.train_dataset = train_dataset
         self.eval_dataset = eval_dataset
@@ -264,6 +280,8 @@ class Trainer:
         optimizer = torch.optim.AdamW(
             self.model.parameters(), lr=schedule(0), betas=(0.9, 0.999),
             eps=1e-8, weight_decay=self.args.weight_decay)
+        if self.zero1:
+            optimizer = Zero1Optimizer(optimizer, self.model, self.mesh)
         self.state = create_train_state(self.model, optimizer, schedule)
         # the same stream on every rank: the global batch's draws
         self._gen = torch.Generator(device=self.device).manual_seed(
@@ -286,7 +304,11 @@ class Trainer:
         k = max(args.gradient_accumulation_steps, 1)
         if k > 1:
             torch._foreach_div_(grads, float(k))
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if self.tensor_parallel:
+            norm = tp.grad_norm_squared(params, self.model).sqrt()
+        else:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
         self.last_grad_norm = norm
         if args.max_grad_norm and args.max_grad_norm > 0:
             scale = torch.where(norm < args.max_grad_norm,
@@ -694,17 +716,20 @@ class Trainer:
     # -- persistence ---------------------------------------------------------
 
     def save_model(self, path: Optional[str] = None):
-        if not is_primary():
-            return  # the replicas are equal; one process writes
+        """The whole model, written by the primary; every rank calls it (a
+        tensor-parallel model gathers its weights first)."""
         path = path or self.args.output_dir
-        self.model.save_pretrained(path)
+        with tp.full_parameters(self.model):
+            if not is_primary():
+                return  # the replicas are equal; one process writes
+            self.model.save_pretrained(path)
         logger.info(f"model saved to {path}")
 
     def _save_checkpoint(self, step: int):
-        if not is_primary():
-            return
         path = os.path.join(self.args.output_dir, f"checkpoint-{step}")
         self.save_model(path)
+        if not is_primary():
+            return
         self._saved_checkpoints.append(path)
         limit = self.args.save_total_limit
         while limit and len(self._saved_checkpoints) > limit:

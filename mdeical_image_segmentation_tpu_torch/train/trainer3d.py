@@ -60,8 +60,19 @@ over the ranks (no DDP; no ``rows_split``, so a ratio loss is the
 per-slab one, the mean of the per-slab criteria being the objective).
 The step returns no output, so no train score is taken; validation runs
 the whole forward on every rank.  3D 'gcr'/'cr' orders only, no
-per-voxel weights.  A ``parallel:`` section with ``model_axis`` > 1,
-``tensor_parallel`` or ``zero1`` raises (items 25b.2, 25b.3).
+per-voxel weights.
+
+The model axis (``parallel: {model_axis, tensor_parallel, zero1}``;
+``mesh=make_mesh(n_model=...)``): the processes form a (data, model) mesh
+(``parallel/mesh.py``) and everything above runs over its data axis.
+``tensor_parallel`` (with a model axis over 1) shards the conv
+out-channels over the model axis (``parallel/tensor.py``: kernel 2 runs on
+each rank's block, the outputs are all-gathered), ``zero1`` (with a data
+axis over 1) shards the optimizer state over the data axis
+(``parallel/zero.py``); neither composes with spatial mode.  Both write
+their checkpoints sharded (``train/dist_ckpt.py``, each rank its blocks)
+into ``<checkpoint_dir>/dist_ckpt``, the directory ``resume`` then takes;
+whatever it resumes from is read whole and sliced to this rank's blocks.
 ``resume`` takes a msgpack checkpoint file of either package or a
 ``train/dist_ckpt.py`` directory; an orbax directory raises.
 """
@@ -77,10 +88,13 @@ import torch
 from ..models.blocks3d import set_dropout_generator
 from ..models.layers2d import TorchBatchNorm
 from ..parallel import mesh as mesh_lib
+from ..parallel import tensor as tp
 from ..parallel.distributed import is_primary
 from ..parallel.spatial import make_spatial_train_step, shard_slab
+from ..parallel.zero import Zero1Optimizer
 from ..utils.param_bridge import flax_to_state_dict, state_dict_to_flax
 from . import checkpoint as ckpt
+from . import dist_ckpt
 from .dist_ckpt import DistCheckpointer
 from .logging_utils import (
     MetricWriter,
@@ -92,6 +106,8 @@ from .optimizers import ReduceLROnPlateau, set_learning_rate
 from .prefetch import device_batches
 
 logger = get_logger("UNetTrainer")
+
+DIST_DIR = "dist_ckpt"  # the sharded checkpoints of TP and ZeRO-1 runs
 
 
 def get_number_of_learnable_parameters(model: torch.nn.Module) -> int:
@@ -120,9 +136,12 @@ def create_trainer(config: Dict[str, Any]) -> "UNetTrainer":
     ``config['seed']`` (default 0), on ``config_device(config)``, trained
     over the data axis of the process group (one process without one):
     the loader batch is ``batch_size`` times the processes, and each
-    process's train loader assembles only its rows.  With
-    ``parallel.spatial_halo`` the processes split each volume instead:
-    every one loads the whole batch of ``batch_size``."""
+    process's train loader assembles only its rows.  ``parallel.model_axis``
+    lays the processes out as a (data, model) mesh: the loader batch is
+    ``batch_size`` times the data axis, and the ranks of one data index
+    load the same rows.  With ``parallel.spatial_halo`` the processes split
+    each volume instead: every one loads the whole batch of
+    ``batch_size``."""
     from ..data.loaders import get_train_loaders
     from ..losses import get_loss_criterion
     from ..metrics import get_evaluation_metric
@@ -131,15 +150,9 @@ def create_trainer(config: Dict[str, Any]) -> "UNetTrainer":
     from .optimizers import create_lr_scheduler, create_optimizer
 
     par_cfg = config.get("parallel") or {}
-    unported = [k for k in sorted(par_cfg) if par_cfg[k] and (
-        k in ("tensor_parallel", "zero1")
-        or (k == "model_axis" and int(par_cfg[k]) > 1))]
-    if unported:
-        raise NotImplementedError(
-            f"parallel: {unported}: not ported yet "
-            f"({mesh_lib.MODEL_AXIS_ITEM})")
     device = config_device(config)
-    mesh = mesh_lib.make_mesh(device=device)
+    mesh = mesh_lib.make_mesh(n_model=int(par_cfg.get("model_axis", 1)),
+                              device=device)
     # spatial mode: the processes split each volume, not the batch
     spatial = bool(par_cfg.get("spatial_halo"))
     if mesh.size > 1:
@@ -172,6 +185,8 @@ def create_trainer(config: Dict[str, Any]) -> "UNetTrainer":
         eval_criterion=eval_criterion, loaders=loaders,
         tensorboard_formatter=tensorboard_formatter, resume=resume,
         pre_trained=pre_trained, mesh=mesh, seed=seed,
+        tensor_parallel=bool(par_cfg.get("tensor_parallel", False)),
+        zero1=bool(par_cfg.get("zero1", False)),
         spatial_halo=par_cfg.get("spatial_halo"),
         spatial_shard_axis=int(par_cfg.get("spatial_shard_axis", 2)),
         spatial_cross_shard_norm=bool(par_cfg.get("spatial_cross_shard_norm",
@@ -206,9 +221,6 @@ class UNetTrainer:
             if value and self.spatial_halo:
                 raise ValueError(f"spatial_halo and {name} are mutually "
                                  "exclusive")
-            if value:
-                raise NotImplementedError(
-                    f"{name}: not ported yet ({mesh_lib.MODEL_AXIS_ITEM})")
         if self.spatial_halo:
             if not getattr(model, "is3d", True):
                 raise ValueError("spatial training is 3D-only")
@@ -241,6 +253,11 @@ class UNetTrainer:
         self.device = next(model.parameters()).device
         self.mesh = (mesh if mesh is not None
                      else mesh_lib.make_mesh(device=self.device))
+        # as in JAX: each takes effect only on an axis of more than 1
+        self.tensor_parallel = bool(tensor_parallel
+                                    and self.mesh.model_size > 1)
+        self.zero1 = bool(zero1 and self.mesh.size > 1)
+        self._device_mesh = None  # the sharded checkpoints' DeviceMesh
         self.best_eval_score = (float("-inf") if eval_score_higher_is_better
                                 else float("+inf"))
         logger.info(f"eval_score_higher_is_better: "
@@ -267,6 +284,11 @@ class UNetTrainer:
             self._restore(resume, with_state=True)
         elif pre_trained is not None:
             self._restore(pre_trained, with_state=False)
+        # the whole state, restored or drawn, sliced to this rank's blocks
+        if self.tensor_parallel:
+            tp.shard_params_tp(model, self.mesh, optimizer)
+        if self.zero1:
+            self.optimizer = Zero1Optimizer(optimizer, model, self.mesh)
         self._split = False  # the current train batch's rows are split
         self._spatial_step = None
         if self.spatial_halo:
@@ -281,7 +303,8 @@ class UNetTrainer:
                 shard_axis=self.spatial_shard_axis,
                 cross_shard_norm=self.spatial_cross_shard_norm, seed=seed)
         else:
-            self._ddp = mesh_lib.wrap_ddp(model, self.device)
+            self._ddp = mesh_lib.wrap_ddp(model, self.device,
+                                          mesh=self.mesh)
 
     def request_stop(self):
         """Ask the training loop to checkpoint and stop at the next step."""
@@ -308,8 +331,10 @@ class UNetTrainer:
                     f" '{path}'...")
         saved = (DistCheckpointer(path).restore() if os.path.isdir(path)
                  else ckpt.load_checkpoint(path))
+        weights = saved["model_state_dict"]
         self.model.load_state_dict(
-            flax_to_state_dict(saved["model_state_dict"]))
+            {k: torch.as_tensor(v) for k, v in weights["state_dict"].items()}
+            if "state_dict" in weights else flax_to_state_dict(weights))
         if not with_state:
             return
         ckpt.load_optimizer_state(self.optimizer, self.model,
@@ -325,7 +350,10 @@ class UNetTrainer:
         """The tree a checkpoint holds (the JAX trainer's keys): counters,
         ``model_state_dict`` (flax ``params`` and ``batch_stats``), the best
         score and the optimizer state; ``DistCheckpointer(dir).save`` of it
-        is a directory ``resume`` takes."""
+        is a directory ``resume`` takes.  A tensor-parallel or ZeRO-1 run
+        gives its sharded state (``sharded_checkpoint_state``)."""
+        if self.tensor_parallel or self.zero1:
+            return self.sharded_checkpoint_state()
         return {
             "num_epochs": self.num_epochs + 1,
             "num_iterations": self.num_iterations,
@@ -336,7 +364,49 @@ class UNetTrainer:
                 self.optimizer, self.model),
         }
 
+    def sharded_checkpoint_state(self) -> Dict[str, Any]:
+        """The tree a tensor-parallel or ZeRO-1 checkpoint holds, in the
+        port's layout: the counters, ``model_state_dict.state_dict`` (the
+        module's ``state_dict``) and ``optimizer_state_dict`` as
+        ``train/checkpoint.py`` writes a torch optimizer's state by
+        parameter name, each sharded tensor as this rank's block
+        (``dist_ckpt.sharded``).  Every rank calls it."""
+        if self._device_mesh is None:
+            self._device_mesh = dist_ckpt.device_mesh(self.mesh)
+        dmesh = self._device_mesh
+        tp_dims = tp.sharded_dims(self.model)
+        weights = {k: dist_ckpt.sharded(v, dmesh, None, tp_dims.get(k))
+                   for k, v in self.model.state_dict().items()}
+        if isinstance(self.optimizer, Zero1Optimizer):
+            inner, slices = self.optimizer.inner, self.optimizer.named_slices()
+        else:
+            inner = self.optimizer
+            slices = [(k, p, None) for k, p in self.model.named_parameters()]
+        state = {}
+        for name, s, dim in slices:
+            entries = {
+                k: (v.item() if k == "step" else
+                    dist_ckpt.sharded(v, dmesh, dim, tp_dims.get(name)))
+                for k, v in inner.state.get(s, {}).items() if v is not None}
+            if entries:
+                state[name] = entries
+        return {
+            "num_epochs": self.num_epochs + 1,
+            "num_iterations": self.num_iterations,
+            "model_state_dict": {"state_dict": weights},
+            "best_eval_score": self.best_eval_score,
+            "optimizer_state_dict": {
+                "torch_optimizer": type(inner).__name__,
+                "learning_rate": float(inner.param_groups[0]["lr"]),
+                "state": state},
+        }
+
     def _save_checkpoint(self, is_best: bool) -> None:
+        if self.tensor_parallel or self.zero1:
+            # every rank writes its blocks
+            DistCheckpointer(os.path.join(self.checkpoint_dir, DIST_DIR)).save(
+                self.checkpoint_state(), is_best=is_best)
+            return
         if not is_primary():
             return  # the replicas are equal; one process writes
         path = os.path.join(self.checkpoint_dir, ckpt.LAST_NAME)

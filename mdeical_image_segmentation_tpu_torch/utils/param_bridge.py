@@ -96,6 +96,23 @@ def _kernel_to_flax(a: np.ndarray, transposed: bool) -> np.ndarray:
     return np.transpose(a, (*sp, 1, 0))  # (O, I, *k) -> (*k, I, O)
 
 
+def flax_dim(key: str, dim: int, ndim: int) -> int:
+    """The flax leaf's dim that dim ``dim`` of the ``state_dict`` entry
+    ``key`` (of ``ndim`` dims) becomes: a conv's (O, I, *k) goes to
+    (*k, I, O), a transposed conv's (I, O, *k) to (*k, I, O), a Dense's
+    (out, in) to (in, out); vectors stay."""
+    mods = key.split(".")[:-1]
+    if ndim == 1:
+        return dim
+    if mods and mods[-1].startswith(_DENSE):
+        return 1 - dim
+    if dim >= 2:
+        return dim - 2
+    if _is_transposed(mods[-1] if mods else ""):
+        return ndim - 2 + dim  # I -> ndim-2, O -> ndim-1
+    return ndim - 1 - dim  # O -> ndim-1, I -> ndim-2
+
+
 def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``{"params": tree, "batch_stats": tree}`` (``batch_stats`` only with
     BatchNorm; or the bare params tree) → torch ``state_dict``."""

@@ -166,9 +166,15 @@ def test_entry_points_want_the_card_unless_device_cpu(tmp_path,
     with pytest.raises(ValueError, match="'auto', 'cuda' or 'cpu'"):
         trainer3d.config_device({"device": "tpu"})
     assert trainer3d.config_device({"device": "cpu"}) == torch.device("cpu")
+    # the parallel: keys reach the mesh: a model axis of 2 needs two
+    # processes (the model axis runs in test_torch_port_tensor_parallel.py)
     cfg = load_config(["--config", TRAIN_YML, "--device", "cpu",
+                       "--parallel.model_axis", "2",
+                       "--parallel.tensor_parallel", "true",
                        "--parallel.zero1", "true"])
-    with pytest.raises(NotImplementedError, match="item 25"):
+    assert cfg["parallel"] == {"model_axis": 2, "tensor_parallel": True,
+                               "zero1": True}
+    with pytest.raises(ValueError, match="one process per device"):
         trainer3d.create_trainer(cfg)
     with pytest.raises(KeyError, match="model_path"):
         predict3d.main(["--config", PREDICT_YML, "--device", "cpu",

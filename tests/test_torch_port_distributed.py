@@ -102,7 +102,7 @@ def test_initialize_never_falls_back():
         make_mesh()
     with pytest.raises(ValueError, match="one process per device"):
         make_mesh(n_data=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 25b"):
+    with pytest.raises(ValueError, match="one process per device"):
         make_mesh(n_model=2, device="cpu")
     assert make_mesh(device="cpu").size == 1
 

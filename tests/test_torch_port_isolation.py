@@ -32,10 +32,11 @@ def _port_modules():
 
 def test_every_module_imports_without_jax_flax_msgpack_pil():
     modules = _port_modules()
-    # 82 with data parallelism (parallel/, train/dist_ckpt.py), the
-    # profiler tooling, viz and spatial sharding; the newer modules are
-    # named so a rename cannot drop them from the walk unseen
-    assert len(modules) >= 82
+    # 84 with data parallelism (parallel/, train/dist_ckpt.py), the
+    # profiler tooling, viz, spatial sharding, tensor parallelism and
+    # ZeRO-1; the newer modules are named so a rename cannot drop them from
+    # the walk unseen
+    assert len(modules) >= 84
     for name in ("ops.initializers", "ops.batchnorm", "ops.msssim",
                  "ops.remat", "ops.image", "models.unet2d",
                  "utils.yaml_io", "utils.hdf5", "configs.config",
@@ -46,7 +47,8 @@ def test_every_module_imports_without_jax_flax_msgpack_pil():
                  "data.dsb", "metrics.seg_compat", "metrics.seg_metrics",
                  "metrics.surface", "infer.predictor", "train.optimizers",
                  "parallel", "parallel.distributed", "parallel.mesh",
-                 "parallel.spatial", "train.dist_ckpt", "train.profiling", "utils.viz"):
+                 "parallel.spatial", "parallel.tensor", "parallel.zero",
+                 "train.dist_ckpt", "train.profiling", "utils.viz"):
         assert f"{port.__name__}.{name}" in modules, name
     code = (
         "import importlib, sys\n"

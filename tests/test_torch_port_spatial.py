@@ -385,7 +385,7 @@ def test_trainer_spatial_mode_wiring(runs):
 def test_trainer_spatial_mode_checks(tmp_path):
     """The JAX trainer's asserts, as errors: 3D only, no BatchNorm orders,
     no per-voxel weights, spatial excludes TP and ZeRO-1; TP and ZeRO-1
-    alone still raise naming their item."""
+    alone build, and on a mesh of 1 take no effect, as in JAX."""
     from mdeical_image_segmentation_tpu_torch import logging_utils
     from mdeical_image_segmentation_tpu_torch.train import trainer3d
 
@@ -406,8 +406,8 @@ def test_trainer_spatial_mode_checks(tmp_path):
         with pytest.raises(err, match=match):
             trainer(S.GCR, **spatial, **kw)
     for kw in (dict(tensor_parallel=True), dict(zero1=True)):
-        with pytest.raises(NotImplementedError, match="item 25b"):
-            trainer(S.GCR, **kw)
+        t = trainer(S.GCR, **kw)
+        assert not t.tensor_parallel and not t.zero1
     with pytest.raises(ValueError, match="BatchNorm orders"):
         trainer({**S.GCR, "layer_order": "bcr"}, **spatial)
     with pytest.raises(ValueError, match="3D-only"):

@@ -346,10 +346,13 @@ def test_unported_options_and_card_default_raise(monkeypatch, tmp_path):
 
     model = _port_model()
     out = dict(output_dir=str(tmp_path))
+    # the model axis and ZeRO-1 are ported (test_torch_port_tensor_parallel
+    # .py, test_torch_port_zero1.py); as in JAX, each takes effect only on
+    # an axis of more than 1, and a model axis needs its processes
     for kw in (dict(tensor_parallel=True), dict(zero1=True)):
-        with pytest.raises(NotImplementedError, match="item 25b"):
-            Trainer(model, TrainingArguments(**out, **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 25b"):
+        t = Trainer(model, TrainingArguments(**out, **kw), device="cpu")
+        assert not t.tensor_parallel and not t.zero1
+    with pytest.raises(ValueError, match="one process per device"):
         make_mesh(n_model=2, device="cpu")
     # the data axis and the profiler trace are ported (item 25a and 26:
     # test_torch_port_dp_train.py, test_torch_port_profiling.py)

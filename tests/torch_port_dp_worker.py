@@ -1,8 +1,10 @@
 """One rank of a gloo world of the port on the CPU, for the data-parallel
 tests (``test_torch_port_distributed.py``, ``test_torch_port_dp_train.py``,
-``test_torch_port_dp_train2d.py``, ``test_torch_port_dist_ckpt.py``) and
-the spatial one (``test_torch_port_spatial.py``, its cases in
-``torch_port_spatial_cases.py``), and the setups they share.
+``test_torch_port_dp_train2d.py``, ``test_torch_port_dist_ckpt.py``), the
+spatial one (``test_torch_port_spatial.py``, its cases in
+``torch_port_spatial_cases.py``) and the model-axis ones
+(``test_torch_port_tensor_parallel.py``, ``test_torch_port_zero1.py``, their
+cases in ``torch_port_model_axis_cases.py``), and the setups they share.
 
     python tests/torch_port_dp_worker.py <scenario> <rank> <world> <port> <out>
 
@@ -440,6 +442,40 @@ def scenario_spatial(rank, world, out):
     import torch_port_spatial_cases as S
 
     return S.port_runs(out, rank)
+
+
+def scenario_tp(rank, world, out):
+    """test_torch_port_tensor_parallel.py: a model axis of 2."""
+    import torch_port_model_axis_cases as M
+    from mdeical_image_segmentation_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_model=2, device="cpu")
+    return {"mesh": (mesh.shape, mesh.rank, mesh.model_rank),
+            "unet2d": M.unet2d_forward_and_grads(out, mesh),
+            "trainer": M.run_trainer_3d(out, rank),
+            "round_trip": M.dcp_round_trip(out, rank, mesh,
+                                           tensor_parallel=True)}
+
+
+def scenario_zero1(rank, world, out):
+    """test_torch_port_zero1.py: a data axis of 2, ZeRO-1 and not."""
+    import torch_port_model_axis_cases as M
+    from mdeical_image_segmentation_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    return {"zero1": M.run_2d(out, "zero1", mesh, zero1=True),
+            "replicated": M.run_2d(out, "replicated", mesh)}
+
+
+def scenario_tp_zero1(rank, world, out):
+    """test_torch_port_zero1.py: a (2, 2) mesh, TP and ZeRO-1 together."""
+    import torch_port_model_axis_cases as M
+    from mdeical_image_segmentation_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_model=2, device="cpu")
+    return {"mesh": (mesh.shape, mesh.rank, mesh.model_rank),
+            "run": M.run_2d(out, "tp_zero1", mesh, zero1=True,
+                            tensor_parallel=True)}
 
 
 def primitive_inputs():
