@@ -8,7 +8,7 @@ data-parallel training with its checkpoint and the profiler tooling,
 spatially sharded training with halo exchange, and the model axis (channel
 tensor parallelism, ZeRO-1, sharded checkpoints).
 
-    python3 chip_smoke.py [--phase 18|19|20|21|23|24|25]
+    python3 chip_smoke.py [--phase 18|19|20|21|23|24|25|26]
 
 Needs one CUDA card, nvcc and the checkout this file sits in; imports nothing
 of JAX (nor PyYAML or h5py).  It exits non-zero, without printing a result,
@@ -424,6 +424,30 @@ wall time.
    ``conv2d_relu`` (kernel 1's single-conv entry) and kernel 2's ``tp``
    times, and counts the paths under ``tp_3d``, ``zero1_3d`` and
    ``tp_zero1_resume``.
+26. File formats (``phase_read_formats``; runs after phase 25, and
+   ``--phase 26`` runs it alone), TF32 off: (a) every HDF5 fixture of
+   ``tests/fixtures/h5_latest`` (superblocks 0, 2 and 3, every layout and
+   chunk index, LZF, Fletcher-32, scale-offset, bool, float16, link groups,
+   soft links) and every PNG of ``tests/fixtures/png_extra`` read by the
+   port, each dataset's and image's shape, dtype and SHA-256 and each
+   group's keys() against ``manifest.json``, which h5py, imageio and PIL
+   wrote (this machine has none of them); (b) ``cli/predict3d.py`` on
+   ``configs/unet3d_predict.yml`` (StandardHDF5Dataset, a seeded
+   checkpoint) over the libver='latest' (80, 340, 340) uint8 phantom
+   (shuffle + gzip under a version-2 B-tree chunk index; one batch of 4)
+   and over its copy written by the port's superblock-0 writer: the maps
+   equal to the bit, 14/14 kernel-2 and 3a launches a batch and one
+   overlap-add asserted, the whole-volume read of each file timed; (c)
+   LazyHDF5Dataset + LazyPredictor twice on a copy of the latest file: the
+   first appends ``raw_padded_16x32x32`` with "r+" (the root's object
+   header rewritten, the superblock's root address, end of file and
+   checksum patched), the second reads it; both maps within phase 21's
+   Lazy limit of (b)'s, the appended structure read back; (d)
+   DSB2018Predictor over the 1-, 3- and 4-channel PNG directories
+   (palette, sub-byte grey, 16-bit colour, interlaced), a seeded UNet2D
+   each, GroupNorm launches asserted.  The kernels line counts the paths
+   under ``latest_predict3d``, ``latest_v0_predict3d``, ``latest_lazy`` and
+   ``dsb_png_extra``.
 """
 
 from __future__ import annotations
@@ -438,6 +462,7 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -7659,6 +7684,295 @@ def phase_model_axis(seed: int, workdir: str, train_shapes):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the files the JAX package reads through h5py, PIL and imageio:
+# libver='latest' HDF5 (superblock 3, v2 object headers, layout 4's chunk
+# indexes, LZF / Fletcher-32 / scale-offset, bool and float16, link groups),
+# the "r+" memo appended to such a file, and palette, sub-byte, 16-bit
+# colour and interlaced PNGs
+# ---------------------------------------------------------------------------
+
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+PHANTOM = os.path.join(FIXTURES, "h5_latest", "phantom_latest.h5")
+READ_REPEATS = 3  # the phantom's read: best of 3, latest file and v0 copy
+
+
+def fixture_entry(a) -> dict:
+    """Shape, dtype and SHA-256 of the C-order bytes (a bool array's as 0
+    and 1), as ``scripts/make_port_fixtures.py`` wrote the manifest."""
+    import hashlib
+
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    raw = a.tobytes()
+    if a.dtype == bool:
+        raw = (np.frombuffer(raw, np.uint8) != 0).tobytes()
+    return {"shape": list(a.shape), "dtype": a.dtype.str,
+            "sha256": hashlib.sha256(raw).hexdigest()}
+
+
+def _check_fixtures() -> dict:
+    """(a) every committed HDF5 fixture and PNG read by the port against the
+    manifest h5py, imageio and PIL gave: each dataset, each group's keys(),
+    each image as the DSB reader and ``png.read`` give it."""
+    from mdeical_image_segmentation_tpu_torch.data.dsb import read_image
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5, png
+
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    n_ds = 0
+    for name, want in sorted(manifest["h5_latest"].items()):
+        with hdf5.File(os.path.join(FIXTURES, "h5_latest", name)) as f:
+            for group, keys in want["groups"].items():
+                if f[group].keys() != keys:
+                    raise AssertionError(f"{name}:{group} keys "
+                                         f"{f[group].keys()}, want {keys}")
+            for ds, entry in want["datasets"].items():
+                got = fixture_entry(f[ds][()])
+                if got != entry:
+                    raise AssertionError(f"{name}:{ds} reads as {got}, the "
+                                         f"manifest holds {entry}")
+                n_ds += 1
+    for name, want in sorted(manifest["png_extra"].items()):
+        path = os.path.join(FIXTURES, "png_extra", name)
+        got = {"imageio": fixture_entry(read_image(path)),
+               "pil_L": fixture_entry(png.read(path, "L")),
+               "pil_RGB": fixture_entry(png.read(path, "RGB"))}
+        if got != want:
+            raise AssertionError(f"{name} decodes as {got}, the manifest "
+                                 f"holds {want}")
+    return {"h5_files": len(manifest["h5_latest"]), "datasets": n_ds,
+            "pngs": len(manifest["png_extra"])}
+
+
+def _best_read_s(path: str) -> float:
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5
+
+    best = float("inf")
+    for _ in range(READ_REPEATS):
+        t0 = time.perf_counter()
+        with hdf5.File(path) as f:
+            f["raw"][:]
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _predict_phantom(path: str, ckpt: str, out_dir: str, lazy: bool):
+    """cli/predict3d.py on configs/unet3d_predict.yml over ``path`` (Standard
+    or Lazy); the map, the launches, the batches and the wall time."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.cli import predict3d
+    from mdeical_image_segmentation_tpu_torch.infer import (
+        predictor as predictor_lib,
+    )
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5
+
+    argv = ["--config", PREDICT_YML, "--model_path", ckpt,
+            "--output_dir", out_dir, "--loaders.test.file_paths",
+            repr([path])]
+    if lazy:
+        argv += ["--loaders.dataset", "LazyHDF5Dataset",
+                 "--predictor.name", "LazyPredictor"]
+    rec = []
+    get = predictor_lib.get_predictor
+
+    def instrumented(model, output_dir, config, **kw):
+        p = get(model, output_dir, config, **kw)
+        _timed_batches(p, rec)
+        return p
+
+    predictor_lib.get_predictor = instrumented
+    try:
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        (written,) = predict3d.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        predictor_lib.get_predictor = get
+    for i, (_, n) in enumerate(rec):
+        if n["gcr_conv3d"] != 14 or n["gn_stats"] != 14:
+            raise AssertionError(f"{path}, batch {i}: {n}, want 14 "
+                                 "gcr_conv3d and 14 gn_stats launches")
+    want_overlap = 0 if lazy else len(rec)
+    if len(rec) != 1 or launches["overlap_add"] != want_overlap:
+        raise AssertionError(f"{path}: {launches} over {len(rec)} batches, "
+                             f"want one batch of 4 and {want_overlap} "
+                             "overlap_add")
+    with hdf5.File(written) as f:
+        got = f["predictions"][:]
+    return {"map": got, "launches": launches, "wall_s": wall,
+            "batch_ms": rec[0][0]}
+
+
+def _dsb_new_pngs(seed: int, workdir: str) -> dict:
+    """(d) cli/predict3d.py with DSB2018Dataset and DSB2018Predictor over
+    each of the PNG fixtures' directories (1, 3 and 4 channels as imageio
+    reads them), a seeded UNet2D of that many input channels each."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.cli import predict3d
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5, yaml_io
+
+    pred_cfg = read_yaml_subset(PREDICT_YML)
+    total = {k: 0 for k in KERNELS_3D}
+    images = 0
+    for ch in (1, 3, 4):
+        root = os.path.join(FIXTURES, "png_extra", f"dsb_c{ch}")
+        n = len(os.listdir(os.path.join(root, "images")))
+        model = dict(DSB_MODEL, in_channels=ch)
+        cfg = {"model": model,
+               "model_path": _initial_checkpoint(model, seed + ch, workdir,
+                                                 f"dsb_c{ch}"),
+               "output_dir": os.path.join(workdir, f"dsb_c{ch}_out"),
+               "predictor": {"name": "DSB2018Predictor"},
+               "loaders": {"dataset": "DSB2018Dataset",
+                           "batch_size": DSB_BATCH,
+                           "test": {"file_paths": [root], "transformer":
+                                    pred_cfg["loaders"]["test"]["transformer"]}}}
+        os.makedirs(cfg["output_dir"])
+        cfg_path = os.path.join(workdir, f"dsb_c{ch}.yml")
+        with open(cfg_path, "w") as f:
+            f.write(yaml_io.dumps(cfg))
+        torch.cuda.synchronize()
+        _zero_counts()
+        (files,) = predict3d.main(["--config", cfg_path])
+        torch.cuda.synchronize()
+        launches = _counts()
+        per_batch = 2 * (2 * DSB_MODEL["num_levels"] - 1)
+        batches = -(-n // DSB_BATCH)
+        if (len(files) != n or launches["gn_stats"] != per_batch * batches
+                or launches["gn_affine"] != per_batch * batches):
+            raise AssertionError(f"dsb_c{ch}: {launches} for {len(files)} "
+                                 f"files, want {per_batch * batches} "
+                                 f"GroupNorm launches for {n}")
+        for path in files:
+            with hdf5.File(path) as f:
+                p, seg = f["predictions"][:], f["segmentation"][:]
+            if (p.shape != (32, 48) or not np.isfinite(p).all()
+                    or seg.dtype != np.uint16):
+                raise AssertionError(f"{path}: predictions {p.shape}, "
+                                     f"segmentation {seg.dtype}")
+        for k in KERNELS_3D:
+            total[k] += launches[k]
+        images += n
+    return {"images": images, "launches": total}
+
+
+def phase_read_formats(seed: int, workdir: str) -> dict:
+    """Phase 26: (a) the fixtures against their manifest; (b) predict3d
+    (Standard) over the libver='latest' phantom and over its copy in the
+    port's own superblock-0 writer, to the bit; (c) LazyPredictor on a copy
+    of the latest file, the memo appended with "r+" and read back; (d)
+    DSB2018 over the new PNGs."""
+    import numpy as np
+
+    from mdeical_image_segmentation_tpu_torch.data.volume_utils import (
+        mirror_pad,
+    )
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5
+
+    workdir = os.path.join(workdir, "phase26")
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    fixtures = _check_fixtures()
+    fixtures["s"] = time.perf_counter() - t0
+    log(f"[phase 26] (a) {fixtures['datasets']} datasets of "
+        f"{fixtures['h5_files']} HDF5 fixtures and {fixtures['pngs']} PNGs "
+        f"equal to the manifest in {fixtures['s']:.2f} s")
+
+    # (b) the latest file and its v0 copy through the same command
+    latest = os.path.join(workdir, "phantom_latest.h5")
+    shutil.copy(PHANTOM, latest)
+    with hdf5.File(latest) as f:
+        raw = f["raw"][:]
+        index = f["raw"]._index_type
+    v0 = os.path.join(workdir, "phantom_v0.h5")
+    write_h5_volume(v0, raw)
+    reads = {"latest_s": _best_read_s(latest), "v0_s": _best_read_s(v0)}
+    log(f"[phase 26] (b) the {raw.shape} {raw.dtype} phantom read whole by "
+        f"the port (best of {READ_REPEATS}, warm): latest file (chunk index "
+        f"type {index}, shuffle + gzip) {reads['latest_s']:.3f} s, its v0 "
+        f"copy (v1 B-tree, gzip) {reads['v0_s']:.3f} s")
+    cfg = read_yaml_subset(PREDICT_YML)
+    ckpt = _initial_checkpoint(cfg["model"], seed, workdir, "phantom_unet3d")
+    std = {tag: _predict_phantom(path, ckpt, os.path.join(workdir, tag),
+                                 lazy=False)
+           for tag, path in (("latest", latest), ("v0", v0))}
+    a, b = std["latest"]["map"], std["v0"]["map"]
+    if a.shape != (1,) + raw.shape or not np.isfinite(a).all() or not (
+            np.array_equal(a, b)):
+        raise AssertionError(f"the latest file's map {a.shape} differs from "
+                             "the v0 copy's")
+    log("[phase 26] (b) predict3d (StandardPredictor): latest "
+        f"{std['latest']['wall_s']:.2f} s, v0 copy {std['v0']['wall_s']:.2f}"
+        f" s; batch {std['latest']['batch_ms']:.1f} / "
+        f"{std['v0']['batch_ms']:.1f} ms; maps equal to the bit; launches "
+        f"{std['latest']['launches']} each")
+
+    # (c) LazyPredictor appends the memo to a copy of the latest file
+    lazy_path = os.path.join(workdir, "phantom_lazy.h5")
+    shutil.copy(PHANTOM, lazy_path)
+    halo = cfg["loaders"]["test"]["slice_builder"]["halo_shape"]
+    memo = "raw_padded_" + "x".join(str(h) for h in halo)
+    with hdf5.File(lazy_path) as f:
+        root_before = f._header_addr
+    scale = max(1.0, float(np.abs(a).max()))
+    lazy, launches = {}, {k: 0 for k in KERNELS_3D}
+    for run in ("memo written", "memo read"):
+        size = os.path.getsize(lazy_path)
+        lazy[run] = _predict_phantom(lazy_path, ckpt, os.path.join(
+            workdir, f"lazy_{len(lazy)}"), lazy=True)
+        err = float(np.abs(lazy[run]["map"] - a).max())
+        if err > LAZY_MAP_TOL * scale:
+            raise AssertionError(f"lazy {run}: the map differs from (b)'s by "
+                                 f"{err:.3e} (limit {LAZY_MAP_TOL} x "
+                                 f"{scale:.3f})")
+        lazy[run]["err"] = err
+        for k in KERNELS_3D:
+            launches[k] += lazy[run]["launches"][k]
+        with hdf5.File(lazy_path) as f:
+            keys = f.keys()
+            sb, root = f._store.sb_version, f._header_addr
+            eof = struct.unpack("<Q", f._store.read(f._eof_field, 8))[0]
+            got_memo = f[memo][:]
+        if (keys != ["raw", memo] or sb != 3 or root == root_before
+                or eof != os.path.getsize(lazy_path)
+                or not np.array_equal(got_memo, mirror_pad(raw, halo))):
+            raise AssertionError(f"lazy {run}: {lazy_path} holds {keys}, "
+                                 f"superblock {sb}, root header {root} "
+                                 f"(was {root_before}), end of file {eof} of "
+                                 f"{os.path.getsize(lazy_path)} bytes")
+        if run == "memo read" and os.path.getsize(lazy_path) != size:
+            raise AssertionError("the second Lazy run wrote to the file")
+        log(f"[phase 26] (c) LazyPredictor, {run}: "
+            f"{lazy[run]['wall_s']:.2f} s, map vs (b) max |diff| {err:.3e}; "
+            f"the file holds {keys} under superblock {sb}, its root header "
+            f"rewritten at {root} (was {root_before}), end of file patched "
+            f"to {eof}")
+
+    # (d) DSB over the new PNGs
+    t0 = time.perf_counter()
+    dsb = _dsb_new_pngs(seed, workdir)
+    dsb["wall_s"] = time.perf_counter() - t0
+    log(f"[phase 26] (d) DSB2018Predictor over {dsb['images']} palette, "
+        f"sub-byte, 16-bit colour and interlaced PNGs in "
+        f"{dsb['wall_s']:.2f} s; launches {dsb['launches']}")
+    for r in list(std.values()) + list(lazy.values()):
+        r.pop("map")
+    return {"fixtures": fixtures, "reads": reads, "standard": std,
+            "lazy": lazy, "dsb": dsb,
+            "launches": {"latest_predict3d": std["latest"]["launches"],
+                         "latest_v0_predict3d": std["v0"]["launches"],
+                         "latest_lazy": launches,
+                         "dsb_png_extra": dsb["launches"]}}
+
+
 def _single_conv_row(mp: dict) -> dict:
     """The kernels-line entry of kernel 1's single-conv launch (one of its
     two convs alone, as the 2D TP step runs it): launches on phase 25's
@@ -7747,7 +8061,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phase", type=int,
-                        choices=(18, 19, 20, 21, 23, 24, 25), default=None,
+                        choices=(18, 19, 20, 21, 23, 24, 25, 26),
+                        default=None,
                         help="run the kernel build and this phase alone "
                         "(21: with phases 13 and 14, which it reads)")
     # one rank of phase 23 (b) or of phase 24 (b)-(c), started by the
@@ -7897,6 +8212,29 @@ def main(argv=None) -> int:
         log(f"model axis (phase 25, {smi}): {json.dumps(mp)}")
         print(smi)
         print(json.dumps({"kernels": [_single_conv_row(mp)]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
+    if args.phase == 26:
+        from mdeical_image_segmentation_tpu_torch.ops import _build
+
+        _build.load()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build_dir = os.path.join(ROOT, "build")
+        os.makedirs(build_dir, exist_ok=True)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_26_", dir=build_dir)
+        try:
+            t_phase = time.time()
+            formats = phase_read_formats(SEED, workdir)
+            log(f"[phase 26] ok; wall {time.time() - t_phase:.1f} s ({smi})")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"file formats (phase 26, {smi}): {json.dumps(formats)}")
+        print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
@@ -8066,6 +8404,14 @@ def main(argv=None) -> int:
             "a sharded checkpoint resumed")
         mp = phase_model_axis(SEED, workdir, train_shapes)
         log(f"[phase 25] ok; wall {time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        log("[phase 26] file formats: the HDF5 and PNG fixtures against "
+            "their manifest; predict3d over a libver='latest' volume and "
+            "its v0 copy; LazyPredictor's memo appended to the latest file; "
+            "DSB2018 over palette, sub-byte, 16-bit colour and interlaced "
+            "PNGs")
+        formats = phase_read_formats(SEED, workdir)
+        log(f"[phase 26] ok; wall {time.time() - t_phase:.1f} s ({smi})")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if train2d["launches"] == 0:
@@ -8092,6 +8438,7 @@ def main(argv=None) -> int:
         **{k: v for k, v in dp["launches"].items() if k != "dp_2d_ddp"},
         **spatial["launches"],
         **mp["launches"],
+        **formats["launches"],
     }
     runs = (unet3d_launches, res_launches, serve3d_launches, train_launches,
             res_train_launches, cfg_train["launches"],
@@ -8143,6 +8490,7 @@ def main(argv=None) -> int:
     log(f"data parallel (phase 23, {smi}): {json.dumps(dp)}")
     log(f"spatial (phase 24, {smi}): {json.dumps(spatial)}")
     log(f"model axis (phase 25, {smi}): {json.dumps(mp)}")
+    log(f"file formats (phase 26, {smi}): {json.dumps(formats)}")
     kernels = [{
         "name": "double_conv2d",
         "route": "cuda",

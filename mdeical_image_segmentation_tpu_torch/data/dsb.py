@@ -6,11 +6,15 @@ pipelines take: an (H, W) image becomes (1, H, W), an (H, W, C) one
 (C, 1, H, W).  The test phase returns (image, path) pairs, batched by
 ``dsb_prediction_collate``.
 
-Images are read with the port's PNG decoder (``utils/png.py``) as their
-samples are stored, which is what imageio gives the JAX package: 8- and
-16-bit grey stay uint8 and uint16, grey + alpha, RGB and RGBA keep their 2,
-3 and 4 channels.  A file that is not a PNG, and a palette, sub-byte or
-16-bit colour PNG, raises and names what it is.
+Images are read with the port's PNG decoder (``utils/png.py``, every
+colour type and depth, plain or Adam7-interlaced) into what imageio gives
+the JAX package: 8- and 16-bit grey stay uint8 and uint16; 8-bit grey +
+alpha, RGB and RGBA keep their 2, 3 and 4 channels; palette images (1-8
+bits, with or without tRNS) become RGB uint8; 1-bit grey becomes bool, 2-
+and 4-bit grey uint8 scaled to 0..255; 16-bit RGB and RGBA keep their high
+bytes, and 16-bit grey + alpha becomes RGBA uint8, the grey repeated.  A
+file that is not a PNG (JPEG, TIFF, GIF, BMP) raises and names what it
+is.
 """
 
 from __future__ import annotations
@@ -29,13 +33,13 @@ from .volume_utils import calculate_stats
 
 logger = get_logger("DSB2018Dataset")
 
-DSB_FORMATS_ITEM = ("ROADMAP.md queue 1, item 20 (DSB images other than "
-                    "8/16-bit grey and 8-bit grey+alpha, RGB and RGBA PNGs)")
+DSB_FORMATS_ITEM = ("ROADMAP.md queue 1, item 20c (JPEG, TIFF, GIF and BMP "
+                    "images)")
 
 
 def read_image(path: str) -> np.ndarray:
-    """The stored samples of the PNG at ``path``: (H, W) for grey, else
-    (H, W, C)."""
+    """The PNG at ``path`` as the JAX package's ``imageio.imread`` gives
+    it: (H, W) for grey, else (H, W, C)."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(png.SIGNATURE):
@@ -43,12 +47,19 @@ def read_image(path: str) -> np.ndarray:
         raise NotImplementedError(f"{path}: not a PNG ({kind}); "
                                   f"{DSB_FORMATS_ITEM}")
     img = png.decode(data)
-    if img.colour_type == 3 or img.depth < 8 or (
-            img.depth == 16 and img.colour_type != 0):
-        raise NotImplementedError(
-            f"{path}: PNG colour type {img.colour_type} at {img.depth} bits; "
-            f"{DSB_FORMATS_ITEM}")
-    px = img.pixels
+    px, ct = img.pixels, img.colour_type
+    if ct == 3:  # palette: RGB, tRNS or not
+        return img.palette[px[..., 0]]
+    if img.depth == 16 and ct != 0:  # the high byte; grey + alpha as RGBA
+        high = (px >> 8).astype(np.uint8)
+        if ct == 4:
+            return np.concatenate([np.repeat(high[..., :1], 3, axis=-1),
+                                   high[..., 1:]], axis=-1)
+        return high
+    if img.depth == 1:
+        return px[..., 0] != 0
+    if img.depth < 8:  # 2- and 4-bit grey scaled to 0..255
+        return png.convert(img, "L")
     return px[..., 0] if px.shape[-1] == 1 else px
 
 

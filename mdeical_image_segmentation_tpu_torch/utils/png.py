@@ -3,24 +3,28 @@ small C unfilter.
 
 It takes the place of PIL on the serving and 2D data paths, where the JAX
 package calls ``Image.open(path).convert("L" | "RGB")`` and
-``Image.fromarray(mask).save``.
+``Image.fromarray(mask).save``, and of imageio on the DSB path
+(``data/dsb.py``).
 
-- ``decode``: non-interlaced PNGs of every colour type and bit depth the
-  format allows: grey (1, 2, 4, 8, 16 bits), RGB (8, 16), palette (1, 2, 4,
-  8), grey + alpha and RGBA (8, 16), with all five row filters.  The rows
-  are unfiltered in C (``csrc/png_unfilter.c``, built with the host C
-  compiler at the first decode and loaded with ctypes; without a compiler
-  the first decode raises).
+- ``decode``: PNGs of every colour type and bit depth the format allows:
+  grey (1, 2, 4, 8, 16 bits), RGB (8, 16), palette (1, 2, 4, 8), grey +
+  alpha and RGBA (8, 16), with all five row filters, plain or
+  Adam7-interlaced (each of the seven reduced images unfiltered at its own
+  width, then scattered onto its grid).  The rows are unfiltered in C
+  (``csrc/png_unfilter.c``, built with the host C compiler at the first
+  decode and loaded with ctypes; without a compiler the first decode
+  raises).
 - ``convert``: to "L" or "RGB" exactly as PIL's ``convert`` does on what
   ``Image.open`` gives: L = (R*19595 + G*38470 + B*7471 + 0x8000) >> 16,
-  alpha dropped, palette entries looked up first; sub-byte grey scaled to
-  0..255; 16-bit grey clipped to 255 (PIL's "I;16"), the other 16-bit
-  types cut to their high byte.
+  alpha dropped, palette entries looked up first (a tRNS chunk changes
+  neither); sub-byte grey scaled to 0..255; 16-bit grey clipped to 255
+  (PIL's "I;16"), the other 16-bit types cut to their high byte.
 - ``encode``: 8-bit grey (or grey+alpha, RGB, RGBA by channel count), one
   IDAT, filter 0 on every row.
 
-Interlacing, a bit depth the format does not allow for the colour type, or
-a broken stream raises ``PngError``, which the server answers with a 400.
+A bit depth the format does not allow for the colour type, an unknown
+interlace method, or a broken stream raises ``PngError``, which the server
+answers with a 400.
 """
 
 from __future__ import annotations
@@ -38,6 +42,9 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
            6: (8, 16)}
 _COLOUR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}  # channels -> colour type
+# Adam7's passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 class PngError(ValueError):
@@ -137,8 +144,8 @@ def decode(data: bytes) -> PngImage:
     if depth not in _DEPTHS[colour_type]:
         raise PngError(f"bad PNG bit depth {depth} for colour type "
                        f"{colour_type}")
-    if interlace != 0:
-        raise PngError("interlaced PNGs are not supported")
+    if interlace not in (0, 1):
+        raise PngError(f"unknown PNG interlace method {interlace}")
     if compression != 0 or filt != 0:
         raise PngError("unknown PNG compression or filter method")
     if colour_type == 3 and palette is None:
@@ -151,9 +158,28 @@ def decode(data: bytes) -> PngImage:
         raise PngError(f"corrupt image data: {e}") from None
     ch = _CHANNELS[colour_type]
     bits = ch * depth
-    rows = _unfilter(raw, h, -(-w * bits // 8), max(bits // 8, 1))
-    return PngImage(_samples(rows, h, w, ch, depth), colour_type, palette,
-                    depth)
+    bpp = max(bits // 8, 1)
+    if interlace == 0:
+        rows = _unfilter(raw, h, -(-w * bits // 8), bpp)
+        return PngImage(_samples(rows, h, w, ch, depth), colour_type,
+                        palette, depth)
+    # Adam7: seven reduced images, each unfiltered at its own width and
+    # scattered onto its grid
+    out = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = -(-pw * bits // 8)
+        size = ph * (stride + 1)
+        if pos + size > len(raw):
+            raise PngError("interlaced image data shorter than the header "
+                           "says")
+        rows = _unfilter(raw[pos:pos + size], ph, stride, bpp)
+        out[y0::dy, x0::dx] = _samples(rows, ph, pw, ch, depth)
+        pos += size
+    return PngImage(out, colour_type, palette, depth)
 
 
 def _luma(rgb: np.ndarray) -> np.ndarray:

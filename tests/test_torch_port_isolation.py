@@ -103,6 +103,14 @@ def test_3d_clis_run_without_h5py_and_yaml(tmp_path):
         "with hdf5.File(p) as f:\n"
         "    assert f['raw'][:].sum() == 256\n"
         "    assert f['raw_padded_1x1x1'][:].sum() == 600\n"
+        # a libver='latest' file (v2 B-tree index, shuffle + LZF) and
+        # h5py's bool and float16, read without h5py
+        "fx = 'tests/fixtures/h5_latest/'\n"
+        "with hdf5.File(fx + 'filter_lzf.h5') as f:\n"
+        "    assert f['x'][:].shape == (6, 10, 11)\n"
+        "with hdf5.File(fx + 'dtypes_latest.h5') as f:\n"
+        "    assert f['label_bool'][:].dtype == bool\n"
+        "    assert f['le_f2'][:].dtype == np.float16\n"
         "from mdeical_image_segmentation_tpu_torch.data import dsb\n"
         "from mdeical_image_segmentation_tpu_torch.metrics import hd95\n"
         "from mdeical_image_segmentation_tpu_torch.infer import "
@@ -186,19 +194,24 @@ def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
     assert '"csrc/*.cu", "csrc/*.cuh"' in pyproject
 
 
-def test_host_c_library_is_named_by_its_source(tmp_path, monkeypatch):
-    """csrc/png_unfilter.c builds with the host C compiler into BUILD_DIR,
-    under a name that changes with the source."""
+@pytest.mark.parametrize("source,entry", [
+    ("png_unfilter.c", "tpuseg_png_unfilter"),
+    ("lzf_decompress.c", "tpuseg_lzf_decompress")])
+def test_host_c_library_is_named_by_its_source(tmp_path, monkeypatch,
+                                               source, entry):
+    """csrc/png_unfilter.c and csrc/lzf_decompress.c build with the host C
+    compiler into BUILD_DIR, each under a name that changes with its
+    source."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    before = _build.host_library_path("png_unfilter.c")
+    before = _build.host_library_path(source)
     assert before.parent == _build.BUILD_DIR
-    assert before.name.startswith("libpng_unfilter_")
-    src = csrc / "png_unfilter.c"
+    assert before.name.startswith(f"lib{source[:-2]}_")
+    src = csrc / source
     src.write_text(src.read_text() + "\n/* edited */\n")
-    assert _build.host_library_path("png_unfilter.c") != before
-    assert "tpuseg_png_unfilter" in src.read_text()
+    assert _build.host_library_path(source) != before
+    assert entry in src.read_text()
 
 
 def test_missing_nvcc_raises(monkeypatch):

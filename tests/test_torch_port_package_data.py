@@ -22,7 +22,8 @@ def test_every_csrc_file_matches_a_package_data_pattern():
     patterns = _patterns()
     csrc = os.path.join(os.path.dirname(port.__file__), "csrc")
     files = sorted(os.listdir(csrc))
-    assert {"png_unfilter.c", "conv_tc.cuh", "int8_conv.cu"} <= set(files)
+    assert {"png_unfilter.c", "lzf_decompress.c", "conv_tc.cuh",
+            "int8_conv.cu"} <= set(files)
     missing = [f for f in files
                if not any(fnmatch.fnmatch(f"csrc/{f}", p) for p in patterns)]
     assert not missing, f"not in {PKG}'s package data {patterns}: {missing}"
