@@ -5,10 +5,11 @@ the rest of the 3D family (bf16, device_cache, ResidualUNetSE3D,
 BatchNorm, UNet2D / ResidualUNet2D, remat), int8 post-training
 quantization, exported artifacts, SAM-Med2D promptable serving,
 data-parallel training with its checkpoint and the profiler tooling,
-spatially sharded training with halo exchange, and the model axis (channel
-tensor parallelism, ZeRO-1, sharded checkpoints).
+spatially sharded training with halo exchange, the model axis (channel
+tensor parallelism, ZeRO-1, sharded checkpoints), and the image formats
+the JAX package reads (TIFF, GIF, BMP: serving, DRIVE training, DSB2018).
 
-    python3 chip_smoke.py [--phase 18|19|20|21|23|24|25|26]
+    python3 chip_smoke.py [--phase 18|19|20|21|23|24|25|26|27]
 
 Needs one CUDA card, nvcc and the checkout this file sits in; imports nothing
 of JAX (nor PyYAML or h5py).  It exits non-zero, without printing a result,
@@ -448,6 +449,32 @@ wall time.
    each, GroupNorm launches asserted.  The kernels line counts the paths
    under ``latest_predict3d``, ``latest_v0_predict3d``, ``latest_lazy`` and
    ``dsb_png_extra``.
+27. TIFF, GIF and BMP (``phase_image_formats``; runs after phase 26, and
+   ``--phase 27`` runs it alone), TF32 off: (a) every fixture of
+   ``tests/fixtures/image_formats`` (TIFF: both byte orders, BigTIFF,
+   strips, tiles, planar, LZW, deflate, PackBits, predictor 2, MinIsWhite,
+   palette, 1-16-bit grey, float, 16-bit colour, associated alpha,
+   orientation; GIF: global and local tables, interlace, offset frames,
+   transparency, every LZW code size, full tables; BMP: core, INFO, V4 and
+   V5 headers, 1-32 bits, bit fields, RLE8 and RLE4, top-down) read by
+   ``image.read`` and ``image.imread`` equal to ``manifest.json`` (PIL's
+   and imageio's arrays); (b) phase 2's base-64 bf16 UNet at 256² and its
+   3-channel twin, ``max_batch`` 8, behind one ``SegmentationServer``: 8
+   clients POST DRIVE-sized (565x584) TIFFs (uncompressed, LZW + predictor
+   2, deflate + predictor 2, PackBits, 16-bit grey), the interlaced GIF
+   manual and FOV masks and BMPs (24-bit, 8-bit palette, RLE8) to both,
+   each beside a PNG of the same pixels: every reply 200, each mask equal
+   to its twin's, 18 kernel-1 launches a device batch; decode ms per format
+   beside its PNG twin's, p50 / p99; (c) a DRIVE layout of 20 TIFF images
+   and GIF manuals: the 13 / 4 / 3 split, every item at 512² equal to a PNG
+   copy's, ``cli/train2d.py --dataset DRIVE`` with the base-64 bf16 UNet
+   at 512², batch 4, 3 steps and its evaluation, kernel path and plain
+   path (18 launches a step and an eval batch; losses within
+   ``BF16_LOSS_TOLS``); (d) DSB2018Predictor over the 1- and 3-channel
+   TIFF, GIF and BMP directories, a seeded UNet2D 'gcr' each, GroupNorm
+   launches asserted, maps within phase 21's limit of the plain path.  The
+   kernels line counts the paths under ``formats_serve``, ``drive_train``
+   and ``dsb_formats``.
 """
 
 from __future__ import annotations
@@ -818,9 +845,10 @@ def filtered_png(arr, ftype: int) -> bytes:
 SCAN_SIZES = [(256, 256), (200, 310), (384, 384), (97, 130)]
 
 
-def unet2d_bundle(seed: int, workdir: str) -> str:
+def unet2d_bundle(seed: int, workdir: str, in_channels: int = 1) -> str:
     """Phase 2's model: the base-64 bf16 classic UNet from a seeded
-    generator, saved with ``save_pretrained``; returns the bundle's path."""
+    generator (``in_channels`` 1, or 3 as DRIVE's), saved with
+    ``save_pretrained``; returns the bundle's path."""
     import torch
 
     from mdeical_image_segmentation_tpu_torch.models import (
@@ -828,9 +856,11 @@ def unet2d_bundle(seed: int, workdir: str) -> str:
         UNetModel,
     )
 
-    config = UNetConfig(in_channels=1, out_channels=1, unet_type="UNet",
-                        base_features=64, compute_dtype="bfloat16")
-    bundle = os.path.join(workdir, "unet2d_base64_bf16")
+    config = UNetConfig(in_channels=in_channels, out_channels=1,
+                        unet_type="UNet", base_features=64,
+                        compute_dtype="bfloat16")
+    bundle = os.path.join(workdir, "unet2d_base64_bf16"
+                          + ("" if in_channels == 1 else f"_c{in_channels}"))
     UNetModel(config, device="cpu",
               generator=torch.Generator().manual_seed(seed)
               ).save_pretrained(bundle)
@@ -7713,11 +7743,11 @@ def fixture_entry(a) -> dict:
 
 
 def _check_fixtures() -> dict:
-    """(a) every committed HDF5 fixture and PNG read by the port against the
-    manifest h5py, imageio and PIL gave: each dataset, each group's keys(),
-    each image as the DSB reader and ``png.read`` give it."""
-    from mdeical_image_segmentation_tpu_torch.data.dsb import read_image
-    from mdeical_image_segmentation_tpu_torch.utils import hdf5, png
+    """(a) every committed HDF5 fixture, PNG, TIFF, GIF and BMP read by the
+    port against the manifest h5py, imageio and PIL gave: each dataset, each
+    group's keys(), each image as ``image.imread`` (the DSB reader) and
+    ``image.read`` give it (an image PIL does not open must raise)."""
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5, image
 
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
@@ -7734,16 +7764,22 @@ def _check_fixtures() -> dict:
                     raise AssertionError(f"{name}:{ds} reads as {got}, the "
                                          f"manifest holds {entry}")
                 n_ds += 1
-    for name, want in sorted(manifest["png_extra"].items()):
-        path = os.path.join(FIXTURES, "png_extra", name)
-        got = {"imageio": fixture_entry(read_image(path)),
-               "pil_L": fixture_entry(png.read(path, "L")),
-               "pil_RGB": fixture_entry(png.read(path, "RGB"))}
-        if got != want:
-            raise AssertionError(f"{name} decodes as {got}, the manifest "
-                                 f"holds {want}")
+    for group in ("png_extra", "image_formats"):
+        for name, want in sorted(manifest[group].items()):
+            path = os.path.join(FIXTURES, group, name)
+            got = {"imageio": fixture_entry(image.imread(path))}
+            for mode in ("L", "RGB"):
+                try:
+                    got[f"pil_{mode}"] = fixture_entry(image.read(path, mode))
+                except image.ImageError:
+                    got[f"pil_{mode}"] = None
+            want = {k: v for k, v in want.items() if k != "note"}
+            if got != want:
+                raise AssertionError(f"{name} decodes as {got}, the manifest "
+                                     f"holds {want}")
     return {"h5_files": len(manifest["h5_latest"]), "datasets": n_ds,
-            "pngs": len(manifest["png_extra"])}
+            "pngs": len(manifest["png_extra"]),
+            "images": len(manifest["image_formats"])}
 
 
 def _best_read_s(path: str) -> float:
@@ -7883,8 +7919,9 @@ def phase_read_formats(seed: int, workdir: str) -> dict:
     fixtures = _check_fixtures()
     fixtures["s"] = time.perf_counter() - t0
     log(f"[phase 26] (a) {fixtures['datasets']} datasets of "
-        f"{fixtures['h5_files']} HDF5 fixtures and {fixtures['pngs']} PNGs "
-        f"equal to the manifest in {fixtures['s']:.2f} s")
+        f"{fixtures['h5_files']} HDF5 fixtures, {fixtures['pngs']} PNGs and "
+        f"{fixtures['images']} TIFF, GIF and BMP files equal to the manifest "
+        f"in {fixtures['s']:.2f} s")
 
     # (b) the latest file and its v0 copy through the same command
     latest = os.path.join(workdir, "phantom_latest.h5")
@@ -7971,6 +8008,454 @@ def phase_read_formats(seed: int, workdir: str) -> dict:
                          "latest_v0_predict3d": std["v0"]["launches"],
                          "latest_lazy": launches,
                          "dsb_png_extra": dsb["launches"]}}
+
+
+# ---------------------------------------------------------------------------
+# 27. TIFF, GIF and BMP: DRIVE's published formats through serving, the 2D
+# trainer and DSB2018
+# ---------------------------------------------------------------------------
+
+IMAGE_FIXTURES = os.path.join(FIXTURES, "image_formats")
+DRIVE_RES = 512          # the reference's resolution (data/png2d.py)
+DRIVE_BATCH = 4
+DRIVE_STEPS = 3
+DRIVE_PAIRS = 20         # DRIVE's training set: a 13 / 4 / 3 split
+DECODE_REPEATS = 5       # decode ms: median of 5, warm
+
+
+def fixture_script():
+    """``scripts/make_port_fixtures.py`` as a module: its encoders and its
+    seeded synthetic retina (numpy, struct and zlib; PIL, imageio and h5py
+    only inside the functions that write the committed fixtures)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_port_fixtures", os.path.join(ROOT, "scripts",
+                                           "make_port_fixtures.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _pil_luma(rgb):
+    """PIL's convert("L") of RGB uint8."""
+    import numpy as np
+
+    r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(
+        np.uint8)
+
+
+def drive_sized_files(workdir: str) -> dict:
+    """The DRIVE-sized (565x584) files of (b) and (c): the committed LZW +
+    predictor-2 and deflate + predictor-2 TIFFs and the two GIF masks, and
+    uncompressed, PackBits and 16-bit grey TIFFs and 24-bit, 8-bit palette
+    and RLE8 BMPs written here.  {format: (path, {"L": pixels, "RGB":
+    pixels})}, the pixels PIL's ``convert`` gives, computed from the arrays
+    each file was written from (never from the port's decoders)."""
+    import numpy as np
+
+    fx = fixture_script()
+    rgb, vessels, fov = fx.retina()
+    flipped = np.ascontiguousarray(rgb[:, ::-1])
+    rolled = np.ascontiguousarray(np.roll(rgb, 97, axis=1))
+    upside = np.ascontiguousarray(rgb[::-1])
+    g16 = _pil_luma(rgb).astype(np.uint16) * 3 + 11
+    rng = np.random.default_rng(SEED + 27)
+    pal = rng.integers(0, 256, (64, 3), dtype=np.uint8)
+    idx = (rgb[..., 0] // 64) * 16 + (rgb[..., 1] // 64) * 4 + rgb[..., 2] // 64
+    pal4 = rng.integers(0, 256, (4, 3), dtype=np.uint8)
+    idx4 = vessels // 255 + (fov // 255) * 2
+
+    def both(rgb_px):
+        return {"L": _pil_luma(rgb_px), "RGB": rgb_px}
+
+    def grey(g):
+        g8 = np.minimum(g, 255).astype(np.uint8)
+        return {"L": g8, "RGB": np.repeat(g8[..., None], 3, axis=-1)}
+
+    d = os.path.join(workdir, "drive_sized")
+    os.makedirs(d)
+    written = {
+        "tiff_raw": ("raw.tif", fx.encode_tiff([fx.tiff_page(
+            rolled, 8, 2, rowsperstrip=16)]), both(rolled)),
+        "tiff_packbits": ("packbits.tif", fx.encode_tiff([fx.tiff_page(
+            upside, 8, 2, 32773, rowsperstrip=16)]), both(upside)),
+        "tiff_grey16": ("grey16.tif", fx.encode_tiff([fx.tiff_page(
+            g16[..., None], 16, 1, 8, 2)]), grey(g16)),
+        "bmp_24": ("rgb24.bmp", fx.encode_bmp(rgb, 24), both(rgb)),
+        "bmp_pal8": ("pal8.bmp", fx.encode_bmp(idx, 8, pal), both(pal[idx])),
+        "bmp_rle8": ("rle8.bmp", fx.encode_bmp(idx4, 8, pal4, compression=1),
+                     both(pal4[idx4])),
+    }
+    files = {
+        "tiff_lzw_pred2": (os.path.join(IMAGE_FIXTURES, "drive",
+                                        "21_training.tif"), both(rgb)),
+        "tiff_deflate_pred2": (os.path.join(IMAGE_FIXTURES, "drive",
+                                            "22_training.tif"),
+                               both(flipped)),
+        "gif_manual": (os.path.join(IMAGE_FIXTURES, "drive",
+                                    "21_manual1.gif"), grey(vessels)),
+        "gif_fov": (os.path.join(IMAGE_FIXTURES, "drive",
+                                 "21_training_mask.gif"), grey(fov)),
+    }
+    for fmt, (name, data, px) in written.items():
+        path = os.path.join(d, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        files[fmt] = (path, px)
+    return files
+
+
+def _decode_ms(path: str, mode: str) -> float:
+    from mdeical_image_segmentation_tpu_torch.utils import image
+
+    times = []
+    for _ in range(DECODE_REPEATS):
+        t0 = time.perf_counter()
+        image.read(path, mode)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _formats_serve(seed: int, workdir: str, files: dict) -> dict:
+    """(b) phase 2's base-64 bf16 UNet at 256² ("unet", convert "L") and its
+    3-channel twin ("drive", convert "RGB") behind one SegmentationServer;
+    8 clients POST every DRIVE-sized file to both and the PNG of the same
+    pixels beside it."""
+    import numpy as np
+
+    from mdeical_image_segmentation_tpu_torch.ops.fused_conv import (
+        fused_double2d,
+    )
+    from mdeical_image_segmentation_tpu_torch.serve import (
+        ModelRegistry,
+        SegmentationServer,
+    )
+    from mdeical_image_segmentation_tpu_torch.utils import image, png
+
+    res, max_batch, clients = 256, 8, 8
+    registry = ModelRegistry()
+    t0 = time.time()
+    for name, ch in (("unet", 1), ("drive", 3)):
+        registry.register_unet2d(name, unet2d_bundle(seed, workdir, ch),
+                                 resolution=res, device="cuda",
+                                 max_batch=max_batch)
+    log(f"[phase 27] (b) registered the 1- and 3-channel UNets (load + "
+        f"warm-up) in {time.time() - t0:.2f} s")
+    requests, decode = [], {}
+    for fmt, (path, pixels) in sorted(files.items()):
+        for model, mode in (("unet", "L"), ("drive", "RGB")):
+            got = image.read(path, mode)
+            if not np.array_equal(got, pixels[mode]):
+                raise AssertionError(f"{fmt}: convert({mode!r}) differs from "
+                                     "the pixels it was written from")
+            twin = os.path.join(workdir, f"twin_{fmt}_{mode}.png")
+            png.write(twin, pixels[mode])
+            requests += [(fmt, model, path), (fmt, model, twin)]
+            decode[f"{fmt} {mode}"] = {"ms": _decode_ms(path, mode),
+                                       "png_twin_ms": _decode_ms(twin, mode)}
+    srv = SegmentationServer(registry,
+                             output_dir=os.path.join(workdir, "masks27"),
+                             max_batch=max_batch, max_wait_ms=5.0)
+    port = srv.start(host="127.0.0.1", port=0).server_address[1]
+    replies = [None] * len(requests)
+    try:
+        occ = srv.engine.occupancy()
+        before = sum(occ.get(m, {"batches": 0})["batches"]
+                     for m in ("unet", "drive"))
+        fused_double2d.launches = 0
+
+        def client(k):
+            for i in range(k, len(requests), clients):
+                _, model, path = requests[i]
+                replies[i] = _post(port, {"image_path": path, "model": model,
+                                          "return": "mask"})
+
+        t0 = time.time()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.time() - t0
+        launches = fused_double2d.launches
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a client did not finish within 600 s")
+        stats = _get(port, "/stats")
+        occ = srv.engine.occupancy()
+    finally:
+        srv.stop()
+    batches = sum(occ[m]["batches"] for m in ("unet", "drive")) - before
+    masks = []
+    for i, (status, body) in enumerate(replies):
+        fmt, model, path = requests[i]
+        if status != 200 or body.get("status") != 200:
+            raise AssertionError(f"{fmt} to {model} ({path}): {status} "
+                                 f"{body}")
+        mask = np.asarray(body["response"], np.uint8)
+        if mask.shape != (res, res):
+            raise AssertionError(f"{fmt} to {model}: mask {mask.shape}")
+        masks.append(mask)
+    for i in range(0, len(requests), 2):
+        if not np.array_equal(masks[i], masks[i + 1]):
+            fmt, model, _ = requests[i]
+            raise AssertionError(f"{fmt} to {model}: its mask differs from "
+                                 "its PNG twin's")
+    if batches <= 0 or launches != 18 * batches:
+        raise AssertionError(f"{launches} kernel-1 launches for {batches} "
+                             "device batches (want 18 per batch)")
+    log(f"[phase 27] (b) {len(requests)} requests ({len(files)} formats x 2 "
+        f"models x file and PNG twin) from {clients} clients in {wall:.3f} s:"
+        f" all 200, every mask equal to its twin's; {launches} kernel-1 "
+        f"launches for {batches} device batches; p50 {stats['p50_ms']} ms, "
+        f"p99 {stats['p99_ms']} ms")
+    log("[phase 27] (b) decode ms at 565x584 (image.read, median of "
+        f"{DECODE_REPEATS}, warm): " + "; ".join(
+            f"{k} {v['ms']:.2f} (PNG {v['png_twin_ms']:.2f})"
+            for k, v in sorted(decode.items())))
+    return {"launches": launches, "batches": batches, "wall_s": wall,
+            "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+            "decode_ms": decode}
+
+
+def _drive_layout(root: str, files: dict, png_copy: bool):
+    """``DRIVE_PAIRS`` pairs of images/NN_training.tif and
+    labels/NN_manual1.gif copied from the four DRIVE-sized RGB TIFFs and the
+    manual GIF in turn, or (``png_copy``) PNGs of the same pixels."""
+    from mdeical_image_segmentation_tpu_torch.utils import png
+
+    tiffs = ("tiff_lzw_pred2", "tiff_deflate_pred2", "tiff_raw",
+             "tiff_packbits")
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(root, sub))
+    for i in range(DRIVE_PAIRS):
+        n = 21 + i
+        src, px = files[tiffs[i % 4]]
+        label, lpx = files["gif_manual"]
+        if png_copy:
+            png.write(os.path.join(root, "images", f"{n}_training.png"),
+                      px["RGB"])
+            png.write(os.path.join(root, "labels", f"{n}_manual1.png"),
+                      lpx["L"])
+        else:
+            shutil.copy(src, os.path.join(root, "images", f"{n}_training.tif"))
+            shutil.copy(label, os.path.join(root, "labels",
+                                            f"{n}_manual1.gif"))
+
+
+def _train2d_cli(root: str, out: str, seed: int):
+    """cli/train2d.py on the DRIVE layout at ``root``: the base-64 bf16 UNet
+    at 512², batch 4, 3 steps, then its final evaluation; the steps'
+    records, the eval batches' launches and the run's kernel-1 launches."""
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.cli import train2d
+    from mdeical_image_segmentation_tpu_torch.ops import fused_conv
+    from mdeical_image_segmentation_tpu_torch.train import Trainer
+
+    rec, evals = [], []
+    init = Trainer.__init__
+
+    def instrumented(self, *a, **kw):
+        init(self, *a, **kw)
+        _instrument_2d(self, rec, evals)
+
+    argv = ["--dataset", "DRIVE", "--data_path", root, "--output_dir", out,
+            "--unet_type", "UNet", "--base_features", "64",
+            "--in_channels", "3", "--resolution", str(DRIVE_RES), "--bf16",
+            "--per_device_train_batch_size", str(DRIVE_BATCH),
+            "--per_device_eval_batch_size", str(DRIVE_BATCH),
+            "--max_steps", str(DRIVE_STEPS), "--eval_strategy", "no",
+            "--save_steps", "0", "--logging_steps", "1", "--seed", str(seed)]
+    Trainer.__init__ = instrumented
+    try:
+        torch.cuda.synchronize()
+        fused_conv.fused_double2d.launches = 0
+        t0 = time.perf_counter()
+        train2d.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Trainer.__init__ = init
+    return rec, evals, fused_conv.fused_double2d.launches, wall
+
+
+def _drive_train(seed: int, workdir: str, files: dict) -> dict:
+    """(c) a DRIVE directory of TIFF images and GIF manuals: the split,
+    every item against a PNG copy's, cli/train2d.py on the kernel path and
+    on the plain path from the same weights and batches."""
+    import numpy as np
+
+    from mdeical_image_segmentation_tpu_torch.data import DRIVEDataset
+
+    root, png_root = (os.path.join(workdir, "DRIVE"),
+                      os.path.join(workdir, "DRIVE_png"))
+    _drive_layout(root, files, png_copy=False)
+    _drive_layout(png_root, files, png_copy=True)
+    sizes, t0 = {}, time.perf_counter()
+    for mode in ("train", "eval", "test"):
+        ours = DRIVEDataset(root, mode, resolution=DRIVE_RES)
+        twin = DRIVEDataset(png_root, mode, resolution=DRIVE_RES)
+        sizes[mode] = len(ours)
+        for i in range(len(ours)):
+            a, b = ours[i], twin[i]
+            for k in ("image", "mask"):
+                if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"DRIVE {mode} item {i} {k}: the "
+                                         "TIFF/GIF item differs from the "
+                                         "PNG copy's")
+    items_s = time.perf_counter() - t0
+    if sizes != {"train": 13, "eval": 4, "test": 3}:
+        raise AssertionError(f"DRIVE split {sizes}, want 13 / 4 / 3")
+    log(f"[phase 27] (c) DRIVE layout of {DRIVE_PAIRS} TIFF + GIF pairs: "
+        f"split {sizes}; every item at {DRIVE_RES}² equal to the PNG "
+        f"copy's ({items_s:.2f} s for both, decode and resize)")
+    rec, evals, launches, wall = _train2d_cli(
+        root, os.path.join(workdir, "drive_run"), seed)
+    with plain_path():
+        p_rec, _, _, p_wall = _train2d_cli(
+            root, os.path.join(workdir, "drive_plain"), seed)
+    bad = [i + 1 for i, r in enumerate(rec)
+           if r["launches"] != 18 or not np.isfinite(r["loss"])]
+    if (bad or len(rec) != DRIVE_STEPS or not evals
+            or any(n != 18 for n in evals)
+            or launches != 18 * (len(rec) + len(evals))):
+        raise AssertionError(f"DRIVE steps {bad} off; {len(rec)} steps, eval "
+                             f"batches {evals}, {launches} launches: want 18 "
+                             "a step and an eval batch, finite losses")
+    rels = [abs(k["loss"] - p["loss"]) / abs(p["loss"])
+            for k, p in zip(rec, p_rec)]
+    for i, (k, p) in enumerate(zip(rec, p_rec)):
+        log(f"  DRIVE step {i + 1}: loss kernel {k['loss']:.7f} plain "
+            f"{p['loss']:.7f} (rel {rels[i]:.2e}, limit {BF16_LOSS_TOLS[i]});"
+            f" ms kernel {k['ms']:.1f} plain {p['ms']:.1f}")
+    if len(p_rec) != DRIVE_STEPS or any(
+            r > t for r, t in zip(rels, BF16_LOSS_TOLS)):
+        raise AssertionError(f"DRIVE training, kernel vs plain: {rels}")
+    log(f"[phase 27] (c) cli/train2d.py --dataset DRIVE, base-64 bf16 UNet "
+        f"at {DRIVE_RES}², batch {DRIVE_BATCH}: {launches} kernel-1 launches "
+        f"({len(rec)} steps, {len(evals)} eval batches, 18 each); run "
+        f"{wall:.2f} s (plain {p_wall:.2f} s)")
+    return {"launches": launches, "split": sizes, "losses": [
+        r["loss"] for r in rec], "rel_gaps": rels, "step_ms": [
+        r["ms"] for r in rec], "plain_step_ms": [r["ms"] for r in p_rec],
+        "wall_s": wall, "items_s": items_s}
+
+
+def _dsb_formats(seed: int, workdir: str) -> dict:
+    """(d) cli/predict3d.py with DSB2018Dataset and DSB2018Predictor over
+    the fixtures' 1- and 3-channel TIFF, GIF and BMP directories, a seeded
+    UNet2D each; every map against the plain path within phase 21's
+    limit."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.cli import predict3d
+    from mdeical_image_segmentation_tpu_torch.data.loaders import (
+        get_test_loaders,
+    )
+    from mdeical_image_segmentation_tpu_torch.infer import (
+        predictor as predictor_lib,
+    )
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5, yaml_io
+
+    pred_cfg = read_yaml_subset(PREDICT_YML)
+    total = {k: 0 for k in KERNELS_3D}
+    images, worst = 0, 0.0
+    get = predictor_lib.get_predictor
+    for ch in (1, 3):
+        root = os.path.join(IMAGE_FIXTURES, f"dsb_c{ch}")
+        n = len(os.listdir(os.path.join(root, "images")))
+        model = dict(DSB_MODEL, in_channels=ch)
+        cfg = {"model": model,
+               "model_path": _initial_checkpoint(model, seed + ch, workdir,
+                                                 f"dsb27_c{ch}"),
+               "output_dir": os.path.join(workdir, f"dsb27_c{ch}_out"),
+               "predictor": {"name": "DSB2018Predictor"},
+               "loaders": {"dataset": "DSB2018Dataset",
+                           "batch_size": DSB_BATCH,
+                           "test": {"file_paths": [root], "transformer":
+                                    pred_cfg["loaders"]["test"]["transformer"]}}}
+        os.makedirs(cfg["output_dir"])
+        cfg_path = os.path.join(workdir, f"dsb27_c{ch}.yml")
+        with open(cfg_path, "w") as f:
+            f.write(yaml_io.dumps(cfg))
+        made = []
+
+        def instrumented(model, output_dir, config, **kw):
+            p = get(model, output_dir, config, **kw)
+            made.append(p)
+            return p
+
+        predictor_lib.get_predictor = instrumented
+        try:
+            torch.cuda.synchronize()
+            _zero_counts()
+            (files,) = predict3d.main(["--config", cfg_path])
+            torch.cuda.synchronize()
+            launches = _counts()
+        finally:
+            predictor_lib.get_predictor = get
+        per_batch = 2 * (2 * DSB_MODEL["num_levels"] - 1)
+        batches = -(-n // DSB_BATCH)
+        want = {"gcr_conv3d": 0, "gn_stats": per_batch * batches,
+                "gn_affine": per_batch * batches, "gn_bwd_reduce": 0,
+                "gn_bwd_dx": 0, "overlap_add": 0}
+        if len(files) != n or launches != want:
+            raise AssertionError(f"dsb_c{ch}: {launches} for {len(files)} "
+                                 f"files, want {want} for {n}")
+        with plain_path():
+            plain = get(made[0].model, os.path.join(workdir,
+                                                    f"dsb27_c{ch}_plain"),
+                        {"model": model, "predictor": cfg["predictor"]})
+            os.makedirs(plain.output_dir)
+            (loader,) = get_test_loaders(cfg)
+            plain_files = plain(loader)
+        for f_kernel, f_plain in zip(sorted(files), sorted(plain_files)):
+            with hdf5.File(f_kernel) as f, hdf5.File(f_plain) as g:
+                p, q = f["predictions"][:], g["predictions"][:]
+            err = float(np.abs(p - q).max())
+            worst = max(worst, err)
+            if (p.shape != (32, 48) or not np.isfinite(p).all()
+                    or err > UNET3D_MAP_TOL * max(1.0,
+                                                  float(np.abs(q).max()))):
+                raise AssertionError(f"{f_kernel}: {p.shape}, kernel vs "
+                                     f"plain {err:.3e}")
+        for k in KERNELS_3D:
+            total[k] += launches[k]
+        images += n
+    log(f"[phase 27] (d) DSB2018Predictor over {images} TIFF, GIF and BMP "
+        f"images (1 and 3 channels): kernel vs plain max |diff| {worst:.3e} "
+        f"(limit {UNET3D_MAP_TOL}); launches {total}")
+    return {"images": images, "err": worst, "launches": total}
+
+
+def phase_image_formats(seed: int, workdir: str) -> dict:
+    """Phase 27: (a) the fixtures against their manifest; (b) DRIVE-sized
+    TIFF, GIF and BMP files served beside their PNG twins; (c) a DRIVE
+    directory through cli/train2d.py; (d) DSB2018 over TIFF, GIF and
+    BMP."""
+    workdir = os.path.join(workdir, "phase27")
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    fixtures = _check_fixtures()
+    fixtures["s"] = time.perf_counter() - t0
+    log(f"[phase 27] (a) {fixtures['images']} TIFF, GIF and BMP fixtures "
+        f"(and {fixtures['pngs']} PNGs, {fixtures['datasets']} HDF5 "
+        f"datasets) equal to the manifest in {fixtures['s']:.2f} s")
+    t0 = time.perf_counter()
+    files = drive_sized_files(workdir)
+    log(f"[phase 27] wrote the DRIVE-sized files in "
+        f"{time.perf_counter() - t0:.2f} s")
+    serve = _formats_serve(seed, workdir, files)
+    drive = _drive_train(seed, workdir, files)
+    dsb = _dsb_formats(seed, workdir)
+    return {"fixtures": fixtures, "serve": serve, "drive": drive, "dsb": dsb,
+            "launches": {"dsb_formats": dsb["launches"]},
+            "kernel1": {"formats_serve": serve["launches"],
+                        "drive_train": drive["launches"]}}
 
 
 def _single_conv_row(mp: dict) -> dict:
@@ -8061,7 +8546,7 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phase", type=int,
-                        choices=(18, 19, 20, 21, 23, 24, 25, 26),
+                        choices=(18, 19, 20, 21, 23, 24, 25, 26, 27),
                         default=None,
                         help="run the kernel build and this phase alone "
                         "(21: with phases 13 and 14, which it reads)")
@@ -8241,6 +8726,29 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count(),
         }}), flush=True)
         return 0
+    if args.phase == 27:
+        from mdeical_image_segmentation_tpu_torch.ops import _build
+
+        _build.load()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build_dir = os.path.join(ROOT, "build")
+        os.makedirs(build_dir, exist_ok=True)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_27_", dir=build_dir)
+        try:
+            t_phase = time.time()
+            images = phase_image_formats(SEED, workdir)
+            log(f"[phase 27] ok; wall {time.time() - t_phase:.1f} s ({smi})")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"image formats (phase 27, {smi}): {json.dumps(images)}")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
     if args.phase in (19, 20):
         from mdeical_image_segmentation_tpu_torch.ops import _build
 
@@ -8412,6 +8920,13 @@ def main(argv=None) -> int:
             "PNGs")
         formats = phase_read_formats(SEED, workdir)
         log(f"[phase 26] ok; wall {time.time() - t_phase:.1f} s ({smi})")
+        t_phase = time.time()
+        log("[phase 27] TIFF, GIF and BMP: the fixtures against their "
+            "manifest; DRIVE-sized files served beside PNG twins; a DRIVE "
+            "directory of TIFF images and GIF manuals through "
+            "cli/train2d.py; DSB2018 over TIFF, GIF and BMP")
+        images27 = phase_image_formats(SEED, workdir)
+        log(f"[phase 27] ok; wall {time.time() - t_phase:.1f} s ({smi})")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if train2d["launches"] == 0:
@@ -8439,6 +8954,7 @@ def main(argv=None) -> int:
         **spatial["launches"],
         **mp["launches"],
         **formats["launches"],
+        **images27["launches"],
     }
     runs = (unet3d_launches, res_launches, serve3d_launches, train_launches,
             res_train_launches, cfg_train["launches"],
@@ -8491,17 +9007,22 @@ def main(argv=None) -> int:
     log(f"spatial (phase 24, {smi}): {json.dumps(spatial)}")
     log(f"model axis (phase 25, {smi}): {json.dumps(mp)}")
     log(f"file formats (phase 26, {smi}): {json.dumps(formats)}")
+    log(f"image formats (phase 27, {smi}): {json.dumps(images27)}")
+    k1_27 = images27["kernel1"]
     kernels = [{
         "name": "double_conv2d",
         "route": "cuda",
         "source": "mdeical_image_segmentation_tpu_torch/csrc/double_conv2d.cu",
         "replaces": "mdeical_image_segmentation_tpu/ops/fused_conv.py:420",
         # served batches (phase 2), Trainer.train() (phase 11), the
-        # exported artifact (phase 19) and Trainer.train() under DDP (23)
-        "launches": launches + train2d["launches"] + export_2d + dp_2d,
+        # exported artifact (phase 19), Trainer.train() under DDP (23), and
+        # TIFF, GIF and BMP served and DRIVE trained from them (27)
+        "launches": (launches + train2d["launches"] + export_2d + dp_2d
+                     + sum(k1_27.values())),
         "launches_by_path": {"serve_2d": launches,
                              "train_2d": train2d["launches"],
-                             "export_2d": export_2d, "dp_2d_ddp": dp_2d},
+                             "export_2d": export_2d, "dp_2d_ddp": dp_2d,
+                             **k1_27},
         "max_abs_err": max(max_err, dc_train["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,

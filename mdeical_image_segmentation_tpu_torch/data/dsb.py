@@ -6,15 +6,13 @@ pipelines take: an (H, W) image becomes (1, H, W), an (H, W, C) one
 (C, 1, H, W).  The test phase returns (image, path) pairs, batched by
 ``dsb_prediction_collate``.
 
-Images are read with the port's PNG decoder (``utils/png.py``, every
-colour type and depth, plain or Adam7-interlaced) into what imageio gives
-the JAX package: 8- and 16-bit grey stay uint8 and uint16; 8-bit grey +
-alpha, RGB and RGBA keep their 2, 3 and 4 channels; palette images (1-8
-bits, with or without tRNS) become RGB uint8; 1-bit grey becomes bool, 2-
-and 4-bit grey uint8 scaled to 0..255; 16-bit RGB and RGBA keep their high
-bytes, and 16-bit grey + alpha becomes RGBA uint8, the grey repeated.  A
-file that is not a PNG (JPEG, TIFF, GIF, BMP) raises and names what it
-is.
+Images are read by ``utils/image.py``'s ``imread`` into what
+``imageio.imread`` gives the JAX package for a file under its own
+extension: PNG, GIF and BMP as imageio's pillow plugin reads them (palette
+images as RGB, 1-bit as bool, 16-bit PNG grey kept), TIFF as its vendored
+tifffile does (samples as stored, 16 bits kept, planar images as (S, H, W),
+same-shaped pages stacked).  JPEG and any other file raise ``ImageError``
+naming ROADMAP item 20c.
 """
 
 from __future__ import annotations
@@ -27,40 +25,11 @@ import numpy as np
 
 from ..logging_utils import get_logger
 from ..transforms.volume import Transformer
-from ..utils import png
+from ..utils.image import imread
 from .hdf5 import ConfigDataset
 from .volume_utils import calculate_stats
 
 logger = get_logger("DSB2018Dataset")
-
-DSB_FORMATS_ITEM = ("ROADMAP.md queue 1, item 20c (JPEG, TIFF, GIF and BMP "
-                    "images)")
-
-
-def read_image(path: str) -> np.ndarray:
-    """The PNG at ``path`` as the JAX package's ``imageio.imread`` gives
-    it: (H, W) for grey, else (H, W, C)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if not data.startswith(png.SIGNATURE):
-        kind = os.path.splitext(path)[1] or "a file without an extension"
-        raise NotImplementedError(f"{path}: not a PNG ({kind}); "
-                                  f"{DSB_FORMATS_ITEM}")
-    img = png.decode(data)
-    px, ct = img.pixels, img.colour_type
-    if ct == 3:  # palette: RGB, tRNS or not
-        return img.palette[px[..., 0]]
-    if img.depth == 16 and ct != 0:  # the high byte; grey + alpha as RGBA
-        high = (px >> 8).astype(np.uint8)
-        if ct == 4:
-            return np.concatenate([np.repeat(high[..., :1], 3, axis=-1),
-                                   high[..., 1:]], axis=-1)
-        return high
-    if img.depth == 1:
-        return px[..., 0] != 0
-    if img.depth < 8:  # 2- and 4-bit grey scaled to 0..255
-        return png.convert(img, "L")
-    return px[..., 0] if px.shape[-1] == 1 else px
 
 
 def dsb_prediction_collate(batch):
@@ -134,7 +103,7 @@ class DSB2018Dataset(ConfigDataset):
         files_data, paths = [], []
         for file in sorted(os.listdir(dir)):
             path = os.path.join(dir, file)
-            img = read_image(path)
+            img = imread(path)
             if expand_dims:
                 dims = img.ndim
                 img = np.expand_dims(img, axis=0)

@@ -9,9 +9,10 @@
   ``floor(dst * in / out)``;
 - samples scaled to [0, 1], masks with a trailing channel dim.
 
-``__getitem__`` decodes (the port's PNG codec, ``utils/png.py``, in place of
-PIL: the files must be PNGs), resizes and normalizes, and memoizes the
-sample; the random augmentations run on the device, batched
+``__getitem__`` decodes (``utils/image.py`` in place of PIL's
+``Image.open(p).convert(mode)``: PNG, TIFF, GIF and BMP, so DRIVE's
+published TIFF images and GIF masks), resizes and normalizes, and memoizes
+the sample; the random augmentations run on the device, batched
 (``transforms.device2d``).
 """
 
@@ -24,7 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..utils import png
+from ..utils import image as image_io
 
 
 def nearest_resize(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
@@ -68,7 +69,7 @@ def train_test_split(*arrays: Sequence, test_size: float,
 
 
 class SliceDataset:
-    """Base PNG-pair dataset with the reference's split and normalization.
+    """Base image-pair dataset with the reference's split and normalization.
 
     ``__getitem__`` → {"image": float32 (H, W, C) in [0,1],
                        "mask":  float32 (H, W, 1) in [0,1]}.
@@ -114,8 +115,8 @@ class SliceDataset:
                 sorted(glob(os.path.join(data_path, "labels", "*"))))
 
     def _load(self, index: int) -> Dict[str, np.ndarray]:
-        image = png.read(self.images_path[index], self.image_mode)
-        mask = png.read(self.masks_path[index], "L")
+        image = image_io.read(self.images_path[index], self.image_mode)
+        mask = image_io.read(self.masks_path[index], "L")
         if image.ndim == 2:
             image = image[..., None]
         res = (self.resolution, self.resolution)

@@ -20,7 +20,9 @@ package's ``serve/app.py``).
     GET  /stats       request count + latency percentiles (p50/p90/p99)
     GET  /health      liveness
 
-Images are decoded by the port's own PNG codec (``utils/png.py``).
+Images are decoded by the port's own readers (``utils/image.py``: PNG,
+TIFF, GIF and BMP, as PIL's ``Image.open(p).convert(mode)`` gives them); a
+file they refuse (JPEG among them) is answered with a 400.
 """
 
 from __future__ import annotations
@@ -43,7 +45,9 @@ from ..data.png2d import nearest_resize
 from ..logging_utils import get_logger
 from ..models.wrappers import _checked_device
 from ..ops import quant
+from ..utils import image as image_io
 from ..utils import png
+from ..utils.image import ImageError
 
 logger = get_logger("serve")
 
@@ -668,7 +672,7 @@ class SegmentationServer:
         /255 runs on the device).  Returns the image and the original
         (height, width), which prompt coordinates are rescaled from."""
         mode = "L" if entry.in_channels == 1 else "RGB"
-        img = png.read(image_path, mode)
+        img = image_io.read(image_path, mode)
         if img.ndim == 2:
             img = img[..., None]
         orig_hw = img.shape[:2]
@@ -753,7 +757,7 @@ class SegmentationServer:
             self.stats.record(time.time() - start, error=True)
             return {"response": f"image not found: {e}", "status": 404,
                     "time": time.strftime("%Y-%m-%d %H:%M:%S")}
-        except (KeyError, png.PngError) as e:
+        except (KeyError, ImageError) as e:
             self.stats.record(time.time() - start, error=True)
             return {"response": str(e), "status": 400,
                     "time": time.strftime("%Y-%m-%d %H:%M:%S")}

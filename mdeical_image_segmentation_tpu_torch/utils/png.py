@@ -37,6 +37,8 @@ from typing import Optional
 
 import numpy as np
 
+from .image_base import ImageError, luma, unpack_bits
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
@@ -47,7 +49,7 @@ ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
-class PngError(ValueError):
+class PngError(ImageError):
     """A PNG this codec does not take, or a corrupt one."""
 
 
@@ -113,9 +115,7 @@ def _samples(rows: np.ndarray, h: int, w: int, ch: int, depth: int
         return rows.reshape(h, w, ch)
     if depth == 16:
         return rows.view(">u2").astype(np.uint16).reshape(h, w, ch)
-    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
-    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-    return (bits @ weights).astype(np.uint8)[:, :w, None]
+    return unpack_bits(rows, depth, w)[..., None]
 
 
 def decode(data: bytes) -> PngImage:
@@ -182,11 +182,6 @@ def decode(data: bytes) -> PngImage:
     return PngImage(out, colour_type, palette, depth)
 
 
-def _luma(rgb: np.ndarray) -> np.ndarray:
-    r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
-    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
-
-
 def _to_8bit(img: PngImage) -> np.ndarray:
     """The samples as PIL's ``Image.open`` holds them in 8 bits: sub-byte
     grey scaled to 0..255, 16-bit grey ("I;16") clipped to 255, the other
@@ -216,7 +211,7 @@ def convert(img: PngImage, mode: str) -> np.ndarray:
             return np.repeat(grey[..., None], 3, axis=-1)
         raise ValueError(f"convert to {mode!r}: expected 'L' or 'RGB'")
     if mode == "L":
-        return _luma(rgb)
+        return luma(rgb)
     if mode == "RGB":
         return np.ascontiguousarray(rgb)
     raise ValueError(f"convert to {mode!r}: expected 'L' or 'RGB'")

@@ -1,5 +1,5 @@
-"""Write the HDF5 and PNG fixtures the port's reader is held against, and
-their manifest.
+"""Write the HDF5, PNG, TIFF, GIF and BMP fixtures the port's readers are
+held against, and their manifest.
 
     python scripts/make_port_fixtures.py [--out tests/fixtures]
 
@@ -19,11 +19,24 @@ machine does not, which is why the manifest exists).  Writes:
   1-, 2- and 4-bit grey; 16-bit RGB, grey + alpha and RGBA; each also
   Adam7-interlaced (PIL writes no interlaced PNGs, so this script encodes
   every PNG itself).
+- ``image_formats/{dsb_c1,dsb_c3,dsb_c4,misc}/images/*``: TIFF, GIF and
+  BMP files of every variant the port reads, small (32x48, a few larger),
+  grouped by what ``imageio.imread`` makes of them ((H, W), (H, W, 3),
+  (H, W, 4), other shapes): PIL writes what it can (libtiff's LZW,
+  deflate, PackBits and predictor 2, BigTIFF, multi-page, palette,
+  16-bit, float, "1"; GIF; BMP 1, L, P and RGB) and this script encodes
+  the rest (tiles, planar, big-endian, MinIsWhite, associated alpha,
+  orientation, GIFs with local tables, offset frames and full LZW tables,
+  BMP core / V4 / V5 headers, bit fields, RLE8 / RLE4, top-down rows);
+  ``image_formats/drive/``: a seeded synthetic retina at DRIVE's 565x584
+  as an LZW + predictor-2 and a deflate + predictor-2 TIFF, with its
+  vessel (manual) and field-of-view GIF masks.
 - ``manifest.json``: for every dataset reachable from each file's root (soft
   links followed) its shape, dtype and the SHA-256 of its C-order bytes as
-  h5py reads it, and each group's ``keys()``; for every PNG, the same of
+  h5py reads it, and each group's ``keys()``; for every image, the same of
   what ``imageio.imread`` and PIL's ``convert("L")`` / ``convert("RGB")``
-  give.
+  give (None where PIL does not open it), with a note where their reading
+  is not what the file's tags ask (``IMAGE_NOTES``).
 
 Everything comes from ``numpy.random.default_rng`` with fixed seeds, so a
 rerun writes the same arrays (h5py may lay the bytes out differently).
@@ -155,6 +168,720 @@ def png_cases(rng, h: int = 32, w: int = 48):
         out[name] = (encode_png(**kw), ch)
         out[f"{name}_adam7"] = (encode_png(interlace=True, **kw), ch)
     return out
+
+
+# -- TIFF --------------------------------------------------------------------
+
+TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 16: "Q"}
+
+
+def lzw_encode_tiff(data: bytes) -> bytes:
+    """TIFF LZW: codes MSB-first, 256 = clear, 257 = end, one bit wider as
+    the decoder's next free code reaches 2^bits - 1 (early change), a clear
+    before the table fills."""
+    out, acc, nacc, bits = bytearray(), 0, 0, 9
+
+    def put(code):
+        nonlocal acc, nacc
+        acc = (acc << bits) | code
+        nacc += bits
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+        acc &= (1 << nacc) - 1
+
+    table, nxt, w = {bytes([i]): i for i in range(256)}, 258, b""
+    put(256)
+    for b in data:
+        wc = w + bytes([b])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        table[wc] = nxt
+        nxt += 1
+        if nxt >= (1 << bits) and bits < 12:
+            bits += 1
+        if nxt >= 4094:
+            put(256)
+            table, nxt, bits = {bytes([i]): i for i in range(256)}, 258, 9
+        w = bytes([b])
+    if w:
+        put(table[w])
+        nxt += 1
+        if nxt >= (1 << bits) and bits < 12:
+            bits += 1
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def packbits_encode(data: bytes) -> bytes:
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j > i:  # a run of j - i + 1 equal bytes
+            out += bytes([(257 - (j - i + 1)) & 0xFF, data[i]])
+            i = j + 1
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 1 < n
+                                             and data[j + 1] == data[j]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _tiff_rows(block: np.ndarray, bits: int, order: str) -> bytes:
+    """(rows, cols, samples) → bytes, each row padded to a byte."""
+    if bits >= 8:
+        dt = block.dtype.newbyteorder(order) if block.dtype.itemsize > 1 \
+            else block.dtype
+        return np.ascontiguousarray(block.astype(dt)).tobytes()
+    r, c, s = block.shape
+    shifts = np.arange(bits - 1, -1, -1, dtype=np.uint8)
+    b = (block.reshape(r, c * s, 1).astype(np.uint8) >> shifts) & 1
+    return np.packbits(b.reshape(r, -1), axis=1).tobytes()
+
+
+def _difference(block: np.ndarray) -> np.ndarray:
+    """Predictor 2: each sample less its left neighbour, wrapping."""
+    out = block.copy()
+    out[:, 1:] = block[:, 1:] - block[:, :-1]
+    return out
+
+
+def tiff_page(samples, bits, photometric, compression=1, predictor=1,
+              planar=1, rowsperstrip=None, tile=None, sampleformat=None,
+              extrasamples=None, colormap=None, tags=(), order="<",
+              raw=None):
+    """One IFD's (tags, data chunks) for (H, W, S) ``samples``: strips of
+    ``rowsperstrip`` rows (the last one short) or ``tile`` = (rows, cols)
+    tiles (edge tiles padded), planar 1 or 2, the predictor applied before
+    the compression (1, 5, 8, 32946, 32773; ``raw`` passes a stream as it
+    is, for the refused codecs).  ``tags``: extra (tag, type, values)."""
+    h, w, s = samples.shape
+    planes = [samples] if planar == 1 else [samples[..., i:i + 1]
+                                            for i in range(s)]
+    if tile:
+        th, tw = tile
+        ph, pw = -(-h // th) * th, -(-w // tw) * tw
+        blocks = []
+        for p in planes:
+            padded = np.zeros((ph, pw, p.shape[2]), p.dtype)
+            padded[:h, :w] = p
+            blocks += [padded[y:y + th, x:x + tw] for y in range(0, ph, th)
+                       for x in range(0, pw, tw)]
+    else:
+        rps = rowsperstrip or h
+        blocks = [p[y:y + rps] for p in planes for y in range(0, h, rps)]
+    chunks = []
+    for block in blocks:
+        if predictor == 2:
+            block = _difference(block)
+        data = _tiff_rows(block, bits, order)
+        if raw is not None:
+            data = raw
+        elif compression == 5:
+            data = lzw_encode_tiff(data)
+        elif compression in (8, 32946):
+            data = zlib.compress(data)
+        elif compression == 32773:
+            data = packbits_encode(data)
+        chunks.append(data)
+    n = len(chunks)
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * s),
+               (259, 3, [compression]), (262, 3, [photometric]),
+               (277, 3, [s]), (284, 3, [planar])]
+    if tile:
+        entries += [(322, 3, [tile[1]]), (323, 3, [tile[0]]),
+                    (324, "offsets", n), (325, 4, [len(c) for c in chunks])]
+    else:
+        entries += [(273, "offsets", n), (278, 4, [rowsperstrip or h]),
+                    (279, 4, [len(c) for c in chunks])]
+    if predictor != 1:
+        entries.append((317, 3, [predictor]))
+    if colormap is not None:
+        entries.append((320, 3, list(np.asarray(colormap).reshape(-1))))
+    if extrasamples is not None:
+        entries.append((338, 3, list(extrasamples)))
+    if sampleformat is not None:
+        entries.append((339, 3, [sampleformat] * s))
+    entries += list(tags)
+    return entries, chunks
+
+
+def encode_tiff(pages, order="<", bigtiff=False) -> bytes:
+    """A TIFF file of ``tiff_page`` IFDs: header, each page's data, then
+    its IFD and the IFD's out-of-line values."""
+    o = order
+    head = (b"II" if o == "<" else b"MM")
+    if bigtiff:
+        out = bytearray(head + struct.pack(o + "HHHQ", 43, 8, 0, 0))
+        link_at, entry_size, inline = 8, 20, 8
+        count_fmt, ecount_fmt, off_fmt = "Q", "Q", "Q"
+    else:
+        out = bytearray(head + struct.pack(o + "HI", 42, 0))
+        link_at, entry_size, inline = 4, 12, 4
+        count_fmt, ecount_fmt, off_fmt = "H", "I", "I"
+    for entries, chunks in pages:
+        offsets = []
+        for c in chunks:
+            offsets.append(len(out))
+            out += c
+            if len(out) % 2:
+                out += b"\0"
+        resolved = []
+        for tag, typ, vals in sorted(entries, key=lambda e: e[0]):
+            if typ == "offsets":
+                typ, vals = (16 if bigtiff else 4), offsets
+            resolved.append((tag, typ, vals))
+        ifd_at = len(out)
+        struct.pack_into(o + off_fmt, out, link_at, ifd_at)
+        n = len(resolved)
+        body_end = ifd_at + struct.calcsize(o + count_fmt) + n * entry_size \
+            + struct.calcsize(o + off_fmt)
+        ifd, extra = bytearray(struct.pack(o + count_fmt, n)), bytearray()
+        for tag, typ, vals in resolved:
+            fmt = TIFF_TYPES[typ]
+            if typ == 2:
+                payload, count = vals, len(vals)
+            else:
+                payload = struct.pack(o + fmt * len(vals), *vals)
+                count = len(vals)
+            if len(payload) <= inline:
+                value = payload.ljust(inline, b"\0")
+            else:
+                value = struct.pack(o + off_fmt, body_end + len(extra))
+                extra += payload
+                if len(extra) % 2:
+                    extra += b"\0"
+            ifd += struct.pack(o + "HH" + ecount_fmt, tag, typ, count) + value
+        link_at = ifd_at + len(ifd)
+        ifd += struct.pack(o + off_fmt, 0)
+        out += ifd + extra
+    return bytes(out)
+
+
+# -- GIF ---------------------------------------------------------------------
+
+
+def lzw_encode_gif(indices: bytes, min_code_size: int,
+                   clear_when_full: bool = True) -> bytes:
+    """GIF LZW: codes LSB-first, one bit wider once the decoder's next free
+    code reaches 2^bits; at 4096 codes a clear, or (``clear_when_full``
+    False) no new codes until the end: the deferred clear."""
+    clear, end = 1 << min_code_size, (1 << min_code_size) + 1
+    out, acc, nacc = bytearray(), 0, 0
+    bits = min_code_size + 1
+
+    def put(code):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += bits
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+
+    def fresh():
+        return {bytes([i]): i for i in range(clear)}, clear + 2
+
+    table, nxt = fresh()
+    put(clear)
+    w = b""
+    for b in indices:
+        wc = w + bytes([b])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        if nxt < 4096:
+            table[wc] = nxt
+            nxt += 1
+            if nxt > (1 << bits) and bits < 12:
+                bits += 1
+        elif clear_when_full:
+            put(clear)
+            table, nxt = fresh()
+            bits = min_code_size + 1
+        w = bytes([b])
+    if w:
+        put(table[w])
+        if nxt < 4096:
+            nxt += 1
+            if nxt > (1 << bits) and bits < 12:
+                bits += 1
+    put(end)
+    if nacc:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def _gif_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def _gif_table(palette) -> tuple:
+    """(the table bytes padded to a power of two, its size field)."""
+    pal = np.asarray(palette, np.uint8).reshape(-1, 3)
+    bits = max(1, int(np.ceil(np.log2(max(len(pal), 2)))))
+    padded = np.zeros((1 << bits, 3), np.uint8)
+    padded[:len(pal)] = pal
+    return padded.tobytes(), bits - 1
+
+
+def encode_gif(frames, screen, global_palette=None, version=b"GIF89a"):
+    """GIF bytes.  ``frames``: dicts of ``indices`` (h, w), and optionally
+    ``pos`` (x, y), ``palette`` (a local table), ``interlace``,
+    ``transparency`` (a Graphic Control Extension), ``min_code_size``,
+    ``clear_when_full``."""
+    sw, sh = screen
+    flags, table = 0, b""
+    if global_palette is not None:
+        table, size = _gif_table(global_palette)
+        flags = 0x80 | (size << 4) | size
+    out = bytearray(version + struct.pack("<HHBBB", sw, sh, flags, 0, 0)
+                    + table)
+    out += b"!\xfe" + _gif_blocks(b"tpuseg fixture")  # a comment block
+    for fr in frames:
+        idx = np.asarray(fr["indices"], np.uint8)
+        h, w = idx.shape
+        x, y = fr.get("pos", (0, 0))
+        if "transparency" in fr:
+            out += b"!\xf9\x04" + struct.pack("<BHB", 1, 0,
+                                              fr["transparency"]) + b"\0"
+        iflags, local = 0, b""
+        if fr.get("palette") is not None:
+            local, size = _gif_table(fr["palette"])
+            iflags = 0x80 | size
+        if fr.get("interlace"):
+            iflags |= 0x40
+            rows = np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8),
+                                   np.arange(2, h, 4), np.arange(1, h, 2)])
+            idx = idx[rows]
+        mcs = fr.get("min_code_size", 8)
+        out += b"," + struct.pack("<HHHHB", x, y, w, h, iflags) + local
+        out += bytes([mcs]) + _gif_blocks(lzw_encode_gif(
+            idx.tobytes(), mcs, fr.get("clear_when_full", True)))
+    return bytes(out + b";")
+
+
+# -- BMP ---------------------------------------------------------------------
+
+
+def _bmp_rle(idx: np.ndarray, rle4: bool) -> bytes:
+    """RLE8 / RLE4 of bottom-up rows: runs of equal pixels, absolute runs
+    (even lengths only at 4 bits) of the rest, an end of line per row."""
+    out = bytearray()
+    for row in idx[::-1]:
+        row = [int(v) for v in row]
+        i, n = 0, len(row)
+        while i < n:
+            j = i + 1
+            if rle4:  # runs alternate two nibbles: count equal pairs
+                while j < n and j - i < 255 and row[j] == row[i + (j - i) % 2]:
+                    j += 1
+            else:
+                while j < n and j - i < 255 and row[j] == row[i]:
+                    j += 1
+            if j - i >= 3 or n - i < 3:
+                hi, lo = row[i], row[i + 1] if j - i > 1 else 0
+                out += bytes([j - i, (hi << 4 | lo) if rle4 else hi])
+                i = j
+                continue
+            k = min(n, i + 254)  # an absolute run until the next run
+            j = i + 3
+            while j < k and not (j + 2 < n and row[j] == row[j + 1]
+                                 == row[j + 2]):
+                j += 1
+            if rle4 and (j - i) % 2:  # PIL reads len // 2 bytes
+                j += 1 if j < n else -1
+            if j - i < (4 if rle4 else 3):  # too short: single runs
+                out += bytes([1, row[i] << 4 if rle4 else row[i]])
+                i += 1
+                continue
+            run = row[i:j]
+            if rle4:
+                body = bytes(run[t] << 4 | run[t + 1]
+                             for t in range(0, len(run), 2))
+            else:
+                body = bytes(run)
+            out += bytes([0, len(run)]) + body
+            if len(body) % 2:
+                out += b"\0"
+            i = j
+        out += b"\0\0"
+    return bytes(out + b"\0\1")
+
+
+def encode_bmp(pixels, bits, palette=None, header=40, compression=0,
+               masks=None, top_down=False) -> bytes:
+    """BMP bytes.  ``pixels``: (h, w) indices for 1-8 bits, else (h, w, 3
+    or 4) RGB(A) uint8 packed by ``masks`` (16 and 32 bits; default 5-5-5
+    and BGRX) or as BGR (24).  ``header`` 12 (core, 3-byte palette
+    entries), 40, 108 (V4) or 124 (V5); compression 0, 1 (RLE8), 2 (RLE4)
+    or 3 (bit fields: the masks after a 40-byte header, else inside it)."""
+    px = np.asarray(pixels)
+    h, w = px.shape[:2]
+    stride = ((w * bits + 31) >> 3) & ~3
+    if compression in (1, 2):
+        body = _bmp_rle(px, compression == 2)
+    else:
+        rows = np.zeros((h, stride), np.uint8)
+        if bits <= 8:
+            b = ((px[..., None].astype(np.uint8)
+                  >> np.arange(bits - 1, -1, -1, dtype=np.uint8)) & 1)
+            packed = np.packbits(b.reshape(h, -1), axis=1)
+            rows[:, :packed.shape[1]] = packed
+        elif bits == 24:
+            rows[:, :3 * w] = px[..., 2::-1].reshape(h, 3 * w)
+        else:
+            ms = masks or ((0x7C00, 0x3E0, 0x1F, 0) if bits == 16
+                           else (0xFF0000, 0xFF00, 0xFF, 0))
+            v = np.zeros((h, w), np.uint64)
+            for c, m in enumerate(ms):
+                if m:
+                    shift = (m & -m).bit_length() - 1
+                    top = m >> shift
+                    val = px[..., c].astype(np.uint64) * top // 255 \
+                        if c < px.shape[-1] else np.uint64(top)
+                    v |= (val << np.uint64(shift)) & np.uint64(m)
+            dt = "<u2" if bits == 16 else "<u4"
+            rows[:, :bits // 8 * w] = v.astype(dt).view(np.uint8).reshape(
+                h, -1)
+        if not top_down:
+            rows = rows[::-1]
+        body = rows.tobytes()
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        height = (-h) & 0xFFFFFFFF if top_down else h
+        n_colors = 0 if palette is None else len(palette)
+        info = struct.pack("<IiIHHIIiiII", header, w, height, 1, bits,
+                           compression, len(body), 2835, 2835, n_colors, 0)
+        if header > 40:
+            ms = tuple(masks or (0, 0, 0, 0)) + (0,) * 4
+            info += struct.pack("<IIII", *ms[:4])
+            info += bytes(header - len(info))
+    extra = b""
+    if compression == 3 and header == 40:
+        extra = struct.pack("<III", *masks[:3])
+    pal = b""
+    if palette is not None:
+        pal = np.asarray(palette, np.uint8).reshape(-1, 3)[:, ::-1]
+        if header != 12:
+            pal = np.concatenate([pal, np.zeros((len(pal), 1), np.uint8)], 1)
+        pal = pal.tobytes()
+    offset = 14 + len(info) + len(extra) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset)
+            + info + extra + pal + body)
+
+
+# -- the TIFF, GIF and BMP matrix -----------------------------------------------
+
+DRIVE_SIZE = (584, 565)  # DRIVE's published images: 565 wide, 584 high
+
+
+def retina(seed: int = SEED):
+    """A seeded synthetic fundus at DRIVE's size: (RGB uint8 image, vessel
+    mask 0/255, field-of-view mask 0/255)."""
+    rng = np.random.default_rng(seed)
+    h, w = DRIVE_SIZE
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    cy, cx = h / 2, w / 2
+    fov = ((yy - cy) ** 2 + (xx - cx) ** 2) <= 270 ** 2
+    disc_y, disc_x = cy + rng.uniform(-40, 40), cx + 150
+    shade = 1 - 0.35 * np.hypot(yy - cy, xx - cx) / 270
+    base = np.stack([170 * shade, 80 * shade, 40 * shade], -1)
+    base += 70 * np.exp(-((yy - disc_y) ** 2 + (xx - disc_x) ** 2)
+                        / 900)[..., None]
+    vessels = np.zeros((h, w), bool)
+    for _ in range(14):
+        y, x = disc_y, disc_x
+        angle, width = rng.uniform(0, 2 * np.pi), rng.uniform(1.5, 4.5)
+        for _ in range(400):
+            angle += rng.normal(0, 0.08)
+            y, x = y + 1.5 * np.sin(angle), x + 1.5 * np.cos(angle)
+            if not (0 <= y < h and 0 <= x < w):
+                break
+            y0, y1 = int(max(y - 5, 0)), int(min(y + 6, h))
+            x0, x1 = int(max(x - 5, 0)), int(min(x + 6, w))
+            vessels[y0:y1, x0:x1] |= ((yy[y0:y1, x0:x1] - y) ** 2
+                                      + (xx[y0:y1, x0:x1] - x) ** 2
+                                      <= width ** 2)
+            width = max(1.0, width * 0.997)
+    vessels &= fov
+    base[vessels] *= 0.55
+    base += rng.integers(-1, 2, base.shape)
+    image = np.where(fov[..., None], np.clip(base, 0, 255), 0)
+    return (image.astype(np.uint8), (vessels * 255).astype(np.uint8),
+            (fov * 255).astype(np.uint8))
+
+
+def _pil_saver(Image, arr, mode=None, palette=None, append=None, **kw):
+    """A writer of ``arr`` through PIL (converted to ``mode``, given
+    ``palette``, with the ``append`` arrays as more pages), saved with
+    ``kw``."""
+    def write(path):
+        im = Image.fromarray(arr) if mode is None else Image.fromarray(
+            arr).convert(mode)
+        if palette is not None:
+            im.putpalette(palette)
+        extra = {} if append is None else {
+            "save_all": True,
+            "append_images": [Image.fromarray(a) for a in append]}
+        im.save(path, **kw, **extra)
+    return write
+
+
+def _bytes_saver(data: bytes):
+    def write(path):
+        with open(path, "wb") as f:
+            f.write(data)
+    return write
+
+
+def image_cases(Image, rng, h: int = 32, w: int = 48):
+    """{directory/name: writer(path)}: every TIFF, GIF and BMP variant the
+    port reads, PIL writing what it can and this script the rest, each in
+    the directory of what ``imageio.imread`` makes of it (``dsb_c1``: (H, W),
+    ``dsb_c3`` / ``dsb_c4``: (H, W, 3 / 4); ``misc``: other shapes and
+    sizes), and the full-size DRIVE files under ``drive``."""
+    rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    rgba = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    g8 = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    g16 = rng.integers(0, 65536, (h, w)).astype(np.uint16)
+    f32 = (rng.standard_normal((h, w)) * 120 + 60).astype(np.float32)
+    f32_odd = f32.copy()
+    f32_odd[0, :3] = (np.nan, np.inf, -np.inf)
+    bits1 = rng.integers(0, 2, (h, w)).astype(bool)
+    mask = np.where(rng.random((h, w)) > 0.6, 255, 0).astype(np.uint8)
+    pal = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+    idx = rng.integers(0, 200, (h, w))
+    smooth = (np.add.outer(np.arange(h) // 5, np.arange(w) // 7) % 16)
+    rle_idx = np.where(smooth > 8, idx % 5, smooth)
+    grey_pal = np.repeat(np.arange(256)[:, None], 3, 1)
+    cmap16 = rng.integers(0, 65536, (3, 256))
+    T, c = tiff_page, {}
+
+    def tif(*pages, order="<", big=False):
+        return _bytes_saver(encode_tiff(list(pages), order, big))
+
+    # TIFF, written by PIL (libtiff for the codecs)
+    for comp, tag in ((None, "raw"), ("tiff_lzw", "lzw"),
+                      ("packbits", "packbits")):
+        c[f"dsb_c3/pil_rgb_{tag}.tif"] = _pil_saver(Image, rgb,
+                                                    compression=comp)
+        c[f"dsb_c1/pil_L_{tag}.tif"] = _pil_saver(Image, g8, compression=comp)
+    for comp, tag in (("tiff_lzw", "lzw"), ("tiff_adobe_deflate", "deflate")):
+        c[f"dsb_c3/pil_rgb_{tag}_pred2.tif"] = _pil_saver(
+            Image, rgb, compression=comp, tiffinfo={317: 2})
+        c[f"dsb_c1/pil_I16_{tag}_pred2.tif"] = _pil_saver(
+            Image, g16, compression=comp, tiffinfo={317: 2})
+    c["dsb_c1/pil_1_raw.tif"] = _pil_saver(Image, bits1)
+    c["dsb_c1/pil_1_lzw.tif"] = _pil_saver(Image, bits1,
+                                           compression="tiff_lzw")
+    c["dsb_c1/pil_I16_raw.tif"] = _pil_saver(Image, g16)
+    c["dsb_c1/pil_F_raw.tif"] = _pil_saver(Image, f32)
+    c["dsb_c1/pil_F_deflate.tif"] = _pil_saver(
+        Image, f32, compression="tiff_adobe_deflate")
+    c["misc/pil_F_nan_inf.tif"] = _pil_saver(Image, f32_odd)
+    c["dsb_c1/pil_P_lzw.tif"] = _pil_saver(Image, g8, "P",
+                                           palette=list(pal.reshape(-1)),
+                                           compression="tiff_lzw")
+    c["dsb_c4/pil_rgba_lzw.tif"] = _pil_saver(Image, rgba,
+                                              compression="tiff_lzw")
+    c["misc/pil_LA_raw.tif"] = _pil_saver(Image, rgba, "LA")
+    c["dsb_c3/pil_bigtiff.tif"] = _pil_saver(Image, rgb, big_tiff=True)
+    c["dsb_c3/pil_bigtiff_lzw.tif"] = _pil_saver(Image, rgb, big_tiff=True,
+                                                 compression="tiff_lzw")
+    c["misc/pil_two_pages.tif"] = _pil_saver(Image, g8, append=[g8[::-1]])
+    c["dsb_c3/pil_rgb_then_L.tif"] = _pil_saver(Image, rgb, append=[g8])
+    # TIFF, encoded here
+    c["dsb_c3/tiled_raw.tif"] = tif(T(rgb, 8, 2, tile=(16, 32)))
+    c["dsb_c3/tiled_lzw_pred2.tif"] = tif(T(rgb, 8, 2, 5, 2, tile=(16, 32)))
+    c["dsb_c1/tiled_L_deflate.tif"] = tif(T(g8[..., None], 8, 1, 8,
+                                            tile=(16, 16)))
+    c["dsb_c3/strips_short_last_32946.tif"] = tif(T(rgb, 8, 2, 32946, 2,
+                                                    rowsperstrip=5))
+    c["misc/planar2_raw.tif"] = tif(T(rgb, 8, 2, planar=2, rowsperstrip=5))
+    c["misc/planar2_lzw_pred2.tif"] = tif(T(rgb, 8, 2, 5, 2, planar=2,
+                                            rowsperstrip=7))
+    c["misc/planar2_tiled_deflate.tif"] = tif(T(rgb, 8, 2, 8, planar=2,
+                                                tile=(16, 32)))
+    c["dsb_c3/mm_rgb_lzw_pred2.tif"] = tif(
+        T(rgb, 8, 2, 5, 2, rowsperstrip=7, order=">"), order=">")
+    c["dsb_c1/mm_I16_deflate_pred2.tif"] = tif(
+        T(g16[..., None], 16, 1, 8, 2, order=">"), order=">")
+    c["dsb_c1/mm_I16_raw.tif"] = tif(T(g16[..., None], 16, 1, order=">"),
+                                     order=">")
+    c["dsb_c1/mm_F_raw.tif"] = tif(T(f32[..., None], 32, 1, sampleformat=3,
+                                     order=">"), order=">")
+    # PIL reads libtiff's native-order output as big-endian: byte-swapped
+    c["dsb_c1/mm_F_deflate.tif"] = tif(T(f32[..., None], 32, 1, 8,
+                                         sampleformat=3, order=">"),
+                                       order=">")
+    # PIL does not open a big-endian BigTIFF; imageio does
+    c["dsb_c3/mm_bigtiff_lzw.tif"] = tif(T(rgb, 8, 2, 5, order=">"),
+                                         order=">", big=True)
+    c["dsb_c3/bigtiff_tiled_lzw_pred2.tif"] = tif(
+        T(rgb, 8, 2, 5, 2, tile=(16, 16)), big=True)
+    c["dsb_c1/miniswhite_L.tif"] = tif(T(g8[..., None], 8, 0))
+    c["dsb_c1/miniswhite_1_packbits.tif"] = tif(T(bits1[..., None], 1, 0,
+                                                  32773))
+    c["dsb_c1/miniswhite_I16_lzw.tif"] = tif(T(g16[..., None], 16, 0, 5))
+    c["dsb_c1/miniswhite_4bit.tif"] = tif(T(smooth[..., None].astype(
+        np.uint8), 4, 0, rowsperstrip=3))
+    c["dsb_c1/grey2_packbits.tif"] = tif(T((idx % 4)[..., None].astype(
+        np.uint8), 2, 1, 32773))
+    c["dsb_c1/grey4_lzw.tif"] = tif(T(smooth[..., None].astype(np.uint8), 4,
+                                      1, 5, rowsperstrip=3))
+    c["dsb_c1/palette4_deflate.tif"] = tif(T(
+        smooth[..., None].astype(np.uint8), 4, 3, 8,
+        colormap=cmap16[:, :16]))
+    c["dsb_c1/palette8_raw.tif"] = tif(T(idx[..., None].astype(np.uint8), 8,
+                                         3, colormap=cmap16))
+    c["dsb_c1/no_photometric_tag.tif"] = tif(
+        ([e for e in T(g8[..., None], 8, 1)[0] if e[0] != 262],
+         T(g8[..., None], 8, 1)[1]))
+    # the predictor on codecs without one: PIL ignores it, imageio undoes it
+    c["dsb_c1/packbits_pred2.tif"] = tif(T(g8[..., None], 8, 1, 32773, 2))
+    c["dsb_c1/raw_pred2.tif"] = tif(T(g8[..., None], 8, 1, 1, 2))
+    c["dsb_c4/assoc_alpha.tif"] = tif(T(rgba, 8, 2, 8, extrasamples=[1]))
+    c["dsb_c4/assoc_alpha16_lzw.tif"] = tif(T(
+        rgba.astype(np.uint16) * 257 + 7, 16, 2, 5, 2, extrasamples=[1]))
+    c["dsb_c4/unassoc_alpha_packbits.tif"] = tif(T(rgba, 8, 2, 32773,
+                                                   extrasamples=[2]))
+    c["dsb_c4/rgbx_extra0.tif"] = tif(T(rgba, 8, 2, 5, extrasamples=[0]))
+    c["dsb_c3/rgb16_lzw_pred2.tif"] = tif(T(
+        rgb.astype(np.uint16) * 257 + 3, 16, 2, 5, 2))
+    # PIL applies the Orientation tag, imageio does not
+    c["dsb_c3/orientation3.tif"] = tif(T(rgb, 8, 2, tags=[(274, 3, [3])]))
+    c["dsb_c3/orientation6_lzw.tif"] = tif(T(rgb, 8, 2, 5,
+                                             tags=[(274, 3, [6])]))
+    # GIF, written by PIL (interlaced by default)
+    c["dsb_c3/pil_mask.gif"] = _pil_saver(Image, mask)
+    c["dsb_c3/pil_mask_not_interlaced.gif"] = _pil_saver(Image, mask,
+                                                         interlace=False)
+    c["dsb_c1/pil_L.gif"] = _pil_saver(Image, g8)
+    c["dsb_c1/pil_L_transparency.gif"] = _pil_saver(Image, g8,
+                                                    transparency=3)
+    c["dsb_c3/pil_P.gif"] = _pil_saver(Image, g8, "P",
+                                       palette=list(pal.reshape(-1)))
+    c["dsb_c3/pil_P_transparency.gif"] = _pil_saver(
+        Image, g8, "P", palette=list(pal.reshape(-1)), transparency=5)
+    c["dsb_c3/pil_rgb.gif"] = _pil_saver(Image, rgb)
+    # GIF, encoded here
+    g = encode_gif
+    c["dsb_c3/local_table.gif"] = _bytes_saver(g([{"indices": idx,
+                                                  "palette": pal}], (w, h)))
+    c["dsb_c3/local_over_global.gif"] = _bytes_saver(g(
+        [{"indices": idx, "palette": pal[::-1], "interlace": True}], (w, h),
+        pal))
+    c["dsb_c3/offset_frame_transparency.gif"] = _bytes_saver(g(
+        [{"indices": idx[:20, :30], "pos": (7, 5), "transparency": 9,
+          "interlace": True}], (w, h), pal))
+    c["dsb_c3/offset_frame.gif"] = _bytes_saver(g(
+        [{"indices": idx[:20, :30], "pos": (7, 5)}], (w, h), pal))
+    c["misc/frame_past_screen.gif"] = _bytes_saver(g(
+        [{"indices": idx, "pos": (5, 3)}], (w, h), pal))
+    c["dsb_c1/grey_local_under_global.gif"] = _bytes_saver(g(
+        [{"indices": idx, "palette": grey_pal}], (w, h), pal))
+    c["dsb_c1/no_colour_table.gif"] = _bytes_saver(g([{"indices": idx}],
+                                                     (w, h)))
+    c["dsb_c3/min_code_size2.gif"] = _bytes_saver(g(
+        [{"indices": idx % 4, "min_code_size": 2}], (w, h), pal[:4]))
+    c["dsb_c3/two_frames.gif"] = _bytes_saver(g(
+        [{"indices": idx}, {"indices": idx[::-1], "transparency": 1}],
+        (w, h), pal))
+    c["dsb_c3/gif87a_runs.gif"] = _bytes_saver(g(
+        [{"indices": np.repeat(smooth, 1, 0)}], (w, h), pal[:16],
+        version=b"GIF87a"))
+    noise = rng.integers(0, 256, (128, 128))
+    c["misc/table_full_deferred_clear.gif"] = _bytes_saver(g(
+        [{"indices": noise, "clear_when_full": False}], (128, 128), pal))
+    c["misc/table_full_clear.gif"] = _bytes_saver(g(
+        [{"indices": noise}], (128, 128), pal))
+    # BMP, written by PIL
+    c["dsb_c1/pil_1.bmp"] = _pil_saver(Image, bits1)
+    c["dsb_c1/pil_L.bmp"] = _pil_saver(Image, g8)
+    c["dsb_c3/pil_P.bmp"] = _pil_saver(Image, g8, "P",
+                                       palette=list(pal.reshape(-1)))
+    c["dsb_c3/pil_rgb.bmp"] = _pil_saver(Image, rgb)
+    # BMP, encoded here
+    b = encode_bmp
+    c["dsb_c3/core_24.bmp"] = _bytes_saver(b(rgb, 24, header=12))
+    c["dsb_c3/core_pal8.bmp"] = _bytes_saver(b(idx, 8, pal[:200],
+                                               header=12))
+    c["dsb_c3/pal1.bmp"] = _bytes_saver(b(idx % 2, 1, pal[:2]))
+    c["dsb_c3/pal4.bmp"] = _bytes_saver(b(smooth, 4, pal[:16]))
+    c["dsb_c3/pal8_200_used.bmp"] = _bytes_saver(b(idx, 8, pal[:200]))
+    c["dsb_c1/grey8.bmp"] = _bytes_saver(b(idx, 8, grey_pal))
+    c["dsb_c3/rgb555.bmp"] = _bytes_saver(b(rgb, 16))
+    c["dsb_c3/bitfields565.bmp"] = _bytes_saver(b(
+        rgb, 16, compression=3, masks=(0xF800, 0x7E0, 0x1F)))
+    c["dsb_c3/rgb32.bmp"] = _bytes_saver(b(rgb, 32))
+    c["dsb_c3/bitfields32_xbgr.bmp"] = _bytes_saver(b(
+        rgb, 32, compression=3, masks=(0xFF000000, 0xFF0000, 0xFF00)))
+    c["dsb_c3/v5_bitfields32.bmp"] = _bytes_saver(b(
+        rgb, 32, header=124, compression=3, masks=(0xFF0000, 0xFF00, 0xFF,
+                                                   0)))
+    c["dsb_c4/v4_bitfields32_alpha.bmp"] = _bytes_saver(b(
+        rgba, 32, header=108, compression=3,
+        masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000)))
+    c["dsb_c3/rle8.bmp"] = _bytes_saver(b(rle_idx, 8, pal[:200],
+                                          compression=1))
+    c["dsb_c3/rle4.bmp"] = _bytes_saver(b(rle_idx, 4, pal[:16],
+                                          compression=2))
+    c["dsb_c3/top_down_24.bmp"] = _bytes_saver(b(rgb, 24, top_down=True))
+    c["dsb_c3/top_down_pal8.bmp"] = _bytes_saver(b(idx, 8, pal,
+                                                   top_down=True))
+    c["misc/odd_size_24.bmp"] = _bytes_saver(b(rgb[:7, :13], 24))
+    # DRIVE at its published size: the images, a manual and an FOV mask
+    image, vessels, fov = retina()
+    c["drive/21_training.tif"] = _pil_saver(Image, image,
+                                            compression="tiff_lzw",
+                                            tiffinfo={317: 2})
+    c["drive/22_training.tif"] = _pil_saver(
+        Image, image[:, ::-1], compression="tiff_adobe_deflate",
+        tiffinfo={317: 2})
+    c["drive/21_manual1.gif"] = _pil_saver(Image, vessels)
+    c["drive/21_training_mask.gif"] = _pil_saver(Image, fov)
+    return c
+
+
+# cases where PIL's or imageio's reading is not what the file's tags ask,
+# recorded beside their entries (the port follows PIL and imageio)
+IMAGE_NOTES = {
+    "misc/pil_two_pages.tif": "imageio stacks same-shaped pages: (2, H, W)",
+    "misc/planar2_raw.tif": "imageio keeps planar samples first: (3, H, W)",
+    "misc/planar2_lzw_pred2.tif": "imageio: (3, H, W)",
+    "misc/planar2_tiled_deflate.tif": "imageio: (3, H, W)",
+    "dsb_c1/mm_F_deflate.tif": "PIL reads the floats byte-swapped",
+    "dsb_c3/mm_bigtiff_lzw.tif": "PIL does not open a big-endian BigTIFF",
+    "dsb_c1/packbits_pred2.tif": "PIL ignores predictor 2 on PackBits, "
+                                 "imageio undoes it",
+    "dsb_c1/raw_pred2.tif": "PIL ignores predictor 2 uncompressed, "
+                            "imageio undoes it",
+    "dsb_c1/no_photometric_tag.tif": "PIL reads a missing photometric as "
+                                     "MinIsWhite",
+    "dsb_c1/miniswhite_I16_lzw.tif": "PIL does not invert 16-bit "
+                                     "MinIsWhite",
+    "dsb_c1/palette8_raw.tif": "imageio gives the palette indices",
+    "dsb_c3/orientation3.tif": "PIL applies the Orientation tag, imageio "
+                               "does not",
+    "dsb_c3/orientation6_lzw.tif": "PIL applies the Orientation tag "
+                                   "(W, H), imageio does not",
+    "dsb_c1/grey_local_under_global.gif": "PIL's convert('RGB') of this "
+                                          "'L' frame applies the global "
+                                          "table",
+}
 
 
 # -- HDF5 --------------------------------------------------------------------
@@ -324,13 +1051,20 @@ def h5_manifest(h5py, path: str) -> dict:
     return {"datasets": datasets, "groups": groups}
 
 
-def png_manifest(path: str) -> dict:
+def image_manifest(path: str) -> dict:
+    """What PIL's ``convert("L")`` / ``convert("RGB")`` (None where PIL does
+    not open the file) and ``imageio.imread`` give for the image at
+    ``path``."""
     import imageio
     from PIL import Image
 
-    with Image.open(path) as im:
-        out = {"pil_" + m: entry(np.asarray(im.convert(m)))
-               for m in ("L", "RGB")}
+    out = {}
+    for m in ("L", "RGB"):
+        try:
+            with Image.open(path) as im:
+                out["pil_" + m] = entry(np.asarray(im.convert(m)))
+        except OSError:
+            out["pil_" + m] = None
     out["imageio"] = entry(np.asarray(imageio.imread(path)))
     return out
 
@@ -343,7 +1077,7 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=os.path.join(here, "tests",
                                                       "fixtures"))
     args = parser.parse_args(argv)
-    manifest = {"h5_latest": {}, "png_extra": {}}
+    manifest = {"h5_latest": {}, "png_extra": {}, "image_formats": {}}
     h5_dir = os.path.join(args.out, "h5_latest")
     os.makedirs(h5_dir, exist_ok=True)
     rng = np.random.default_rng(SEED)
@@ -368,8 +1102,22 @@ def main(argv=None) -> int:
         path = os.path.join(d, f"{name}.png")
         with open(path, "wb") as f:
             f.write(data)
-        manifest["png_extra"][f"dsb_c{ch}/images/{name}.png"] = png_manifest(
-            path)
+        manifest["png_extra"][f"dsb_c{ch}/images/{name}.png"] = \
+            image_manifest(path)
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 2)
+    for name, write in image_cases(Image, rng).items():
+        group, base = name.split("/")
+        sub = "" if group == "drive" else "images"
+        d = os.path.join(args.out, "image_formats", group, sub)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, base)
+        write(path)
+        key = "/".join(p for p in (group, sub, base) if p)
+        manifest["image_formats"][key] = image_manifest(path)
+        if name in IMAGE_NOTES:
+            manifest["image_formats"][key]["note"] = IMAGE_NOTES[name]
     with open(os.path.join(args.out, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")

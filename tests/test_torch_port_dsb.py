@@ -4,9 +4,10 @@
 - ``DSB2018Dataset`` reads 8-bit grey, 16-bit grey, grey + alpha, RGB and
   RGBA PNGs (written with PIL) into the arrays the JAX package's imageio
   gives, dtypes included, and lays them out the same way (with and without
-  ``expand_dims``), masks too; a JPEG, GIF or TIFF file raises and names
-  what it is (palette, sub-byte and 16-bit colour PNGs are held in
-  ``test_torch_port_png_extra.py``).
+  ``expand_dims``), masks too; a GIF or TIFF file reads as imageio reads
+  it and a JPEG raises naming ROADMAP item 20c (palette, sub-byte and 16-bit
+  colour PNGs are held in ``test_torch_port_png_extra.py``, the TIFF, GIF
+  and BMP matrix in ``test_torch_port_image_formats.py``).
 - ``DSB2018Predictor`` with a UNet2D (f_maps 8, 2 levels, 'gcr') whose
   weights the parameter bridge carries from the JAX variables: each
   ``<name>_predictions.h5`` holds ``predictions`` within 1e-5 of the JAX
@@ -30,6 +31,7 @@ from mdeical_image_segmentation_tpu.models import get_model as jax_get_model
 from mdeical_image_segmentation_tpu_torch.data import dsb, loaders
 from mdeical_image_segmentation_tpu_torch.infer import predictor
 from mdeical_image_segmentation_tpu_torch.models import get_model
+from mdeical_image_segmentation_tpu_torch.utils.image import ImageError
 from mdeical_image_segmentation_tpu_torch.utils.param_bridge import (
     flax_to_state_dict,
 )
@@ -94,8 +96,9 @@ def test_images_read_as_imageio_reads_them(tmp_path, kind, expand_dims):
                         np.testing.assert_array_equal(u, v)
 
 
-# palette and 1-bit PNGs read since (tests/test_torch_port_png_extra.py);
-# the formats PIL opens beyond PNG still raise, naming ROADMAP item 20c
+# palette and 1-bit PNGs read since (tests/test_torch_port_png_extra.py),
+# GIF and TIFF since (tests/test_torch_port_image_formats.py): those two now
+# read into imageio's arrays; a JPEG still raises, naming ROADMAP item 20c
 @pytest.mark.parametrize("what", ["jpeg", "gif", "tiff"])
 def test_other_images_raise_naming_what_they_are(tmp_path, what):
     os.makedirs(tmp_path / "images")
@@ -103,9 +106,15 @@ def test_other_images_raise_naming_what_they_are(tmp_path, what):
         0, 256, SIZE, dtype=np.uint8))
     ext = {"jpeg": "jpg", "gif": "gif", "tiff": "tif"}[what]
     img.save(tmp_path / "images" / f"a.{ext}")
-    with pytest.raises(NotImplementedError,
-                       match=rf"not a PNG \(\.{ext}\).*item 20c"):
-        dsb.DSB2018Dataset(str(tmp_path), "test", TRANSFORMER)
+    if what == "jpeg":
+        with pytest.raises(ImageError, match=r"a JPEG file.*item 20c"):
+            dsb.DSB2018Dataset(str(tmp_path), "test", TRANSFORMER)
+        return
+    ours = dsb.DSB2018Dataset(str(tmp_path), "test", TRANSFORMER)
+    theirs = jax_dsb.DSB2018Dataset(str(tmp_path), "test", TRANSFORMER)
+    (a,), (b,) = ours.images, theirs.images
+    assert a.dtype == b.dtype and a.shape == b.shape == (1, *SIZE)
+    np.testing.assert_array_equal(a, b)
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of
 ``mdeical_image_segmentation_tpu_torch`` pulls in none of jax, flax, optax,
-msgpack, PIL, h5py, yaml, sklearn, matplotlib, imageio or skimage (the
-machine with the card has none of them),
+msgpack, PIL, h5py, yaml, sklearn, matplotlib, imageio, tifffile or skimage
+(the machine with the card has none of them),
 and its kernels are built for Hopper (sm_90a) by nvcc at first use, never at
 import."""
 
@@ -20,7 +20,7 @@ from mdeical_image_segmentation_tpu_torch.ops import _build, fused_conv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "optax", "msgpack", "PIL", "h5py", "yaml",
-             "sklearn", "matplotlib", "imageio", "skimage")
+             "sklearn", "matplotlib", "imageio", "tifffile", "skimage")
 
 
 def _port_modules():
@@ -32,11 +32,11 @@ def _port_modules():
 
 def test_every_module_imports_without_jax_flax_msgpack_pil():
     modules = _port_modules()
-    # 84 with data parallelism (parallel/, train/dist_ckpt.py), the
-    # profiler tooling, viz, spatial sharding, tensor parallelism and
-    # ZeRO-1; the newer modules are named so a rename cannot drop them from
-    # the walk unseen
-    assert len(modules) >= 84
+    # 89 with data parallelism (parallel/, train/dist_ckpt.py), the
+    # profiler tooling, viz, spatial sharding, tensor parallelism, ZeRO-1
+    # and the TIFF, GIF and BMP readers; the newer modules are named so a
+    # rename cannot drop them from the walk unseen
+    assert len(modules) >= 89
     for name in ("ops.initializers", "ops.batchnorm", "ops.msssim",
                  "ops.remat", "ops.image", "models.unet2d",
                  "utils.yaml_io", "utils.hdf5", "configs.config",
@@ -48,7 +48,9 @@ def test_every_module_imports_without_jax_flax_msgpack_pil():
                  "metrics.surface", "infer.predictor", "train.optimizers",
                  "parallel", "parallel.distributed", "parallel.mesh",
                  "parallel.spatial", "parallel.tensor", "parallel.zero",
-                 "train.dist_ckpt", "train.profiling", "utils.viz"):
+                 "train.dist_ckpt", "train.profiling", "utils.viz",
+                 "utils.image", "utils.image_base", "utils.tiff",
+                 "utils.gif", "utils.bmp"):
         assert f"{port.__name__}.{name}" in modules, name
     code = (
         "import importlib, sys\n"
@@ -69,10 +71,11 @@ def test_every_module_imports_without_jax_flax_msgpack_pil():
 
 
 def test_3d_clis_run_without_h5py_and_yaml(tmp_path):
-    """In a process where importing h5py, yaml, imageio or skimage fails
-    (as on the card's machine), both CLIs' modules import, read the yml
-    configs and an HDF5 file the port writes and appends to, and the DSB
-    reader, the surface metrics and the Lazy and DSB predictors import."""
+    """In a process where importing h5py, yaml, imageio, PIL, tifffile or
+    skimage fails (as on the card's machine), both CLIs' modules import,
+    read the yml configs and an HDF5 file the port writes and appends to,
+    the image reader opens a TIFF, a GIF and a BMP, and the DSB reader, the
+    surface metrics and the Lazy and DSB predictors import."""
     code = (
         "import builtins, sys\n"
         "real = builtins.__import__\n"
@@ -112,6 +115,15 @@ def test_3d_clis_run_without_h5py_and_yaml(tmp_path):
         "    assert f['label_bool'][:].dtype == bool\n"
         "    assert f['le_f2'][:].dtype == np.float16\n"
         "from mdeical_image_segmentation_tpu_torch.data import dsb\n"
+        # a TIFF, a GIF and a BMP read without PIL, imageio or tifffile
+        "from mdeical_image_segmentation_tpu_torch.utils import image\n"
+        "fi = 'tests/fixtures/image_formats/'\n"
+        "assert image.read(fi + 'drive/21_training.tif', 'RGB').shape == "
+        "(584, 565, 3)\n"
+        "assert image.imread(fi + 'drive/21_manual1.gif').shape == "
+        "(584, 565, 3)\n"
+        "assert image.read(fi + 'dsb_c3/images/rle8.bmp', 'L').shape == "
+        "(32, 48)\n"
         "from mdeical_image_segmentation_tpu_torch.metrics import hd95\n"
         "from mdeical_image_segmentation_tpu_torch.infer import "
         "DSB2018Predictor, LazyPredictor\n"
@@ -196,12 +208,13 @@ def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("source,entry", [
     ("png_unfilter.c", "tpuseg_png_unfilter"),
-    ("lzf_decompress.c", "tpuseg_lzf_decompress")])
+    ("lzf_decompress.c", "tpuseg_lzf_decompress"),
+    ("lzw_decode.c", "tpuseg_tiff_lzw_decode")])
 def test_host_c_library_is_named_by_its_source(tmp_path, monkeypatch,
                                                source, entry):
-    """csrc/png_unfilter.c and csrc/lzf_decompress.c build with the host C
-    compiler into BUILD_DIR, each under a name that changes with its
-    source."""
+    """csrc/png_unfilter.c, csrc/lzf_decompress.c and csrc/lzw_decode.c
+    build with the host C compiler into BUILD_DIR, each under a name that
+    changes with its source."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)

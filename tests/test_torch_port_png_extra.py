@@ -19,7 +19,7 @@ import pytest
 from PIL import Image
 
 from mdeical_image_segmentation_tpu_torch.data import dsb
-from mdeical_image_segmentation_tpu_torch.utils import png
+from mdeical_image_segmentation_tpu_torch.utils import image, png
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(HERE, "fixtures")
@@ -95,8 +95,8 @@ def test_png_fixtures_match_the_manifest(name):
     script = _script()
     path = os.path.join(FIXTURES, "png_extra", name)
     want = _manifest()[name]
-    assert script.png_manifest(path) == want
-    assert script.entry(dsb.read_image(path)) == want["imageio"]
+    assert script.image_manifest(path) == want
+    assert script.entry(image.imread(path)) == want["imageio"]
     for mode in ("L", "RGB"):
         assert script.entry(png.read(path, mode)) == want[f"pil_{mode}"]
 
