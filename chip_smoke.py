@@ -7,9 +7,10 @@ quantization, exported artifacts, SAM-Med2D promptable serving,
 data-parallel training with its checkpoint and the profiler tooling,
 spatially sharded training with halo exchange, the model axis (channel
 tensor parallelism, ZeRO-1, sharded checkpoints), and the image formats
-the JAX package reads (TIFF, GIF, BMP: serving, DRIVE training, DSB2018).
+the JAX package reads (TIFF, GIF, BMP, JPEG: serving, DRIVE training,
+DSB2018).
 
-    python3 chip_smoke.py [--phase 18|19|20|21|23|24|25|26|27]
+    python3 chip_smoke.py [--phase 18|19|20|21|23|24|25|26|27|28]
 
 Needs one CUDA card, nvcc and the checkout this file sits in; imports nothing
 of JAX (nor PyYAML or h5py).  It exits non-zero, without printing a result,
@@ -475,6 +476,26 @@ wall time.
    launches asserted, maps within phase 21's limit of the plain path.  The
    kernels line counts the paths under ``formats_serve``, ``drive_train``
    and ``dsb_formats``.
+28. JPEG (``phase_jpeg``; runs after phase 27, and ``--phase 28`` runs it
+   alone), TF32 off, the host C of ``csrc/jpeg_decode.c`` built at the
+   first decode: (a) every JPEG fixture of ``tests/fixtures/image_formats``
+   (grey, YCbCr and RGB; 4:4:4, 4:2:2, 4:2:0; baseline, optimized,
+   progressive, multi-scan, SOF1; restart markers; qualities 1-100; sizes
+   1x1 to 37x53; EXIF Orientation 6) read by ``image.read`` and
+   ``image.imread`` equal to ``manifest.json`` (PIL's and imageio's
+   arrays); (b) phase 27's two UNets behind one ``SegmentationServer``: 8
+   clients POST the DRIVE-sized JPEGs (baseline 4:2:0 q75, 4:4:4 q95, 4:2:2
+   progressive, optimized, restart markers, grey) to both, each beside a
+   PNG of the same decoded pixels: every reply 200, each mask equal to its
+   twin's, 18 kernel-1 launches a device batch; decode ms per variant
+   beside its PNG twin's, p50 / p99; (c) a DRIVE layout of 20 JPEG images
+   and grey JPEG manuals through ``cli/train2d.py`` as in phase 27 (c)
+   (every item equal to a PNG copy's, losses within ``BF16_LOSS_TOLS`` of
+   the plain path, 18 launches a step and an eval batch); (d)
+   DSB2018Predictor over the grey and colour JPEG directories, GroupNorm
+   launches asserted, maps within phase 21's limit of the plain path.  The
+   kernels line counts the paths under ``jpeg_serve``, ``jpeg_drive_train``
+   and ``dsb_jpeg``.
 """
 
 from __future__ import annotations
@@ -7742,15 +7763,21 @@ def fixture_entry(a) -> dict:
             "sha256": hashlib.sha256(raw).hexdigest()}
 
 
-def _check_fixtures() -> dict:
-    """(a) every committed HDF5 fixture, PNG, TIFF, GIF and BMP read by the
-    port against the manifest h5py, imageio and PIL gave: each dataset, each
-    group's keys(), each image as ``image.imread`` (the DSB reader) and
-    ``image.read`` give it (an image PIL does not open must raise)."""
+def _check_fixtures(jpeg: bool = False) -> dict:
+    """(a) every committed HDF5 fixture, PNG, TIFF, GIF and BMP (with
+    ``jpeg``: every JPEG alone) read by the port against the manifest h5py,
+    imageio and PIL gave: each dataset, each group's keys(), each image as
+    ``image.imread`` (the DSB reader) and ``image.read`` give it (an image
+    PIL does not open must raise)."""
     from mdeical_image_segmentation_tpu_torch.utils import hdf5, image
 
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         manifest = json.load(f)
+    manifest["image_formats"] = {
+        k: v for k, v in manifest["image_formats"].items()
+        if k.endswith(".jpg") == jpeg}
+    if jpeg:
+        manifest["h5_latest"], manifest["png_extra"] = {}, {}
     n_ds = 0
     for name, want in sorted(manifest["h5_latest"].items()):
         with hdf5.File(os.path.join(FIXTURES, "h5_latest", name)) as f:
@@ -8118,7 +8145,8 @@ def _decode_ms(path: str, mode: str) -> float:
     return statistics.median(times)
 
 
-def _formats_serve(seed: int, workdir: str, files: dict) -> dict:
+def _formats_serve(seed: int, workdir: str, files: dict,
+                   tag: str = "27") -> dict:
     """(b) phase 2's base-64 bf16 UNet at 256² ("unet", convert "L") and its
     3-channel twin ("drive", convert "RGB") behind one SegmentationServer;
     8 clients POST every DRIVE-sized file to both and the PNG of the same
@@ -8141,7 +8169,7 @@ def _formats_serve(seed: int, workdir: str, files: dict) -> dict:
         registry.register_unet2d(name, unet2d_bundle(seed, workdir, ch),
                                  resolution=res, device="cuda",
                                  max_batch=max_batch)
-    log(f"[phase 27] (b) registered the 1- and 3-channel UNets (load + "
+    log(f"[phase {tag}] (b) registered the 1- and 3-channel UNets (load + "
         f"warm-up) in {time.time() - t0:.2f} s")
     requests, decode = [], {}
     for fmt, (path, pixels) in sorted(files.items()):
@@ -8156,7 +8184,8 @@ def _formats_serve(seed: int, workdir: str, files: dict) -> dict:
             decode[f"{fmt} {mode}"] = {"ms": _decode_ms(path, mode),
                                        "png_twin_ms": _decode_ms(twin, mode)}
     srv = SegmentationServer(registry,
-                             output_dir=os.path.join(workdir, "masks27"),
+                             output_dir=os.path.join(workdir,
+                                                     f"masks{tag}"),
                              max_batch=max_batch, max_wait_ms=5.0)
     port = srv.start(host="127.0.0.1", port=0).server_address[1]
     replies = [None] * len(requests)
@@ -8206,12 +8235,12 @@ def _formats_serve(seed: int, workdir: str, files: dict) -> dict:
     if batches <= 0 or launches != 18 * batches:
         raise AssertionError(f"{launches} kernel-1 launches for {batches} "
                              "device batches (want 18 per batch)")
-    log(f"[phase 27] (b) {len(requests)} requests ({len(files)} formats x 2 "
+    log(f"[phase {tag}] (b) {len(requests)} requests ({len(files)} formats x 2 "
         f"models x file and PNG twin) from {clients} clients in {wall:.3f} s:"
         f" all 200, every mask equal to its twin's; {launches} kernel-1 "
         f"launches for {batches} device batches; p50 {stats['p50_ms']} ms, "
         f"p99 {stats['p99_ms']} ms")
-    log("[phase 27] (b) decode ms at 565x584 (image.read, median of "
+    log(f"[phase {tag}] (b) decode ms at 565x584 (image.read, median of "
         f"{DECODE_REPEATS}, warm): " + "; ".join(
             f"{k} {v['ms']:.2f} (PNG {v['png_twin_ms']:.2f})"
             for k, v in sorted(decode.items())))
@@ -8220,29 +8249,33 @@ def _formats_serve(seed: int, workdir: str, files: dict) -> dict:
             "decode_ms": decode}
 
 
-def _drive_layout(root: str, files: dict, png_copy: bool):
-    """``DRIVE_PAIRS`` pairs of images/NN_training.tif and
-    labels/NN_manual1.gif copied from the four DRIVE-sized RGB TIFFs and the
-    manual GIF in turn, or (``png_copy``) PNGs of the same pixels."""
+DRIVE_TIFFS = ("tiff_lzw_pred2", "tiff_deflate_pred2", "tiff_raw",
+               "tiff_packbits")
+
+
+def _drive_layout(root: str, files: dict, png_copy: bool,
+                  images=DRIVE_TIFFS, label: str = "gif_manual"):
+    """``DRIVE_PAIRS`` pairs of images/NN_training.<ext> and
+    labels/NN_manual1.<ext> copied from the ``images`` files in turn and the
+    ``label`` file, or (``png_copy``) PNGs of the same pixels."""
     from mdeical_image_segmentation_tpu_torch.utils import png
 
-    tiffs = ("tiff_lzw_pred2", "tiff_deflate_pred2", "tiff_raw",
-             "tiff_packbits")
     for sub in ("images", "labels"):
         os.makedirs(os.path.join(root, sub))
     for i in range(DRIVE_PAIRS):
         n = 21 + i
-        src, px = files[tiffs[i % 4]]
-        label, lpx = files["gif_manual"]
+        src, px = files[images[i % len(images)]]
+        lsrc, lpx = files[label]
         if png_copy:
             png.write(os.path.join(root, "images", f"{n}_training.png"),
                       px["RGB"])
             png.write(os.path.join(root, "labels", f"{n}_manual1.png"),
                       lpx["L"])
         else:
-            shutil.copy(src, os.path.join(root, "images", f"{n}_training.tif"))
-            shutil.copy(label, os.path.join(root, "labels",
-                                            f"{n}_manual1.gif"))
+            shutil.copy(src, os.path.join(
+                root, "images", f"{n}_training{os.path.splitext(src)[1]}"))
+            shutil.copy(lsrc, os.path.join(
+                root, "labels", f"{n}_manual1{os.path.splitext(lsrc)[1]}"))
 
 
 def _train2d_cli(root: str, out: str, seed: int):
@@ -8282,18 +8315,21 @@ def _train2d_cli(root: str, out: str, seed: int):
     return rec, evals, fused_conv.fused_double2d.launches, wall
 
 
-def _drive_train(seed: int, workdir: str, files: dict) -> dict:
-    """(c) a DRIVE directory of TIFF images and GIF manuals: the split,
-    every item against a PNG copy's, cli/train2d.py on the kernel path and
-    on the plain path from the same weights and batches."""
+def _drive_train(seed: int, workdir: str, files: dict, tag: str = "27",
+                 images=DRIVE_TIFFS, label: str = "gif_manual",
+                 what: str = "TIFF + GIF") -> dict:
+    """(c) a DRIVE directory of the ``images`` files and the ``label``
+    manual (TIFF images and GIF manuals, or JPEGs): the split, every item
+    against a PNG copy's, cli/train2d.py on the kernel path and on the
+    plain path from the same weights and batches."""
     import numpy as np
 
     from mdeical_image_segmentation_tpu_torch.data import DRIVEDataset
 
     root, png_root = (os.path.join(workdir, "DRIVE"),
                       os.path.join(workdir, "DRIVE_png"))
-    _drive_layout(root, files, png_copy=False)
-    _drive_layout(png_root, files, png_copy=True)
+    _drive_layout(root, files, False, images, label)
+    _drive_layout(png_root, files, True, images, label)
     sizes, t0 = {}, time.perf_counter()
     for mode in ("train", "eval", "test"):
         ours = DRIVEDataset(root, mode, resolution=DRIVE_RES)
@@ -8304,12 +8340,12 @@ def _drive_train(seed: int, workdir: str, files: dict) -> dict:
             for k in ("image", "mask"):
                 if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
                     raise AssertionError(f"DRIVE {mode} item {i} {k}: the "
-                                         "TIFF/GIF item differs from the "
+                                         f"{what} item differs from the "
                                          "PNG copy's")
     items_s = time.perf_counter() - t0
     if sizes != {"train": 13, "eval": 4, "test": 3}:
         raise AssertionError(f"DRIVE split {sizes}, want 13 / 4 / 3")
-    log(f"[phase 27] (c) DRIVE layout of {DRIVE_PAIRS} TIFF + GIF pairs: "
+    log(f"[phase {tag}] (c) DRIVE layout of {DRIVE_PAIRS} {what} pairs: "
         f"split {sizes}; every item at {DRIVE_RES}² equal to the PNG "
         f"copy's ({items_s:.2f} s for both, decode and resize)")
     rec, evals, launches, wall = _train2d_cli(
@@ -8334,7 +8370,7 @@ def _drive_train(seed: int, workdir: str, files: dict) -> dict:
     if len(p_rec) != DRIVE_STEPS or any(
             r > t for r, t in zip(rels, BF16_LOSS_TOLS)):
         raise AssertionError(f"DRIVE training, kernel vs plain: {rels}")
-    log(f"[phase 27] (c) cli/train2d.py --dataset DRIVE, base-64 bf16 UNet "
+    log(f"[phase {tag}] (c) cli/train2d.py --dataset DRIVE, base-64 bf16 UNet "
         f"at {DRIVE_RES}², batch {DRIVE_BATCH}: {launches} kernel-1 launches "
         f"({len(rec)} steps, {len(evals)} eval batches, 18 each); run "
         f"{wall:.2f} s (plain {p_wall:.2f} s)")
@@ -8344,11 +8380,13 @@ def _drive_train(seed: int, workdir: str, files: dict) -> dict:
         "wall_s": wall, "items_s": items_s}
 
 
-def _dsb_formats(seed: int, workdir: str) -> dict:
+def _dsb_formats(seed: int, workdir: str, tag: str = "27",
+                 groups=("dsb_c1", "dsb_c3"),
+                 what: str = "TIFF, GIF and BMP") -> dict:
     """(d) cli/predict3d.py with DSB2018Dataset and DSB2018Predictor over
-    the fixtures' 1- and 3-channel TIFF, GIF and BMP directories, a seeded
-    UNet2D each; every map against the plain path within phase 21's
-    limit."""
+    the fixtures' 1- and 3-channel directories ``groups`` (TIFF, GIF and
+    BMP, or JPEG), a seeded UNet2D each; every map against the plain path
+    within phase 21's limit."""
     import numpy as np
     import torch
 
@@ -8365,21 +8403,22 @@ def _dsb_formats(seed: int, workdir: str) -> dict:
     total = {k: 0 for k in KERNELS_3D}
     images, worst = 0, 0.0
     get = predictor_lib.get_predictor
-    for ch in (1, 3):
-        root = os.path.join(IMAGE_FIXTURES, f"dsb_c{ch}")
+    for group in groups:
+        ch = int(group[-1])
+        root = os.path.join(IMAGE_FIXTURES, group)
         n = len(os.listdir(os.path.join(root, "images")))
         model = dict(DSB_MODEL, in_channels=ch)
         cfg = {"model": model,
                "model_path": _initial_checkpoint(model, seed + ch, workdir,
-                                                 f"dsb27_c{ch}"),
-               "output_dir": os.path.join(workdir, f"dsb27_c{ch}_out"),
+                                                 f"dsb{tag}_c{ch}"),
+               "output_dir": os.path.join(workdir, f"dsb{tag}_c{ch}_out"),
                "predictor": {"name": "DSB2018Predictor"},
                "loaders": {"dataset": "DSB2018Dataset",
                            "batch_size": DSB_BATCH,
                            "test": {"file_paths": [root], "transformer":
                                     pred_cfg["loaders"]["test"]["transformer"]}}}
         os.makedirs(cfg["output_dir"])
-        cfg_path = os.path.join(workdir, f"dsb27_c{ch}.yml")
+        cfg_path = os.path.join(workdir, f"dsb{tag}_c{ch}.yml")
         with open(cfg_path, "w") as f:
             f.write(yaml_io.dumps(cfg))
         made = []
@@ -8404,11 +8443,11 @@ def _dsb_formats(seed: int, workdir: str) -> dict:
                 "gn_affine": per_batch * batches, "gn_bwd_reduce": 0,
                 "gn_bwd_dx": 0, "overlap_add": 0}
         if len(files) != n or launches != want:
-            raise AssertionError(f"dsb_c{ch}: {launches} for {len(files)} "
+            raise AssertionError(f"{group}: {launches} for {len(files)} "
                                  f"files, want {want} for {n}")
         with plain_path():
             plain = get(made[0].model, os.path.join(workdir,
-                                                    f"dsb27_c{ch}_plain"),
+                                                    f"dsb{tag}_c{ch}_plain"),
                         {"model": model, "predictor": cfg["predictor"]})
             os.makedirs(plain.output_dir)
             (loader,) = get_test_loaders(cfg)
@@ -8426,7 +8465,7 @@ def _dsb_formats(seed: int, workdir: str) -> dict:
         for k in KERNELS_3D:
             total[k] += launches[k]
         images += n
-    log(f"[phase 27] (d) DSB2018Predictor over {images} TIFF, GIF and BMP "
+    log(f"[phase {tag}] (d) DSB2018Predictor over {images} {what} "
         f"images (1 and 3 channels): kernel vs plain max |diff| {worst:.3e} "
         f"(limit {UNET3D_MAP_TOL}); launches {total}")
     return {"images": images, "err": worst, "launches": total}
@@ -8456,6 +8495,61 @@ def phase_image_formats(seed: int, workdir: str) -> dict:
             "launches": {"dsb_formats": dsb["launches"]},
             "kernel1": {"formats_serve": serve["launches"],
                         "drive_train": drive["launches"]}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 28: JPEG as PIL and imageio read it (libjpeg-turbo's bits), decoded
+# by the host C of csrc/jpeg_decode.c: the fixtures, DRIVE-sized JPEGs
+# served and trained from, DSB2018 over JPEG directories
+# ---------------------------------------------------------------------------
+
+JPEG_DRIVE = ("baseline_420_q75", "q95_444", "progressive_422",
+              "optimized_420", "restart_rows1_420")
+JPEG_MANUAL = "grey_manual"
+
+
+def jpeg_drive_files() -> dict:
+    """The committed DRIVE-sized JPEGs: {variant: (path, {"L": pixels,
+    "RGB": pixels})}, the pixels the port decodes, each held to PIL's
+    SHA-256 in the manifest first (the PNG twins are written from them)."""
+    from mdeical_image_segmentation_tpu_torch.utils import image
+
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)["image_formats"]
+    files = {}
+    for name in JPEG_DRIVE + (JPEG_MANUAL,):
+        key = f"jpeg_drive/{name}.jpg"
+        path = os.path.join(IMAGE_FIXTURES, key)
+        px = {m: image.read(path, m) for m in ("L", "RGB")}
+        for m in ("L", "RGB"):
+            if fixture_entry(px[m]) != manifest[key][f"pil_{m}"]:
+                raise AssertionError(f"{key}: convert({m!r}) is not PIL's")
+        files[name] = (path, px)
+    return files
+
+
+def phase_jpeg(seed: int, workdir: str) -> dict:
+    """Phase 28: (a) the JPEG fixtures against their manifest; (b)
+    DRIVE-sized JPEGs served beside their PNG twins; (c) a DRIVE directory
+    of JPEGs through cli/train2d.py; (d) DSB2018 over JPEG directories."""
+    workdir = os.path.join(workdir, "phase28")
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    fixtures = _check_fixtures(jpeg=True)
+    fixtures["s"] = time.perf_counter() - t0
+    log(f"[phase 28] (a) {fixtures['images']} JPEG fixtures equal to the "
+        f"manifest in {fixtures['s']:.2f} s (the first decode builds "
+        "csrc/jpeg_decode.c)")
+    files = jpeg_drive_files()
+    serve = _formats_serve(seed, workdir, files, tag="28")
+    drive = _drive_train(seed, workdir, files, tag="28", images=JPEG_DRIVE,
+                         label=JPEG_MANUAL, what="JPEG")
+    dsb = _dsb_formats(seed, workdir, tag="28",
+                       groups=("jpeg_c1", "jpeg_c3"), what="JPEG")
+    return {"fixtures": fixtures, "serve": serve, "drive": drive, "dsb": dsb,
+            "launches": {"dsb_jpeg": dsb["launches"]},
+            "kernel1": {"jpeg_serve": serve["launches"],
+                        "jpeg_drive_train": drive["launches"]}}
 
 
 def _single_conv_row(mp: dict) -> dict:
@@ -8546,7 +8640,7 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phase", type=int,
-                        choices=(18, 19, 20, 21, 23, 24, 25, 26, 27),
+                        choices=(18, 19, 20, 21, 23, 24, 25, 26, 27, 28),
                         default=None,
                         help="run the kernel build and this phase alone "
                         "(21: with phases 13 and 14, which it reads)")
@@ -8726,7 +8820,7 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count(),
         }}), flush=True)
         return 0
-    if args.phase == 27:
+    if args.phase in (27, 28):
         from mdeical_image_segmentation_tpu_torch.ops import _build
 
         _build.load()
@@ -8734,14 +8828,18 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         build_dir = os.path.join(ROOT, "build")
         os.makedirs(build_dir, exist_ok=True)
-        workdir = tempfile.mkdtemp(prefix="chip_smoke_27_", dir=build_dir)
+        workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{args.phase}_",
+                                   dir=build_dir)
         try:
             t_phase = time.time()
-            images = phase_image_formats(SEED, workdir)
-            log(f"[phase 27] ok; wall {time.time() - t_phase:.1f} s ({smi})")
+            images = (phase_image_formats if args.phase == 27
+                      else phase_jpeg)(SEED, workdir)
+            log(f"[phase {args.phase}] ok; wall {time.time() - t_phase:.1f} "
+                f"s ({smi})")
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
-        log(f"image formats (phase 27, {smi}): {json.dumps(images)}")
+        log(f"image formats (phase {args.phase}, {smi}): "
+            f"{json.dumps(images)}")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
@@ -8927,6 +9025,13 @@ def main(argv=None) -> int:
             "cli/train2d.py; DSB2018 over TIFF, GIF and BMP")
         images27 = phase_image_formats(SEED, workdir)
         log(f"[phase 27] ok; wall {time.time() - t_phase:.1f} s ({smi})")
+        t_phase = time.time()
+        log("[phase 28] JPEG: the fixtures against their manifest; "
+            "DRIVE-sized JPEGs served beside PNG twins; a DRIVE directory of "
+            "JPEG images and manuals through cli/train2d.py; DSB2018 over "
+            "JPEG")
+        images28 = phase_jpeg(SEED, workdir)
+        log(f"[phase 28] ok; wall {time.time() - t_phase:.1f} s ({smi})")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if train2d["launches"] == 0:
@@ -8955,6 +9060,7 @@ def main(argv=None) -> int:
         **mp["launches"],
         **formats["launches"],
         **images27["launches"],
+        **images28["launches"],
     }
     runs = (unet3d_launches, res_launches, serve3d_launches, train_launches,
             res_train_launches, cfg_train["launches"],
@@ -9008,7 +9114,8 @@ def main(argv=None) -> int:
     log(f"model axis (phase 25, {smi}): {json.dumps(mp)}")
     log(f"file formats (phase 26, {smi}): {json.dumps(formats)}")
     log(f"image formats (phase 27, {smi}): {json.dumps(images27)}")
-    k1_27 = images27["kernel1"]
+    log(f"JPEG (phase 28, {smi}): {json.dumps(images28)}")
+    k1_formats = {**images27["kernel1"], **images28["kernel1"]}
     kernels = [{
         "name": "double_conv2d",
         "route": "cuda",
@@ -9016,13 +9123,14 @@ def main(argv=None) -> int:
         "replaces": "mdeical_image_segmentation_tpu/ops/fused_conv.py:420",
         # served batches (phase 2), Trainer.train() (phase 11), the
         # exported artifact (phase 19), Trainer.train() under DDP (23), and
-        # TIFF, GIF and BMP served and DRIVE trained from them (27)
+        # TIFF, GIF and BMP (27) and JPEG (28) served and DRIVE trained from
+        # them
         "launches": (launches + train2d["launches"] + export_2d + dp_2d
-                     + sum(k1_27.values())),
+                     + sum(k1_formats.values())),
         "launches_by_path": {"serve_2d": launches,
                              "train_2d": train2d["launches"],
                              "export_2d": export_2d, "dp_2d_ddp": dp_2d,
-                             **k1_27},
+                             **k1_formats},
         "max_abs_err": max(max_err, dc_train["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,

@@ -8,11 +8,12 @@ pipelines take: an (H, W) image becomes (1, H, W), an (H, W, C) one
 
 Images are read by ``utils/image.py``'s ``imread`` into what
 ``imageio.imread`` gives the JAX package for a file under its own
-extension: PNG, GIF and BMP as imageio's pillow plugin reads them (palette
-images as RGB, 1-bit as bool, 16-bit PNG grey kept), TIFF as its vendored
+extension: PNG, GIF, BMP and JPEG as imageio's pillow plugin reads them
+(palette images as RGB, 1-bit as bool, 16-bit PNG grey kept, a JPEG as
+libjpeg-turbo decodes it: (H, W) grey or (H, W, 3)), TIFF as its vendored
 tifffile does (samples as stored, 16 bits kept, planar images as (S, H, W),
-same-shaped pages stacked).  JPEG and any other file raise ``ImageError``
-naming ROADMAP item 20c.
+same-shaped pages stacked).  Any other file, and the variants the decoders
+do not read yet, raise ``ImageError`` naming ROADMAP item 20c.
 """
 
 from __future__ import annotations

@@ -21,8 +21,9 @@ package's ``serve/app.py``).
     GET  /health      liveness
 
 Images are decoded by the port's own readers (``utils/image.py``: PNG,
-TIFF, GIF and BMP, as PIL's ``Image.open(p).convert(mode)`` gives them); a
-file they refuse (JPEG among them) is answered with a 400.
+TIFF, GIF, BMP and JPEG, as PIL's ``Image.open(p).convert(mode)`` gives
+them); a file they refuse (arithmetic-coded or CMYK JPEG among them) is
+answered with a 400.
 """
 
 from __future__ import annotations

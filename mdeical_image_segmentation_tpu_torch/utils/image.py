@@ -5,23 +5,27 @@
 The decoder is picked by the file's first bytes, never by its name:
 ``\\x89PNG`` PNG (``utils/png.py``), ``II*\\0`` / ``MM\\0*`` and BigTIFF's
 ``II+\\0`` / ``MM\\0+`` TIFF (``utils/tiff.py``), ``GIF87a`` / ``GIF89a``
-GIF (``utils/gif.py``) and ``BM`` BMP (``utils/bmp.py``).  JPEG and any
-other file raise ``ImageError`` naming ROADMAP item 20c.
+GIF (``utils/gif.py``), ``BM`` BMP (``utils/bmp.py``) and ``\\xff\\xd8\\xff``
+JPEG (``utils/jpeg.py``).  Any other file, and the variants of these
+formats the decoders do not read yet, raise ``ImageError`` naming ROADMAP
+item 20c.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from . import bmp, gif, png, tiff
+from . import bmp, gif, jpeg, png, tiff
 from .image_base import FORMATS_ITEM, ImageError, as_imageio, convert
 
 __all__ = ["ImageError", "kind", "read", "imread"]
-_DECODERS = {"tiff": tiff.decode, "gif": gif.decode, "bmp": bmp.decode}
+_DECODERS = {"tiff": tiff.decode, "gif": gif.decode, "bmp": bmp.decode,
+             "jpeg": jpeg.decode}
 
 
 def kind(data: bytes) -> str:
-    """"png", "tiff", "gif" or "bmp" by the leading bytes; else raises."""
+    """"png", "tiff", "gif", "bmp" or "jpeg" by the leading bytes; else
+    raises."""
     if data.startswith(png.SIGNATURE):
         return "png"
     if data[:4] in tiff.SIGNATURES:
@@ -30,10 +34,10 @@ def kind(data: bytes) -> str:
         return "gif"
     if data.startswith(bmp.SIGNATURE):
         return "bmp"
-    what = "a JPEG" if data.startswith(b"\xff\xd8\xff") else \
-        "not a PNG, TIFF, GIF or BMP"
-    raise ImageError(f"{what} file: read are PNG, TIFF, GIF and BMP "
-                     f"({FORMATS_ITEM})")
+    if data.startswith(jpeg.SIGNATURE):
+        return "jpeg"
+    raise ImageError("not a PNG, TIFF, GIF, BMP or JPEG file: read are PNG, "
+                     f"TIFF, GIF, BMP and JPEG ({FORMATS_ITEM})")
 
 
 def read(path: str, mode: str) -> np.ndarray:
@@ -71,9 +75,9 @@ def _png_imread(data: bytes) -> np.ndarray:
 
 def imread(path: str) -> np.ndarray:
     """What ``imageio.imread(path)`` returns for a file under its own
-    extension: PNG, GIF and BMP through imageio's pillow plugin (a palette
-    applied, "1" as bool), TIFF through its vendored tifffile
-    (``tiff.imread``)."""
+    extension: PNG, GIF, BMP and JPEG through imageio's pillow plugin (a
+    palette applied, "1" as bool; a JPEG as decoded, (H, W) grey or (H, W,
+    3)), TIFF through its vendored tifffile (``tiff.imread``)."""
     with open(path, "rb") as f:
         data = f.read()
     k = kind(data)

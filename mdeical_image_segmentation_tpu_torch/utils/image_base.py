@@ -1,5 +1,5 @@
 """What the port's image decoders share (``utils/png.py``, ``tiff.py``,
-``gif.py``, ``bmp.py``; ``utils/image.py`` picks among them).
+``gif.py``, ``bmp.py``, ``jpeg.py``; ``utils/image.py`` picks among them).
 
 - ``ImageError``: the one base of every decoder's error (``PngError``
   included), which the server answers with a 400.
@@ -7,7 +7,8 @@
   ("1", "L", "LA", "P", "I;16", "F", "RGB", "RGBA"), and ``convert``: PIL's
   ``convert("L" | "RGB")`` of it.
 - ``as_imageio``: what ``imageio.imread`` returns for such an image when
-  its pillow plugin reads it (GIF, BMP): a palette applied, "1" as bool.
+  its pillow plugin reads it (GIF, BMP, JPEG): a palette applied, "1" as
+  bool.
 - The host C of ``csrc/lzw_decode.c`` (LZW, PackBits), built at first use.
 """
 

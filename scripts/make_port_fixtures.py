@@ -1,5 +1,5 @@
-"""Write the HDF5, PNG, TIFF, GIF and BMP fixtures the port's readers are
-held against, and their manifest.
+"""Write the HDF5, PNG, TIFF, GIF, BMP and JPEG fixtures the port's readers
+are held against, and their manifest.
 
     python scripts/make_port_fixtures.py [--out tests/fixtures]
 
@@ -31,6 +31,13 @@ machine does not, which is why the manifest exists).  Writes:
   ``image_formats/drive/``: a seeded synthetic retina at DRIVE's 565x584
   as an LZW + predictor-2 and a deflate + predictor-2 TIFF, with its
   vessel (manual) and field-of-view GIF masks.
+- ``image_formats/jpeg_{c1,c3,misc}/images/*.jpg``: JPEGs PIL writes
+  (libjpeg-turbo: 4:4:4, 4:2:2 and 4:2:0; baseline, optimized and
+  progressive; restart markers; qualities 1-100; ``keep_rgb``; sizes 1x1
+  to 37x53; an EXIF Orientation 6) and ``encode_jpeg`` writes (multi-scan
+  baseline, SOF1, RGB by component ids); ``image_formats/jpeg_drive/``:
+  the synthetic retina as five DRIVE-sized JPEG variants and its vessel
+  mask as a grey JPEG.
 - ``manifest.json``: for every dataset reachable from each file's root (soft
   links followed) its shape, dtype and the SHA-256 of its C-order bytes as
   h5py reads it, and each group's ``keys()``; for every image, the same of
@@ -884,6 +891,251 @@ IMAGE_NOTES = {
 }
 
 
+# -- JPEG ----------------------------------------------------------------------
+
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+_DCT8 = np.array([[np.sqrt((1 if u == 0 else 2) / 8)
+                   * np.cos((2 * x + 1) * u * np.pi / 16) for x in range(8)]
+                  for u in range(8)])
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+class _BitWriter:
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, value: int, bits: int):
+        self.acc = (self.acc << bits) | (value & ((1 << bits) - 1))
+        self.n += bits
+        while self.n >= 8:
+            byte = (self.acc >> (self.n - 8)) & 0xFF
+            self.out += b"\xff\x00" if byte == 0xFF else bytes([byte])
+            self.n -= 8
+
+    def flush(self) -> bytes:
+        if self.n:
+            self.put((1 << (8 - self.n)) - 1, 8 - self.n)  # pad with 1s
+        data, self.out, self.acc = bytes(self.out), bytearray(), 0
+        return data
+
+
+def _category(v: int):
+    """(size, the v's bits) of a DC difference or an AC value."""
+    s = int(abs(v)).bit_length()
+    return s, (v if v >= 0 else v - 1 + (1 << s))
+
+
+def encode_jpeg(pixels, sampling=None, scans=None, restart=0, sof=0xC0,
+                ids=None, jfif=True, ycc=True, qscale=1) -> bytes:
+    """A sequential Huffman JPEG of ``pixels`` ((H, W) grey or (H, W, 3) RGB,
+    stored as YCbCr, or as RGB with ``ycc`` off), the writer PIL has no
+    options for: ``scans`` lists each scan's components (one scan of all by
+    default; one scan a component is multi-scan baseline), ``sampling``
+    each component's (h, v), ``restart`` MCUs between RSTn markers, ``sof``
+    0xC0 or 0xC1, component ``ids``, a JFIF APP0 marker or none.
+    Fixed-length Huffman codes over the symbols each table codes; chroma
+    averaged over its sampling cells."""
+    px = np.asarray(pixels, np.float64)
+    if px.ndim == 2:
+        planes = [px]
+    elif not ycc:
+        planes = [px[..., 0], px[..., 1], px[..., 2]]
+    else:
+        r, g, b = px[..., 0], px[..., 1], px[..., 2]
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  128 - 0.168736 * r - 0.331264 * g + 0.5 * b,
+                  128 + 0.5 * r - 0.418688 * g - 0.081312 * b]
+    n = len(planes)
+    h, w = px.shape[:2]
+    sampling = sampling or [(1, 1)] * n
+    ids = ids or list(range(1, n + 1))
+    scans = scans or [tuple(range(n))]
+    maxh = max(s[0] for s in sampling)
+    maxv = max(s[1] for s in sampling)
+    mcus_x, mcus_y = -(-w // (8 * maxh)), -(-h // (8 * maxv))
+    q = [np.clip((2 + np.arange(64) // 3) * qscale, 1, 255).astype(int),
+         np.clip((3 + np.arange(64) // 2) * qscale, 1, 255).astype(int)]
+    coefs = []  # per component: (block rows, block cols, 64) in zig-zag
+    for c, (plane, (sh, sv)) in enumerate(zip(planes, sampling)):
+        fy, fx = maxv // sv, maxh // sh
+        ch, cw = -(-h * sv // maxv), -(-w * sh // maxh)
+        padded = np.pad(plane, ((0, ch * fy - h), (0, cw * fx - w)),
+                        mode="edge")
+        down = padded.reshape(ch, fy, cw, fx).mean(axis=(1, 3))
+        rows, cols = mcus_y * sv, mcus_x * sh
+        full = np.pad(np.round(down) - 128,
+                      ((0, rows * 8 - ch), (0, cols * 8 - cw)), mode="edge")
+        blocks = full.reshape(rows, 8, cols, 8).transpose(0, 2, 1, 3)
+        dct = _DCT8 @ blocks @ _DCT8.T
+        quant = np.round(dct.reshape(rows, cols, 64)
+                         / q[min(c, 1)][_ZIGZAG.argsort()][None, None])
+        coefs.append(quant.reshape(rows, cols, 64)[..., _ZIGZAG].astype(int))
+
+    def scan_blocks(comps):
+        """Each MCU's (component, block) list, in scan order."""
+        if len(comps) == 1:
+            c = comps[0]
+            sh, sv = sampling[c]
+            bh = -(-(-(-h * sv // maxv)) // 8)
+            bw = -(-(-(-w * sh // maxh)) // 8)
+            return [[(c, coefs[c][y, x])] for y in range(bh)
+                    for x in range(bw)]
+        return [[(c, coefs[c][my * sampling[c][1] + y,
+                              mx * sampling[c][0] + x])
+                 for c in comps for y in range(sampling[c][1])
+                 for x in range(sampling[c][0])]
+                for my in range(mcus_y) for mx in range(mcus_x)]
+
+    def symbols(mcus):
+        """Each MCU's (component, [(dc?, symbol, size, bits)])."""
+        out, pred = [], {}
+        for i, mcu in enumerate(mcus):
+            if restart and i % restart == 0:
+                pred = {}
+            items = []
+            for c, blk in mcu:
+                diff = blk[0] - pred.get(c, 0)
+                pred[c] = blk[0]
+                s, bits = _category(diff)
+                items.append((c, True, s, s, bits))
+                run, last = 0, max([k for k in range(1, 64) if blk[k]] or [0])
+                for k in range(1, last + 1):
+                    if blk[k] == 0:
+                        run += 1
+                        continue
+                    while run > 15:
+                        items.append((c, False, 0xF0, 0, 0))
+                        run -= 16
+                    s, bits = _category(blk[k])
+                    items.append((c, False, (run << 4) | s, s, bits))
+                    run = 0
+                if last < 63:
+                    items.append((c, False, 0x00, 0, 0))
+            out.append(items)
+        return out
+
+    def tables(syms):
+        """{(dc?, table): {symbol: (code, length)}}: fixed-length codes."""
+        used = {}
+        for items in syms:
+            for c, dc, sym, _, _ in items:
+                used.setdefault((dc, min(c, 1)), set()).add(sym)
+        return {k: {s: (i, max(1, len(v).bit_length()))
+                    for i, s in enumerate(sorted(v))}
+                for k, v in used.items()}
+
+    out = bytearray(b"\xff\xd8")
+    if jfif:
+        out += _segment(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+    for t in range(min(n, 2)):
+        out += _segment(0xDB, bytes([t]) + bytes(q[t].tolist()))
+    out += _segment(sof, struct.pack(">BHHB", 8, h, w, n) + b"".join(
+        bytes([ids[c], (sampling[c][0] << 4) | sampling[c][1], min(c, 1)])
+        for c in range(n)))
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    for comps in scans:
+        mcus = scan_blocks(list(comps))
+        syms = symbols(mcus)
+        codes = tables(syms)
+        for (dc, t), table in sorted(codes.items()):
+            length = next(iter(table.values()))[1]
+            counts = [0] * 16
+            counts[length - 1] = len(table)
+            out += _segment(0xC4, bytes([(0 if dc else 16) | t] + counts)
+                            + bytes(sorted(table)))
+        out += _segment(0xDA, bytes([len(comps)]) + b"".join(
+            bytes([ids[c], (min(c, 1) << 4) | min(c, 1)]) for c in comps)
+            + b"\x00\x3f\x00")
+        bw = _BitWriter()
+        for i, items in enumerate(syms):
+            if restart and i and i % restart == 0:
+                out += bw.flush() + bytes([0xFF, 0xD0 + (i // restart - 1) % 8])
+            for c, dc, sym, s, bits in items:
+                code, length = codes[(dc, min(c, 1))][sym]
+                bw.put(code, length)
+                if s:
+                    bw.put(bits, s)
+        out += bw.flush()
+    return bytes(out + b"\xff\xd9")
+
+
+def jpeg_cases(Image, rng):
+    """{directory/name: writer(path)}: the JPEG variants the port reads,
+    PIL writing all it can (``encode_jpeg`` the multi-scan baseline and
+    SOF1 files): ``jpeg_c1`` / ``jpeg_c3`` hold 32x48 grey and colour files
+    (what ``imageio.imread`` gives as (H, W) and (H, W, 3)), ``jpeg_misc``
+    other sizes and an EXIF Orientation 6, ``jpeg_drive`` the DRIVE-sized
+    files of the card's run."""
+    h, w = 32, 48
+    yy, xx = np.mgrid[0:h, 0:w]
+    waves = np.stack([128 + 90 * np.sin(xx / (4 + k) + k)
+                      * np.cos(yy / (3 + k) - k) for k in range(3)], -1)
+    rgb = np.clip(waves + rng.normal(0, 18, waves.shape), 0, 255).astype(
+        np.uint8)
+    grey = rgb[..., 1].copy()
+    c = {}
+    coding = {"baseline": {}, "optimized": {"optimize": True},
+              "progressive": {"progressive": True}}
+    for sub, tag in ((0, "444"), (1, "422"), (2, "420")):
+        for name, kw in coding.items():
+            c[f"jpeg_c3/{name}_{tag}.jpg"] = _pil_saver(
+                Image, rgb, quality=85, subsampling=sub, **kw)
+    for q in (1, 10, 25, 50, 75, 90, 95, 100):
+        c[f"jpeg_c3/quality{q:03d}.jpg"] = _pil_saver(Image, rgb, quality=q)
+    c["jpeg_c3/restart_blocks3.jpg"] = _pil_saver(
+        Image, rgb, restart_marker_blocks=3)
+    c["jpeg_c3/restart_rows1_progressive_422.jpg"] = _pil_saver(
+        Image, rgb, restart_marker_rows=1, progressive=True, subsampling=1)
+    c["jpeg_c3/keep_rgb_444.jpg"] = _pil_saver(Image, rgb, keep_rgb=True,
+                                               subsampling=0)
+    c["jpeg_c3/keep_rgb_progressive.jpg"] = _pil_saver(
+        Image, rgb, keep_rgb=True, subsampling=0, progressive=True)
+    c["jpeg_c3/multiscan_baseline_420.jpg"] = _bytes_saver(encode_jpeg(
+        rgb, [(2, 2), (1, 1), (1, 1)], [(0,), (1,), (2,)], restart=2))
+    c["jpeg_c3/extended_sof1_422.jpg"] = _bytes_saver(encode_jpeg(
+        rgb, [(2, 1), (1, 1), (1, 1)], [(0, 1, 2)], sof=0xC1))
+    c["jpeg_c3/rgb_ids_no_marker.jpg"] = _bytes_saver(encode_jpeg(
+        rgb, ids=[82, 71, 66], jfif=False, ycc=False))
+    for name, kw in {**coding, "quality1": {"quality": 1},
+                     "quality100": {"quality": 100},
+                     "restart_blocks2": {"restart_marker_blocks": 2}}.items():
+        c[f"jpeg_c1/{name}.jpg"] = _pil_saver(Image, grey, **kw)
+    for sh, sw in ((1, 1), (7, 9), (17, 33), (37, 53)):
+        c[f"jpeg_misc/{sh}x{sw}_420.jpg"] = _pil_saver(
+            Image, rgb[:sh, :sw] if sh <= h else np.resize(rgb, (sh, sw, 3)),
+            quality=90)
+        c[f"jpeg_misc/{sh}x{sw}_422_progressive.jpg"] = _pil_saver(
+            Image, np.resize(rgb, (sh, sw, 3)), quality=90, subsampling=1,
+            progressive=True)
+        c[f"jpeg_misc/{sh}x{sw}_grey.jpg"] = _pil_saver(
+            Image, np.resize(grey, (sh, sw)), quality=90)
+
+    def orientation6(path):
+        exif = Image.Exif()
+        exif[0x0112] = 6
+        Image.fromarray(np.resize(rgb, (37, 53, 3))).save(path, exif=exif)
+
+    c["jpeg_misc/37x53_exif_orientation6.jpg"] = orientation6
+    image, vessels, _ = retina()
+    drive = {"baseline_420_q75": {"quality": 75},
+             "q95_444": {"quality": 95, "subsampling": 0},
+             "progressive_422": {"progressive": True, "subsampling": 1},
+             "optimized_420": {"optimize": True},
+             "restart_rows1_420": {"restart_marker_rows": 1}}
+    for name, kw in drive.items():
+        c[f"jpeg_drive/{name}.jpg"] = _pil_saver(Image, image, **kw)
+    c["jpeg_drive/grey_manual.jpg"] = _pil_saver(Image, vessels, quality=90)
+    return c
+
+
 # -- HDF5 --------------------------------------------------------------------
 
 
@@ -1106,10 +1358,11 @@ def main(argv=None) -> int:
             image_manifest(path)
     from PIL import Image
 
-    rng = np.random.default_rng(SEED + 2)
-    for name, write in image_cases(Image, rng).items():
+    cases = image_cases(Image, np.random.default_rng(SEED + 2))
+    cases.update(jpeg_cases(Image, np.random.default_rng(SEED + 3)))
+    for name, write in cases.items():
         group, base = name.split("/")
-        sub = "" if group == "drive" else "images"
+        sub = "" if group in ("drive", "jpeg_drive") else "images"
         d = os.path.join(args.out, "image_formats", group, sub)
         os.makedirs(d, exist_ok=True)
         path = os.path.join(d, base)

@@ -4,10 +4,11 @@
 - ``DSB2018Dataset`` reads 8-bit grey, 16-bit grey, grey + alpha, RGB and
   RGBA PNGs (written with PIL) into the arrays the JAX package's imageio
   gives, dtypes included, and lays them out the same way (with and without
-  ``expand_dims``), masks too; a GIF or TIFF file reads as imageio reads
-  it and a JPEG raises naming ROADMAP item 20c (palette, sub-byte and 16-bit
-  colour PNGs are held in ``test_torch_port_png_extra.py``, the TIFF, GIF
-  and BMP matrix in ``test_torch_port_image_formats.py``).
+  ``expand_dims``), masks too; a GIF, TIFF or JPEG file reads as imageio
+  reads it (palette, sub-byte and 16-bit colour PNGs are held in
+  ``test_torch_port_png_extra.py``, the TIFF, GIF and BMP matrix in
+  ``test_torch_port_image_formats.py``, JPEG in
+  ``test_torch_port_jpeg.py``).
 - ``DSB2018Predictor`` with a UNet2D (f_maps 8, 2 levels, 'gcr') whose
   weights the parameter bridge carries from the JAX variables: each
   ``<name>_predictions.h5`` holds ``predictions`` within 1e-5 of the JAX
@@ -31,7 +32,6 @@ from mdeical_image_segmentation_tpu.models import get_model as jax_get_model
 from mdeical_image_segmentation_tpu_torch.data import dsb, loaders
 from mdeical_image_segmentation_tpu_torch.infer import predictor
 from mdeical_image_segmentation_tpu_torch.models import get_model
-from mdeical_image_segmentation_tpu_torch.utils.image import ImageError
 from mdeical_image_segmentation_tpu_torch.utils.param_bridge import (
     flax_to_state_dict,
 )
@@ -97,8 +97,8 @@ def test_images_read_as_imageio_reads_them(tmp_path, kind, expand_dims):
 
 
 # palette and 1-bit PNGs read since (tests/test_torch_port_png_extra.py),
-# GIF and TIFF since (tests/test_torch_port_image_formats.py): those two now
-# read into imageio's arrays; a JPEG still raises, naming ROADMAP item 20c
+# GIF and TIFF since (tests/test_torch_port_image_formats.py) and JPEG since
+# (tests/test_torch_port_jpeg.py): all three read into imageio's arrays
 @pytest.mark.parametrize("what", ["jpeg", "gif", "tiff"])
 def test_other_images_raise_naming_what_they_are(tmp_path, what):
     os.makedirs(tmp_path / "images")
@@ -106,10 +106,6 @@ def test_other_images_raise_naming_what_they_are(tmp_path, what):
         0, 256, SIZE, dtype=np.uint8))
     ext = {"jpeg": "jpg", "gif": "gif", "tiff": "tif"}[what]
     img.save(tmp_path / "images" / f"a.{ext}")
-    if what == "jpeg":
-        with pytest.raises(ImageError, match=r"a JPEG file.*item 20c"):
-            dsb.DSB2018Dataset(str(tmp_path), "test", TRANSFORMER)
-        return
     ours = dsb.DSB2018Dataset(str(tmp_path), "test", TRANSFORMER)
     theirs = jax_dsb.DSB2018Dataset(str(tmp_path), "test", TRANSFORMER)
     (a,), (b,) = ours.images, theirs.images

@@ -14,10 +14,14 @@ PIL and imageio, which the JAX package reads them with.
 - ``DRIVEDataset`` over a TIFF + GIF DRIVE layout, ``_build_input`` of the
   server and ``DSB2018Dataset`` over the fixture directories, each equal to
   the JAX package's.
-- JPEG and every refused TIFF variant raise ``ImageError`` naming ROADMAP
-  item 20c, and the server answers them with a 400.
+- The JPEG variants the port refuses (arithmetic coding, lossless and
+  hierarchical frames, 12 bits, CMYK, other sampling factors, unrefined
+  progressive scans) and every refused TIFF variant
+  raise ``ImageError`` naming ROADMAP item 20c, and the server answers
+  them with a 400.  (The JPEGs it reads: ``test_torch_port_jpeg.py``.)
 """
 
+import io
 import json
 import os
 import types
@@ -383,17 +387,49 @@ def _refused_tiffs():
     return out
 
 
-REFUSED = sorted(_refused_tiffs()) + ["jpeg"]
+def _jpeg_bytes(px, mode=None, **kw) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(px, mode).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def _patched(data: bytes, marker: int, offset: int, value: int) -> bytes:
+    """``data`` with byte ``offset`` of the first ``marker`` segment's body
+    set to ``value``."""
+    at = data.index(bytes([0xFF, marker])) + 4 + offset
+    return data[:at] + bytes([value]) + data[at + 1:]
+
+
+def _refused_jpegs():
+    """{name: JPEG bytes} of the variants the reader refuses: PIL's own
+    output with a marker or field changed where PIL writes no such file."""
+    rng = np.random.default_rng(1)
+    rgb = rng.integers(0, 256, (16, 24, 3), dtype=np.uint8)
+    base = _jpeg_bytes(rgb, subsampling=0)
+    out = {f"jpeg_sof{n}": base.replace(b"\xff\xc0", bytes([0xFF, 0xC0 + n]),
+                                        1)
+           for n in (3, 5, 9, 10, 11, 13)}
+    out["jpeg_12bit"] = _patched(base, 0xC0, 0, 12)
+    out["jpeg_cmyk"] = _jpeg_bytes(np.concatenate([rgb, rgb[..., :1]], -1),
+                                   "CMYK")
+    for name, comp, hv in (("jpeg_440", 0, 0x12), ("jpeg_411", 0, 0x41),
+                           ("jpeg_chroma_2x2", 1, 0x22)):
+        out[name] = _patched(base, 0xC0, 7 + 3 * comp, hv)
+    # a progressive file cut after its first AC scans: libjpeg smooths it
+    prog = _jpeg_bytes(rgb[..., 0], progressive=True)
+    sos = [i for i in range(len(prog) - 1) if prog[i:i + 2] == b"\xff\xda"]
+    out["jpeg_unrefined_progressive"] = prog[:sos[3]] + b"\xff\xd9"
+    return out
+
+
+REFUSED = sorted(_refused_tiffs()) + sorted(_refused_jpegs())
 
 
 def _write_refused(tmp_path, name: str) -> str:
-    if name == "jpeg":
-        path = str(tmp_path / "scan.jpg")
-        Image.fromarray(np.zeros((8, 8), np.uint8)).save(path)
-        return path
-    path = str(tmp_path / f"{name}.tif")
+    jpeg = name.startswith("jpeg")
+    path = str(tmp_path / (f"{name}.jpg" if jpeg else f"{name}.tif"))
     with open(path, "wb") as f:
-        f.write(_refused_tiffs()[name])
+        f.write((_refused_jpegs() if jpeg else _refused_tiffs())[name])
     return path
 
 
@@ -440,5 +476,6 @@ def test_png_errors_are_image_errors():
     assert issubclass(png.PngError, image.ImageError)
     with pytest.raises(image.ImageError, match="bad signature"):
         png.decode(b"\x89PNX" + b"\0" * 20)
-    with pytest.raises(image.ImageError, match="not a PNG, TIFF, GIF or BMP"):
+    with pytest.raises(image.ImageError,
+                       match="not a PNG, TIFF, GIF, BMP or JPEG"):
         image.kind(b"P6\n")

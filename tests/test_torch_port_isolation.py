@@ -115,7 +115,8 @@ def test_3d_clis_run_without_h5py_and_yaml(tmp_path):
         "    assert f['label_bool'][:].dtype == bool\n"
         "    assert f['le_f2'][:].dtype == np.float16\n"
         "from mdeical_image_segmentation_tpu_torch.data import dsb\n"
-        # a TIFF, a GIF and a BMP read without PIL, imageio or tifffile
+        # a TIFF, a GIF, a BMP and a JPEG read without PIL, imageio or
+        # tifffile
         "from mdeical_image_segmentation_tpu_torch.utils import image\n"
         "fi = 'tests/fixtures/image_formats/'\n"
         "assert image.read(fi + 'drive/21_training.tif', 'RGB').shape == "
@@ -124,6 +125,8 @@ def test_3d_clis_run_without_h5py_and_yaml(tmp_path):
         "(584, 565, 3)\n"
         "assert image.read(fi + 'dsb_c3/images/rle8.bmp', 'L').shape == "
         "(32, 48)\n"
+        "assert image.imread(fi + 'jpeg_drive/progressive_422.jpg').shape "
+        "== (584, 565, 3)\n"
         "from mdeical_image_segmentation_tpu_torch.metrics import hd95\n"
         "from mdeical_image_segmentation_tpu_torch.infer import "
         "DSB2018Predictor, LazyPredictor\n"

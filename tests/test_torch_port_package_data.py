@@ -23,7 +23,7 @@ def test_every_csrc_file_matches_a_package_data_pattern():
     csrc = os.path.join(os.path.dirname(port.__file__), "csrc")
     files = sorted(os.listdir(csrc))
     assert {"png_unfilter.c", "lzf_decompress.c", "lzw_decode.c",
-            "conv_tc.cuh", "int8_conv.cu"} <= set(files)
+            "jpeg_decode.c", "conv_tc.cuh", "int8_conv.cu"} <= set(files)
     missing = [f for f in files
                if not any(fnmatch.fnmatch(f"csrc/{f}", p) for p in patterns)]
     assert not missing, f"not in {PKG}'s package data {patterns}: {missing}"

@@ -65,6 +65,10 @@ ARGS = dict(max_steps=6, per_device_train_batch_size=3,
             warmup_ratio=0.4, max_grad_norm=0.05, weight_decay=0.01,
             logging_steps=1, eval_strategy="no", save_steps=0, augment=False,
             seed=3)
+# the optimizer defaults of both packages' cli/train2d.py: AdamW at 5e-3,
+# warmup ratio 0.001 (no warmup step in 3), clip 1.0, weight decay 0.001
+CLI_ARGS = dict(ARGS, max_steps=3, learning_rate=5e-3, warmup_ratio=0.001,
+                max_grad_norm=1.0, weight_decay=0.001)
 
 
 class _Losses:
@@ -94,10 +98,10 @@ def _port_model(seed=0):
                      generator=torch.Generator().manual_seed(seed))
 
 
-def _run(root, accum):
+def _run(root, accum, args=ARGS):
     """One JAX and one port training run from the same weights; returns
     (jax trainer, port trainer, jax losses, port losses)."""
-    kw = dict(ARGS, gradient_accumulation_steps=accum)
+    kw = dict(args, gradient_accumulation_steps=accum)
     model = _port_model()
     params = state_dict_to_flax(model.module.state_dict())["params"]
 
@@ -138,6 +142,14 @@ def test_losses_match_jax(runs, accum):
     assert pt.state.step == 6 and pt.state.opt_step == 6 // accum
     # the losses change from step to step: the updates are not zero
     assert len(set(np.round(got, 6))) > 1
+
+
+def test_losses_match_jax_at_cli_defaults(tmp_path):
+    """The CLI's optimizer defaults: the first 3 losses follow JAX's (at full
+    width both packages' third loss jumps alike)."""
+    _, pt, want, got = _run(tmp_path, 1, CLI_ARGS)
+    assert len(got) == len(want) == 3 and pt.state.step == 3
+    np.testing.assert_allclose(got, want, rtol=LOSS_TOL)
 
 
 @pytest.mark.parametrize("accum", [1, 2])
