@@ -6,11 +6,11 @@ BatchNorm, UNet2D / ResidualUNet2D, remat), int8 post-training
 quantization, exported artifacts, SAM-Med2D promptable serving,
 data-parallel training with its checkpoint and the profiler tooling,
 spatially sharded training with halo exchange, the model axis (channel
-tensor parallelism, ZeRO-1, sharded checkpoints), and the image formats
-the JAX package reads (TIFF, GIF, BMP, JPEG: serving, DRIVE training,
-DSB2018).
+tensor parallelism, ZeRO-1, sharded checkpoints), the image formats the
+JAX package reads (TIFF, GIF, BMP, JPEG: serving, DRIVE training,
+DSB2018), and the JAX package's orbax checkpoints resumed.
 
-    python3 chip_smoke.py [--phase 18|19|20|21|23|24|25|26|27|28]
+    python3 chip_smoke.py [--phase 18|19|20|21|23|24|25|26|27|28|29]
 
 Needs one CUDA card, nvcc and the checkout this file sits in; imports nothing
 of JAX (nor PyYAML or h5py).  It exits non-zero, without printing a result,
@@ -496,6 +496,28 @@ wall time.
    launches asserted, maps within phase 21's limit of the plain path.  The
    kernels line counts the paths under ``jpeg_serve``, ``jpeg_drive_train``
    and ``dsb_jpeg``.
+29. Orbax (``phase_orbax``; runs after phase 28, and ``--phase 29`` runs it
+   alone), TF32 off, the host C of ``csrc/zstd_decompress.c`` built at the
+   first decode: (a) every zstd frame, OCDBT probe, zarr array and orbax
+   checkpoint of ``tests/fixtures/orbax`` read by the port against
+   ``manifest.json`` (tensorstore's reads and the JAX package's
+   ``OrbaxCheckpointer.restore()``; this machine has neither); the
+   decoder's MB/s of output over the TP checkpoint's chunk frames back to
+   back, each checkpoint's read ms, and the read of the full-width
+   checkpoint (configs/unet3d_train.yml's UNet3D with its Adam moments)
+   estimated from them; (b) the JAX trainer's own checkpoints of a
+   tensor-parallel run on a (2, 4) mesh and a ZeRO-1 run over 8 data
+   devices (UNet3D f_maps 8, 2 levels) resumed by ``cli/train3d.py`` in a
+   world of 1: the restored parameters, Adam moments, step and counters
+   equal to the manifest, then 3 steps on the committed volumes on the
+   kernel path and the plain path (phase 9's limits), the logged losses
+   within ``ORBAX_JAX_LOSS_TOL`` of the JAX package's own resume, kernels
+   2 and 3a-3d launched 6/6/6/6/5 a step (asserted); (c) two gloo ranks
+   on the card (``--mp-worker``) resume the TP checkpoint with
+   ``tensor_parallel`` on a model axis of 2 and with ``zero1`` on a data
+   axis of 2: every rank's parameter and moment blocks the slice of (b)'s
+   whole arrays, to the bit.  The kernels line counts the path under
+   ``orbax_resume``.
 """
 
 from __future__ import annotations
@@ -7755,8 +7777,8 @@ def fixture_entry(a) -> dict:
 
     import numpy as np
 
-    a = np.ascontiguousarray(a)
-    raw = a.tobytes()
+    a = np.asarray(a)  # a 0-d array keeps its shape
+    raw = np.ascontiguousarray(a).tobytes()
     if a.dtype == bool:
         raw = (np.frombuffer(raw, np.uint8) != 0).tobytes()
     return {"shape": list(a.shape), "dtype": a.dtype.str,
@@ -8552,6 +8574,397 @@ def phase_jpeg(seed: int, workdir: str) -> dict:
                         "jpeg_drive_train": drive["launches"]}}
 
 
+ORBAX_FIXTURES = os.path.join(FIXTURES, "orbax")
+# configs/unet3d_train.yml's UNet3D (f_maps 64, 4 levels, 16,318,691
+# parameters) with its two Adam moments, in float32
+ORBAX_FULL_BYTES = 3 * 16_318_691 * 4
+ORBAX_RATE_COPIES = 40   # the TP checkpoint's chunk frames, back to back
+ORBAX_REPEATS = 5        # decode and read times: best of 5, warm
+ORBAX_JAX_LOSS_TOL = 1e-4  # resumed losses vs the JAX package's own resume
+ORBAX_STEPS = 3
+ORBAX_CONVS = 6          # 'gcr' SingleConvs of the fixtures' 2-level UNet3D
+ORBAX_LAYOUTS = {"orbax_tp": {"model_axis": 2, "tensor_parallel": True},
+                 "orbax_zero1": {"zero1": True}}
+
+
+def _orbax_manifest() -> dict:
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        return json.load(f)["orbax"]
+
+
+def _flat_tree(tree, prefix: str = "") -> dict:
+    """A restored tree's leaves by their ``.``-joined path, ``{}`` as a
+    leaf."""
+    if not isinstance(tree, dict) or not tree:
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat_tree(v, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+def _leaf_matches(value, entry: dict) -> bool:
+    if "none" in entry:
+        return value is None
+    if "empty" in entry:
+        return value == {}
+    if "number" in entry:
+        return value == entry["value"]
+    return fixture_entry(value) == entry
+
+
+def _orbax_read(manifest: dict) -> dict:
+    """(a) the zstd frames, OCDBT probes, zarr arrays and checkpoints of
+    ``tests/fixtures/orbax`` against the manifest; the decoder's rate and
+    each checkpoint's read."""
+    import hashlib
+
+    import numpy as np
+
+    from mdeical_image_segmentation_tpu_torch.train.orbax_ckpt import (
+        OrbaxCheckpointer,
+    )
+    from mdeical_image_segmentation_tpu_torch.utils import zarr2, zstd
+    from mdeical_image_segmentation_tpu_torch.utils.ocdbt import KvStore
+
+    def read(name):
+        with open(os.path.join(ORBAX_FIXTURES, name), "rb") as f:
+            return f.read()
+
+    t0 = time.perf_counter()
+    zstd.decompress(read(sorted(manifest["zstd"])[0]))
+    build_s = time.perf_counter() - t0
+    for name, want in sorted(manifest["zstd"].items()):
+        out = zstd.decompress(read(name))
+        got = {"length": len(out), "sha256": hashlib.sha256(out).hexdigest()}
+        if got != want:
+            raise AssertionError(f"{name} decodes to {got}, want {want}")
+    for name, want in sorted(manifest["ocdbt"].items()):
+        kv = KvStore(os.path.join(ORBAX_FIXTURES, name))
+        got = {k.hex(): {"length": len(v),
+                         "sha256": hashlib.sha256(v).hexdigest()}
+               for k in kv.list() for v in [kv.read(k)]}
+        if got != want:
+            raise AssertionError(f"{name}: keys and values differ from "
+                                 "tensorstore's")
+    kv = KvStore(os.path.join(ORBAX_FIXTURES, "zarr"))
+    for name, want in sorted(manifest["zarr"].items()):
+        got = fixture_entry(zarr2.read_array(
+            lambda key: kv.read(key) if key in kv else None,
+            name.split("/", 1)[1]))
+        if got != want:
+            raise AssertionError(f"{name} reads as {got}, want {want}")
+    # the decoder alone: the TP checkpoint's chunks (float32 weights and
+    # moments at orbax's level 1) decoded back to back in one call
+    tp = KvStore(os.path.join(ORBAX_FIXTURES, "tp", "orbax", "last",
+                              "ocdbt.process_0"))
+    frames = [tp.read(k) for k in tp.list() if not k.endswith(b".zarray")]
+    if not all(f[:4] == zstd.MAGIC for f in frames):
+        raise AssertionError("a chunk of the TP checkpoint is not a zstd "
+                             "frame")
+    stream = b"".join(frames) * ORBAX_RATE_COPIES
+    out_bytes, best = 0, float("inf")
+    for _ in range(ORBAX_REPEATS):
+        t0 = time.perf_counter()
+        out_bytes = len(zstd.decompress(stream))
+        best = min(best, time.perf_counter() - t0)
+    rate = out_bytes / best / 1e6
+    reads = {}
+    for name, want in sorted(manifest["checkpoints"].items()):
+        d, which = name.rsplit("/", 1)
+        ck = OrbaxCheckpointer(os.path.join(ORBAX_FIXTURES, d))
+        ms = float("inf")
+        for _ in range(ORBAX_REPEATS):
+            t0 = time.perf_counter()
+            tree = ck.restore(best=which == "best")
+            ms = min(ms, (time.perf_counter() - t0) * 1e3)
+        flat = _flat_tree(tree)
+        bad = sorted(set(flat) ^ set(want)) or [
+            k for k, e in want.items() if not _leaf_matches(flat[k], e)]
+        if bad:
+            raise AssertionError(f"{name}: leaves {bad[:5]} differ from the "
+                                 "JAX package's restore")
+        nbytes = sum(np.asarray(v).nbytes for v in flat.values()
+                     if v is not None and not isinstance(v, dict))
+        reads[name] = {"ms": ms, "leaves": len(flat), "bytes": nbytes}
+    tp_read = reads["tp/orbax/last"]
+    # an estimate, not a measurement: the full-width checkpoint has the
+    # fixture's tree (the same 69 leaves), so its read is taken as the
+    # fixture's read plus its bytes at the decoder's rate
+    estimate_s = tp_read["ms"] / 1e3 + ORBAX_FULL_BYTES / 1e6 / rate
+    out = {"build_and_first_decode_s": build_s, "frames": len(frames),
+           "decoded_mb": out_bytes / 1e6, "decode_mb_per_s": rate,
+           "reads": reads, "full_width_read_estimate_s": estimate_s}
+    log(f"[phase 29] (a) {len(manifest['zstd'])} zstd frames, "
+        f"{len(manifest['ocdbt'])} OCDBT probes, {len(manifest['zarr'])} "
+        f"zarr arrays and {len(reads)} checkpoints equal to the manifest "
+        f"(the first decode built csrc/zstd_decompress.c: {build_s:.2f} s); "
+        f"decoder {rate:.1f} MB/s of output over {len(frames)} chunk frames "
+        f"x {ORBAX_RATE_COPIES} ({out_bytes / 1e6:.1f} MB, best of "
+        f"{ORBAX_REPEATS}, this machine's CPU); reads: "
+        + ", ".join(f"{k} {v['ms']:.1f} ms ({v['bytes'] / 1e3:.0f} kB)"
+                    for k, v in reads.items())
+        + f"; the full-width checkpoint's read ({ORBAX_FULL_BYTES / 2**20:.0f}"
+        f" MiB of arrays) estimated at {estimate_s:.2f} s (the TP fixture's "
+        "read plus those bytes at the decoder's rate)")
+    return out
+
+
+def _orbax_state(trainer):
+    """The whole parameters, Adam moments and step of a trainer in the JAX
+    tree's paths (numpy), as the checkpoint's manifest names them."""
+    import numpy as np
+
+    from mdeical_image_segmentation_tpu_torch.utils.param_bridge import (
+        state_dict_to_flax,
+    )
+
+    params = {k: p.detach().cpu() for k, p in
+              trainer.model.named_parameters()}
+    states = [trainer.optimizer.state[p]
+              for p in trainer.model.parameters()]
+    mu = {k: st["exp_avg"].cpu() for k, st in zip(params, states)}
+    nu = {k: st["exp_avg_sq"].cpu() for k, st in zip(params, states)}
+    flat = {}
+    for prefix, sd in (("model_state_dict.params", params),
+                       ("optimizer_state_dict.inner_state.0.mu", mu),
+                       ("optimizer_state_dict.inner_state.0.nu", nu)):
+        flat.update(_flat_tree(state_dict_to_flax(sd)["params"], prefix))
+    # copies: the steps that follow update the tensors in place
+    return {k: np.array(v) for k, v in flat.items()}, {
+        "step": {float(st["step"]) for st in states},
+        "counters": (trainer.num_iterations, trainer.num_epochs,
+                     trainer.best_eval_score)}
+
+
+def _orbax_resume(run: str, want: dict, entries: dict, workdir: str,
+                  plain: bool) -> dict:
+    """(b) one JAX run's orbax checkpoint (a copy) resumed by
+    cli/train3d.py in a world of 1 for ``ORBAX_STEPS`` steps, on the
+    kernel path or the plain path: the restored state against the
+    manifest, each step's ms, loss and launches, the logged losses."""
+    import numpy as np
+    import torch
+
+    from mdeical_image_segmentation_tpu_torch.cli import train3d
+    from mdeical_image_segmentation_tpu_torch.train import trainer3d
+    from mdeical_image_segmentation_tpu_torch.transforms import volume
+    from mdeical_image_segmentation_tpu_torch.utils import yaml_io
+
+    script = fixture_script()
+    tag = f"{run}_{'plain' if plain else 'kernel'}"
+    copy = os.path.join(workdir, f"orbax_{tag}")
+    shutil.copytree(os.path.join(ORBAX_FIXTURES, run), copy)
+    cfg = script.orbax_config(
+        os.path.join(ORBAX_FIXTURES, "volumes", "train.h5"),
+        os.path.join(ORBAX_FIXTURES, "volumes", "val.h5"),
+        os.path.join(copy, "unused"), batch_size=want["data_axis"],
+        resume=os.path.join(copy, "orbax"),
+        max_num_iterations=want["num_iterations"] + ORBAX_STEPS - 2,
+        validate_after_iters=1000)
+    yml = os.path.join(workdir, f"orbax_{tag}.yml")
+    with open(yml, "w") as f:
+        f.write(yaml_io.dumps(cfg))
+    rec, made = [], []
+    create = trainer3d.create_trainer
+
+    def instrumented(config):
+        t = create(config)
+        made.append(_orbax_state(t))
+        _instrument(t, rec)
+        return t
+
+    trainer3d.create_trainer = instrumented
+    volume.GLOBAL_RANDOM_STATE = np.random.RandomState(47)
+    _zero_counts()
+    try:
+        with plain_path() if plain else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            trainer = train3d.main(["--config", yml])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counts()
+    finally:
+        trainer3d.create_trainer = create
+    state, extra = made[0]
+    bad = [k for k, v in state.items() if fixture_entry(v) != entries[k]]
+    counters = tuple(entries[k]["value"] for k in (
+        "num_iterations", "num_epochs", "best_eval_score"))
+    count = entries["optimizer_state_dict.inner_state.0.count"]
+    if (bad or extra["counters"] != counters or len(extra["step"]) != 1
+            or fixture_entry(np.asarray(int(extra["step"].pop()), np.int32))
+            != count):
+        raise AssertionError(f"{run}: the resumed state differs from the "
+                             f"JAX checkpoint: {bad[:5]}, counters "
+                             f"{extra['counters']} vs {counters}")
+    if trainer.checkpoint_dir != copy:
+        raise AssertionError(f"checkpoint_dir {trainer.checkpoint_dir}, "
+                             f"want the resumed run's {copy}")
+    want_launches = {"gcr_conv3d": ORBAX_CONVS, "gn_stats": ORBAX_CONVS,
+                     "gn_affine": ORBAX_CONVS, "gn_bwd_reduce": ORBAX_CONVS,
+                     "gn_bwd_dx": ORBAX_CONVS - 1, "overlap_add": 0}
+    if plain:
+        want_launches = {k: 0 for k in want_launches}
+    if len(rec) != ORBAX_STEPS or any(
+            r["launches"] != want_launches or not np.isfinite(r["loss"])
+            for r in rec):
+        raise AssertionError(f"{tag}: {len(rec)} steps, launches "
+                             f"{[r['launches'] for r in rec]}, want "
+                             f"{ORBAX_STEPS} of {want_launches}")
+    logged = script.logged(copy, "train_loss_avg")
+    return {"rec": rec, "launches": launches, "wall_s": wall,
+            "logged": logged, "whole": state}
+
+
+def mp_orbax_runs(seed: int, out: str, rank: int):
+    """(c) on one rank: the JAX TP run's orbax checkpoint (a copy) resumed
+    by ``create_trainer`` in the layout of ``out``'s name; this rank's
+    parameter and moment blocks with the dim each is sliced on."""
+    from mdeical_image_segmentation_tpu_torch.parallel import tensor as tp
+    from mdeical_image_segmentation_tpu_torch.parallel.zero import (
+        Zero1Optimizer,
+    )
+    from mdeical_image_segmentation_tpu_torch.train import trainer3d
+
+    layout = os.path.basename(os.path.normpath(out))
+    copy = os.path.join(out, f"tp{rank}")
+    shutil.copytree(os.path.join(ORBAX_FIXTURES, "tp"), copy)
+    cfg = fixture_script().orbax_config(
+        os.path.join(ORBAX_FIXTURES, "volumes", "train.h5"),
+        os.path.join(ORBAX_FIXTURES, "volumes", "val.h5"),
+        os.path.join(copy, "unused"), ORBAX_LAYOUTS[layout],
+        resume=os.path.join(copy, "orbax"))
+    t = trainer3d.create_trainer(cfg)
+    opt = t.optimizer
+    if isinstance(opt, Zero1Optimizer):
+        inner, entries = opt.inner, opt.named_slices()
+        idx, n = t.mesh.rank, t.mesh.size
+    else:
+        dims = tp.sharded_dims(t.model)
+        inner, idx, n = opt, t.mesh.model_rank, t.mesh.model_size
+        entries = [(k, p, dims.get(k)) for k, p in t.model.named_parameters()]
+    return {"idx": idx, "n": n, "device": str(next(t.model.parameters()).device),
+            "blocks": {k: {"dim": dim,
+                           "param": s.detach().cpu().numpy(),
+                           "exp_avg": inner.state[s]["exp_avg"].cpu().numpy(),
+                           "exp_avg_sq":
+                               inner.state[s]["exp_avg_sq"].cpu().numpy()}
+                       for k, s, dim in entries}}
+
+
+MP_ROLES.update({layout: (mp_orbax_runs, 2) for layout in ORBAX_LAYOUTS})
+
+
+def _orbax_layouts(workdir: str, whole: dict) -> dict:
+    """(c) two gloo ranks on the card in each layout of ``ORBAX_LAYOUTS``:
+    every rank's blocks the slice of (b)'s whole arrays, to the bit."""
+    import numpy as np
+
+    from mdeical_image_segmentation_tpu_torch.utils.param_bridge import (
+        flax_to_state_dict,
+    )
+
+    def state_dict(prefix):
+        tree = {}
+        for k, v in whole.items():
+            if k.startswith(prefix + "."):
+                node = tree
+                *path, leaf = k[len(prefix) + 1:].split(".")
+                for p in path:
+                    node = node.setdefault(p, {})
+                node[leaf] = v
+        return {k: v.numpy() for k, v in flax_to_state_dict(tree).items()}
+
+    ref = {"param": state_dict("model_state_dict.params"),
+           "exp_avg": state_dict("optimizer_state_dict.inner_state.0.mu"),
+           "exp_avg_sq": state_dict("optimizer_state_dict.inner_state.0.nu")}
+    out = {}
+    for layout in ORBAX_LAYOUTS:
+        t0 = time.perf_counter()
+        ranks = _dp_ranks(os.path.join(workdir, layout), 2, "--mp-worker",
+                          MP_TIMEOUT_S)
+        sliced = 0
+        for r in ranks:
+            for name, b in r["blocks"].items():
+                for key in ("param", "exp_avg", "exp_avg_sq"):
+                    want = ref[key][name]
+                    if b["dim"] is not None:
+                        size = want.shape[b["dim"]] // r["n"]
+                        want = np.take(want, np.arange(
+                            r["idx"] * size, (r["idx"] + 1) * size),
+                            axis=b["dim"])
+                    if (b[key].shape != want.shape
+                            or not np.array_equal(b[key], want)):
+                        raise AssertionError(f"{layout} rank {r['idx']}: "
+                                             f"{name} {key} is not its slice")
+                sliced += b["dim"] is not None
+        if not sliced:
+            raise AssertionError(f"{layout}: no tensor was sliced")
+        out[layout] = {"sliced": sliced, "wall_s": time.perf_counter() - t0,
+                       "devices": sorted({r["device"] for r in ranks})}
+        log(f"[phase 29] (c) {layout}: 2 gloo ranks, {sliced} sliced "
+            f"tensors (of parameters and moments, over both ranks) equal to "
+            f"the slices of the whole, in {out[layout]['wall_s']:.1f} s")
+    return out
+
+
+def phase_orbax(seed: int, workdir: str, layouts: bool = True) -> dict:
+    """Phase 29: (a) the orbax fixtures read against their manifest, the
+    zstd decoder's rate; (b) the JAX TP and ZeRO-1 checkpoints resumed by
+    cli/train3d.py for 3 steps on the kernel and the plain path; (c) with
+    ``layouts``, the TP checkpoint resumed by two gloo ranks with TP and
+    with ZeRO-1."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    workdir = os.path.join(workdir, "phase29")
+    os.makedirs(workdir)
+    manifest = _orbax_manifest()
+    read = _orbax_read(manifest)
+    runs, wholes, launches = {}, {}, {k: 0 for k in KERNELS_3D}
+    for run, want in sorted(manifest["runs"].items()):
+        entries = manifest["checkpoints"][want["checkpoint"] + "/last"]
+        kernel = _orbax_resume(run, want, entries, workdir, plain=False)
+        plain = _orbax_resume(run, want, entries, workdir, plain=True)
+        _compare_runs(f"orbax {run} resume", kernel["rec"], plain["rec"],
+                      ORBAX_STEPS)
+        jax_losses = want["resumed_train_loss_avg"]
+        gaps = {}
+        for step, loss in jax_losses.items():
+            got = kernel["logged"].get(step)
+            gaps[step] = (float("inf") if got is None
+                          else abs(got - loss) / abs(loss))
+        if set(kernel["logged"]) != set(jax_losses) or max(
+                gaps.values()) > ORBAX_JAX_LOSS_TOL:
+            raise AssertionError(f"orbax {run}: logged losses "
+                                 f"{kernel['logged']} vs the JAX package's "
+                                 f"{jax_losses} (limit {ORBAX_JAX_LOSS_TOL}"
+                                 " relative)")
+        wholes[run] = kernel["whole"]
+        for k in launches:
+            launches[k] += kernel["launches"][k]
+        steady = statistics.median(r["ms"] for r in kernel["rec"][1:])
+        plain_steady = statistics.median(r["ms"] for r in plain["rec"][1:])
+        runs[run] = {"step_ms": [r["ms"] for r in kernel["rec"]],
+                     "plain_step_ms": [r["ms"] for r in plain["rec"]],
+                     "steady_ms": steady, "plain_steady_ms": plain_steady,
+                     "losses": kernel["logged"], "jax_losses": jax_losses,
+                     "jax_gaps": gaps, "wall_s": kernel["wall_s"],
+                     "launches": kernel["launches"]}
+        log(f"[phase 29] (b) {run}: cli/train3d.py resumed the JAX "
+            f"checkpoint at iteration {want['num_iterations']} (state equal "
+            f"to the manifest), {ORBAX_STEPS} steps of global batch "
+            f"{want['data_axis']}: steps {runs[run]['step_ms']} ms (plain "
+            f"{runs[run]['plain_step_ms']}), losses {kernel['logged']} vs "
+            f"the JAX package's {jax_losses} (rel {gaps}, limit "
+            f"{ORBAX_JAX_LOSS_TOL}); launches {kernel['launches']}")
+    out = {"read": read, "runs": runs, "launches": launches}
+    if layouts:
+        out["layouts"] = _orbax_layouts(workdir, wholes["tp"])
+    return out
+
+
 def _single_conv_row(mp: dict) -> dict:
     """The kernels-line entry of kernel 1's single-conv launch (one of its
     two convs alone, as the 2D TP step runs it): launches on phase 25's
@@ -8640,7 +9053,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phase", type=int,
-                        choices=(18, 19, 20, 21, 23, 24, 25, 26, 27, 28),
+                        choices=(18, 19, 20, 21, 23, 24, 25, 26, 27, 28,
+                                 29),
                         default=None,
                         help="run the kernel build and this phase alone "
                         "(21: with phases 13 and 14, which it reads)")
@@ -8813,6 +9227,27 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         log(f"file formats (phase 26, {smi}): {json.dumps(formats)}")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
+    if args.phase == 29:
+        from mdeical_image_segmentation_tpu_torch.ops import _build
+
+        _build.load()
+        build_dir = os.path.join(ROOT, "build")
+        os.makedirs(build_dir, exist_ok=True)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_29_", dir=build_dir)
+        try:
+            t_phase = time.time()
+            orbax = phase_orbax(SEED, workdir)
+            log(f"[phase 29] ok; wall {time.time() - t_phase:.1f} s ({smi})")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"orbax (phase 29, {smi}): {json.dumps(orbax)}")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
@@ -9032,6 +9467,13 @@ def main(argv=None) -> int:
             "JPEG")
         images28 = phase_jpeg(SEED, workdir)
         log(f"[phase 28] ok; wall {time.time() - t_phase:.1f} s ({smi})")
+        t_phase = time.time()
+        log("[phase 29] orbax: the fixtures against their manifest and the "
+            "zstd decoder's rate; the JAX package's TP and ZeRO-1 "
+            "checkpoints resumed by cli/train3d.py; the TP one by two gloo "
+            "ranks with TP and with ZeRO-1")
+        orbax = phase_orbax(SEED, workdir)
+        log(f"[phase 29] ok; wall {time.time() - t_phase:.1f} s ({smi})")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if train2d["launches"] == 0:
@@ -9061,6 +9503,7 @@ def main(argv=None) -> int:
         **formats["launches"],
         **images27["launches"],
         **images28["launches"],
+        "orbax_resume": orbax["launches"],
     }
     runs = (unet3d_launches, res_launches, serve3d_launches, train_launches,
             res_train_launches, cfg_train["launches"],
@@ -9115,6 +9558,7 @@ def main(argv=None) -> int:
     log(f"file formats (phase 26, {smi}): {json.dumps(formats)}")
     log(f"image formats (phase 27, {smi}): {json.dumps(images27)}")
     log(f"JPEG (phase 28, {smi}): {json.dumps(images28)}")
+    log(f"orbax (phase 29, {smi}): {json.dumps(orbax)}")
     k1_formats = {**images27["kernel1"], **images28["kernel1"]}
     kernels = [{
         "name": "double_conv2d",

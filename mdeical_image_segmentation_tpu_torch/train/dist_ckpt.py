@@ -1,6 +1,8 @@
-"""Last/best checkpoints on ``torch.distributed.checkpoint`` (the JAX
-package's ``train/orbax_ckpt.py``, ``OrbaxCheckpointer``; the card's
-machine has no orbax, so the port neither writes nor reads orbax).
+"""Last/best checkpoints on ``torch.distributed.checkpoint``: the port's
+sharded checkpoints, in the place of the JAX package's
+``train/orbax_ckpt.py`` ``OrbaxCheckpointer`` (the card's machine has no
+orbax; the port's ``train/orbax_ckpt.py`` reads the JAX package's orbax
+checkpoints and writes none).
 
 The contract is the JAX checkpointer's: ``save(state, is_best=)`` writes
 ``<dir>/last`` and duplicates it into ``<dir>/best`` when best;
@@ -123,6 +125,12 @@ def sharded(local: torch.Tensor, dmesh, data_dim: Optional[int] = None,
                               placements, run_check=False)
 
 
+def is_checkpoint(path: str) -> bool:
+    """``path`` is a torch.distributed.checkpoint directory (it holds the
+    metadata written last)."""
+    return os.path.exists(os.path.join(path, METADATA))
+
+
 def _commit(tmp: str, path: str) -> None:
     """Swap ``tmp`` into ``path``: the old checkpoint is moved aside
     before the rename and removed after it."""
@@ -181,13 +189,11 @@ class DistCheckpointer:
         path = self._path(best)
         if not os.path.exists(path):
             raise IOError(f"Checkpoint '{path}' does not exist")
-        if not os.path.exists(os.path.join(path, METADATA)):
+        if not is_checkpoint(path):
             raise ValueError(
-                f"'{path}' holds no torch.distributed.checkpoint metadata: "
-                "an orbax checkpoint of the JAX package? The port cannot "
-                "read orbax (there is no orbax on the card's machine); "
-                "resume from a msgpack checkpoint file, which both "
-                "packages read")
+                f"'{path}' holds no torch.distributed.checkpoint metadata; "
+                "an orbax checkpoint of the JAX package is read by "
+                "train/orbax_ckpt.py's OrbaxCheckpointer")
         meta = dcp.FileSystemReader(path).read_metadata()
         blocks = ({} if template is None else
                   {k: v for k, v in _flatten(template).items()

@@ -73,8 +73,10 @@ axis over 1) shards the optimizer state over the data axis
 their checkpoints sharded (``train/dist_ckpt.py``, each rank its blocks)
 into ``<checkpoint_dir>/dist_ckpt``, the directory ``resume`` then takes;
 whatever it resumes from is read whole and sliced to this rank's blocks.
-``resume`` takes a msgpack checkpoint file of either package or a
-``train/dist_ckpt.py`` directory; an orbax directory raises.
+``resume`` takes a msgpack checkpoint file of either package, a
+``train/dist_ckpt.py`` directory or the orbax directory a tensor-parallel
+or ZeRO-1 run of the JAX package writes (``train/orbax_ckpt.py``), in
+every mode.
 """
 
 from __future__ import annotations
@@ -94,8 +96,9 @@ from ..parallel.spatial import make_spatial_train_step, shard_slab
 from ..parallel.zero import Zero1Optimizer
 from ..utils.param_bridge import flax_to_state_dict, state_dict_to_flax
 from . import checkpoint as ckpt
-from . import dist_ckpt
+from . import dist_ckpt, orbax_ckpt
 from .dist_ckpt import DistCheckpointer
+from .orbax_ckpt import OrbaxCheckpointer
 from .logging_utils import (
     MetricWriter,
     NullMetricWriter,
@@ -324,13 +327,26 @@ class UNetTrainer:
 
     def _restore(self, path: str, with_state: bool) -> None:
         """Load the params of a checkpoint (a msgpack file of the JAX
-        package or the port, or a ``DistCheckpointer`` directory, whose
-        ``last`` is read); with ``with_state`` also the optimizer state,
-        the counters and the best score."""
+        package or the port, or a directory whose ``last`` is read: a JAX
+        orbax checkpoint or a ``DistCheckpointer`` one); with
+        ``with_state`` also the optimizer state, the counters and the best
+        score."""
         logger.info(f"Loading {'checkpoint' if with_state else 'pre-trained'}"
                     f" '{path}'...")
-        saved = (DistCheckpointer(path).restore() if os.path.isdir(path)
-                 else ckpt.load_checkpoint(path))
+        if not os.path.isdir(path):
+            saved = ckpt.load_checkpoint(path)
+        elif orbax_ckpt.is_checkpoint(os.path.join(path, orbax_ckpt.LAST_DIR)):
+            saved = OrbaxCheckpointer(path).restore()
+        elif dist_ckpt.is_checkpoint(os.path.join(path, dist_ckpt.LAST_DIR)):
+            saved = DistCheckpointer(path).restore()
+        else:
+            last = os.path.join(path, orbax_ckpt.LAST_DIR)
+            found = sorted(os.listdir(last if os.path.isdir(last) else path))
+            raise ValueError(
+                f"'{path}' is neither an orbax checkpoint directory "
+                f"(last/{orbax_ckpt.METADATA}) nor a torch.distributed."
+                f"checkpoint one (last/{dist_ckpt.METADATA}); "
+                f"{'last/' if os.path.isdir(last) else ''} holds {found}")
         weights = saved["model_state_dict"]
         self.model.load_state_dict(
             {k: torch.as_tensor(v) for k, v in weights["state_dict"].items()}

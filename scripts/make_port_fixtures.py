@@ -1136,6 +1136,454 @@ def jpeg_cases(Image, rng):
     return c
 
 
+# -- orbax --------------------------------------------------------------------
+
+ORBAX_SEED = SEED + 4
+ORBAX_VOLUMES = {"train": (8, 64, 64), "val": (8, 32, 64)}  # 4, 2 patches
+ORBAX_RESUME_STEPS = 3
+# each run: the JAX trainer's parallel section and the data axis it trains
+# on (the loaders' global batch is batch_size x the data axis)
+ORBAX_RUNS = {
+    "tp": ({"model_axis": 4, "tensor_parallel": True}, 2),
+    "zero1": ({"zero1": True}, 8),
+}
+ZSTD_LEVELS = (1, 3, 9, 19)
+# tensorstore OCDBT probes: config and what is written
+OCDBT_PROBES = {
+    "plain_deep": {"compression": None, "max_decoded_node_bytes": 64,
+                   "max_inline_value_bytes": 8},
+    "zstd_deep": {"compression": {"id": "zstd", "level": 5},
+                  "max_decoded_node_bytes": 96, "max_inline_value_bytes": 4},
+    "versions": {"compression": None, "max_decoded_node_bytes": 128,
+                 "max_inline_value_bytes": 8, "version_tree_arity_log2": 2},
+}
+
+
+def orbax_config(train: str, val: str, checkpoint_dir: str, parallel=None,
+                 batch_size: int = 1, **trainer) -> dict:
+    """The 3D config of the orbax fixtures (``tests/test_trainer3d.py``'s):
+    UNet3D f_maps 8, 2 levels, BCEDice, Adam 2e-3, ReduceLROnPlateau."""
+    def phase(path):
+        return {"transformer": {
+                    "raw": [{"name": "Standardize"},
+                            {"name": "ToTensor", "expand_dims": True}],
+                    "label": [{"name": "ToTensor", "expand_dims": True}]},
+                "slice_builder": {"name": "SliceBuilder",
+                                  "patch_shape": [8, 32, 32],
+                                  "stride_shape": [8, 32, 32],
+                                  "skip_shape_check": True},
+                "file_paths": [path]}
+
+    cfg = {"model": {"name": "UNet3D", "in_channels": 1, "out_channels": 1,
+                     "f_maps": 8, "num_levels": 2, "final_sigmoid": True},
+           "loss": {"name": "BCEDiceLoss"},
+           "eval_metric": {"name": "MeanIoU"},
+           "optimizer": {"name": "Adam", "learning_rate": 2e-3},
+           "lr_scheduler": {"name": "ReduceLROnPlateau", "mode": "max",
+                            "factor": 0.5, "patience": 2},
+           "trainer": {"checkpoint_dir": checkpoint_dir, "max_num_epochs": 10,
+                       "max_num_iterations": 4, "validate_after_iters": 2,
+                       "log_after_iters": 1, **trainer},
+           "loaders": {"dataset": "StandardHDF5Dataset",
+                       "batch_size": batch_size,
+                       "train": phase(train), "val": phase(val)}}
+    if parallel:
+        cfg["parallel"] = parallel
+    return cfg
+
+
+def logged(run_dir: str, tag: str) -> dict:
+    """{step: value} of a tag in a run's ``logs/*/metrics.jsonl``."""
+    rows = {}
+    for base, _, files in os.walk(os.path.join(run_dir, "logs")):
+        if "metrics.jsonl" in files:
+            with open(os.path.join(base, "metrics.jsonl")) as f:
+                for line in f:
+                    r = json.loads(line)
+                    if r["tag"] == tag:
+                        rows[str(r["step"])] = r["value"]
+    return rows
+
+
+def tree_entries(tree, prefix: str = "") -> dict:
+    """Each leaf of a restored tree by its ``.``-joined path: an array's
+    shape, dtype and SHA-256, a number's type and value, ``{}`` and None
+    as themselves."""
+    out = {}
+    items = (tree.items() if isinstance(tree, dict) else
+             enumerate(tree) if isinstance(tree, (list, tuple)) else None)
+    if items is None:
+        if tree is None:
+            return {prefix: {"none": True}}
+        if isinstance(tree, (bool, int, float)):
+            return {prefix: {"number": type(tree).__name__, "value": tree}}
+        return {prefix: entry(np.asarray(tree))}
+    items = list(items)
+    if not items:
+        return {prefix: {"empty": True}}
+    for k, v in items:
+        out.update(tree_entries(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def _jax_cpu(devices: int = 8):
+    """JAX on ``devices`` CPU devices, the JAX package importable."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            f"{flags} --xla_force_host_platform_device_count={devices}"
+        ).strip()
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    return jax
+
+
+def _orbax_trees(jax, root: str) -> list:
+    """``OrbaxCheckpointer.save`` trees: every dtype the trainers write and
+    a few more, 0-d and scalar leaves, empty dicts, None, tuples, arrays
+    sharded over the 8-device mesh (orbax chunks them finer than the mesh,
+    always into even grids); also the same tree in the layout without
+    OCDBT (one directory per leaf)."""
+    import jax.numpy as jnp
+    import orbax.checkpoint as ocp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from mdeical_image_segmentation_tpu.train.orbax_ckpt import (
+        OrbaxCheckpointer,
+    )
+
+    rng = np.random.default_rng(ORBAX_SEED)
+    mesh = Mesh(np.array(jax.devices()).reshape(2, 4), ("data", "model"))
+
+    def put(a, spec):
+        return jax.device_put(jnp.asarray(a), NamedSharding(mesh, spec))
+
+    tree = {
+        "f4": rng.standard_normal((3, 5)).astype(np.float32),
+        "f8": rng.standard_normal(7),
+        "i4": rng.integers(-9, 9, (2, 3, 4)).astype(np.int32),
+        "i8": rng.integers(-2 ** 40, 2 ** 40, 6),
+        "b1": rng.random(9) > 0.5,
+        "u1": rng.integers(0, 255, 10).astype(np.uint8),
+        "f2": rng.standard_normal(4).astype(np.float16),
+        "zero_d": np.asarray(3.25, np.float32),
+        "int_scalar": 7,
+        "float_scalar": -1.5,
+        "empty": {},
+        "none": None,
+        "tuple": (np.arange(4, dtype=np.int32), {"x": np.ones(2)}),
+        "nested": {"a": {"b": rng.standard_normal((2, 2)).astype(np.float32)}},
+        # a ZeRO-1 moment's layout: (4, 3, 3, 8, 16) over 'data'
+        "rows": put(rng.standard_normal((4, 3, 3, 8, 16)).astype(np.float32),
+                    P("data")),
+        # a TP kernel's layout: (3, 3, 3, 8, 16) over 'model', 4 chunks
+        "tp_kernel": put(
+            rng.standard_normal((3, 3, 3, 8, 16)).astype(np.float32),
+            P(None, None, None, None, "model")),
+    }
+    OrbaxCheckpointer(os.path.join(root, "trees")).save(tree, is_best=True)
+    ocp.Checkpointer(ocp.PyTreeCheckpointHandler(use_ocdbt=False)).save(
+        os.path.join(root, "trees_plain", "last"), tree)
+    return ["trees", "trees_plain"]
+
+
+def _ocdbt_probes(root: str) -> dict:
+    """tensorstore OCDBT databases: uncompressed and zstd nodes, interior
+    nodes of height >= 2, out-of-line and empty values, shared key
+    prefixes, many versions (older ones in version tree nodes) and a
+    deleted key; their keys and values as tensorstore reads them."""
+    import tensorstore as ts
+
+    out = {}
+    rng = np.random.default_rng(ORBAX_SEED + 1)
+    for name, config in OCDBT_PROBES.items():
+        path = os.path.join(root, "ocdbt", name)
+        kv = ts.KvStore.open({"driver": "ocdbt", "base": f"file://{path}",
+                              "config": config}).result()
+        if name == "versions":
+            for i in range(40):
+                kv.write(b"shared/prefix/key%03d" % i,
+                         bytes(rng.integers(0, 255, i % 13,
+                                            dtype=np.uint8))).result()
+            kv.delete_range(ts.KvStore.KeyRange(
+                b"shared/prefix/key005", b"shared/prefix/key006")).result()
+            kv.write(b"shared/prefix/key007", b"x" * 19).result()
+        else:
+            with ts.Transaction() as txn:
+                t = kv.with_transaction(txn)
+                for i in range(60):
+                    t.write(b"model.params.enc%d/%s" % (i % 7, b"%02d" % i),
+                            bytes(rng.integers(0, 255, (i * 7) % 23,
+                                               dtype=np.uint8))).result()
+                t.write(b"z", b"").result()
+                t.write(b"", b"empty key").result()
+        kv = ts.KvStore.open({"driver": "ocdbt",
+                              "base": f"file://{path}"}).result()
+        out[f"ocdbt/{name}"] = {
+            k.hex(): {"length": len(v), "sha256": hashlib.sha256(v).hexdigest()}
+            for k in kv.list().result()
+            for v in [kv.read(k).result().value]}
+    return out
+
+
+ZARR_ARRAYS = {
+    # name: shape, chunks, dtype, dimension_separator, chunks written
+    "uneven_dot": ((7, 10, 3), (3, 4, 2), "<f4", ".", None),
+    "uneven_slash": ((5, 6), (2, 4), "<i8", "/", None),
+    "bool_edge": ((9,), (4,), "|b1", ".", None),
+    "fill_missing": ((6, 6), (4, 4), "<f8", ".", (slice(0, 4), slice(0, 4))),
+}
+
+
+def _zarr_arrays(root: str) -> dict:
+    """zarr v2 arrays tensorstore writes into an OCDBT database, with chunk
+    grids the shape does not divide (edge chunks stored padded), both
+    dimension separators and a fill value standing for unwritten chunks;
+    each array as tensorstore reads it."""
+    import tensorstore as ts
+
+    rng = np.random.default_rng(ORBAX_SEED + 4)
+    path = os.path.join(root, "zarr")
+    out = {}
+    for name, (shape, chunks, dtype, sep, region) in ZARR_ARRAYS.items():
+        meta = {"shape": list(shape), "chunks": list(chunks), "dtype": dtype,
+                "compressor": {"id": "zstd", "level": 1},
+                "dimension_separator": sep}
+        if region is not None:
+            meta["fill_value"] = 1.5
+        arr = ts.open({"driver": "zarr", "path": name,
+                       "kvstore": {"driver": "ocdbt",
+                                   "base": f"file://{path}"},
+                       "metadata": meta}, create=True).result()
+        data = (rng.standard_normal(shape) * 100).astype(np.dtype(dtype))
+        if region is None:
+            arr.write(data).result()
+        else:
+            arr[region].write(data[region]).result()
+        out[f"zarr/{name}"] = entry(np.asarray(arr.read().result()))
+    return out
+
+
+def _zstd_frames(root: str) -> dict:
+    """zstd frames tensorstore's zarr driver writes: a chunk over 128 KiB
+    (several blocks) at each level of ``ZSTD_LEVELS``, a constant chunk
+    (RLE), a random chunk (raw blocks) and a compressible one (Huffman
+    literals and FSE sequences); each frame's decoded length and hash as
+    tensorstore reads the chunk."""
+    import tensorstore as ts
+
+    rng = np.random.default_rng(ORBAX_SEED + 2)
+    cases = {
+        "const": np.full(40000, 3.0, np.float32),
+        "random": rng.integers(0, 2 ** 32, 2000, dtype=np.uint32),
+        "weights": (rng.standard_normal(4000) * 0.05).astype(np.float32),
+        # 256 KiB of runs of small integers: several blocks
+        "big": np.repeat(rng.integers(0, 60, 8192), 8).astype(np.int32),
+    }
+    out = {}
+    d = os.path.join(root, "zstd")
+    os.makedirs(d, exist_ok=True)
+    for name, data in cases.items():
+        for level in (ZSTD_LEVELS if name == "big" else (3,)):
+            tmp = os.path.join(root, "_zarr_tmp")
+            spec = {"driver": "zarr", "kvstore": f"file://{tmp}",
+                    "metadata": {"compressor": {"id": "zstd",
+                                                "level": level},
+                                 "shape": list(data.shape),
+                                 "chunks": list(data.shape),
+                                 "dtype": data.dtype.str}}
+            arr = ts.open(spec, create=True, delete_existing=True).result()
+            arr.write(data).result()
+            back = np.asarray(arr.read().result())
+            with open(os.path.join(tmp, "0"), "rb") as f:
+                frame = f.read()
+            key = f"zstd/{name}_l{level}.zst"
+            with open(os.path.join(root, key), "wb") as f:
+                f.write(frame)
+            raw = np.ascontiguousarray(back).tobytes()
+            out[key] = {"length": len(raw),
+                        "sha256": hashlib.sha256(raw).hexdigest()}
+            import shutil
+
+            shutil.rmtree(tmp)
+    return out
+
+
+def _orbax_runs(jax, root: str) -> dict:
+    """The JAX trainer's own orbax checkpoints (``<run>/orbax/{last,
+    best}``) of a tensor-parallel run on the (2, 4) mesh and a ZeRO-1 run
+    over 8 data devices, 4 steps on seeded volumes, and each one resumed
+    by the JAX trainer (in a copy) for ``ORBAX_RESUME_STEPS`` steps: the
+    logged train losses."""
+    import shutil
+
+    import h5py
+
+    from mdeical_image_segmentation_tpu.train.orbax_ckpt import (
+        OrbaxCheckpointer,
+    )
+    from mdeical_image_segmentation_tpu.train.trainer3d import create_trainer
+    from mdeical_image_segmentation_tpu.transforms import volume
+
+    rng = np.random.default_rng(ORBAX_SEED + 3)
+    vol_dir = os.path.join(root, "volumes")
+    os.makedirs(vol_dir, exist_ok=True)
+    paths = {}
+    for name, shape in ORBAX_VOLUMES.items():
+        raw = rng.integers(0, 256, shape, dtype=np.uint8)
+        paths[name] = os.path.join(vol_dir, f"{name}.h5")
+        with h5py.File(paths[name], "w") as f:
+            f.create_dataset("raw", data=raw)
+            f.create_dataset("label", data=(raw > 150).astype(np.uint8),
+                             compression="gzip")
+    runs = {}
+    for name, (parallel, n_data) in ORBAX_RUNS.items():
+        ckpt = os.path.join(root, name)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        volume.GLOBAL_RANDOM_STATE = np.random.RandomState(47)
+        trainer = create_trainer(orbax_config(paths["train"], paths["val"],
+                                              ckpt, parallel))
+        trainer.fit()
+        shutil.rmtree(os.path.join(ckpt, "logs"), ignore_errors=True)
+        copy = os.path.join(root, f"_{name}_resume")
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(ckpt, copy)
+        start = int(OrbaxCheckpointer(os.path.join(ckpt, "orbax")).restore()[
+            "num_iterations"])
+        volume.GLOBAL_RANDOM_STATE = np.random.RandomState(47)
+        # the resumed run steps at iterations start, start + 1, ... and
+        # stops once past max_num_iterations
+        resumed = create_trainer(orbax_config(
+            paths["train"], paths["val"], os.path.join(copy, "elsewhere"),
+            parallel, resume=os.path.join(copy, "orbax"),
+            max_num_iterations=start + ORBAX_RESUME_STEPS - 2,
+            validate_after_iters=1000))
+        resumed.fit()
+        if name != "tp":  # one run keeps its best (a copy of last)
+            shutil.rmtree(os.path.join(ckpt, "orbax", "best"))
+        runs[name] = {"parallel": parallel, "data_axis": n_data,
+                      "checkpoint": f"{name}/orbax",
+                      "num_iterations": start,
+                      "resumed_train_loss_avg": logged(copy, "train_loss_avg")}
+        shutil.rmtree(copy)
+    return runs
+
+
+def orbax_worker(rank: int, port: int, root: str) -> int:
+    """One of two JAX processes (4 CPU devices each) saving one tree with
+    arrays sharded over both: a checkpoint whose root manifest points
+    into ``ocdbt.process_0`` and ``ocdbt.process_1``."""
+    jax = _jax_cpu(4)
+    jax.config.update("jax_cpu_collectives_implementation", "gloo")
+    jax.distributed.initialize(f"localhost:{port}", num_processes=2,
+                               process_id=rank)
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from mdeical_image_segmentation_tpu.train.orbax_ckpt import (
+        OrbaxCheckpointer,
+    )
+
+    mesh = Mesh(np.array(jax.devices()).reshape(2, 4), ("data", "model"))
+    whole = np.arange(8 * 6 * 16, dtype=np.float32).reshape(8, 6, 16)
+    leaves = {}
+    for name, spec in (("rows", P("data")), ("both", P("data", None, "model"))):
+        sharding = NamedSharding(mesh, spec)
+        leaves[name] = jax.make_array_from_callback(
+            whole.shape, sharding, lambda idx: whole[idx])
+    leaves["count"] = jax.device_put(jnp.asarray(5, jnp.int32),
+                                     NamedSharding(mesh, P()))
+    OrbaxCheckpointer(os.path.join(root, "two_process")).save(
+        {"params": leaves, "step": 12}, is_best=True)
+    jax.distributed.shutdown()
+    return 0
+
+
+def _two_process(root: str) -> bool:
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--orbax-worker", str(rank), "--port",
+                               str(port), "--out", root], env=env)
+             for rank in range(2)]
+    try:
+        rcs = [p.wait(timeout=180) for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        rcs = [None, None]
+    ok = rcs == [0, 0]
+    print(f"two-process orbax checkpoint: {'written' if ok else rcs}")
+    return ok
+
+
+def jax_restore(jax, path: str, best: bool):
+    """The JAX package's ``OrbaxCheckpointer(path).restore(best=best)``,
+    jax.Arrays as numpy.  A checkpoint whose arrays were sharded over
+    processes that are not this one's is restored against a template of
+    numpy arrays made from orbax's own metadata of it (without one orbax
+    wants the writers' shardings)."""
+    import orbax.checkpoint as ocp
+
+    from mdeical_image_segmentation_tpu.train.orbax_ckpt import (
+        OrbaxCheckpointer,
+    )
+
+    checkpointer = OrbaxCheckpointer(path)
+    try:
+        tree = checkpointer.restore(best=best)
+    except ValueError:
+        meta = ocp.PyTreeCheckpointer().metadata(checkpointer._path(best))
+        meta = getattr(meta, "item_metadata", meta)
+        meta = getattr(meta, "tree", meta)
+        tree = checkpointer.restore(best=best, template=jax.tree_util.tree_map(
+            lambda m: np.zeros(m.shape, m.dtype), meta))
+    return jax.tree_util.tree_map(
+        lambda x: np.asarray(x) if isinstance(x, jax.Array) else x, tree)
+
+
+def orbax_fixtures(out: str) -> dict:
+    """Everything under ``<out>/orbax`` and its manifest entry."""
+    import shutil
+
+    jax = _jax_cpu()
+    from mdeical_image_segmentation_tpu.train.orbax_ckpt import (
+        OrbaxCheckpointer,
+    )
+
+    root = os.path.join(out, "orbax")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    manifest = {"runs": _orbax_runs(jax, root)}
+    names = [r["checkpoint"] for r in manifest["runs"].values()]
+    names += _orbax_trees(jax, root)
+    if _two_process(root):
+        names.append("two_process")
+    checkpoints = {}
+    for name in names:
+        for best in (False, True):
+            if not OrbaxCheckpointer(os.path.join(root, name)).exists(best):
+                continue
+            tree = jax_restore(jax, os.path.join(root, name), best)
+            checkpoints[f"{name}/{'best' if best else 'last'}"] = \
+                tree_entries(tree)
+    manifest["checkpoints"] = checkpoints
+    manifest["ocdbt"] = _ocdbt_probes(root)
+    manifest["zstd"] = _zstd_frames(root)
+    manifest["zarr"] = _zarr_arrays(root)
+    return manifest
+
 # -- HDF5 --------------------------------------------------------------------
 
 
@@ -1328,7 +1776,21 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=os.path.join(here, "tests",
                                                       "fixtures"))
+    parser.add_argument("--only", choices=("orbax",),
+                        help="rewrite only these fixtures and their "
+                        "manifest entry")
+    parser.add_argument("--orbax-worker", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--port", type=int, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.orbax_worker is not None:
+        return orbax_worker(args.orbax_worker, args.port,
+                            os.path.join(args.out))
+    manifest_path = os.path.join(args.out, "manifest.json")
+    if args.only == "orbax":
+        with open(manifest_path) as f:
+            manifest = json.load(f)
+        manifest["orbax"] = orbax_fixtures(args.out)
+        return _write_manifest(manifest, manifest_path, args.out)
     manifest = {"h5_latest": {}, "png_extra": {}, "image_formats": {}}
     h5_dir = os.path.join(args.out, "h5_latest")
     os.makedirs(h5_dir, exist_ok=True)
@@ -1371,12 +1833,17 @@ def main(argv=None) -> int:
         manifest["image_formats"][key] = image_manifest(path)
         if name in IMAGE_NOTES:
             manifest["image_formats"][key]["note"] = IMAGE_NOTES[name]
-    with open(os.path.join(args.out, "manifest.json"), "w") as f:
+    manifest["orbax"] = orbax_fixtures(args.out)
+    return _write_manifest(manifest, manifest_path, args.out)
+
+
+def _write_manifest(manifest: dict, path: str, out: str) -> int:
+    with open(path, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
     total = sum(os.path.getsize(os.path.join(r, n))
-                for r, _, names in os.walk(args.out) for n in names)
-    print(f"wrote {args.out}: {total} bytes")
+                for r, _, names in os.walk(out) for n in names)
+    print(f"wrote {out}: {total} bytes")
     return 0
 
 

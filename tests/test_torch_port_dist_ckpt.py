@@ -5,7 +5,8 @@
   when best, ``best``; ``restore`` reads either back, as numpy without a
   template and into the template's tensors and arrays with one;
   ``exists``; a missing checkpoint raises ``IOError``, an orbax
-  directory says that the port cannot read orbax;
+  directory is refused with a pointer to ``train/orbax_ckpt.py``, which
+  reads it;
 - the commit is atomic: a save that fails part way leaves the previous
   ``last`` whole, and a stale temporary directory is swept;
 - resume in a gloo world of 2: the 3D 'bcr' trainer saved by both ranks
@@ -103,7 +104,7 @@ def test_orbax_directory_raises(tmp_path):
     last.mkdir(parents=True)
     for name in ("_CHECKPOINT_METADATA", "manifest.ocdbt"):
         (last / name).write_text("{}")
-    with pytest.raises(ValueError, match="cannot read orbax"):
+    with pytest.raises(ValueError, match="train/orbax_ckpt.py"):
         DistCheckpointer(str(tmp_path / "orbax")).restore()
 
 

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of
 ``mdeical_image_segmentation_tpu_torch`` pulls in none of jax, flax, optax,
-msgpack, PIL, h5py, yaml, sklearn, matplotlib, imageio, tifffile or skimage
-(the machine with the card has none of them),
+msgpack, PIL, h5py, yaml, sklearn, matplotlib, imageio, tifffile, skimage,
+orbax, tensorstore, zstandard, zarr or numcodecs (the machine with the card
+has none of them),
 and its kernels are built for Hopper (sm_90a) by nvcc at first use, never at
 import."""
 
@@ -20,7 +21,8 @@ from mdeical_image_segmentation_tpu_torch.ops import _build, fused_conv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "optax", "msgpack", "PIL", "h5py", "yaml",
-             "sklearn", "matplotlib", "imageio", "tifffile", "skimage")
+             "sklearn", "matplotlib", "imageio", "tifffile", "skimage",
+             "orbax", "tensorstore", "zstandard", "zarr", "numcodecs")
 
 
 def _port_modules():
@@ -50,13 +52,22 @@ def test_every_module_imports_without_jax_flax_msgpack_pil():
                  "parallel.spatial", "parallel.tensor", "parallel.zero",
                  "train.dist_ckpt", "train.profiling", "utils.viz",
                  "utils.image", "utils.image_base", "utils.tiff",
-                 "utils.gif", "utils.bmp"):
+                 "utils.gif", "utils.bmp", "utils.zstd", "utils.ocdbt",
+                 "utils.zarr2", "train.orbax_ckpt"):
         assert f"{port.__name__}.{name}" in modules, name
     code = (
         "import importlib, sys\n"
+        # torch.distributed.checkpoint imports zstandard itself where it is
+        # installed (an optional codec of its own, absent on the card's
+        # machine): the port may add none; the guarded test below shows
+        # that it needs none
+        "import torch.distributed.checkpoint\n"
+        f"torch_own = {{m for m in {FORBIDDEN!r} if m in sys.modules}}\n"
+        "assert torch_own <= {'zstandard'}, torch_own\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
+        f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules\n"
+        "       and m not in torch_own]\n"
         "assert not bad, bad\n"
         "assert 'torch' in sys.modules\n"
         "from mdeical_image_segmentation_tpu_torch.ops import _build\n"
@@ -71,11 +82,12 @@ def test_every_module_imports_without_jax_flax_msgpack_pil():
 
 
 def test_3d_clis_run_without_h5py_and_yaml(tmp_path):
-    """In a process where importing h5py, yaml, imageio, PIL, tifffile or
-    skimage fails (as on the card's machine), both CLIs' modules import,
-    read the yml configs and an HDF5 file the port writes and appends to,
-    the image reader opens a TIFF, a GIF and a BMP, and the DSB reader, the
-    surface metrics and the Lazy and DSB predictors import."""
+    """In a process where importing h5py, yaml, imageio, PIL, tifffile,
+    skimage, orbax, tensorstore or zstandard fails (as on the card's
+    machine), both CLIs' modules import, read the yml configs and an HDF5
+    file the port writes and appends to, the image reader opens a TIFF, a
+    GIF and a BMP, the JAX trainer's orbax checkpoint is read, and the DSB
+    reader, the surface metrics and the Lazy and DSB predictors import."""
     code = (
         "import builtins, sys\n"
         "real = builtins.__import__\n"
@@ -127,6 +139,14 @@ def test_3d_clis_run_without_h5py_and_yaml(tmp_path):
         "(32, 48)\n"
         "assert image.imread(fi + 'jpeg_drive/progressive_422.jpg').shape "
         "== (584, 565, 3)\n"
+        # the JAX trainer's orbax checkpoint, read without orbax,
+        # tensorstore or zstandard
+        "import logging\n"
+        "from mdeical_image_segmentation_tpu_torch.train.orbax_ckpt import "
+        "OrbaxCheckpointer\n"
+        "logging.getLogger('OrbaxCheckpointer').setLevel(logging.WARNING)\n"
+        "t = OrbaxCheckpointer('tests/fixtures/orbax/tp/orbax').restore()\n"
+        "assert t['model_state_dict']['batch_stats'] == {}\n"
         "from mdeical_image_segmentation_tpu_torch.metrics import hd95\n"
         "from mdeical_image_segmentation_tpu_torch.infer import "
         "DSB2018Predictor, LazyPredictor\n"

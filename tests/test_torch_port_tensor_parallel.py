@@ -29,7 +29,12 @@ Held:
 - a ``DistCheckpointer`` round trip: 2 steps, the sharded save, a resumed
   trainer's step 3 equal to the uninterrupted run's to the bit (losses,
   whole parameters, Adam moments); a template of ``DTensor`` blocks
-  restored from it equal to the saved blocks.
+  restored from it equal to the saved blocks;
+- the JAX package's own orbax checkpoint of a TP run
+  (``tests/fixtures/orbax/tp``) resumed by ``create_trainer`` with
+  ``tensor_parallel`` on the model axis of 2: each rank's parameter
+  blocks and Adam moments the slice of what the JAX package restores from
+  it, to the bit, and the counters equal.
 """
 
 import os
@@ -320,3 +325,38 @@ def test_sharded_template_restores_its_blocks(runs):
     for r in ranks:
         assert r["round_trip"]["template"]["blocks"] > 0
         assert r["round_trip"]["template"]["equal"]
+
+
+def orbax_whole(run):
+    """What the JAX package restores from the orbax checkpoint of the
+    fixture run ``run``: the parameters and Adam moments as numpy state
+    dicts of the port's names, Adam's count, the counters."""
+    tree = M.fixture_script().jax_restore(
+        jax, os.path.join(M.ORBAX, run, "orbax"), False)
+
+    def adam(t):
+        items = (t.items() if isinstance(t, dict) else enumerate(t)
+                 if isinstance(t, (list, tuple)) else ())
+        if isinstance(t, dict) and {"count", "mu", "nu"} <= set(t):
+            return t
+        return next((a for _, v in items for a in [adam(v)] if a), None)
+
+    def numpy(params):
+        return {k: v.numpy() for k, v in flax_to_state_dict(params).items()}
+
+    moments = adam(tree["optimizer_state_dict"])
+    return {"params": numpy(tree["model_state_dict"]["params"]),
+            "mu": numpy(moments["mu"]), "nu": numpy(moments["nu"]),
+            "count": float(moments["count"]),
+            "counters": (tree["num_iterations"], tree["num_epochs"],
+                         tree["best_eval_score"])}
+
+
+def test_jax_orbax_checkpoint_resumes_sliced_to_each_rank(runs):
+    _, _, ranks = runs
+    whole = orbax_whole("tp")
+    for rank, r in enumerate(ranks):
+        res = r["orbax"]
+        assert res["tensor_parallel"] and not res["zero1"]
+        assert res["mesh"] == (0, 1, rank, 2)
+        assert M.check_orbax_blocks(res, whole) >= 4

@@ -2,7 +2,9 @@
 gradients against ``jax.grad`` (weights carried across by the parameter
 bridge), the port's ``UNetTrainer`` against the JAX ``UNetTrainer`` from
 the same initial checkpoint on the same in-memory batches, Adam
-checkpoints moving between the two packages, and the trainer's own
+checkpoints moving between the two packages (msgpack both ways; the JAX
+trainer's orbax checkpoints of TP and ZeRO-1 runs into the port), and the
+trainer's own
 contracts (checkpoints, resume, the lr floor, preemption, dropout in
 training mode).
 
@@ -17,6 +19,7 @@ the loss barely sees those weights); checkpoints restore bit for bit."""
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -184,6 +187,58 @@ def test_jax_adam_checkpoint_resumes_in_the_port(runs, tmp_path):
         assert torch.equal(st["exp_avg_sq"], nu[name]), name
 
 
+@pytest.mark.parametrize("run", ["tp", "zero1"])
+def test_jax_orbax_checkpoint_resumes_in_the_port(tmp_path, run):
+    """The JAX trainer's own orbax checkpoint of a tensor-parallel run on
+    the (2, 4) CPU mesh or a ZeRO-1 run over 8 data devices
+    (``tests/fixtures/orbax``) resumed by the port's ``create_trainer`` in
+    a world of 1: params, Adam moments, step and counters equal to what
+    the JAX package restores, to the bit; the next 3 logged train losses
+    within ``LOSS_TOL`` of the JAX package's own resume of the checkpoint
+    (on its mesh, global batch batch_size x the data axis, which the port
+    takes whole)."""
+    from test_torch_port_tensor_parallel import orbax_whole
+    from torch_port_model_axis_cases import ORBAX, fixture_script
+
+    from mdeical_image_segmentation_tpu_torch.transforms import volume
+
+    script = fixture_script()
+    with open(os.path.join(os.path.dirname(ORBAX), "manifest.json")) as f:
+        want = json.load(f)["orbax"]["runs"][run]
+    copy = str(tmp_path / run)
+    shutil.copytree(os.path.join(ORBAX, run), copy)
+    start = want["num_iterations"]
+    cfg = script.orbax_config(
+        os.path.join(ORBAX, "volumes", "train.h5"),
+        os.path.join(ORBAX, "volumes", "val.h5"), str(tmp_path / "other"),
+        batch_size=want["data_axis"], resume=os.path.join(copy, "orbax"),
+        max_num_iterations=start + script.ORBAX_RESUME_STEPS - 2,
+        validate_after_iters=1000)
+    cfg["device"] = "cpu"
+    volume.GLOBAL_RANDOM_STATE = np.random.RandomState(47)
+    t = trainer3d.create_trainer(cfg)
+    assert t.checkpoint_dir == copy
+    whole = orbax_whole(run)
+    assert (t.num_iterations, t.num_epochs, t.best_eval_score) == whole[
+        "counters"]
+    sd = t.model.state_dict()
+    for name, p in t.model.named_parameters():
+        assert np.array_equal(sd[name].numpy(), whole["params"][name]), name
+        st = t.optimizer.state[p]
+        assert float(st["step"]) == whole["count"]
+        assert np.array_equal(st["exp_avg"].numpy(), whole["mu"][name]), name
+        assert np.array_equal(st["exp_avg_sq"].numpy(),
+                              whole["nu"][name]), name
+    t.fit()
+    got = script.logged(copy, "train_loss_avg")
+    assert sorted(got, key=int) == sorted(want["resumed_train_loss_avg"],
+                                          key=int)
+    assert len(got) == script.ORBAX_RESUME_STEPS
+    for step, loss in want["resumed_train_loss_avg"].items():
+        np.testing.assert_allclose(got[step], loss, rtol=LOSS_TOL,
+                                   err_msg=f"step {step}")
+
+
 def test_port_adam_checkpoint_resumes_in_jax(runs, tmp_path):
     """The port's last checkpoint loads into the JAX trainer, whose template
     check passes, with params and Adam moments equal to the port's."""
@@ -320,11 +375,11 @@ def test_unported_options_raise(tmp_path):
     assert not t.zero1 and not t.tensor_parallel
     with pytest.raises(ValueError, match="one process per device"):
         make_mesh(n_model=2, device="cpu")
-    # an orbax directory (its marker files, no torch.distributed.checkpoint
-    # metadata) cannot be read: there is no orbax on the card's machine
+    # a directory that is neither an orbax checkpoint (last/_METADATA) nor
+    # a torch.distributed.checkpoint one raises, saying what it holds
     (tmp_path / "orbax" / "last").mkdir(parents=True)
     (tmp_path / "orbax" / "last" / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(ValueError, match="cannot read orbax"):
+    with pytest.raises(ValueError, match="neither.*_CHECKPOINT_METADATA"):
         _port_trainer(str(tmp_path / "run"), resume=str(tmp_path / "orbax"))
     # device_cache is ported (test_torch_port_device_cache.py); a config
     # without the train and val sections still cannot build its loaders

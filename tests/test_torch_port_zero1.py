@@ -27,7 +27,10 @@ Held:
 - the world of 4 on a (2, 2) mesh with ``tensor_parallel`` and ``zero1``:
   some moment leaf is sharded over both axes, the losses are finite and
   within 1e-4 relative of the replicated run's (the tensor-parallel
-  forward's tolerance) on the same global batches.
+  forward's tolerance) on the same global batches;
+- the world of 2 resuming the JAX package's own orbax checkpoint of a
+  ZeRO-1 run (``tests/fixtures/orbax/zero1``): each rank's slices and
+  Adam moments the slice of what the JAX package restores, to the bit.
 """
 
 import os
@@ -226,3 +229,20 @@ def test_tp_and_zero1_shard_moments_over_both_axes(runs):
         np.testing.assert_allclose(run["losses"],
                                    two[0]["replicated"]["losses"],
                                    rtol=TP_LOSS_RTOL)
+
+
+def test_jax_orbax_checkpoint_resumes_sliced_to_each_rank(runs):
+    """The JAX package's own orbax checkpoint of a ZeRO-1 run
+    (``tests/fixtures/orbax/zero1``) resumed by ``create_trainer`` with
+    ``zero1`` on a data axis of 2: each rank's slices of the parameters
+    and its Adam moments the slice of what the JAX package restores, to
+    the bit; the parameters whole."""
+    from test_torch_port_tensor_parallel import orbax_whole
+
+    _, ranks, _ = runs
+    whole = orbax_whole("zero1")
+    for rank, r in enumerate(ranks):
+        res = r["orbax"]
+        assert res["zero1"] and not res["tensor_parallel"]
+        assert res["mesh"] == (rank, 2, 0, 1)
+        assert M.check_orbax_blocks(res, whole) >= 4

@@ -454,7 +454,8 @@ def scenario_tp(rank, world, out):
             "unet2d": M.unet2d_forward_and_grads(out, mesh),
             "trainer": M.run_trainer_3d(out, rank),
             "round_trip": M.dcp_round_trip(out, rank, mesh,
-                                           tensor_parallel=True)}
+                                           tensor_parallel=True),
+            "orbax": M.orbax_resume(out, rank, "tp", M.TP_PARALLEL)}
 
 
 def scenario_zero1(rank, world, out):
@@ -464,7 +465,8 @@ def scenario_zero1(rank, world, out):
 
     mesh = make_mesh(device="cpu")
     return {"zero1": M.run_2d(out, "zero1", mesh, zero1=True),
-            "replicated": M.run_2d(out, "replicated", mesh)}
+            "replicated": M.run_2d(out, "replicated", mesh),
+            "orbax": M.orbax_resume(out, rank, "zero1", {"zero1": True})}
 
 
 def scenario_tp_zero1(rank, world, out):

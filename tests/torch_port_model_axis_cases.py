@@ -14,7 +14,11 @@ the tests write into ``out``.  Imports the port only, never JAX.
   step 3 against the uninterrupted one);
 - the 2D Trainer of ``tests/test_zero1.py`` (base 8, 16 slices of 32²,
   per-device batch 2, 6 steps, lr 3e-3) with ``zero1`` and without, on a
-  data axis of 2, and with both on a (2, 2) mesh.
+  data axis of 2, and with both on a (2, 2) mesh;
+- a JAX orbax checkpoint of ``tests/fixtures/orbax`` resumed by
+  ``create_trainer`` with ``tensor_parallel`` on a model axis of 2 or
+  ``zero1`` on a data axis of 2: this rank's blocks of the parameters and
+  the Adam moments.
 """
 
 from __future__ import annotations
@@ -328,3 +332,98 @@ def run_2d(out, name, mesh, **kw):
             "leaves": {name: (tuple(s.shape), dim) for name, s, dim in
                        opt.named_slices()}}
     return rec
+
+
+ORBAX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                     "orbax")
+
+
+def fixture_script():
+    """``scripts/make_port_fixtures.py`` as a module (its ``orbax_config``
+    and ``logged``; JAX only inside the functions that write fixtures)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_port_fixtures", os.path.join(os.path.dirname(ORBAX), "..", "..",
+                                           "scripts", "make_port_fixtures.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def orbax_resume(out, rank, run, parallel):
+    """``create_trainer`` with ``parallel`` resuming the JAX run ``run``'s
+    orbax directory (a copy of this rank's): the counters, the sharded
+    dims, and each parameter's local tensor with its slice and moments
+    (``Zero1Optimizer``'s slices under ZeRO-1, the parameters under TP)."""
+    import shutil
+
+    from mdeical_image_segmentation_tpu_torch.parallel import tensor as tp
+    from mdeical_image_segmentation_tpu_torch.parallel.zero import (
+        Zero1Optimizer,
+    )
+    from mdeical_image_segmentation_tpu_torch.train import trainer3d
+
+    copy = os.path.join(out, f"orbax_{run}_rank{rank}")
+    shutil.copytree(os.path.join(ORBAX, run), copy)
+    cfg = fixture_script().orbax_config(
+        os.path.join(ORBAX, "volumes", "train.h5"),
+        os.path.join(ORBAX, "volumes", "val.h5"), os.path.join(copy, "run"),
+        parallel, resume=os.path.join(copy, "orbax"))
+    cfg["device"] = "cpu"
+    t = trainer3d.create_trainer(cfg)
+    opt = t.optimizer
+    if isinstance(opt, Zero1Optimizer):
+        inner, entries = opt.inner, opt.named_slices()
+    else:
+        dims = tp.sharded_dims(t.model)
+        inner = opt
+        entries = [(k, p, dims.get(k)) for k, p in t.model.named_parameters()]
+    blocks = {}
+    for name, s, dim in entries:
+        st = inner.state[s]
+        blocks[name] = {"dim": dim, "slice": s.detach().numpy().copy(),
+                        "exp_avg": st["exp_avg"].numpy().copy(),
+                        "exp_avg_sq": st["exp_avg_sq"].numpy().copy(),
+                        "step": float(st["step"])}
+    return {"zero1": isinstance(opt, Zero1Optimizer),
+            "tensor_parallel": t.tensor_parallel,
+            "mesh": (t.mesh.rank, t.mesh.size, t.mesh.model_rank,
+                     t.mesh.model_size),
+            "counters": (t.num_iterations, t.num_epochs, t.best_eval_score),
+            "params": {k: p.detach().numpy().copy()
+                       for k, p in t.model.named_parameters()},
+            "blocks": blocks}
+
+
+def check_orbax_blocks(res, whole):
+    """``orbax_resume``'s result against the whole checkpoint (``whole``:
+    ``params``, ``mu`` and ``nu`` as numpy state dicts, Adam's ``count``,
+    the ``counters``): every local tensor the slice of its whole on this
+    rank's axis, to the bit; at least one tensor sliced."""
+    rank, size, model_rank, model_size = res["mesh"]
+    idx, n = ((model_rank, model_size) if res["tensor_parallel"]
+              else (rank, size))
+    assert res["counters"] == whole["counters"]
+    sliced = 0
+    for name, b in res["blocks"].items():
+        dim = b["dim"]
+
+        def cut(a, dim=dim):
+            if dim is None:
+                return a
+            block = a.shape[dim] // n
+            return np.take(a, np.arange(idx * block, (idx + 1) * block),
+                           axis=dim)
+
+        for key, tree in (("slice", "params"), ("exp_avg", "mu"),
+                          ("exp_avg_sq", "nu")):
+            want = cut(whole[tree][name])
+            assert b[key].shape == want.shape, (name, key)
+            assert np.array_equal(b[key], want), (name, key)
+        assert b["step"] == whole["count"], name
+        sliced += dim is not None
+        if res["zero1"]:  # the parameters themselves stay whole
+            assert np.array_equal(res["params"][name], whole["params"][name])
+    assert sliced, "no tensor was sliced"
+    return sliced
