@@ -10,7 +10,7 @@ tensor parallelism, ZeRO-1, sharded checkpoints), the image formats the
 JAX package reads (TIFF, GIF, BMP, JPEG: serving, DRIVE training,
 DSB2018), and the JAX package's orbax checkpoints resumed.
 
-    python3 chip_smoke.py [--phase 18|19|20|21|23|24|25|26|27|28|29]
+    python3 chip_smoke.py [--phase 18|19|20|21|23|24|25|26|27|28|29|30]
 
 Needs one CUDA card, nvcc and the checkout this file sits in; imports nothing
 of JAX (nor PyYAML or h5py).  It exits non-zero, without printing a result,
@@ -518,6 +518,29 @@ wall time.
    axis of 2: every rank's parameter and moment blocks the slice of (b)'s
    whole arrays, to the bit.  The kernels line counts the path under
    ``orbax_resume``.
+30. The HDF5 files of ROADMAP item 20 (``phase_item20_files``; runs after
+   phase 29, and ``--phase 30`` runs it alone), TF32 off, the host C of
+   ``csrc/szip_decompress.c`` and ``csrc/nbit_decompress.c`` built at the
+   first decode: (a) every file of ``tests/fixtures/h5_item20`` (external
+   links relative, absolute, to groups and chained; virtual datasets to
+   "." with strided, blocked and overlapping mappings; szip and n-bit
+   chunks; external raw storage in two segments; committed datatypes)
+   read by the port against ``manifest.json``, which h5py wrote; (b)
+   ``cli/predict3d.py`` on ``configs/unet3d_predict.yml`` (phase 26 (b)'s
+   seeded checkpoint) over the (80, 340, 340) phantom as a VDS over two
+   gzip halves in two files, through an external link to
+   ``h5_latest/phantom_latest.h5``, with szip (NN, 8 pixels a block) and as
+   12-bit n-bit samples (the phantom x 16 in a uint16 of precision 12 at
+   bit 4, then deflate): each map equal to the bit to that of a v0 copy of
+   the same values that the port's writer makes, 14/14 kernel-2 and 3a
+   launches a batch and one overlap-add asserted, each whole-volume read
+   timed (best of 5); (c) LazyHDF5Dataset + LazyPredictor twice on a copy
+   of the VDS file and its sources: the first appends
+   ``raw_padded_16x32x32`` with "r+", the second reads it; both maps within
+   phase 21's Lazy limit of (b)'s, the VDS read back after the append;
+   (d) the szip decoder's MB/s of output over the phantom's chunks on the
+   host CPU.  The kernels line counts the paths under ``item20_predict3d``
+   and ``item20_lazy``.
 """
 
 from __future__ import annotations
@@ -7800,19 +7823,8 @@ def _check_fixtures(jpeg: bool = False) -> dict:
         if k.endswith(".jpg") == jpeg}
     if jpeg:
         manifest["h5_latest"], manifest["png_extra"] = {}, {}
-    n_ds = 0
-    for name, want in sorted(manifest["h5_latest"].items()):
-        with hdf5.File(os.path.join(FIXTURES, "h5_latest", name)) as f:
-            for group, keys in want["groups"].items():
-                if f[group].keys() != keys:
-                    raise AssertionError(f"{name}:{group} keys "
-                                         f"{f[group].keys()}, want {keys}")
-            for ds, entry in want["datasets"].items():
-                got = fixture_entry(f[ds][()])
-                if got != entry:
-                    raise AssertionError(f"{name}:{ds} reads as {got}, the "
-                                         f"manifest holds {entry}")
-                n_ds += 1
+    n_ds = _check_h5_files(manifest["h5_latest"],
+                           os.path.join(FIXTURES, "h5_latest"))
     for group in ("png_extra", "image_formats"):
         for name, want in sorted(manifest[group].items()):
             path = os.path.join(FIXTURES, group, name)
@@ -7831,11 +7843,33 @@ def _check_fixtures(jpeg: bool = False) -> dict:
             "images": len(manifest["image_formats"])}
 
 
-def _best_read_s(path: str) -> float:
+def _check_h5_files(manifest: dict, directory: str) -> int:
+    """Each HDF5 file of ``manifest`` (a section of ``manifest.json``) in
+    ``directory`` read by the port: each group's keys() and each dataset's
+    shape, dtype and SHA-256 as h5py gave them; the datasets checked."""
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5
+
+    n_ds = 0
+    for name, want in sorted(manifest.items()):
+        with hdf5.File(os.path.join(directory, name)) as f:
+            for group, keys in want["groups"].items():
+                if f[group].keys() != keys:
+                    raise AssertionError(f"{name}:{group} keys "
+                                         f"{f[group].keys()}, want {keys}")
+            for ds, entry in want["datasets"].items():
+                got = fixture_entry(f[ds][()])
+                if got != entry:
+                    raise AssertionError(f"{name}:{ds} reads as {got}, the "
+                                         f"manifest holds {entry}")
+                n_ds += 1
+    return n_ds
+
+
+def _best_read_s(path: str, repeats: int = READ_REPEATS) -> float:
     from mdeical_image_segmentation_tpu_torch.utils import hdf5
 
     best = float("inf")
-    for _ in range(READ_REPEATS):
+    for _ in range(repeats):
         t0 = time.perf_counter()
         with hdf5.File(path) as f:
             f["raw"][:]
@@ -8965,6 +8999,179 @@ def phase_orbax(seed: int, workdir: str, layouts: bool = True) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 30. The HDF5 files of ROADMAP item 20: external links, virtual datasets,
+# szip, n-bit, external raw storage and committed datatypes through
+# predict3d and the Lazy path
+# ---------------------------------------------------------------------------
+
+ITEM20_FIXTURES = os.path.join(FIXTURES, "h5_item20")
+ITEM20_PHANTOMS = {"vds": "phantom_vds.h5", "ext": "phantom_ext.h5",
+                   "szip": "phantom_szip.h5", "nbit": "phantom_nbit.h5"}
+ITEM20_READ_REPEATS = 5   # whole-volume reads: best of 5, warm
+SZIP_RATE_REPEATS = 5     # the szip decoder over the phantom's chunks
+
+
+def _check_item20_fixtures() -> dict:
+    """(a) every file of ``tests/fixtures/h5_item20`` read by the port
+    against the manifest h5py wrote: each group's keys(), each dataset's
+    shape, dtype and SHA-256 (external raw files found beside their file
+    through ``HDF5_EXTFILE_PREFIX=${ORIGIN}``)."""
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)["h5_item20"]
+    old = os.environ.get("HDF5_EXTFILE_PREFIX")
+    os.environ["HDF5_EXTFILE_PREFIX"] = "${ORIGIN}"
+    try:
+        n_ds = _check_h5_files(manifest, ITEM20_FIXTURES)
+    finally:
+        if old is None:
+            os.environ.pop("HDF5_EXTFILE_PREFIX")
+        else:
+            os.environ["HDF5_EXTFILE_PREFIX"] = old
+    return {"files": len(manifest), "datasets": n_ds}
+
+
+def _szip_rate(path: str) -> dict:
+    """(d) ``csrc/szip_decompress.c`` over every chunk of the szip phantom
+    (read from the file first): MB/s of output, best of
+    ``SZIP_RATE_REPEATS``, on the host CPU."""
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5, szip
+
+    with hdf5.File(path) as f:
+        ds = f["raw"]
+        (cd,) = [v for fid, v in ds._filters if fid == hdf5.FILTER_SZIP]
+        chunks = [f._store.read(addr, size) for addr, size, mask in
+                  ds._chunk_index().values() if not mask]
+    out = sum(len(szip.hdf5_chunk(c, cd)) for c in chunks)  # warm
+    best = float("inf")
+    for _ in range(SZIP_RATE_REPEATS):
+        t0 = time.perf_counter()
+        for c in chunks:
+            szip.hdf5_chunk(c, cd)
+        best = min(best, time.perf_counter() - t0)
+    return {"chunks": len(chunks), "in_bytes": sum(map(len, chunks)),
+            "out_bytes": out, "best_s": best, "mb_per_s": out / best / 1e6,
+            "options": list(cd)}
+
+
+def phase_item20_files(seed: int, workdir: str) -> dict:
+    """Phase 30: (a) the fixtures against their manifest; (b) predict3d
+    (Standard) over the phantom as a VDS, through an external link, with
+    szip and as n-bit 12-bit samples, each map to the bit that of a plain
+    v0 copy of the same values; (c) LazyPredictor twice on a copy of the
+    VDS and its sources, the memo appended with "r+" and read back; (d)
+    the szip decoder's rate."""
+    import numpy as np
+
+    from mdeical_image_segmentation_tpu_torch.data.volume_utils import (
+        mirror_pad,
+    )
+    from mdeical_image_segmentation_tpu_torch.utils import hdf5
+
+    workdir = os.path.join(workdir, "phase30")
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    fixtures = _check_item20_fixtures()
+    fixtures["s"] = time.perf_counter() - t0
+    log(f"[phase 30] (a) {fixtures['datasets']} datasets of "
+        f"{fixtures['files']} item-20 HDF5 fixtures equal to the manifest "
+        f"in {fixtures['s']:.2f} s")
+
+    # (b) each file and the v0 copy of its values through the same command
+    paths = {k: os.path.join(ITEM20_FIXTURES, v)
+             for k, v in ITEM20_PHANTOMS.items()}
+    values = {}
+    for tag, path in paths.items():
+        with hdf5.File(path) as f:
+            values[tag] = f["raw"][:]
+    raw = values["vds"]
+    for tag in ("ext", "szip"):
+        if not np.array_equal(values[tag], raw):
+            raise AssertionError(f"the {tag} phantom reads otherwise than "
+                                 "the VDS one")
+    if not np.array_equal(values["nbit"], raw.astype(np.uint16) * 16):
+        raise AssertionError("the n-bit phantom is not the phantom x 16")
+    paths["v0"] = os.path.join(workdir, "phantom_v0.h5")
+    write_h5_volume(paths["v0"], raw)
+    paths["nbit_v0"] = os.path.join(workdir, "phantom_nbit_v0.h5")
+    write_h5_volume(paths["nbit_v0"], values["nbit"])
+
+    reads = {tag: _best_read_s(path, ITEM20_READ_REPEATS)
+             for tag, path in paths.items()}
+    log(f"[phase 30] (b) whole-volume reads of the {raw.shape} phantom by "
+        f"the port (best of {ITEM20_READ_REPEATS}, warm): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in reads.items()))
+    cfg = read_yaml_subset(PREDICT_YML)
+    ckpt = _initial_checkpoint(cfg["model"], seed, workdir, "phantom_unet3d")
+    std = {tag: _predict_phantom(path, ckpt, os.path.join(workdir, tag),
+                                 lazy=False)
+           for tag, path in paths.items()}
+    for tag in ITEM20_PHANTOMS:
+        plain = std["nbit_v0" if tag == "nbit" else "v0"]["map"]
+        got = std[tag]["map"]
+        if got.shape != (1,) + raw.shape or not np.isfinite(got).all() or (
+                not np.array_equal(got, plain)):
+            raise AssertionError(f"{tag}: the map {got.shape} differs from "
+                                 "its v0 copy's")
+    log("[phase 30] (b) predict3d (StandardPredictor): " + ", ".join(
+        f"{k} {v['wall_s']:.2f} s (batch {v['batch_ms']:.1f} ms)"
+        for k, v in std.items()) + "; the VDS, external-link, szip and "
+        "n-bit maps equal their v0 copies' to the bit; launches "
+        f"{std['vds']['launches']} each")
+
+    # (c) LazyPredictor appends the memo to a copy of the VDS file
+    lazy_dir = os.path.join(workdir, "lazy")
+    os.makedirs(lazy_dir)
+    for name in ("phantom_vds.h5", "phantom_vds_a.h5", "phantom_vds_b.h5"):
+        shutil.copy(os.path.join(ITEM20_FIXTURES, name), lazy_dir)
+    lazy_path = os.path.join(lazy_dir, "phantom_vds.h5")
+    halo = cfg["loaders"]["test"]["slice_builder"]["halo_shape"]
+    memo = "raw_padded_" + "x".join(str(h) for h in halo)
+    a = std["vds"]["map"]
+    scale = max(1.0, float(np.abs(a).max()))
+    lazy, launches = {}, {k: 0 for k in KERNELS_3D}
+    for run in ("memo written", "memo read"):
+        size = os.path.getsize(lazy_path)
+        lazy[run] = _predict_phantom(lazy_path, ckpt, os.path.join(
+            workdir, f"lazy_{len(lazy)}"), lazy=True)
+        err = float(np.abs(lazy[run]["map"] - a).max())
+        if err > LAZY_MAP_TOL * scale:
+            raise AssertionError(f"lazy {run}: the map differs from (b)'s by "
+                                 f"{err:.3e} (limit {LAZY_MAP_TOL} x "
+                                 f"{scale:.3f})")
+        lazy[run]["err"] = err
+        for k in KERNELS_3D:
+            launches[k] += lazy[run]["launches"][k]
+        with hdf5.File(lazy_path) as f:
+            keys = f.keys()
+            got_memo = f[memo][:]
+            still = f["raw"][:]
+        if (keys != ["raw", memo] or not np.array_equal(still, raw)
+                or not np.array_equal(got_memo, mirror_pad(raw, halo))):
+            raise AssertionError(f"lazy {run}: {lazy_path} holds {keys}; "
+                                 "the memo or the VDS reads otherwise")
+        if run == "memo read" and os.path.getsize(lazy_path) != size:
+            raise AssertionError("the second Lazy run wrote to the file")
+        log(f"[phase 30] (c) LazyPredictor on the VDS, {run}: "
+            f"{lazy[run]['wall_s']:.2f} s, map vs (b) max |diff| {err:.3e}; "
+            f"the file holds {keys}, the VDS reads the phantom after the "
+            "append")
+
+    # (d) the szip decoder alone
+    rate = _szip_rate(paths["szip"])
+    log(f"[phase 30] (d) szip ({rate['options']}): {rate['chunks']} chunks, "
+        f"{rate['in_bytes']} -> {rate['out_bytes']} bytes in "
+        f"{rate['best_s'] * 1e3:.1f} ms, {rate['mb_per_s']:.1f} MB/s of "
+        "output (best of 5, host CPU)")
+    for r in list(std.values()) + list(lazy.values()):
+        r.pop("map")
+    return {"fixtures": fixtures, "reads": reads, "standard": std,
+            "lazy": lazy, "szip": rate,
+            "launches": {"item20_predict3d": {
+                k: sum(std[t]["launches"][k] for t in ITEM20_PHANTOMS)
+                for k in KERNELS_3D}, "item20_lazy": launches}}
+
+
 def _single_conv_row(mp: dict) -> dict:
     """The kernels-line entry of kernel 1's single-conv launch (one of its
     two convs alone, as the 2D TP step runs it): launches on phase 25's
@@ -9054,7 +9261,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phase", type=int,
                         choices=(18, 19, 20, 21, 23, 24, 25, 26, 27, 28,
-                                 29),
+                                 29, 30),
                         default=None,
                         help="run the kernel build and this phase alone "
                         "(21: with phases 13 and 14, which it reads)")
@@ -9227,6 +9434,29 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         log(f"file formats (phase 26, {smi}): {json.dumps(formats)}")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
+    if args.phase == 30:
+        from mdeical_image_segmentation_tpu_torch.ops import _build
+
+        _build.load()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build_dir = os.path.join(ROOT, "build")
+        os.makedirs(build_dir, exist_ok=True)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_30_", dir=build_dir)
+        try:
+            t_phase = time.time()
+            item20 = phase_item20_files(SEED, workdir)
+            log(f"[phase 30] ok; wall {time.time() - t_phase:.1f} s ({smi})")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"item-20 HDF5 files (phase 30, {smi}): {json.dumps(item20)}")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
@@ -9474,6 +9704,14 @@ def main(argv=None) -> int:
             "ranks with TP and with ZeRO-1")
         orbax = phase_orbax(SEED, workdir)
         log(f"[phase 29] ok; wall {time.time() - t_phase:.1f} s ({smi})")
+        t_phase = time.time()
+        log("[phase 30] the HDF5 files of ROADMAP item 20: the fixtures "
+            "against their manifest; predict3d over the phantom as a VDS, "
+            "through an external link, with szip and as n-bit 12-bit "
+            "samples; LazyPredictor's memo appended to the VDS file; the "
+            "szip decoder's rate")
+        item20 = phase_item20_files(SEED, workdir)
+        log(f"[phase 30] ok; wall {time.time() - t_phase:.1f} s ({smi})")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if train2d["launches"] == 0:
@@ -9504,6 +9742,7 @@ def main(argv=None) -> int:
         **images27["launches"],
         **images28["launches"],
         "orbax_resume": orbax["launches"],
+        **item20["launches"],
     }
     runs = (unet3d_launches, res_launches, serve3d_launches, train_launches,
             res_train_launches, cfg_train["launches"],
@@ -9559,6 +9798,7 @@ def main(argv=None) -> int:
     log(f"image formats (phase 27, {smi}): {json.dumps(images27)}")
     log(f"JPEG (phase 28, {smi}): {json.dumps(images28)}")
     log(f"orbax (phase 29, {smi}): {json.dumps(orbax)}")
+    log(f"item-20 HDF5 files (phase 30, {smi}): {json.dumps(item20)}")
     k1_formats = {**images27["kernel1"], **images28["kernel1"]}
     kernels = [{
         "name": "double_conv2d",

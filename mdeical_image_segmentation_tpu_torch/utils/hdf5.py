@@ -1,12 +1,13 @@
-"""A small HDF5 codec on the standard library, numpy, ``zlib`` and a small C
-LZF decompressor.
+"""A small HDF5 codec on the standard library, numpy, ``zlib`` and small C
+decoders (LZF, szip, n-bit).
 
 The machine with the card has no h5py, and the volumetric pipeline reads
 its volumes from HDF5 files and writes its predictions into one.  This
 module covers the part of h5py's API that pipeline uses:
 
 - ``File(path, "r" | "r+" | "w")`` as a context manager; ``f["a/b"]``,
-  ``key in f`` and ``keys()`` in every mode;
+  ``key in f`` (a dangling link is in its group, as h5py answers) and
+  ``keys()`` in every mode;
 - ``Dataset.shape``, ``.dtype``, ``.ndim``, ``.chunks``, ``.compression``,
   ``ds[:]`` and ``ds[index]`` with ints and slices, reading only the chunks
   the index touches;
@@ -28,23 +29,42 @@ What it reads is every file h5py writes for the pipeline, under any
   nodes plus a local heap), compact link storage (Link messages in the
   header) and dense link storage (a fractal heap of Link messages under a
   version-2 B-tree name index; with ``track_order`` the creation-order
-  index gives ``keys()`` h5py's order); hard and soft links;
+  index gives ``keys()`` h5py's order); hard, soft and external links
+  (16 at most on a path, the library's limit), an external link's file
+  found as the library finds it (``HDF5_EXT_PREFIX``, then the linking
+  file's directory, then the working directory), opened read only at its
+  first use and closed with the file; a missing one raises ``KeyError``;
 - contiguous, compact and chunked layouts (layout messages 3 and 4), the
   chunks found through a version-1 B-tree of any depth or, in layout 4,
   the single-chunk, implicit, fixed-array (paged or not),
   extensible-array and version-2 B-tree indexes; unallocated chunks read
   as the fill value;
-- the deflate, shuffle, Fletcher-32 (verified, then stripped), LZF
+- external raw storage (a contiguous dataset's bytes in segments of other
+  files, found under ``HDF5_EXTFILE_PREFIX`` or from the working
+  directory, as the library finds them);
+- virtual datasets: each mapping's "all" or regular hyperslab selections
+  (every encoding HDF5 1.14 writes), later mappings over earlier ones,
+  sources in the same file (".") or found as external links' files are
+  (``HDF5_VDS_PREFIX``), a source that does not open read as the fill
+  value; a region read reads only what the region maps;
+- the deflate, shuffle, Fletcher-32 (verified, then stripped), szip
+  (``csrc/szip_decompress.c``), n-bit (``csrc/nbit_decompress.c``), LZF
   (``csrc/lzf_decompress.c``) and scale-offset (integer and D-scale float)
   filters, each chunk's filter mask honoured;
-- little- or big-endian integers of 1-8 bytes, IEEE floats of 2, 4 and 8
-  bytes, and enums: h5py's bool (an int8 enum FALSE = 0, TRUE = 1) reads
-  as ``bool``, any other integer enum as its base type.
+- little- or big-endian integers of 1-8 bytes (a precision or bit offset
+  that leaves bits unused read as HDF5's conversion reads them), IEEE
+  floats of 2, 4 and 8 bytes, other float layouts of up to 8 bytes (read
+  as the numpy float h5py picks), committed datatypes, and enums: h5py's
+  bool (an int8 enum FALSE = 0, TRUE = 1) reads as ``bool``, any other
+  integer enum as its base type.
 
 Anything else raises ``HDF5Error`` and names what it found and the ROADMAP
-item that holds it: external links, szip, n-bit, virtual datasets,
-compound, string, reference and variable-length types, shared messages,
-and a structure whose checksum does not match.
+item that holds it: compound, string, reference, variable-length, opaque,
+bitfield, time and array types, messages kept in the shared-message index,
+huge and filtered fractal-heap objects, unlimited and printf-named virtual
+dataset mappings, n-bit over compound and array types, an append into a
+group with more than one hard link, and a structure whose checksum does
+not match.
 
 What it writes: each dataset contiguous, or chunked (h5py's chunk guess
 unless given) through deflate at level 4, h5py's default, under a
@@ -68,7 +88,8 @@ root group):
   address that points at the header is patched: the superblock's root
   address (version 2 and 3: checksum recomputed, consistency flags left
   at 0), the version-0/1 superblock's root entry, or the parent group's
-  link, itself rewritten the same way.
+  link, itself rewritten the same way.  External and user-defined links
+  keep the bytes of their values.
 
 Only the superblock's end-of-file address is patched besides.  Replaced
 structures are left as unreferenced space, as the library leaves them.  A
@@ -84,9 +105,12 @@ import os
 import struct
 import weakref
 import zlib
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
+
+from . import szip
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 UNDEF = 0xFFFFFFFFFFFFFFFF
@@ -103,8 +127,10 @@ MSG_BTREE_K, MSG_REFCOUNT = 0x13, 0x16
 FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32 = 1, 2, 3
 FILTER_SZIP, FILTER_NBIT, FILTER_SCALEOFFSET, FILTER_LZF = 4, 5, 6, 32000
 FILTERS = {FILTER_DEFLATE: "deflate", FILTER_SHUFFLE: "shuffle",
-           FILTER_FLETCHER32: "fletcher32", FILTER_SCALEOFFSET:
-           "scale-offset", FILTER_LZF: "lzf"}
+           FILTER_FLETCHER32: "fletcher32", FILTER_SZIP: "szip",
+           FILTER_NBIT: "n-bit", FILTER_SCALEOFFSET: "scale-offset",
+           FILTER_LZF: "lzf"}
+NBIT_ATOMIC, NBIT_ORDER_BE = 1, 1  # the n-bit filter's client values
 COMPRESSION = {FILTER_DEFLATE: "gzip", FILTER_SZIP: "szip",
                FILTER_LZF: "lzf"}  # h5py's names, in its order of lookup
 GROUP_LEAF_K, GROUP_NODE_K, CHUNK_K = 4, 16, 32  # the library's defaults
@@ -137,11 +163,66 @@ class _Store:
         self.root = None  # a weak reference to the File, where absolute
         # soft links start
         self.dirty: List[object] = []  # groups and datasets to flush
+        # where relative names of other files start (the library's
+        # "extpath"), and the files opened through external links and
+        # virtual datasets' sources, read only, by absolute path
+        self.dir = os.path.dirname(os.path.abspath(path))
+        self.opened: Dict[str, "File"] = {}
 
     def close(self) -> None:
+        opened, self.opened = self.opened, {}
+        for f in opened.values():
+            f.close()
         if self.fd is not None:
             os.close(self.fd)
             self.fd = None
+
+    def _prefixed(self, prefix: str, name: str) -> str:
+        """``name`` under ``prefix``, a leading "${ORIGIN}" the directory
+        of this file."""
+        if prefix.startswith("${ORIGIN}"):
+            prefix = self.dir + prefix[len("${ORIGIN}"):]
+        return os.path.join(prefix, name)
+
+    def open_file(self, name: str, env: str) -> Optional["File"]:
+        """The file an external link (``env`` "HDF5_EXT_PREFIX") or a
+        virtual dataset's mapping ("HDF5_VDS_PREFIX") names, opened read only
+        at its first use, or None where none opens.  The library's order
+        (``H5F_prefix_open_file``): an absolute name as it is (then its last
+        component in its place), each prefix of ``env`` (":"-separated),
+        the directory of this file, then the working directory."""
+        paths = []
+        if os.path.isabs(name):
+            paths.append(name)
+            name = os.path.basename(name)
+        paths += [self._prefixed(p, name)
+                  for p in os.environ.get(env, "").split(":") if p]
+        paths += [os.path.join(self.dir, name), name]
+        for path in paths:
+            key = os.path.abspath(path)
+            if key in self.opened:
+                return self.opened[key]
+            if not os.path.isfile(path):
+                continue
+            try:
+                self.opened[key] = File(path, "r")
+            except (OSError, HDF5Error):
+                continue
+            return self.opened[key]
+        return None
+
+    def extfile_path(self, name: str) -> str:
+        """Where an external raw data file lies: under
+        ``HDF5_EXTFILE_PREFIX`` where that is set, else ``name`` as it is,
+        relative to the working directory (``H5D__build_file_prefix``);
+        raises ``FileNotFoundError`` where there is no such file."""
+        prefix = os.environ.get("HDF5_EXTFILE_PREFIX", "")
+        path = (self._prefixed(prefix, name) if prefix not in ("", ".")
+                else name)
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"{self.path}: unable to open external "
+                                    f"raw data file {path!r}")
+        return path
 
     def read(self, addr: int, n: int) -> bytes:
         data = os.pread(self.fd, n, addr + self.base)
@@ -273,9 +354,22 @@ IEEE = {2: (15, 10, 5, 0, 10, 15), 4: (31, 23, 8, 0, 23, 127),
         8: (63, 52, 11, 0, 52, 1023)}
 
 
-def _parse_datatype(b: bytes) -> Tuple[np.dtype, np.dtype]:
-    """(the stored dtype, the dtype h5py gives): they differ only for
-    h5py's bool, an int8 enum read as ``bool``."""
+# numpy's float types as h5py picks among them for a file's float type:
+# (itemsize, mantissa bits, largest and smallest exponent)
+NUMPY_FLOATS = ((2, 10, 16, -14), (4, 23, 128, -126), (8, 52, 1024, -1022))
+
+Convert = Optional[Callable[[np.ndarray], np.ndarray]]
+
+
+def _parse_datatype(b: bytes) -> Tuple[np.dtype, np.dtype, Convert]:
+    """(the stored dtype, the dtype h5py gives, the conversion from one to
+    the other or None where it is a cast).  They differ for h5py's bool (an
+    int8 enum read as ``bool``), for an integer whose precision or bit
+    offset leaves bits unused (read as HDF5's conversion reads them: the
+    value's bits shifted down, sign-extended where signed) and for a float
+    whose fields are not IEEE half, single or double (read as the numpy
+    float h5py picks: the smallest at least as wide that holds its mantissa
+    and exponent range)."""
     cls, version = b[0] & 0x0F, b[0] >> 4
     bits = b[1] | (b[2] << 8) | (b[3] << 16)
     size = struct.unpack_from("<I", b, 4)[0]
@@ -285,23 +379,46 @@ def _parse_datatype(b: bytes) -> Tuple[np.dtype, np.dtype]:
     if cls == 0:  # fixed-point
         if size not in (1, 2, 4, 8):
             raise HDF5Error(f"integer of {size} bytes not supported")
-        dt = np.dtype(f"{order}{'i' if bits & 0x8 else 'u'}{size}")
-        return dt, dt
+        signed = bool(bits & 0x8)
+        dt = np.dtype(f"{order}{'i' if signed else 'u'}{size}")
+        offset, precision = struct.unpack_from("<HH", b, 8)
+        if (offset, precision) == (0, 8 * size):
+            return dt, dt, None
+        if not 0 < precision <= 8 * size - offset:
+            raise HDF5Error(f"integer of {size} bytes with precision "
+                            f"{precision} at bit {offset}")
+        return dt, dt, lambda a: _int_bits(a, offset, precision, signed, dt)
     if cls == 1:  # floating point
         if bits & 0x40:
             raise HDF5Error("VAX-order floats not supported")
         offset, precision, e_loc, e_size, m_loc, m_size, bias = struct.unpack_from(
             "<HHBBBBI", b, 8)
         sign = (bits >> 8) & 0xFF
-        if (size not in IEEE or offset != 0 or precision != 8 * size
-                or (sign, e_loc, e_size, m_loc, m_size, bias) != IEEE[size]):
-            raise HDF5Error(f"float of {size} bytes with layout "
-                            f"{(sign, e_loc, e_size, m_loc, m_size, bias)} is "
-                            "not IEEE half, single or double")
-        dt = np.dtype(f"{order}f{size}")
-        return dt, dt
+        fields = (sign, e_loc, e_size, m_loc, m_size, bias)
+        if (size in IEEE and offset == 0 and precision == 8 * size
+                and fields == IEEE[size]):
+            dt = np.dtype(f"{order}f{size}")
+            return dt, dt, None
+        if (bits >> 4) & 3 != 2 or not 1 <= size <= 8 or max(
+                sign, e_loc + e_size - 1, m_loc + m_size - 1) >= 8 * size:
+            raise HDF5Error(f"float of {size} bytes with layout {fields} and "
+                            f"normalization {(bits >> 4) & 3} not supported "
+                            f"({HDF5_ITEM})")
+        for width, nmant, maxexp, minexp in NUMPY_FLOATS:
+            if (width >= size and m_size <= nmant
+                    and 2 ** e_size - bias - 1 <= maxexp
+                    and 1 - bias >= minexp):
+                break
+        else:
+            raise HDF5Error(f"float of {size} bytes with layout {fields}: "
+                            "wider than float64 (h5py reads it as long "
+                            f"double; {HDF5_ITEM})")
+        dt = np.dtype(f"{order}f{width}")
+        stored = np.dtype(f"{order}u{size}" if size in (1, 2, 4, 8)
+                          else f"V{size}")
+        return stored, dt, lambda a: _float_bits(a, order, fields, dt)
     if cls == 8:  # enumeration: h5py gives the base type, bool for its own
-        base, _ = _parse_datatype(b[8:])
+        base, _, convert = _parse_datatype(b[8:])
         if base.kind not in "iu":
             raise HDF5Error(f"enum over {base} not supported")
         n, pos, names = bits & 0xFFFF, 8 + 12, []
@@ -314,13 +431,61 @@ def _parse_datatype(b: bytes) -> Tuple[np.dtype, np.dtype]:
                                       else 0)
         values = np.frombuffer(b, base, count=n, offset=pos).tolist()
         if dict(zip(names, values)) == {b"FALSE": 0, b"TRUE": 1}:
-            return base, np.dtype(bool)
-        return base, base
+            return base, np.dtype(bool), convert
+        return base, base, convert
     names = {2: "time", 3: "string", 4: "bitfield", 5: "opaque",
              6: "compound", 7: "reference", 9: "variable-length",
              10: "array"}
     raise HDF5Error(f"datatype class {names.get(cls, cls)} not supported "
                     f"({HDF5_ITEM})")
+
+
+def _uint64(a: np.ndarray, order: str) -> np.ndarray:
+    """Each element's bytes (in byte order ``order``) as an unsigned
+    integer."""
+    size = a.dtype.itemsize
+    raw = np.frombuffer(np.ascontiguousarray(a).tobytes(), np.uint8)
+    raw = raw.reshape(-1, size).astype(np.uint64)
+    if order == "<":
+        raw = raw[:, ::-1]
+    out = np.zeros(len(raw), np.uint64)
+    for j in range(size):
+        out = (out << np.uint64(8)) | raw[:, j]
+    return out.reshape(a.shape)
+
+
+def _int_bits(a: np.ndarray, offset: int, precision: int, signed: bool,
+              dt: np.dtype) -> np.ndarray:
+    """HDF5's integer conversion from a type of ``precision`` bits at bit
+    ``offset`` to the full-width type ``dt``: the bits shifted down, then
+    sign-extended where signed."""
+    width = 8 * dt.itemsize
+    u = np.ascontiguousarray(a, dt.newbyteorder("=")).view(f"u{dt.itemsize}")
+    v = u << u.dtype.type(width - precision - offset)  # to the top bit
+    if signed:
+        v = v.view(f"i{dt.itemsize}")
+    return (v >> v.dtype.type(width - precision)).astype(dt)
+
+
+def _float_bits(a: np.ndarray, order: str, fields: Tuple[int, ...],
+                dt: np.dtype) -> np.ndarray:
+    """HDF5's float conversion from a type of sign bit, exponent and
+    mantissa ``fields`` (implied leading one) to the numpy float ``dt``,
+    which holds every value of the source exactly."""
+    sign, e_loc, e_size, m_loc, m_size, bias = fields
+    u = _uint64(a, order)
+    e = ((u >> np.uint64(e_loc)) & np.uint64((1 << e_size) - 1)).astype(
+        np.int64)
+    m = ((u >> np.uint64(m_loc)) & np.uint64((1 << m_size) - 1)).astype(
+        np.float64)
+    with np.errstate(over="ignore"):
+        value = np.where(
+            e == 0, np.ldexp(m, np.full(e.shape, 1 - bias - m_size, np.int32)),
+            np.ldexp(1.0 + m / 2.0 ** m_size, (e - bias).astype(np.int32)))
+    value = np.where(e == (1 << e_size) - 1,
+                     np.where(m == 0, np.inf, np.nan), value)
+    value = np.where((u >> np.uint64(sign)) & np.uint64(1), -value, value)
+    return value.astype(dt)
 
 
 def _parse_dataspace(b: bytes) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
@@ -363,14 +528,15 @@ def _parse_filters(b: bytes) -> List[Tuple[int, Tuple[int, ...]]]:
         pos += name_len
         vals = struct.unpack_from(f"<{n_vals}I", b, pos)
         pos += 4 * n_vals + (4 if version == 1 and n_vals % 2 else 0)
-        if fid == FILTER_SZIP:
-            raise HDF5Error(f"szip (filter 4) not supported ({HDF5_ITEM})")
-        if fid == FILTER_NBIT:
-            raise HDF5Error(f"n-bit (filter 5) not supported ({HDF5_ITEM})")
         if fid not in FILTERS:
             raise HDF5Error(f"filter {fid} ({name or 'unnamed'}) not "
-                            "supported (deflate, shuffle, fletcher32, lzf and "
-                            f"scale-offset are; {HDF5_ITEM})")
+                            "supported (deflate, shuffle, fletcher32, szip, "
+                            f"n-bit, scale-offset and lzf are; {HDF5_ITEM})")
+        if fid == FILTER_NBIT and len(vals) > 3 and not vals[1] and (
+                vals[3] != NBIT_ATOMIC):
+            kind = "an array" if vals[3] == 2 else "a compound"
+            raise HDF5Error(f"n-bit over {kind} datatype not supported "
+                            f"({HDF5_ITEM})")
         out.append((fid, vals))
     return out
 
@@ -407,11 +573,13 @@ class _ObjectHeader:
             self._read_v2(store, addr)
         else:
             self._read_v1(store, addr)
-        for mtype, mflags, _ in self.messages:
-            if mflags & 0x2:
-                raise HDF5Error(f"shared message of type {mtype} (a "
-                                "committed datatype?) not supported "
-                                f"({HDF5_ITEM})")
+        self._store = store
+        for mtype, mflags, data in self.messages:
+            if mflags & 0x2 and (mtype != MSG_DATATYPE
+                                 or _shared_address(data) is None):
+                raise HDF5Error(f"shared message of type {mtype} kept in the "
+                                "file's shared-message index (SOHM) not "
+                                f"supported ({HDF5_ITEM})")
 
     def _add(self, mtype: int, mflags: int, data: bytes,
              order: Optional[int]) -> None:
@@ -478,6 +646,32 @@ class _ObjectHeader:
 
     def types(self) -> set:
         return {t for t, _, _ in self.messages}
+
+    def datatype(self) -> bytes:
+        """The datatype message; a committed datatype's (a shared message
+        that points at the datatype's own object header) read from
+        there."""
+        for t, flags, data in self.messages:
+            if t == MSG_DATATYPE:
+                if flags & 0x2:
+                    return _ObjectHeader(self._store, _shared_address(
+                        data)).datatype()
+                return data
+        raise HDF5Error(f"the object header at {self.addr} has no datatype")
+
+
+def _shared_address(b: bytes) -> Optional[int]:
+    """The object header a shared message points at (a committed
+    datatype), or None where it is kept in the shared-message index
+    (``H5O__shared_decode``: version 1 has 6 reserved bytes and a heap
+    address before it, version 3 a type: 2 for a committed datatype, 1
+    for the index)."""
+    version = b[0]
+    if version == 1:
+        return struct.unpack_from("<Q", b, 16)[0]
+    if version == 2 or (version == 3 and b[1] == 2):
+        return struct.unpack_from("<Q", b, 2)[0]
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -550,6 +744,41 @@ def _scaleoffset(data: bytes, cd: Sequence[int], dtype: np.dtype) -> bytes:
         out = np.where(is_fill, np.frombuffer(fill, little)[0], out).astype(
             little)
     return out.astype(dtype).tobytes()
+
+
+def _nbit_fn():
+    from ..ops import _build
+
+    fn = _build.host_library("nbit_decompress.c").tpuseg_nbit_decompress
+    if fn.restype is not ctypes.c_int64:
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                       ctypes.c_int64] + [ctypes.c_int32] * 4
+        fn.restype = ctypes.c_int64
+    return fn
+
+
+def _nbit(data: bytes, cd: Sequence[int]) -> bytes:
+    """``H5Z_filter_nbit`` decoding of an integer or float chunk by
+    ``csrc/nbit_decompress.c``: each element's ``precision`` bits from bit
+    ``offset`` up, most significant first, back to back in one bit stream;
+    the other bits read as 0.  The client values: their count, "stored
+    whole", the elements, the class (atomic), then the size, byte order,
+    precision and offset."""
+    if cd[1]:  # a full-precision type: the chunk is stored as it is
+        return data
+    n = cd[2]
+    size, order, precision, offset = cd[4:8]  # an atomic type's
+    # (_parse_filters refuses the others)
+    out = np.empty(max(n * size, 1), np.uint8)
+    rc = _nbit_fn()(bytes(data), len(data), out.ctypes.data, n, size,
+                    int(order == NBIT_ORDER_BE), precision, offset)
+    if rc == -1:
+        raise HDF5Error(f"n-bit chunk of {len(data)} bytes for {n} elements "
+                        f"of {precision} bits (the data is corrupt)")
+    if rc:
+        raise HDF5Error(f"n-bit with precision {precision} at bit {offset} "
+                        f"of {size} bytes")
+    return out[:n * size].tobytes()
 
 
 def _unshuffle(data: bytes, itemsize: int) -> bytes:
@@ -760,18 +989,21 @@ class Dataset:
 
     def __init__(self, store: _Store, header: _ObjectHeader, name: str):
         self._store, self.name = store, name
-        if MSG_EXTERNAL in header.types():
-            raise HDF5Error(f"{name}: external storage not supported "
-                            f"({HDF5_ITEM})")
         self.shape, self._maxshape = _parse_dataspace(
             header.find(MSG_DATASPACE))
-        self._stored, self.dtype = _parse_datatype(header.find(MSG_DATATYPE))
-        fill = header.find(MSG_FILL)
-        fill = None if fill is None else _parse_fill(fill)
-        self._fill = (np.frombuffer(fill, self._stored)[0] if fill is not None
-                      and len(fill) == self._stored.itemsize else 0)
         filters = header.find(MSG_FILTERS)
         self._filters = _parse_filters(filters) if filters else []
+        self._stored, self.dtype, self._convert = _parse_datatype(
+            header.datatype())
+        fill = header.find(MSG_FILL)
+        fill = None if fill is None else _parse_fill(fill)
+        if fill is None or len(fill) != self._stored.itemsize:
+            fill = bytes(self._stored.itemsize)
+        self._fill = np.frombuffer(fill, self._stored)[0]
+        external = header.find(MSG_EXTERNAL)
+        # external raw storage: (file name, offset in it, bytes) per
+        # segment, the dataset's bytes in order
+        self._efl = None if external is None else _parse_efl(store, external)
         layout = header.find(MSG_LAYOUT)
         if layout is None or layout[0] not in (3, 4):
             raise HDF5Error(f"{name}: data layout message version "
@@ -795,9 +1027,15 @@ class Dataset:
             self.chunks = tuple(dims[:-1])
         elif self._layout_class == 2:
             self._parse_layout4(layout)
-        elif self._layout_class == 3:
-            raise HDF5Error(f"{name}: virtual dataset (VDS) not supported "
-                            f"({HDF5_ITEM})")
+        elif self._layout_class == 3 and layout[0] == 4:
+            self._mappings = _parse_virtual(store, layout, name)
+            self._sources: Dict[int, Dataset] = {}
+            # sources read as h5py's dtype, and so does the fill value
+            fill = np.array([self._fill])
+            if self._convert is not None:
+                fill = self._convert(fill)
+            self._fill = fill.astype(self.dtype)[0]
+            self._stored, self._convert = self.dtype, None
         else:
             raise HDF5Error(f"{name}: layout class {self._layout_class} not "
                             "supported")
@@ -856,8 +1094,11 @@ class Dataset:
 
     def __getitem__(self, index) -> np.ndarray:
         box, post = _normalize_index(index, self.shape)
-        out = self._read_box(box)[post]
-        return out if self._stored == self.dtype else out.astype(self.dtype)
+        out = self._read_box(box)
+        if self._convert is not None:
+            out = self._convert(out)
+        out = out[post]
+        return out if out.dtype == self.dtype else out.astype(self.dtype)
 
     def __setitem__(self, index, value) -> None:
         """Write ``value`` (broadcast to the selection) into the chunks the
@@ -919,7 +1160,11 @@ class Dataset:
         if self._layout_class == 0:
             full = np.frombuffer(self._compact, self._stored)
             return full[:self.size].reshape(self.shape)[sel].copy()
+        if self._layout_class == 3:
+            return self._read_virtual(box, shape)
         if self._layout_class == 1:
+            if self._efl is not None:
+                return self._read_external(box)
             if self._addr == UNDEF:
                 return np.full(shape, self._fill, self._stored)
             mm = np.memmap(self._store.path, dtype=self._stored, mode="r",
@@ -929,6 +1174,94 @@ class Dataset:
             del mm
             return out
         return self._read_chunked(box, shape)
+
+    def _read_external(self, box) -> np.ndarray:
+        """External raw storage: the whole planes of the box's first axis
+        read from the segments' files (short files read as zeros, bytes
+        past the last segment as the fill value), then cut to the box."""
+        itemsize = self._stored.itemsize
+        a, b = box[0] if box else (0, 1)  # a scalar: its one element
+        row = int(np.prod(self.shape[1:]))
+        start, n = a * row * itemsize, (b - a) * row * itemsize
+        out = bytearray(np.full((b - a) * row, self._fill,
+                                self._stored).tobytes())
+        pos = 0
+        for name, offset, size in self._efl:
+            end = pos + size
+            lo, hi = max(start, pos), min(start + n, end)
+            if lo < hi:
+                with open(self._store.extfile_path(name), "rb") as f:
+                    f.seek(offset + lo - pos)
+                    data = f.read(hi - lo)
+                out[lo - start:hi - start] = data + bytes(hi - lo - len(data))
+            pos = end
+        arr = np.frombuffer(bytes(out), self._stored)
+        if not box:
+            return arr.reshape(())
+        arr = arr.reshape((b - a,) + tuple(self.shape[1:]))
+        return arr[(slice(None),) + tuple(slice(lo, hi)
+                                          for lo, hi in box[1:])]
+
+    def _source(self, i: int) -> Optional["Dataset"]:
+        """Mapping i's source dataset, opened at its first read (None where
+        its file or dataset cannot be opened: tried again at the next
+        read, as the library does)."""
+        if i not in self._sources:
+            file, dset = self._mappings[i][:2]
+            root = (self._store.root() if file == "."
+                    else self._store.open_file(file, "HDF5_VDS_PREFIX"))
+            try:
+                ds = None if root is None else root[dset]
+            except (KeyError, HDF5Error):
+                ds = None
+            if not isinstance(ds, Dataset):
+                return None
+            self._sources[i] = ds
+        return self._sources[i]
+
+    def _read_virtual(self, box, shape) -> np.ndarray:
+        """A virtual dataset: the fill value, then each mapping in order
+        (a later one over an earlier) where its source opens; only the
+        source's region that the box's part of the mapping selects is
+        read."""
+        out = np.full(shape, self._fill, self.dtype)
+        for i, (_, _, src_sel, vir_sel) in enumerate(self._mappings):
+            vcoords = _coords(vir_sel, self.shape)
+            hit = [np.nonzero((c >= a) & (c < b))[0]
+                   for c, (a, b) in zip(vcoords, box)]
+            if any(len(h) == 0 for h in hit):
+                continue
+            src = self._source(i)
+            if src is None:
+                continue
+            scoords = _coords(src_sel, src.shape)
+            vshape = [len(c) for c in vcoords]
+            sshape = [len(c) for c in scoords]
+            if int(np.prod(vshape)) != int(np.prod(sshape)):
+                raise HDF5Error(f"{self.name}: mapping {i} selects "
+                                f"{vshape} virtual and {sshape} source "
+                                "elements")
+            vaxes = [k for k, n in enumerate(vshape) if n != 1]
+            saxes = [k for k, n in enumerate(sshape) if n != 1]
+            grid = [vshape[k] for k in vaxes] == [sshape[k] for k in saxes]
+            if grid:  # the same shape but for axes of 1: axis by axis
+                pick = [np.zeros(1, np.int64) for _ in sshape]
+                for vk, sk in zip(vaxes, saxes):
+                    pick[sk] = hit[vk]
+            else:  # element i of one selection is element i of the other
+                flat = np.ravel_multi_index(np.ix_(*hit), vshape).ravel()
+                pick = np.unravel_index(flat, sshape)
+            where = [c[p] for c, p in zip(scoords, pick)]
+            lo = [int(w.min()) for w in where]
+            region = src[tuple(slice(l, int(w.max()) + 1)
+                               for l, w in zip(lo, where))]
+            rel = [w - l for w, l in zip(where, lo)]
+            values = region[_index(rel) if grid else tuple(rel)]
+            dst = _index([c[h] - a for c, h, (a, _) in zip(vcoords, hit,
+                                                             box)])
+            out[dst] = np.asarray(values).reshape(
+                [len(h) for h in hit]).astype(self.dtype)
+        return out
 
     def _chunk_bytes(self) -> int:
         return int(np.prod(self.chunks)) * self._stored.itemsize
@@ -1053,6 +1386,13 @@ class Dataset:
                 data = _fletcher_strip(data, where)
             elif fid == FILTER_LZF:
                 data = lzf_decompress(data, vals[2] if len(vals) > 2 else 0)
+            elif fid == FILTER_SZIP:
+                try:
+                    data = szip.hdf5_chunk(data, vals)
+                except ValueError as e:
+                    raise HDF5Error(f"{where}: {e}") from None
+            elif fid == FILTER_NBIT:
+                data = _nbit(data, vals)
             else:
                 data = _scaleoffset(data, vals, self._stored)
         n = int(np.prod(self.chunks))
@@ -1082,6 +1422,187 @@ class Dataset:
                 dst.append(slice(lo - a, hi - a))
             out[tuple(dst)] = chunk[tuple(src)]
         return out
+
+
+def _index(coords: Sequence[np.ndarray]):
+    """The numpy index of the grid ``coords`` spans (sorted coordinates per
+    axis): slices where every axis is a run, else an open mesh."""
+    if all(len(c) == int(c[-1]) - int(c[0]) + 1 for c in coords):
+        return tuple(slice(int(c[0]), int(c[-1]) + 1) for c in coords)
+    return np.ix_(*coords)
+
+
+# ---------------------------------------------------------------------------
+# external raw storage and virtual datasets
+# ---------------------------------------------------------------------------
+
+
+def _heap_string(store: "_Store", heap: int, offset: int) -> str:
+    """The NUL-terminated name at ``offset`` of a local heap's data."""
+    head = store.read(heap, 32)
+    if head[:4] != b"HEAP":
+        raise HDF5Error(f"no local heap at {heap}")
+    size, _, data = struct.unpack_from("<QQQ", head, 8)
+    raw = store.read(data, size)
+    end = raw.find(b"\0", offset)
+    if not 0 <= offset < size or end < 0:
+        raise HDF5Error(f"name at {offset} outside the local heap at {heap}")
+    return raw[offset:end].decode("utf-8")
+
+
+def _parse_efl(store: "_Store", b: bytes) -> List[Tuple[str, int, int]]:
+    """The External Data Files message: (file name, offset in the file,
+    bytes) of each segment, the names in a local heap."""
+    version, _, used, heap = struct.unpack_from("<B3xHHQ", b)
+    if version != 1:
+        raise HDF5Error(f"external data files message version {version} not "
+                        "supported")
+    out = []
+    for i in range(used):
+        name_at, offset, size = struct.unpack_from("<QQQ", b, 16 + 24 * i)
+        out.append((_heap_string(store, heap, name_at), offset,
+                    1 << 62 if size == UNDEF else size))
+    return out
+
+
+def _global_heap_object(store: "_Store", addr: int, index: int) -> bytes:
+    """Object ``index`` of the global heap collection at ``addr``."""
+    head = store.read(addr, 16)
+    if head[:4] != b"GCOL":
+        raise HDF5Error(f"no global heap collection at {addr}")
+    size = struct.unpack_from("<Q", head, 8)[0]
+    raw = store.read(addr, size)
+    pos = 16
+    while pos + 16 <= size:
+        oid, _, n = struct.unpack_from("<HH4xQ", raw, pos)
+        if oid == 0:  # free space: the end of the objects
+            break
+        if oid == index:
+            return raw[pos + 16:pos + 16 + n]
+        pos += 16 + n + (-n % 8)
+    raise HDF5Error(f"no object {index} in the global heap at {addr}")
+
+
+H5S_SEL_NONE, H5S_SEL_HYPER, H5S_SEL_ALL = 0, 2, 3  # 1: points
+
+
+def _parse_selection(b: bytes, pos: int, what: str):
+    """(selection, position after it) of a serialized dataspace selection
+    (``H5S_select_serialize``): None for all, else the selected coordinates
+    of each axis, sorted; the hyperslab encodings are version 1 (blocks as
+    4-byte corners), 2 (regular, 8-byte start / stride / count / block) and
+    3 (either, in values of 1-8 bytes).  A hyperslab must be regular: the
+    product of its axes' coordinate sets."""
+    kind, version = struct.unpack_from("<II", b, pos)
+    if kind == H5S_SEL_ALL:
+        return None, pos + 16
+    if kind == H5S_SEL_NONE:
+        return [], pos + 16
+    if kind != H5S_SEL_HYPER:
+        raise HDF5Error(f"{what}: point selections not supported "
+                        f"({HDF5_ITEM})")
+    regular, blocks = None, None
+    if version == 1:
+        rank, nblocks = struct.unpack_from("<II", b, pos + 16)
+        pos += 24
+        corners = struct.unpack_from(f"<{2 * rank * nblocks}I", b, pos)
+        pos += 8 * rank * nblocks
+        blocks = [(corners[2 * rank * k:2 * rank * k + rank],
+                   corners[2 * rank * k + rank:2 * rank * (k + 1)])
+                  for k in range(nblocks)]
+    elif version == 2:
+        rank = struct.unpack_from("<I", b, pos + 13)[0]
+        pos += 17
+        regular = struct.unpack_from(f"<{4 * rank}Q", b, pos)
+        pos += 32 * rank
+        unlimited = UNDEF
+    elif version == 3:
+        flags, enc, rank = struct.unpack_from("<BBI", b, pos + 8)
+        pos += 14
+        unlimited = (1 << (8 * enc)) - 1
+
+        def values(n):
+            nonlocal pos
+            out = [_uint(b, pos + enc * i, enc) for i in range(n)]
+            pos += enc * n
+            return out
+
+        if flags & 1:
+            regular = values(4 * rank)
+        else:
+            nblocks = values(1)[0]
+            corners = values(2 * rank * nblocks)
+            blocks = [(corners[2 * rank * k:2 * rank * k + rank],
+                       corners[2 * rank * k + rank:2 * rank * (k + 1)])
+                      for k in range(nblocks)]
+    else:
+        raise HDF5Error(f"{what}: hyperslab selection version {version} not "
+                        "supported")
+    if regular is not None:
+        if unlimited in regular:
+            raise HDF5Error(f"{what}: an unlimited selection not supported "
+                            f"({HDF5_ITEM})")
+        axes = []
+        for d in range(rank):
+            start, stride, count, block = regular[4 * d:4 * d + 4]
+            axes.append(np.unique((start + stride * np.arange(
+                count, dtype=np.int64))[:, None] + np.arange(block)))
+        return axes, pos
+    axes = [np.unique(np.concatenate([np.arange(lo[d], hi[d] + 1)
+                                      for lo, hi in blocks]))
+            for d in range(rank)] if blocks else []
+    volume = sum(int(np.prod([h - l + 1 for l, h in zip(lo, hi)]))
+                 for lo, hi in blocks)
+    if blocks and volume != int(np.prod([len(a) for a in axes])):
+        raise HDF5Error(f"{what}: an irregular hyperslab selection not "
+                        f"supported ({HDF5_ITEM})")
+    return axes, pos
+
+
+def _coords(sel, shape) -> List[np.ndarray]:
+    """The selected coordinates of each axis (all of ``shape`` for None)."""
+    if sel is None:
+        return [np.arange(n) for n in shape]
+    if not sel:  # the empty selection
+        return [np.zeros(0, np.int64) for _ in shape]
+    return sel
+
+
+def _vds_name(raw: bytes, what: str) -> str:
+    """A source file or dataset name; "%%" is a literal "%", any other "%"
+    names blocks of an unlimited mapping."""
+    name = raw.decode("utf-8")
+    if "%" in name.replace("%%", ""):
+        raise HDF5Error(f"{what}: printf-named source {name!r} not supported "
+                        f"({HDF5_ITEM})")
+    return name.replace("%%", "%")
+
+
+def _parse_virtual(store: "_Store", layout: bytes, name: str) -> list:
+    """A virtual dataset's mappings, (source file, source dataset, source
+    selection, virtual selection) each, from the global heap object the
+    layout message points at (version 0: the count, then the mappings,
+    then a lookup3 checksum)."""
+    addr, index = struct.unpack_from("<QI", layout, 2)
+    if addr == UNDEF:
+        return []
+    raw = _global_heap_object(store, addr, index)
+    if raw[0] != 0:
+        raise HDF5Error(f"{name}: virtual dataset mapping encoding version "
+                        f"{raw[0]} not supported")
+    _verify(raw, f"{name}: the virtual dataset's mappings")
+    n, pos, out = struct.unpack_from("<Q", raw, 1)[0], 9, []
+    for i in range(n):
+        names = []
+        for _ in range(2):
+            end = raw.index(b"\0", pos)
+            names.append(_vds_name(raw[pos:end], f"{name}: virtual dataset"))
+            pos = end + 1
+        what = f"{name}: virtual dataset mapping {i}"
+        src, pos = _parse_selection(raw, pos, what)
+        vir, pos = _parse_selection(raw, pos, what)
+        out.append((names[0], names[1], src, vir))
+    return out
 
 
 def _normalize_index(index, shape):
@@ -1248,7 +1769,9 @@ class _FractalHeap:
 
 def _parse_link(b: bytes) -> Tuple[str, tuple, Optional[int]]:
     """(name, target, creation order) of a Link message; the target is
-    ("hard", header address), ("soft", path) or ("external", file, path)."""
+    ("hard", header address), ("soft", path), ("external", file, path,
+    value) or ("user-defined", link type, value), ``value`` the link's
+    stored bytes."""
     if b[0] != 1:
         raise HDF5Error(f"link message version {b[0]} not supported")
     flags, pos = b[1], 2
@@ -1271,29 +1794,33 @@ def _parse_link(b: bytes) -> Tuple[str, tuple, Optional[int]]:
     value = b[pos + 2:pos + 2 + size]
     if ltype == 1:
         return name, ("soft", value.decode("utf-8")), order
-    if ltype == 64:
+    if ltype == 64:  # a flags byte, then the file and the object path
         file, path = value[1:].split(b"\0")[:2]
         return name, ("external", file.decode("utf-8"),
-                      path.decode("utf-8")), order
-    return name, ("user-defined", ltype), order
+                      path.decode("utf-8"), value), order
+    return name, ("user-defined", ltype, value), order
+
+
+LINK_TYPES = {"hard": 0, "soft": 1, "external": 64}
 
 
 def _link_message(name: str, target: tuple, order: Optional[int]) -> bytes:
-    """A Link message (version 1) for a hard or soft link."""
+    """A Link message (version 1) for any link ``_parse_link`` reads: an
+    external or user-defined link keeps the bytes of its value."""
     raw = name.encode("utf-8")
     code = 0 if len(raw) < 1 << 8 else 1 if len(raw) < 1 << 16 else 2
     flags = code | (0x04 if order is not None else 0)
-    soft = target[0] == "soft"
-    flags |= 0x08 if soft else 0
+    ltype = LINK_TYPES.get(target[0], target[1])
+    flags |= 0x08 if ltype else 0
     flags |= 0x10 if not raw.isascii() else 0
-    out = bytes([1, flags]) + (b"\1" if soft else b"")
+    out = bytes([1, flags]) + (bytes([ltype]) if ltype else b"")
     out += struct.pack("<Q", order) if order is not None else b""
     out += b"\1" if not raw.isascii() else b""
     out += len(raw).to_bytes(1 << code, "little") + raw
-    if soft:
-        value = target[1].encode("utf-8")
-        return out + struct.pack("<H", len(value)) + value
-    return out + struct.pack("<Q", target[1])
+    if ltype == 0:
+        return out + struct.pack("<Q", target[1])
+    value = target[1].encode("utf-8") if ltype == 1 else target[-1]
+    return out + struct.pack("<H", len(value)) + value
 
 
 # ---------------------------------------------------------------------------
@@ -1304,7 +1831,8 @@ def _link_message(name: str, target: tuple, order: Optional[int]) -> bytes:
 class Group:
     """An HDF5 group.  ``_links`` maps each member's name, in h5py's
     ``keys()`` order, to its target: ("hard", object header address),
-    ("soft", path) or ("external", file, path).
+    ("soft", path), ("external", file, path, value) or ("user-defined",
+    type, value).
 
     A symbol-table group also keeps ``_entries``: name → (heap offset of
     the name, the 32 bytes of its symbol-table entry after the name: object
@@ -1418,13 +1946,21 @@ class Group:
         return list(self._links)
 
     def __contains__(self, path: str) -> bool:
+        """As h5py answers: the groups on the path must open, and the last
+        name be linked in its group, the link dangling or not."""
+        head, _, last = path.rstrip("/").rpartition("/")
+        if not last or last == ".":
+            return True
         try:
-            self[path]
+            group = self[head or ("/" if path.startswith("/") else ".")]
         except KeyError:
             return False
-        return True
+        return isinstance(group, Group) and last in group._links
 
     def __getitem__(self, path: str):
+        """The object at ``path``, soft and external links followed (16 at
+        most, the library's limit); an external link's file opens read
+        only at its first use and closes with this file."""
         node, hops = self, 0
         if path.startswith("/"):
             node = self._store.root()
@@ -1434,14 +1970,25 @@ class Group:
             if not isinstance(node, Group) or part not in node._links:
                 raise KeyError(f"no object {path!r} in {self.name!r}")
             target = node._links[part]
-            if target[0] == "soft":  # resolve by path, as the library does
+            if target[0] in ("soft", "external"):
                 hops += 1
                 if hops > 16:
-                    raise KeyError(f"{path!r}: too many soft links")
+                    raise KeyError(f"{path!r}: too many links")
+            if target[0] == "soft":  # resolve by path, as the library does
                 soft = target[1]
                 if soft.startswith("/"):
-                    node = self._store.root()
+                    node = node._store.root()
                 parts = [p for p in soft.split("/") if p and p != "."] + parts
+                continue
+            if target[0] == "external":  # from the target file's root
+                file = node._store.open_file(target[1], "HDF5_EXT_PREFIX")
+                if file is None:
+                    raise KeyError(f"{path!r}: external link to "
+                                   f"{target[1]}:{target[2]}: can't open "
+                                   "file")
+                node = file
+                parts = [p for p in target[2].split("/")
+                         if p and p != "."] + parts
                 continue
             node = node._open(part)
         return node
@@ -1450,9 +1997,6 @@ class Group:
         if name not in self._children:
             full = f"{self.name.rstrip('/')}/{name}"
             target = self._links[name]
-            if target[0] == "external":
-                raise HDF5Error(f"{full}: external link to {target[1]}:"
-                                f"{target[2]} not supported ({HDF5_ITEM})")
             if target[0] != "hard":
                 raise HDF5Error(f"{full}: link of type {target[1]} not "
                                 f"supported ({HDF5_ITEM})")
@@ -1463,6 +2007,8 @@ class Group:
                               parent=self)
             elif MSG_LAYOUT in types:
                 child = Dataset(self._store, header, full)
+            elif MSG_DATATYPE in types:
+                child = Datatype(header, full)
             else:
                 raise HDF5Error(f"{full}: object with messages "
                                 f"{sorted(types)} is neither a group nor a "
@@ -1528,6 +2074,14 @@ class Group:
             children.append((left, right, store.append(raw)))
             left = right
         _group_btree(store, self._btree, children)
+
+
+class Datatype:
+    """A committed (named) datatype; ``dtype`` is the one h5py gives."""
+
+    def __init__(self, header: _ObjectHeader, name: str):
+        self.name = name
+        self.dtype = _parse_datatype(header.datatype())[1]
 
 
 def _read_symbol_table(store: _Store, btree: int, heap: int, name: str):
@@ -1775,6 +2329,10 @@ class File(Group):
             group = group[part]
             if not isinstance(group, Group):
                 raise ValueError(f"{name}: {part} is a dataset")
+            if group._store is not self._store:
+                raise ValueError(f"{name}: {part} is in another file (an "
+                                 "external link); datasets are made in "
+                                 "this one")
         if parts[-1] in group._links:
             raise ValueError(f"{name} already exists")
         return group, parts[-1]

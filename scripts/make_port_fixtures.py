@@ -2,6 +2,7 @@
 are held against, and their manifest.
 
     python scripts/make_port_fixtures.py [--out tests/fixtures]
+        [--only orbax|item20]
 
 Needs h5py, imageio and PIL (the CPU tests' machine has them; the card's
 machine does not, which is why the manifest exists).  Writes:
@@ -14,6 +15,13 @@ machine does not, which is why the manifest exists).  Writes:
   ``phantom_latest.h5``: an (80, 340, 340) uint8 volume of seeded
   constant-intensity spheres, ``libver="latest"``, shuffle + gzip, chunks
   under a version-2 B-tree index (every axis unlimited).
+- ``h5_item20/*``: the files that need external links, virtual datasets,
+  szip, n-bit, external raw storage and committed datatypes: the phantom
+  as a VDS over two gzip halves, through an external link to
+  ``h5_latest/phantom_latest.h5``, with szip (NN, 8 pixels a block) and as
+  12-bit n-bit samples (x 16 in a uint16 of precision 12 at bit 4, then
+  deflate), and a tiny file per case (``--only item20`` rewrites just
+  these and their manifest entry).
 - ``png_extra/dsb_c{1,3,4}/images/*.png``: PNGs imageio decodes to 1, 3
   and 4 channels: palette at 1, 2, 4 and 8 bits with and without tRNS;
   1-, 2- and 4-bit grey; 16-bit RGB, grey + alpha and RGBA; each also
@@ -1722,6 +1730,189 @@ def h5_cases(h5py, rng):
     }
 
 
+def _dcpl_filters(h5py, chunks, *filters):
+    """A dataset creation property list, chunked, with each (filter id,
+    flags, client values) in pipeline order."""
+    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+    dcpl.set_chunk(tuple(chunks))
+    for fid, flags, values in filters:
+        dcpl.set_filter(fid, flags, values)
+    return dcpl
+
+
+def _low_level(h5py, f, name: str, data, tid, dcpl=None):
+    """``data`` written to a new dataset of file type ``tid`` (HDF5
+    converts it)."""
+    ds = h5py.h5d.create(f.id, name.encode(), tid,
+                         h5py.h5s.create_simple(data.shape), dcpl=dcpl)
+    ds.write(h5py.h5s.ALL, h5py.h5s.ALL, np.ascontiguousarray(data))
+
+
+def _virtual_blocks(h5py, f, name, shape, vsel, src_file, src_dset,
+                    src_shape, ssel, fill):
+    """A virtual dataset of one mapping whose selections are hyperslabs
+    (start, count, stride, block) on both sides."""
+    vspace = h5py.h5s.create_simple(tuple(shape))
+    vspace.select_hyperslab(vsel[0], vsel[1], stride=vsel[2], block=vsel[3])
+    sspace = h5py.h5s.create_simple(tuple(src_shape))
+    sspace.select_hyperslab(ssel[0], ssel[1], stride=ssel[2], block=ssel[3])
+    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+    dcpl.set_fill_value(np.asarray(fill))
+    dcpl.set_virtual(vspace, src_file.encode(), src_dset.encode(), sspace)
+    vspace.select_all()
+    h5py.h5d.create(f.id, name.encode(), h5py.h5t.py_create(
+        np.asarray(fill).dtype), vspace, dcpl=dcpl)
+
+
+def int_bits_type(h5py, base, precision: int, offset: int):
+    """An integer file type of ``precision`` bits at bit ``offset``."""
+    tid = base.copy()
+    tid.set_precision(precision)
+    tid.set_offset(offset)
+    return tid
+
+
+def reduced_float_type(h5py):
+    """HDF5's n-bit example float: 4 bytes, precision 20 at bit 7, sign at
+    26, a 6-bit exponent at 20 (bias 31), a 13-bit mantissa at 7; h5py
+    reads it as float32."""
+    tid = h5py.h5t.IEEE_F32LE.copy()
+    tid.set_fields(26, 20, 6, 7, 13)
+    tid.set_offset(7)       # the size grows to 5 ...
+    tid.set_precision(20)
+    tid.set_size(4)         # ... and comes back to 4
+    tid.set_ebias(31)
+    return tid
+
+
+def item20_fixtures(h5py, out: str) -> dict:
+    """``h5_item20/``: the HDF5 files that need external links, virtual
+    datasets, szip, n-bit, external raw storage and committed datatypes,
+    the phantom of ``h5_latest`` through each (for ``chip_smoke.py``'s
+    phase 30) and a tiny file per case; returns the manifest section."""
+    d = os.path.join(out, "h5_item20")
+    os.makedirs(d, exist_ok=True)
+    for name in os.listdir(d):
+        os.remove(os.path.join(d, name))
+    vol = phantom()
+    half = vol.shape[0] // 2
+    chunks = (half, vol.shape[1] // 4, vol.shape[2] // 4)  # (40, 85, 85)
+    rng = np.random.default_rng(SEED + 4)
+
+    def path(name):
+        return os.path.join(d, name)
+
+    # the phantom as a VDS over two gzip halves in two source files
+    for part, sl in (("a", slice(0, half)), ("b", slice(half, None))):
+        with h5py.File(path(f"phantom_vds_{part}.h5"), "w") as f:
+            f.create_dataset("raw", data=vol[sl], chunks=chunks,
+                             compression="gzip")
+    layout = h5py.VirtualLayout(shape=vol.shape, dtype=vol.dtype)
+    layout[:half] = h5py.VirtualSource("phantom_vds_a.h5", "raw",
+                                       shape=(half,) + vol.shape[1:])
+    layout[half:] = h5py.VirtualSource("phantom_vds_b.h5", "raw",
+                                       shape=(vol.shape[0] - half,)
+                                       + vol.shape[1:])
+    with h5py.File(path("phantom_vds.h5"), "w", libver="latest") as f:
+        f.create_virtual_dataset("raw", layout, fillvalue=0)
+    # an external link to the latest phantom, relative to this directory
+    with h5py.File(path("phantom_ext.h5"), "w") as f:
+        f["raw"] = h5py.ExternalLink("../h5_latest/phantom_latest.h5", "/raw")
+    with h5py.File(path("phantom_szip.h5"), "w") as f:
+        f.create_dataset("raw", data=vol, chunks=chunks,
+                         compression="szip", compression_opts=("nn", 8))
+    # 12-bit samples: the phantom x 16 in a uint16 of precision 12 at bit
+    # 4, n-bit then deflate 4
+    with h5py.File(path("phantom_nbit.h5"), "w") as f:
+        _low_level(h5py, f, "raw", vol.astype("<u2") * 16,
+                   int_bits_type(h5py, h5py.h5t.STD_U16LE, 12, 4),
+                   _dcpl_filters(h5py, chunks,
+                                 (h5py.h5z.FILTER_NBIT, 0, ()),
+                                 (h5py.h5z.FILTER_DEFLATE, 0, (4,))))
+
+    # one tiny file per case
+    small = rng.integers(0, 200, (6, 10, 12)).astype("<i2")
+    with h5py.File(path("tiny_src.h5"), "w") as f:
+        f.create_dataset("x", data=small, chunks=(3, 5, 6),
+                         compression="gzip")
+        g = f.create_group("grp")
+        g.create_dataset("y", data=np.arange(7.0))
+        g["to_x"] = h5py.SoftLink("/x")
+        f["onward"] = h5py.ExternalLink("tiny_chain_end.h5", "/z")
+    with h5py.File(path("tiny_chain_end.h5"), "w") as f:
+        f.create_dataset("z", data=np.arange(-4, 5, dtype="<i8"))
+    with h5py.File(path("ext_relative.h5"), "w") as f:
+        f["x"] = h5py.ExternalLink("tiny_src.h5", "/x")
+        f.create_dataset("local", data=np.arange(3, dtype="u1"))
+    with h5py.File(path("ext_absolute.h5"), "w", libver="latest") as f:
+        # a directory that exists nowhere: the library then looks for the
+        # last component beside this file
+        f["x"] = h5py.ExternalLink("/nonexistent/fixtures/tiny_src.h5", "x")
+    with h5py.File(path("ext_group.h5"), "w") as f:
+        f["g"] = h5py.ExternalLink("tiny_src.h5", "/grp")
+    with h5py.File(path("ext_chain.h5"), "w", libver="latest") as f:
+        # external -> soft -> external: tiny_src.h5's /grp/to_x and /onward
+        f["via_soft"] = h5py.ExternalLink("tiny_src.h5", "/grp/to_x")
+        f["via_two_files"] = h5py.ExternalLink("tiny_src.h5", "/onward")
+        f["soft_to_ext"] = h5py.SoftLink("/via_two_files")
+    with h5py.File(path("vds_self_strided.h5"), "w") as f:
+        base = np.arange(8 * 12, dtype="<f4").reshape(8, 12)
+        f.create_dataset("base", data=base)
+        lay = h5py.VirtualLayout(shape=(4, 9), dtype="<f4")
+        src = h5py.VirtualSource(".", "base", shape=base.shape)
+        lay[:, 0:3] = src[0:8:2, 0:3]       # strided rows
+        lay[:, 4:9:2] = src[1:5, 9:12]      # strided virtual columns
+        lay[1:3, 0:2] = src[6:8, 10:12]     # overlaps the first mapping
+        f.create_virtual_dataset("v", lay, fillvalue=-1.5)
+    with h5py.File(path("vds_blocks.h5"), "w", libver="latest") as f:
+        base = np.arange(6 * 16, dtype="<i4").reshape(6, 16)
+        f.create_dataset("base", data=base)
+        # blocks of 2 columns every 4 of the source into blocks of 2
+        # every 3 of the virtual dataset
+        _virtual_blocks(h5py, f, "v", (6, 12), ((0, 0), (1, 4), (1, 3),
+                                                (6, 2)),
+                        ".", "base", base.shape,
+                        ((0, 0), (1, 4), (1, 4), (6, 2)), np.int32(7))
+    with h5py.File(path("committed_type.h5"), "w", libver="latest") as f:
+        f["le_f4"] = np.dtype("<f4")
+        f["be_i2"] = np.dtype(">i2")
+        f.create_dataset("x", data=small.astype("<f4") / 8,
+                         dtype=f["le_f4"])
+        f.create_dataset("y", data=small, dtype=f["be_i2"], chunks=(3, 5, 6),
+                         compression="gzip")
+    with h5py.File(path("nbit_small.h5"), "w") as f:
+        signed = rng.integers(-300, 300, (5, 8, 9)).astype("<i2")
+        _low_level(h5py, f, "signed_i2_p10", signed,
+                   int_bits_type(h5py, h5py.h5t.STD_I16LE, 10, 3),
+                   _dcpl_filters(h5py, (2, 8, 9),
+                                 (h5py.h5z.FILTER_NBIT, 0, ())))
+        floats = (rng.standard_normal((5, 8, 9)) * 50).astype("<f4")
+        _low_level(h5py, f, "float_p20", floats, reduced_float_type(h5py),
+                   _dcpl_filters(h5py, (5, 4, 9),
+                                 (h5py.h5z.FILTER_NBIT, 0, ())))
+    with h5py.File(path("szip_small.h5"), "w") as f:
+        for dt, opt in (("<u2", ("nn", 8)), (">i4", ("ec", 16)),
+                        ("<f8", ("nn", 32))):
+            a = (np.cumsum(rng.standard_normal((6, 10, 12)), axis=-1)
+                 * 40).astype(dt)
+            order = "be" if dt[0] == ">" else "le"
+            f.create_dataset(f"{opt[0]}{opt[1]}_{dt[1:]}_{order}", data=a,
+                             chunks=(4, 6, 12), compression="szip",
+                             compression_opts=opt)
+    here = os.getcwd()
+    os.chdir(d)  # external raw files are named relative to the working
+    # directory, where the library writes them and looks for them
+    try:
+        with h5py.File("efl_two.h5", "w") as f:
+            f.create_dataset("x", data=small, external=[
+                ("efl_two_a.bin", 16, 40), ("efl_two_b.bin", 8,
+                                            small.nbytes - 40)])
+        return {name: h5_manifest(h5py, name)
+                for name in sorted(os.listdir(d)) if name.endswith(".h5")}
+    finally:
+        os.chdir(here)
+
+
 def sha256(a: np.ndarray) -> str:
     """Of the C-order bytes; a bool array's as 0 and 1 (PIL's 1-bit images
     hold True as 255)."""
@@ -1743,6 +1934,8 @@ def h5_manifest(h5py, path: str) -> dict:
             groups[prefix or "/"] = list(g.keys())
             for k in g.keys():
                 obj = g[k]
+                if isinstance(obj, h5py.Datatype):
+                    continue  # a committed datatype holds no data
                 if isinstance(obj, h5py.Group):
                     walk(obj, f"{prefix}/{k}")
                 else:
@@ -1776,7 +1969,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=os.path.join(here, "tests",
                                                       "fixtures"))
-    parser.add_argument("--only", choices=("orbax",),
+    parser.add_argument("--only", choices=("orbax", "item20"),
                         help="rewrite only these fixtures and their "
                         "manifest entry")
     parser.add_argument("--orbax-worker", type=int, help=argparse.SUPPRESS)
@@ -1786,10 +1979,13 @@ def main(argv=None) -> int:
         return orbax_worker(args.orbax_worker, args.port,
                             os.path.join(args.out))
     manifest_path = os.path.join(args.out, "manifest.json")
-    if args.only == "orbax":
+    if args.only is not None:
         with open(manifest_path) as f:
             manifest = json.load(f)
-        manifest["orbax"] = orbax_fixtures(args.out)
+        if args.only == "orbax":
+            manifest["orbax"] = orbax_fixtures(args.out)
+        else:
+            manifest["h5_item20"] = item20_fixtures(h5py, args.out)
         return _write_manifest(manifest, manifest_path, args.out)
     manifest = {"h5_latest": {}, "png_extra": {}, "image_formats": {}}
     h5_dir = os.path.join(args.out, "h5_latest")
@@ -1809,6 +2005,7 @@ def main(argv=None) -> int:
                          maxshape=(None, None, None), shuffle=True,
                          compression="gzip")
     manifest["h5_latest"]["phantom_latest.h5"] = h5_manifest(h5py, path)
+    manifest["h5_item20"] = item20_fixtures(h5py, args.out)
     rng = np.random.default_rng(SEED + 1)
     for name, (data, ch) in png_cases(rng).items():
         d = os.path.join(args.out, "png_extra", f"dsb_c{ch}", "images")

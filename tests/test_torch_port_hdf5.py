@@ -193,24 +193,36 @@ def test_guess_chunk_is_h5pys():
 
 
 def _nbit(f):
+    """n-bit over a compound type with a 12-bit member (atomic types read
+    since, tests/test_torch_port_hdf5_item20.py)."""
+    member = h5py.h5t.STD_I32LE.copy()
+    member.set_precision(12)
+    compound = h5py.h5t.create(h5py.h5t.COMPOUND, 8)
+    compound.insert(b"a", 0, member)
+    compound.insert(b"b", 4, h5py.h5t.STD_I32LE)
     dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
     dcpl.set_chunk((4,))
     dcpl.set_filter(h5py.h5z.FILTER_NBIT)
-    h5py.h5d.create(f.id, b"x", h5py.h5t.STD_I32LE,
-                    h5py.h5s.create_simple((8,)), dcpl=dcpl)
+    h5py.h5d.create(f.id, b"x", compound, h5py.h5s.create_simple((8,)),
+                    dcpl=dcpl)
 
 
 def _vds(f):
-    layout = h5py.VirtualLayout(shape=(3,), dtype="<i4")
-    layout[:] = h5py.VirtualSource("src.h5", "x", shape=(3,))
+    """A mapping of unlimited extent (fixed ones read since)."""
+    layout = h5py.VirtualLayout(shape=(2, 3), maxshape=(2, None),
+                                dtype="<i4")
+    src = h5py.VirtualSource("src.h5", "x", shape=(3,), maxshape=(None,))
+    layout[0, :h5py.h5s.UNLIMITED] = src[:h5py.h5s.UNLIMITED]
     f.create_virtual_dataset("x", layout)
 
 
 # what the codec still refuses; superblocks 2-3, Fletcher-32, LZF, float16
-# and soft links read since (tests/test_torch_port_hdf5_latest.py)
+# and soft links read since (tests/test_torch_port_hdf5_latest.py), and
+# external links, szip, atomic n-bit and fixed virtual datasets
+# (tests/test_torch_port_hdf5_item20.py)
 @pytest.mark.parametrize("libver,make,what", [
-    ("latest", lambda f: f.__setitem__("x", h5py.ExternalLink("o.h5", "/y")),
-     "external link"),
+    ("earliest", lambda f: f.create_dataset(
+        "x", data=np.zeros(3, dtype="V4")), "opaque"),
     ("earliest", _nbit, "n-bit"),
     ("latest", _vds, "virtual dataset"),
     ("earliest", lambda f: f.create_dataset(

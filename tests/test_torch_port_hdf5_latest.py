@@ -19,8 +19,9 @@ the 3D pipeline, against h5py, exactly: values, shapes, dtypes, names.
   subgroup; a ``track_order`` subgroup under a symbol-table root): h5py
   then reads every dataset equal and appends again, and the port reads
   that.
-- the refusals: external links, szip, n-bit, virtual datasets, compound
-  types and a bad checksum raise ``HDF5Error`` naming what they are."""
+- external links, szip, n-bit and virtual datasets read as h5py reads
+  them; the refusals: compound and string types and a bad checksum raise
+  ``HDF5Error`` naming what they are."""
 
 import os
 
@@ -408,29 +409,40 @@ def test_port_appends_to_link_groups_read_in_h5py(tmp_path, form):
 
 
 def test_refusals_name_what_they_are(tmp_path):
+    """What ROADMAP item 20 held until the external links, n-bit, szip and
+    virtual datasets were read reads as h5py reads it; compound and string
+    datasets still raise, naming the item."""
     path = str(tmp_path / "f.h5")
+    with h5py.File(str(tmp_path / "other.h5"), "w") as f:
+        f["x"] = np.arange(-2, 5, dtype="<i8")
+    with h5py.File(str(tmp_path / "src.h5"), "w") as f:
+        f["x"] = np.array([7, -8, 9], "<i4")
     with h5py.File(path, "w", libver="latest") as f:
         f["ext"] = h5py.ExternalLink("other.h5", "/x")
         f.create_dataset("compound", data=np.zeros(3, dtype=[("a", "<i4")]))
+        f.create_dataset("string", data=np.array([b"ab", b"cde"]))
         dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
         dcpl.set_chunk((4,))
         dcpl.set_filter(h5py.h5z.FILTER_NBIT)
         h5py.h5d.create(f.id, b"nbit", h5py.h5t.STD_I32LE,
-                        h5py.h5s.create_simple((8,)), dcpl=dcpl)
+                        h5py.h5s.create_simple((8,)), dcpl=dcpl).write(
+            h5py.h5s.ALL, h5py.h5s.ALL, np.arange(-4, 4, dtype="<i4"))
         dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
         dcpl.set_chunk((32,))
         dcpl.set_filter(h5py.h5z.FILTER_SZIP, h5py.h5z.FLAG_OPTIONAL,
                         (h5py.h5z.SZIP_NN_OPTION_MASK, 8))
         h5py.h5d.create(f.id, b"szip", h5py.h5t.STD_I32LE,
-                        h5py.h5s.create_simple((64,)), dcpl=dcpl)
+                        h5py.h5s.create_simple((64,)), dcpl=dcpl).write(
+            h5py.h5s.ALL, h5py.h5s.ALL, np.arange(64, dtype="<i4") ** 2)
         layout = h5py.VirtualLayout(shape=(3,), dtype="<i4")
         layout[:] = h5py.VirtualSource("src.h5", "x", shape=(3,))
         f.create_virtual_dataset("vds", layout)
-    with hdf5.File(path) as g:
-        assert g.keys() == ["compound", "ext", "nbit", "szip", "vds"]
-        for name, what in [("ext", "external link to other.h5:/x"),
-                           ("compound", "compound"), ("nbit", "n-bit"),
-                           ("szip", "szip"), ("vds", "virtual dataset")]:
+    with h5py.File(path) as f, hdf5.File(path) as g:
+        assert g.keys() == ["compound", "ext", "nbit", "string", "szip",
+                            "vds"]
+        for name in ("ext", "nbit", "szip", "vds"):
+            _check_equal(g[name][()], f[name][()])
+        for name, what in [("compound", "compound"), ("string", "string")]:
             with pytest.raises(hdf5.HDF5Error, match=what) as err:
                 g[name]
             assert "ROADMAP.md queue 1, item 20" in str(err.value)

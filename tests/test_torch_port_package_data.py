@@ -1,7 +1,9 @@
 """Every source under the port's ``csrc/`` ships in its package data: the
 kernels (``*.cu``, ``*.cuh``) and the host C (``*.c``: the PNG decoder's
-unfilter, HDF5's LZF, the TIFF and GIF readers' LZW and PackBits, the JPEG decoder, the orbax reader's zstd) are built from source at first use, so a wheel that leaves one
-out breaks that path at its first call."""
+unfilter, HDF5's LZF, szip and n-bit, the TIFF and GIF readers' LZW and
+PackBits, the JPEG decoder, the orbax reader's zstd) are built from source
+at first use, so a wheel that leaves one out breaks that path at its first
+call."""
 
 import fnmatch
 import os
@@ -23,8 +25,8 @@ def test_every_csrc_file_matches_a_package_data_pattern():
     csrc = os.path.join(os.path.dirname(port.__file__), "csrc")
     files = sorted(os.listdir(csrc))
     assert {"png_unfilter.c", "lzf_decompress.c", "lzw_decode.c",
-            "jpeg_decode.c", "zstd_decompress.c", "conv_tc.cuh",
-            "int8_conv.cu"} <= set(files)
+            "jpeg_decode.c", "zstd_decompress.c", "szip_decompress.c",
+            "nbit_decompress.c", "conv_tc.cuh", "int8_conv.cu"} <= set(files)
     missing = [f for f in files
                if not any(fnmatch.fnmatch(f"csrc/{f}", p) for p in patterns)]
     assert not missing, f"not in {PKG}'s package data {patterns}: {missing}"
